@@ -8,10 +8,15 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
   env                  torch / CUDA versions and the card (nvidia-smi);
   build                the CUDA kernels built from csrc/ by one nvcc call;
   kernels              B1, B2, B3 and B4 (both modes) at the flagship
-                       shapes, each held to its plain PyTorch version, with
-                       its time, its bound and the library yardstick;
+                       shapes, B5 and B6 at the long-clip shape (23,296
+                       tokens), each held to its plain PyTorch version, with
+                       its time, its bound and the library yardstick; then
+                       B6 on q/k whose size changes from one quantization
+                       block to the next, and B2, B3 (RIFLEx tables) and B4
+                       at the long path's shapes;
   reference_check      a small head_dim-128 DiT through the kernels on the
-                       card against the same DiT on the CPU (plain path);
+                       card against the same DiT on the CPU (plain path),
+                       with dense, block-sparse and int8 attention;
   dit_forward_flagship one DiT forward at full width (Wan2.2-Fun-5B,
                        512x896x97f: 11,648 tokens with the ref block, CFG
                        batch 2), random bf16 weights made on the card;
@@ -20,7 +25,16 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        first frame known, 4 Euler steps at CFG 6.0, T5
                        released after encoding; then a 1-step denoise with
                        no known frame (the broadcast B4 mode). Launch counts
-                       are reset just before and read just after.
+                       are reset just before and read just after;
+  generate_long        the long-clip path on the same pipeline, weights and
+                       prompt context: 512x896x201f (23,296 tokens with the
+                       ref block), first frame known, RIFLEx (k 6, L_test
+                       51), streamed VAE encode and decode, 2 Euler steps at
+                       CFG 6.0 through the auto attention ladder (B6 for
+                       self-attention); then 1 step under
+                       FLEXAM_ATTENTION=sparse (B5). Launch counts are reset
+                       and read around each; a profiled step of each
+                       follows ("denoise_long_profile").
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -39,6 +53,7 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -47,10 +62,13 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 SEED = 1234
 FLAGSHIP_LATENT = (25, 32, 56)     # 97 frames at 512 x 896, 16x VAE
 GENERATE_VIDEO = (17, 512, 896)    # frames, height, width of the main path
+LONG_VIDEO = (201, 512, 896)       # the long-clip path: 51 latent frames
+LONG_TOKENS = 52 * 448             # with the ref block: 23,296
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -96,6 +114,28 @@ def compare(got, ref, bound_rel: float, name: str) -> dict:
                              f"max|ref| {scale}")
     return {"max_abs_err": err, "max_rel_err": rel, "bound_rel": bound_rel,
             "max_abs_ref": scale}
+
+
+class StagePeaks:
+    """Peak memory allocated in each stage of a run: `mark(name)` closes the
+    stage that ran since the last mark (or since the object was made), and
+    the next stage starts from the memory allocated then."""
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.gb = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.resident_gb = torch.cuda.memory_allocated() / 1e9
+
+    def mark(self, name: str) -> None:
+        self.torch.cuda.synchronize()
+        self.gb[name] = self.torch.cuda.max_memory_allocated() / 1e9
+        self.torch.cuda.reset_peak_memory_stats()
+
+    def peak(self) -> float:
+        return max(self.gb.values())
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -196,18 +236,200 @@ def phase_kernels(dev, results: dict) -> None:
                                                                mask=m), 10),
             library_ms=None, bound_ms=bms, bound_by=by,
             shape=f"x [{B},{L},{DIM}] bf16, shift/scale {list(terms)} fp32")
+    del x
+    lines.update(long_kernels(dev, gen))
     results.update(lines)
     emit("kernels", t0, kernels=sorted(lines), **lines)
+
+
+def long_kernels(dev, gen) -> dict:
+    """B5 and B6 at the long-clip shape: q/k/v [2, 23296, 24, 128] bf16
+    (512x896x201f: 51 latent frames + the ref block, 448 tokens each); then
+    B2, B3 (RIFLEx tables) and B4 (binary) at the shapes the long path
+    gives them ("long/..." lines)."""
+    import torch
+    import torch.nn.functional as F
+    from flexam_tpu_torch.ops import flash_attention as fa
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import sparse_attention as sp
+    from flexam_tpu_torch.testing import (block_scaled, check_int8_attention,
+                                          check_sparse_attention)
+
+    B, H, D, L = 2, 24, 128, LONG_TOKENS
+    q, k, v = (torch.randn((B, L, H, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 2.0 * 4 * q.numel()          # q, k, v read once, o written once
+    shape = f"q/k/v [{B},{L},{H},{D}] bf16"
+    lines = {}
+
+    # B5 with the w=2 policy of 51 frames + ref: 26 blocks of 896 tokens
+    pol = sp.video_sparse_policy(51, 448, ref_tokens=448, window=2)
+    rows, blk = pol["rows"], pol["blk"]
+    kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
+    pairs = int(nnz.sum().item())
+
+    def b5():
+        return sp.sparse_flash_attention(q, k, v, rows, blk, kidx=kidx,
+                                         nnz=nnz)
+
+    got = b5()
+    ref = sp.masked_dense_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    err = check_sparse_attention(got, ref, "sparse_attention")
+    del got, ref
+    tok_blk = torch.arange(L, device=dev) // blk
+    bmask = torch.zeros((len(rows), len(rows)), dtype=torch.bool, device=dev)
+    for i, r in enumerate(rows):
+        bmask[i, r] = True
+    tok_mask = bmask[tok_blk][:, tok_blk]            # [L, L] bool
+    bms, by = bound_ms(4.0 * B * H * pairs * blk * blk * D, nbytes)
+    lines["sparse_attention"] = dict(
+        err, ms=cuda_ms(b5, 10),
+        plain_ms=cuda_ms(lambda: sp.masked_dense_attention(q, k, v, rows,
+                                                           blk), 3, warmup=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=tok_mask), 10),
+        library="F.scaled_dot_product_attention with the boolean token mask",
+        bound_ms=bms, bound_by=by, blocks=len(rows), blk=blk,
+        active_pairs=pairs, density=pairs / len(rows) ** 2,
+        dense_bound_ms=bound_ms(4.0 * B * H * L * L * D, nbytes)[0],
+        plain_compare="every query row; the plain version runs over 512-row "
+                      "query chunks", shape=shape)
+    del tok_mask
+
+    # B6, what the auto ladder takes for self-attention at this length
+    def b6():
+        return i8.int8_attention(q, k, v)
+
+    got = b6()
+    ref = i8.int8_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = check_int8_attention(got, ref, "int8_attention")
+    del ref
+    exact = fa.attention_plain(q, k, v, q_chunk=1024)
+    rel = ((got.float() - exact.float()).abs().mean()
+           / exact.float().abs().mean()).item()
+    del got, exact
+    ops_i8 = 2.0 * B * H * L * L * D        # Q K^T in int8
+    ops_bf = 2.0 * B * H * L * L * D        # P V in bf16
+    t_ops = (ops_i8 / PEAK_INT8_OPS + ops_bf / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    lines["int8_attention"] = dict(
+        err, ms=cuda_ms(b6, 10),
+        quantize_ms=cuda_ms(lambda: i8.quantize_qk(q, k), 10),
+        plain_ms=cuda_ms(lambda: i8.int8_attention_plain(q, k, v), 3,
+                         warmup=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                           10),
+        library="bf16 F.scaled_dot_product_attention (exact attention, not "
+                "the int8 function)",
+        b1_ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+        b1_note="B1 at the same shape: what the auto ladder replaces (exact, "
+                "not the int8 function)",
+        mean_rel_err_vs_exact=rel, mean_rel_err_bound_jax_test=0.02,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        plain_compare="every query row; the plain version runs over 512-row "
+                      "query chunks", shape=shape)
+    if rel >= 0.02:
+        raise AssertionError(f"int8_attention: mean relative error {rel} "
+                             "against exact attention >= 0.02")
+
+    # B6 again with q rows and keys whose size alternates by 4x from one
+    # quantization block (1,456 rows) to the next: 12 of the 15 block edges
+    # fall inside a 64-row / 64-key tile, and each side of an edge must
+    # take its own block's scale
+    blk6 = i8.quant_block(L)
+    qb, kb = block_scaled(q, blk6), block_scaled(k, blk6, phase=1)
+    got = i8.int8_attention(qb, kb, v)
+    ref = i8.int8_attention_plain(qb, kb, v)
+    torch.cuda.synchronize()
+    lines["long/int8_attention_block_scales"] = dict(
+        check_int8_attention(got, ref, "int8_attention block scales"),
+        quant_block=blk6, scales="q rows x2.0 / x0.5 by block, keys the "
+        "other way round", shape=shape)
+    del q, k, v, qt, kt, vt, qb, kb, got, ref
+    lines.update(long_path_shapes(dev, gen))
+    return lines
+
+
+def long_path_shapes(dev, gen) -> dict:
+    """B2, B3 and B4 (binary) at the long path's shapes, against their plain
+    versions: cross-attention of 23,296 queries over 512 text tokens, the
+    q/k RMSNorm + RoPE with the RIFLEx tables (k 6, L_test 51) on the
+    52 x 16 x 28 grid, and the AdaLN prologue with the first video frame
+    known."""
+    import torch
+    from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
+    from flexam_tpu_torch.ops import flash_attention as fa
+    from flexam_tpu_torch.ops import fused
+    from flexam_tpu_torch.testing import (check_attention,
+                                          check_ln_modulation,
+                                          check_rmsnorm_rope)
+
+    B, H, D, L, LT, DIM = 2, 24, 128, LONG_TOKENS, 512, 3072
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    lines = {}
+    q, k, v = randn(B, L, H, D), randn(B, LT, H, D), randn(B, LT, H, D)
+    got = fa.single_kv_attention(q, k, v)
+    ref = fa.attention_plain(q, k, v, q_chunk=1024)
+    torch.cuda.synchronize()
+    lines["long/single_kv_attention"] = dict(
+        check_attention(got, ref, "long/single_kv_attention"),
+        ms=cuda_ms(lambda: fa.single_kv_attention(q, k, v), 10),
+        shape=f"q [{B},{L},{H},{D}] k/v [{B},{LT},{H},{D}] bf16")
+    del q, k, v, got, ref
+
+    # rows with their own offset and scale, as in the flagship check
+    x = (randn(B, L, DIM, dtype=torch.float32)
+         * torch.exp(0.5 * randn(B, L, 1, dtype=torch.float32))
+         + 4.0 * randn(B, L, 1, dtype=torch.float32)).to(bf)
+    gamma = (1.0 + 0.1 * randn(DIM, dtype=torch.float32)).to(bf)
+    tables = torch.from_numpy(make_rope_tables(
+        D, 1024, riflex={"k": 6, "L_test": 51})).to(dev)
+    cos, sin = build_video_rope(tables, (52, 16, 28), D)
+    got = fused.rmsnorm_rope(x, gamma, cos, sin, H)
+    ref = fused.rmsnorm_rope_plain(x, gamma, cos, sin, H)
+    torch.cuda.synchronize()
+    lines["long/rmsnorm_rope"] = dict(
+        check_rmsnorm_rope(got, ref, "long/rmsnorm_rope"),
+        ms=cuda_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H), 20),
+        riflex={"k": 6, "L_test": 51}, grid=[52, 16, 28],
+        shape=f"x [{B},{L},{DIM}] bf16, tables [{L},{D // 2}] fp32")
+    del got, ref
+
+    mask = torch.ones((B, L), device=dev)
+    mask[:, 448:896] = 0.0     # the first video frame after the ref block
+    sh = randn(B, 2, DIM, dtype=torch.float32)
+    sc = randn(B, 2, DIM, dtype=torch.float32)
+    got = fused.ln_modulation(x, sh, sc, mask=mask)
+    ref = fused.ln_modulation_plain(x, sh, sc, mask=mask)
+    torch.cuda.synchronize()
+    lines["long/ln_mod_binary"] = dict(
+        check_ln_modulation(got, ref, sh, mask, "long/ln_mod_binary"),
+        ms=cuda_ms(lambda: fused.ln_modulation(x, sh, sc, mask=mask), 20),
+        shape=f"x [{B},{L},{DIM}] bf16, shift/scale [{B},2,{DIM}] fp32")
+    return lines
 
 
 def phase_reference_check(dev) -> None:
     """A small head_dim-128 DiT through the kernels on the card, against the
     same weights and inputs through the plain versions on the CPU (bf16
-    both). Bound: 5e-2 of max |ref| (bf16 over 2 blocks; the two devices
-    order their sums differently)."""
+    both), with dense, block-sparse and int8 attention. Bound: 5e-2 of max
+    |ref| (bf16 over 2 blocks; the two devices order their sums
+    differently, and under int8 a value on a rounding tie may quantize one
+    step apart)."""
     import torch
     from flexam_tpu_torch.config import DiTConfig
+    from flexam_tpu_torch.core import attention
     from flexam_tpu_torch.models.dit import dit_forward, init_dit_params
+    from flexam_tpu_torch.ops import launch_counts
+    from flexam_tpu_torch.ops.sparse_attention import make_sparse_attn_fn
 
     t0 = time.perf_counter()
     cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
@@ -227,6 +449,30 @@ def phase_reference_check(dev) -> None:
         got = dit_forward(on_card, cfg, x.to(dev), t.to(dev), ctx.to(dev),
                           binary_t_mask=None if m is None else m.to(dev))
         out[name] = compare(got.cpu(), ref, 5e-2, f"reference_check/{name}")
+    # the long-clip backends: B5 (3 frames of 64 tokens, window 1: frame 0
+    # does not see frame 2) and B6 (every attention call, explicitly)
+    sparse = make_sparse_attn_fn(3, 64, window=1)
+    counts = launch_counts()
+    ref = dit_forward(params, cfg, x, t, ctx, binary_t_mask=mask,
+                      attn_fn=sparse)
+    got = dit_forward(on_card, cfg, x.to(dev), t.to(dev), ctx.to(dev),
+                      binary_t_mask=mask.to(dev), attn_fn=sparse)
+    out["sparse"] = compare(got.cpu(), ref, 5e-2, "reference_check/sparse")
+    os.environ["FLEXAM_ATTENTION"] = "pallas_int8"
+    attention._default_backend.cache_clear()
+    try:
+        ref = dit_forward(params, cfg, x, t, ctx, binary_t_mask=mask)
+        got = dit_forward(on_card, cfg, x.to(dev), t.to(dev), ctx.to(dev),
+                          binary_t_mask=mask.to(dev))
+    finally:
+        del os.environ["FLEXAM_ATTENTION"]
+        attention._default_backend.cache_clear()
+    out["int8"] = compare(got.cpu(), ref, 5e-2, "reference_check/int8")
+    after = launch_counts()
+    for k, n in (("sparse_attention", 2), ("int8_attention", 4)):
+        if after[k] - counts[k] != n:
+            raise AssertionError(f"reference_check: {k} launched "
+                                 f"{after[k] - counts[k]} times, expected {n}")
     emit("reference_check", t0, **out)
 
 
@@ -315,6 +561,8 @@ def profile_forward(fn) -> dict:
 
     groups = {"B1 flash_attention": ("flash_kernel",),
               "B2 single_kv_attention": ("single_kv_kernel",),
+              "B5 sparse_attention": ("sparse_attention_kernel",),
+              "B6 int8_attention": ("int8_attention_kernel",),
               "B3 rmsnorm_rope": ("rmsnorm_rope_kernel",),
               "B4 ln_modulation": ("ln_mod_kernel",),
               "gemm": ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas",
@@ -351,7 +599,7 @@ def profile_forward(fn) -> dict:
                             for a, b, c in top[:12]]}
 
 
-def phase_generate(dev, cfg, dit_params, results: dict) -> None:
+def phase_generate(dev, cfg, dit_params, results: dict):
     import numpy as np
     import torch
     from flexam_tpu_torch.models.t5 import init_t5_params
@@ -378,7 +626,7 @@ def phase_generate(dev, cfg, dit_params, results: dict) -> None:
     mask[:, :, 0] = 0.0                       # first frame known
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
+    peaks = StagePeaks()
     stage = {}
     step_times = []
 
@@ -389,26 +637,31 @@ def phase_generate(dev, cfg, dit_params, results: dict) -> None:
     stage["encode"] = time.perf_counter() - t1
     pipe.release_t5()
     torch.cuda.empty_cache()
+    peaks.mark("encode")
     t1 = time.perf_counter()
     cond = pipe.prepare_conditioning(video, mask, control, depth, cos_videos,
                                      ref_image)
     torch.cuda.synchronize()
     stage["prepare"] = time.perf_counter() - t1
+    peaks.mark("prepare")
     if not cond["first_frame_known"] or not cond["per_token_t"]:
         raise AssertionError("generate: expected the binary-timestep path")
 
     def progress(done, total):
         torch.cuda.synchronize()
         step_times.append(time.perf_counter())
+        if done == total:
+            peaks.mark("denoise")
 
     t_den = time.perf_counter()
     out = pipe.generate_from_cond(cond, context, num_inference_steps=4,
                                   guidance_scale=6.0, seed=SEED,
                                   progress_cb=progress)
     t_end = time.perf_counter()
+    peaks.mark("decode")
     stage["denoise"] = step_times[-1] - t_den
     stage["decode"] = t_end - step_times[-1]
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = peaks.peak()
     if out.shape != (1, 3, T, Hp, Wp) or not np.isfinite(out).all() \
             or out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError(f"generate: output {out.shape}, range "
@@ -425,19 +678,146 @@ def phase_generate(dev, cfg, dit_params, results: dict) -> None:
     counts = launch_counts()
     if not bool(lat.isfinite().all().item()):
         raise AssertionError("no-known-frame denoise: non-finite latents")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    for k, n in counts.items():
-        results.setdefault(k, {})["launches"] = n
+    for k in MAIN_PATH_KERNELS:
+        results.setdefault(k, {})["launches"] = counts[k]
     emit("generate", t0, setup_seconds=round(t_setup, 3),
          stages=stage, step_seconds=[b - a for a, b in
                                      zip([t_den] + step_times[:-1],
                                          step_times)],
          output_shape=list(out.shape), output_range=[float(out.min()),
                                                      float(out.max())],
-         peak_memory_allocated_gb=peak, frames=T, launches=counts)
+         peak_memory_allocated_gb=peak, frames=T,
+         resident_at_start_gb=peaks.resident_gb,
+         peak_memory_allocated_gb_by_stage=peaks.gb, launches=counts)
+    return pipe, context
+
+
+def phase_generate_long(dev, pipe, context, results: dict) -> None:
+    """The long-clip path: 512x896x201f through generate_from_cond with the
+    auto attention ladder (B6), then one step under FLEXAM_ATTENTION=sparse
+    (B5). Reuses the main path's pipeline, DiT weights and context."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.core import attention
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    T, Hp, Wp = LONG_VIDEO
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    video = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    control = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    ref_image = torch.rand((1, 3, 1, Hp, Wp), generator=gen, device=dev)
+    mask = torch.ones((1, 1, T, Hp, Wp), device=dev)
+    mask[:, :, 0] = 0.0                       # first frame known
+    pipe.enable_riflex(k=6, L_test=51)
+    if os.environ.get("FLEXAM_ATTENTION") or os.environ.get(
+            "FLEXAM_INT8_AUTO") == "0":
+        raise AssertionError("generate_long: FLEXAM_ATTENTION / "
+                             "FLEXAM_INT8_AUTO must be unset for the auto "
+                             "ladder")
+    attention._default_backend.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peaks = StagePeaks()
+    stage, step_times = {}, []
+
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    cond = pipe.prepare_conditioning(video, mask, control, None, None,
+                                     ref_image)
+    torch.cuda.synchronize()
+    stage["prepare_streamed_encode"] = time.perf_counter() - t1
+    peaks.mark("prepare_streamed_encode")
+    del video, control, mask
+    _, lt, lh, lw = cond["latent_shape"]
+    tokens = (lt + 1) * (lh // 2) * (lw // 2)
+    if tokens != LONG_TOKENS or not cond["first_frame_known"]:
+        raise AssertionError(f"generate_long: {tokens} tokens, first frame "
+                             f"known {cond['first_frame_known']}")
+
+    def progress(done, total):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        if done == total:
+            peaks.mark("denoise_2_steps")
+
+    t_den = time.perf_counter()
+    out = pipe.generate_from_cond(cond, context, num_inference_steps=2,
+                                  guidance_scale=6.0, seed=SEED,
+                                  progress_cb=progress)
+    t_end = time.perf_counter()
+    peaks.mark("decode_streamed")
+    counts = launch_counts()
+    stage["denoise_2_steps"] = step_times[-1] - t_den
+    stage["decode_streamed"] = t_end - step_times[-1]
+    peak = peaks.peak()
+    steps = [b - a for a, b in zip([t_den] + step_times[:-1], step_times)]
+    layers = pipe.cfg.dit.num_layers
+    if counts["int8_attention"] != 2 * layers or counts["flash_attention"]:
+        raise AssertionError(f"generate_long: launches {counts}; expected "
+                             f"int8_attention {2 * layers} and "
+                             "flash_attention 0")
+    missing = [k for k in LONG_PATH_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"generate_long: never launched: {missing}")
+    if out.shape != (1, 3, T, Hp, Wp) or not np.isfinite(out).all() \
+            or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"generate_long: output {out.shape}, range "
+                             f"[{out.min()}, {out.max()}]")
+    out_range = [float(out.min()), float(out.max())]
+    del out
+    results["int8_attention"]["launches"] = counts["int8_attention"]
+
+    # one step with video self-attention block-sparse (B5)
+    os.environ["FLEXAM_ATTENTION"] = "sparse"
+    attention._default_backend.cache_clear()
+    try:
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        lat = pipe.denoise(cond, context, num_inference_steps=1,
+                           guidance_scale=6.0, seed=SEED)
+        torch.cuda.synchronize()
+        stage["sparse_denoise_1_step"] = time.perf_counter() - t1
+        sparse_counts = launch_counts()
+    finally:
+        del os.environ["FLEXAM_ATTENTION"]
+        attention._default_backend.cache_clear()
+    if (sparse_counts["sparse_attention"] != layers
+            or sparse_counts["flash_attention"]
+            or sparse_counts["int8_attention"]):
+        raise AssertionError(f"generate_long sparse step: launches "
+                             f"{sparse_counts}; expected sparse_attention "
+                             f"{layers}, flash and int8 0")
+    if not bool(lat.isfinite().all().item()):
+        raise AssertionError("generate_long sparse step: non-finite latents")
+    results["sparse_attention"]["launches"] = sparse_counts["sparse_attention"]
+    emit("generate_long", t0, frames=T, tokens=tokens, riflex={"k": 6,
+                                                                "L_test": 51},
+         stages=stage, step_seconds=steps, output_shape=[1, 3, T, Hp, Wp],
+         output_range=out_range, peak_memory_allocated_gb=peak,
+         resident_at_start_gb=peaks.resident_gb,
+         peak_memory_allocated_gb_by_stage=peaks.gb,
+         launches=counts, sparse_step_launches=sparse_counts)
+
+    # where a long step's time goes: one more step of each, profiled
+    t0 = time.perf_counter()
+    prof = {"int8_auto": profile_forward(lambda: pipe.denoise(
+        cond, context, num_inference_steps=1, guidance_scale=6.0, seed=SEED))}
+    os.environ["FLEXAM_ATTENTION"] = "sparse"
+    attention._default_backend.cache_clear()
+    try:
+        prof["sparse"] = profile_forward(lambda: pipe.denoise(
+            cond, context, num_inference_steps=1, guidance_scale=6.0,
+            seed=SEED))
+    finally:
+        del os.environ["FLEXAM_ATTENTION"]
+        attention._default_backend.cache_clear()
+    pipe.disable_riflex()
+    emit("denoise_long_profile", t0, **prof)
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +833,17 @@ KERNELS = {
                       "flexam_tpu/ops/fused.py:377"),
     "ln_mod_bcast": ("flexam_tpu_torch/csrc/ln_modulation.cu",
                      "flexam_tpu/ops/fused.py:403"),
+    "sparse_attention": ("flexam_tpu_torch/csrc/sparse_attention.cu",
+                         "flexam_tpu/ops/sparse_attention.py:163"),
+    "int8_attention": ("flexam_tpu_torch/csrc/int8_attention.cu",
+                       "flexam_tpu/ops/int8_attention.py:42"),
 }
+# the kernels each path must launch (the long path's B5 runs in its sparse
+# step, checked there)
+MAIN_PATH_KERNELS = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
+                     "ln_mod_binary", "ln_mod_bcast")
+LONG_PATH_KERNELS = ("int8_attention", "single_kv_attention", "rmsnorm_rope",
+                     "ln_mod_binary")
 
 
 def main() -> int:
@@ -502,7 +892,10 @@ def main() -> int:
     phase_reference_check(dev)
     dit_params = phase_dit_flagship(dev, WAN22_5B_FLEXAM)
     torch.cuda.empty_cache()
-    phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
+    pipe, context = phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
+    del dit_params
+    torch.cuda.empty_cache()
+    phase_generate_long(dev, pipe, context, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -4,12 +4,14 @@ Port of `flexam_tpu/core/rope.py`. The angle tables are numpy (fp64 math,
 stored fp32); head_dim d splits into complex dims t = (d - 4*(d//6))/2,
 h = w = d//6. Pairs are INTERLEAVED, (x[2j], x[2j+1]), and rotated in fp32:
   out_even = x_e*cos - x_o*sin ;  out_odd = x_e*sin + x_o*cos.
-Tokens past the table length stay unrotated. RIFLEx is not ported yet.
+Tokens past the table length stay unrotated. RIFLEx (`riflex_rope_angles`)
+rescales the k-th temporal frequency to 0.9*2*pi/L_test (optionally divided
+by L_test_scale) so extrapolated frames stay within one period.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,12 +36,29 @@ def rope_angles(max_seq: int, dim: int, theta: float = 10000.0) -> np.ndarray:
             ).astype(np.float32)
 
 
-def make_rope_tables(head_dim: int, max_seq: int = 1024) -> np.ndarray:
-    """Concatenated angle table [max_seq, head_dim//2] in (t | h | w) order."""
+def riflex_rope_angles(max_seq: int, dim: int, k: int, L_test: int,
+                       L_test_scale: Optional[float] = None,
+                       theta: float = 10000.0) -> np.ndarray:
+    """RIFLEx temporal table: freq[k-1] = 0.9*2*pi/L_test (/L_test_scale)."""
+    freqs = _axis_freqs(dim, theta)
+    freqs[k - 1] = 0.9 * 2.0 * np.pi / L_test
+    if L_test_scale is not None:
+        freqs[k - 1] = freqs[k - 1] / L_test_scale
+    return (np.arange(max_seq, dtype=np.float64)[:, None] * freqs
+            ).astype(np.float32)
+
+
+def make_rope_tables(head_dim: int, max_seq: int = 1024,
+                     riflex: Optional[dict] = None) -> np.ndarray:
+    """Concatenated angle table [max_seq, head_dim//2] in (t | h | w) order;
+    `riflex` ({"k", "L_test", optional "L_test_scale"}) swaps the temporal
+    part for the RIFLEx table."""
     d = head_dim
     dt2 = d - 4 * (d // 6)
     ds2 = 2 * (d // 6)
-    return np.concatenate([rope_angles(max_seq, dt2), rope_angles(max_seq, ds2),
+    t_tab = (riflex_rope_angles(max_seq, dt2, **riflex) if riflex is not None
+             else rope_angles(max_seq, dt2))
+    return np.concatenate([t_tab, rope_angles(max_seq, ds2),
                            rope_angles(max_seq, ds2)], axis=1)
 
 

@@ -10,7 +10,10 @@ On the kernel path (head_dim % 128 == 0, the dispatch by shape of the JAX
 `_use_fused`) the q/k RMSNorm + RoPE runs as kernel B3 and the two
 LayerNorm + AdaLN prologues of a block as kernel B4; attention goes through
 `core.attention` (B1/B2 on CUDA). On a CPU tensor every kernel takes its
-plain version. TeaCache, the camera adapter and RIFLEx are not ported yet.
+plain version. `attn_fn` replaces the attention of every block (the
+pipeline passes B5's sparse closure there); RIFLEx comes in through the
+RoPE tables (`make_rope_tables_for(..., riflex=)`). TeaCache and the camera
+adapter are not ported yet.
 
 Parameters are the JAX tree with `blocks` as a list of per-block dicts
 (`io.convert.from_jax_params` maps a JAX tree, `init_dit_params` makes a
@@ -20,7 +23,7 @@ random one on the device).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -188,7 +191,7 @@ def _cnn_fusion(cnn: dict, x: torch.Tensor, groups: Tuple[int, int]):
     return _conv3d(x4, cnn["conv5"], 0)
 
 
-def _self_attention(p, x, cos, sin, num_heads, eps):
+def _self_attention(p, x, cos, sin, num_heads, eps, attn_fn):
     """q/k RMSNorm over the full dim, 3D RoPE, attention, output proj."""
     b, s, _ = x.shape
     d = x.shape[-1] // num_heads
@@ -203,11 +206,11 @@ def _self_attention(p, x, cos, sin, num_heads, eps):
         k = apply_rope(rms_norm(linear(x, p["k"]), p["norm_k"], eps)
                        .reshape(b, s, num_heads, d), cos, sin)
     v = linear(x, p["v"]).reshape(b, s, num_heads, d)
-    out = attention(q, k, v)
+    out = attn_fn(q, k, v, k_len=None)
     return linear(out.reshape(b, s, -1), p["o"])
 
 
-def _cross_attention(p, x, context, num_heads, eps):
+def _cross_attention(p, x, context, num_heads, eps, attn_fn):
     """Text cross-attention; all (zero-embedded pad) text tokens take part."""
     b, s, _ = x.shape
     d = x.shape[-1] // num_heads
@@ -216,11 +219,12 @@ def _cross_attention(p, x, context, num_heads, eps):
     k = rms_norm(linear(context, p["k"]), p["norm_k"], eps) \
         .reshape(b, lk, num_heads, d)
     v = linear(context, p["v"]).reshape(b, lk, num_heads, d)
-    out = attention(q, k, v)
+    out = attn_fn(q, k, v, k_len=None)
     return linear(out.reshape(b, s, -1), p["o"])
 
 
-def _block_forward(bp, x, e0, de0, cos, sin, context, cfg: DiTConfig):
+def _block_forward(bp, x, e0, de0, cos, sin, context, cfg: DiTConfig,
+                   attn_fn):
     """One attention block.
 
     e0:  [B, Lm, 6, dim] fp32 (Lm in {1, L}) or the binary-timestep tuple
@@ -266,12 +270,12 @@ def _block_forward(bp, x, e0, de0, cos, sin, context, cfg: DiTConfig):
         return ln_modulation(x.contiguous(), sh, e[:, 0, i_scale])
 
     y = _self_attention(bp["self_attn"], prologue(0, 1, 0), cos, sin,
-                        cfg.num_heads, cfg.eps)
+                        cfg.num_heads, cfg.eps, attn_fn)
     x = x + y * term(2)
     xn = (layer_norm(x, bp["norm3"]["weight"], bp["norm3"]["bias"], eps=1e-6)
           if cfg.cross_attn_norm else x)
     x = x + _cross_attention(bp["cross_attn"], xn, context, cfg.num_heads,
-                             cfg.eps)
+                             cfg.eps, attn_fn)
     tmp = prologue(3, 4, 1)
     y = linear(gelu_tanh(linear(tmp, bp["ffn"]["fc1"])), bp["ffn"]["fc2"])
     return x + y * term(5)
@@ -411,6 +415,7 @@ def dit_forward(
     additional_control: Optional[torch.Tensor] = None,   # [B, C_ac, F, H, W]
     full_ref: Optional[torch.Tensor] = None,             # [B, C_lat, H, W]
     rope_tables: Optional[torch.Tensor] = None,          # [max_seq, dh//2]
+    attn_fn: Callable = attention,
     binary_t_mask: Optional[torch.Tensor] = None,        # [B, L_video]
 ) -> torch.Tensor:
     """Velocity prediction [B, out_dim, F, H, W]."""
@@ -418,7 +423,8 @@ def dit_forward(
         _dit_prepare(params, cfg, x, t, context, density, y,
                      additional_control, full_ref, rope_tables, binary_t_mask)
     for bp in params["blocks"]:
-        tokens = _block_forward(bp, tokens, e0, de0, cos, sin, ctx, cfg)
+        tokens = _block_forward(bp, tokens, e0, de0, cos, sin, ctx, cfg,
+                                attn_fn)
     tokens = _head_forward(params["head"], tokens, e_head, de_head)
     if l_ref:
         tokens = tokens[:, l_ref:]
@@ -426,7 +432,9 @@ def dit_forward(
     return _unpatchify(tokens, grid, cfg.patch_size, cfg.out_dim)
 
 
-def make_rope_tables_for(cfg: DiTConfig, device="cpu") -> torch.Tensor:
-    """RoPE angle table [rope_max_seq, head_dim//2] fp32 for a config."""
-    return torch.from_numpy(make_rope_tables(cfg.head_dim, cfg.rope_max_seq)
-                            ).to(device)
+def make_rope_tables_for(cfg: DiTConfig, device="cpu",
+                         riflex: Optional[dict] = None) -> torch.Tensor:
+    """RoPE angle table [rope_max_seq, head_dim//2] fp32 for a config, with
+    the RIFLEx temporal part when `riflex` is given."""
+    return torch.from_numpy(make_rope_tables(cfg.head_dim, cfg.rope_max_seq,
+                                             riflex=riflex)).to(device)

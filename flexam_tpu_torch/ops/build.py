@@ -36,6 +36,10 @@ SIGNATURES = {
                                    _F, _P],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flexam_ln_modulation": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _F, _P],
+    "flexam_int8_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _P],
 }
 
 _lock = threading.Lock()

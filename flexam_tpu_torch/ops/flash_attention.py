@@ -19,7 +19,7 @@ P.V) with the kernels' -1e30 key mask.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -36,11 +36,14 @@ launches = {"flash_attention": 0, "single_kv_attention": 0}
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
-                    q_chunk: int = 2048) -> torch.Tensor:
+                    q_chunk: int = 2048,
+                    keep_rows: Optional[Callable] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v in fp32 with probabilities cast to q.dtype
     before P.V; keys at or past k_len[b] get the logit -1e30. Runs over query
     chunks of `q_chunk` rows so the fp32 logits stay bounded in memory (the
-    result does not depend on the chunking)."""
+    result does not depend on the chunking). `keep_rows(a, b)`, if given,
+    returns a bool mask of the keys each of query rows a..b-1 may see,
+    broadcastable to [B, H, b - a, Lk]; the rest get the logit -1e30 too."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, lq = q.shape[:2]
@@ -57,13 +60,18 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.matmul(qf, kf) * scale
         if keep is not None:
             logits = logits.masked_fill(~keep, MASK_VALUE)
+        if keep_rows is not None:
+            logits = logits.masked_fill(
+                ~keep_rows(a, min(a + q_chunk, lq)), MASK_VALUE)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         o = torch.matmul(probs.float(), vf)
         out[:, a:a + q_chunk] = o.transpose(1, 2).to(q.dtype)
     return out
 
 
-def _check(q, k, v, k_len, name):
+def check_inputs(q, k, v, k_len, name):
+    """Raise unless q [B, Lq, H, 128], k = v [B, Lk, H, 128] are bf16,
+    contiguous and on one CUDA device; returns k_len as int32 (or None)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k and v must be on one CUDA device")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -91,7 +99,7 @@ def _check(q, k, v, k_len, name):
 
 
 def _launch(entry, name, q, k, v, k_len, scale):
-    k_len = _check(q, k, v, k_len, name)
+    k_len = check_inputs(q, k, v, k_len, name)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, lq, h, d = q.shape

@@ -76,6 +76,40 @@ def check_attention(got, ref, name: str) -> dict:
     return check_close(got, ref, name, ulps=2, floor=5e-2)
 
 
+def check_sparse_attention(got, ref, name: str) -> dict:
+    """B5 against `masked_dense_attention`: B1's bound and reason. Over the
+    keys a query block sees, the kernel runs B1's online softmax and the
+    plain version B1's plain softmax (masked keys get -1e30 and exp2 to 0
+    in both), so they differ exactly where B1 and its plain version do."""
+    return check_close(got, ref, name, ulps=2, floor=5e-2)
+
+
+def check_int8_attention(got, ref, name: str) -> dict:
+    """B6 against `int8_attention_plain`: B1's bound. Both take the same
+    int8 values and scales from the wrapper and form bit-identical logits
+    (exact int32 products, the same fp32 dequantization order); they differ
+    where B1 and its plain version do: each rounds its fp32 output to bf16
+    once (2 ulps), and each casts the unnormalized probabilities to bf16
+    against another running maximum (the kernel per 64-key tile, the plain
+    version per row), an independent 2^-9 relative error per term of P.V
+    whose sum stays within 5e-2 of mean |ref|."""
+    return check_close(got, ref, name, ulps=2, floor=5e-2)
+
+
+def block_scaled(x: torch.Tensor, blk: int, phase: int = 0,
+                 lo: float = 0.5, hi: float = 2.0) -> torch.Tensor:
+    """x [B, L, H, D] with the rows of each run of `blk` rows scaled by hi
+    and lo in turn (hi first when phase is 0). With `blk` B6's quantization
+    block, neighbouring blocks take absmax scales hi / lo = 4 times apart, so
+    a row or key dequantized by its neighbour block's scale has its logits
+    off by that factor."""
+    n = x.shape[1]
+    odd = (torch.arange(n, device=x.device) // blk + phase) % 2
+    f = torch.where(odd == 0, torch.tensor(hi, device=x.device),
+                    torch.tensor(lo, device=x.device))
+    return (x.float() * f[None, :, None, None]).to(x.dtype)
+
+
 def check_rmsnorm_rope(got, ref, name: str) -> dict:
     """B3 against `rmsnorm_rope_plain`: 6 bf16 ulps of the pair's norm. The
     two sides differ only in the fp32 order of the sum of squares (and

@@ -14,10 +14,16 @@ Each element is held to a few bf16 ulps of its own size, with the bounds
 import pytest
 import torch
 
+from flexam_tpu_torch.core import attention as attn
 from flexam_tpu_torch.ops import flash_attention as fa
 from flexam_tpu_torch.ops import fused
-from flexam_tpu_torch.testing import (check_attention, check_ln_modulation,
-                                      check_rmsnorm_rope)
+from flexam_tpu_torch.ops import int8_attention as i8
+from flexam_tpu_torch.ops import sparse_attention as sp
+from flexam_tpu_torch.testing import (block_scaled, check_attention,
+                                      check_int8_attention,
+                                      check_ln_modulation,
+                                      check_rmsnorm_rope,
+                                      check_sparse_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +103,100 @@ def test_ln_modulation_edges(dev, mode, s, d):
     ref = fused.ln_modulation_plain(x, sh, sc, mask=mask)
     torch.cuda.synchronize()
     check_ln_modulation(got, ref, sh, mask, "B4")
+
+
+@pytest.mark.parametrize("frames,window,spatial", [
+    (6, 1, 40),      # blk 40: one ragged 64-row tile and key tile a block
+    (5, 0, 72),      # blk 72: a full tile and a ragged one
+    (9, 2, 100),     # blk 200 (group 2 over 10 blocks): 4 tiles, ragged
+    (3, 1, 8),       # blk 8, the smallest the JAX dispatch takes
+])
+def test_sparse_attention_edges(dev, frames, window, spatial):
+    """B5 with blocks of 8*k tokens that are not a multiple of 64, ragged
+    nnz across rows, and the ref block's full row."""
+    pol = sp.video_sparse_policy(frames, spatial, ref_tokens=spatial,
+                                 window=window)
+    rows, blk = pol["rows"], pol["blk"]
+    nnz = [len(r) for r in rows]
+    assert len(set(nnz)) > 1 and nnz[-1] == len(rows)
+    L = pol["video_len"]
+    q, k, v = (_rand(dev, 2, L, 3, 128, seed=20 + i) for i in range(3))
+    before = sp.launches["sparse_attention"]
+    got = sp.sparse_flash_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before + 1
+    check_sparse_attention(got, sp.masked_dense_attention(q, k, v, rows, blk),
+                           "B5")
+
+
+@pytest.mark.parametrize("b,lq,lk,k_len,scaled", [
+    (2, 2000, 2000, None, False),         # quantization blocks of 1,024, padded
+    (2, 2000, 2000, [2000, 777], False),  # k_len masks
+    (1, 11648, 11648, None, False),       # blocks of 1,456 = 22.75 row tiles
+    (1, 18816, 18816, None, False),       # blocks of 1,344
+    (2, 130, 70, [70, 1], False),         # tiny and ragged
+    (1, 11648, 11648, None, True),        # 6 of 7 block edges inside a tile
+    (2, 1584, 1584, [1584, 1100], True),  # blocks of 528: both edges in a tile
+    (1, 3000, 1584, None, True),          # query blocks 1,024, key blocks 528
+])
+def test_int8_attention_edges(dev, b, lq, lk, k_len, scaled):
+    """B6 where its quantization blocks do not align with its 64-row
+    tiles, with k_len masks and short ragged lengths. `scaled`: q rows and
+    keys whose size alternates by 4x from one quantization block to the
+    next, so a 64-row or 64-key tile that straddles two blocks and took one
+    scale for all its rows or keys would put some logits 4x off."""
+    q, k, v = (_rand(dev, b, lq, 2, 128, seed=30), _rand(dev, b, lk, 2, 128,
+                                                          seed=31),
+               _rand(dev, b, lk, 2, 128, seed=32))
+    if scaled:
+        q = block_scaled(q, i8.quant_block(lq))
+        k = block_scaled(k, i8.quant_block(lk), phase=1)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    check_int8_attention(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                         "B6")
+
+
+def test_int8_cross_attention_explicit(dev, monkeypatch):
+    """An explicit int8 choice takes cross-attention over 512 text tokens
+    through B6 (not B2)."""
+    monkeypatch.setenv("FLEXAM_ATTENTION", "pallas_int8")
+    attn._default_backend.cache_clear()
+    try:
+        q = _rand(dev, 2, 3000, 2, 128, seed=33)
+        k, v = _rand(dev, 2, 512, 2, 128, seed=34), _rand(dev, 2, 512, 2, 128,
+                                                           seed=35)
+        before = (i8.launches["int8_attention"],
+                  fa.launches["single_kv_attention"])
+        got = attn.attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (i8.launches["int8_attention"],
+                fa.launches["single_kv_attention"]) == (before[0] + 1,
+                                                        before[1])
+    finally:
+        monkeypatch.delenv("FLEXAM_ATTENTION")
+        attn._default_backend.cache_clear()
+    check_int8_attention(got, i8.int8_attention_plain(q, k, v), "B6 cross")
+
+
+def test_long_kernels_reject_unsupported(dev):
+    q = _rand(dev, 1, 64, 2, 128)
+    rows, blk = [[0, 1], [0, 1]], 32
+    with pytest.raises(TypeError):
+        i8.int8_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        i8.int8_attention(q[..., :64].contiguous(), q[..., :64].contiguous(),
+                          q[..., :64].contiguous())          # head_dim 64
+    with pytest.raises(TypeError):
+        sp.sparse_flash_attention(q.float(), q.float(), q.float(), rows, blk)
+    with pytest.raises(ValueError):
+        sp.sparse_flash_attention(q, q, q, rows, 40)          # L != 2 * 40
+    with pytest.raises(ValueError):
+        sp.sparse_flash_attention(q, q, q, rows, blk,
+                                  kidx=torch.zeros((2, 2), device=dev),
+                                  nnz=torch.full((2,), 2, device=dev))
+    with pytest.raises(NotImplementedError):
+        attn.attention(q, q, q, backend="xla")

@@ -75,15 +75,22 @@ def test_single_kv_rejects_long_keys():
 
 
 def test_attention_dispatch_on_cpu(monkeypatch):
-    """The dispatcher takes the plain version for CPU tensors, and raises
-    for a backend the port does not have."""
+    """The dispatcher takes the plain version for CPU tensors; under
+    FLEXAM_ATTENTION=sparse a generic call (not the pipeline's video
+    self-attention) takes the dense default, as in the JAX package."""
     q, k, v = _qkv(2, 1, 20, 30, 2)
     got = tattn.attention(_t(q), _t(k), _t(v))
     ref = tflash.attention_plain(_t(q), _t(k), _t(v), q_chunk=7)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
     monkeypatch.setenv("FLEXAM_ATTENTION", "sparse")
-    with pytest.raises(NotImplementedError):
-        tattn.attention(_t(q), _t(k), _t(v))
+    tattn._default_backend.cache_clear()
+    try:
+        assert tattn.resolve_backend(20, 30) == "pallas"
+        np.testing.assert_array_equal(
+            tattn.attention(_t(q), _t(k), _t(v)).numpy(), got.numpy())
+    finally:
+        monkeypatch.delenv("FLEXAM_ATTENTION")
+        tattn._default_backend.cache_clear()
 
 
 def _rope_inputs(seed, b, s, heads, dh=128, grid=(2, 4, 5)):
