@@ -6,7 +6,9 @@
 Phases, each printing one JSON line with "phase" and "seconds" when it ends:
 
   env                  torch / CUDA versions and the card (nvidia-smi);
-  build                the CUDA kernels built from csrc/ by one nvcc call;
+  build                the CUDA kernels built from csrc/ by one nvcc call,
+                       with ptxas's registers / spills and the Hopper
+                       opcodes (HGMMA, UTMALDG, ...) in B1's and B2's SASS;
   kernels              B1, B2, B3 and B4 (both modes) at the flagship
                        shapes, B5 and B6 at the long-clip shape (23,296
                        tokens), each held to its plain PyTorch version, with
@@ -138,6 +140,25 @@ class StagePeaks:
         return max(self.gb.values())
 
 
+def hopper_sass(lib: Path) -> dict:
+    """Counts of the opcodes that tell B1's and B2's Hopper design from an
+    mma.sync one (wgmma: HGMMA, TMA loads: UTMALDG, mbarriers: SYNCS; HMMA
+    is mma.sync) in their SASS, from cuobjdump; fails if either kernel
+    lacks HGMMA or UTMALDG. Null where the toolkit has no cuobjdump."""
+    from flexam_tpu_torch.tools.attention_ab import key_opcodes, sass_opcodes
+    try:
+        ops = sass_opcodes(lib)
+    except (OSError, subprocess.CalledProcessError) as e:
+        return {"cuobjdump": None, "reason": str(e)[:200]}
+    keys = key_opcodes(ops)
+    for kernel in ("flash_kernel", "single_kv_kernel"):
+        got = keys.get(kernel, {})
+        if not got.get("HGMMA") or not got.get("UTMALDG"):
+            raise AssertionError(f"{kernel}: no HGMMA / UTMALDG in its SASS "
+                                 f"({got})")
+    return keys
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -183,8 +204,9 @@ def phase_kernels(dev, results: dict) -> None:
         flops = 4.0 * B * H * L * lk * D
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound_ms(flops, nbytes)
+        ms = cuda_ms(lambda: fn(q, k, v), 10)
         lines[name] = dict(
-            err, ms=cuda_ms(lambda: fn(q, k, v), 10),
+            err, ms=ms, tflops=flops / ms / 1e9, bound_share=bms / ms,
             plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, q_chunk=1024),
                              3, warmup=1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -883,9 +905,12 @@ def main() -> int:
     log = Path(build.build_info.get("log", "")) if build.build_info.get(
         "log") else None
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log else [])
+              if "registers" in ln or "spill" in ln or "wgmma" in ln]
+             if log else [])
     emit("build", t0, nvcc_seconds=build.build_info["seconds"],
-         cached=build.build_info["cached"], ptxas=ptxas)
+         cached=build.build_info["cached"], ptxas=ptxas,
+         attention_smem_bytes=build.library().flexam_attention_smem_bytes(),
+         b1_b2_sass=hopper_sass(Path(build.build_info["path"])))
 
     phase_kernels(dev, results)
     torch.cuda.empty_cache()
@@ -905,7 +930,8 @@ def main() -> int:
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({k: r[k] for k in ("tflops", "bound_share") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

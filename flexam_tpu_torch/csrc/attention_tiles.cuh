@@ -1,5 +1,7 @@
-// Tile code shared by the port's attention kernels: B1/B2
-// (flash_attention.cu), B5 (sparse_attention.cu) and B6 (int8_attention.cu).
+// mma.sync tile code shared by the port's attention kernels B5
+// (sparse_attention.cu) and B6 (int8_attention.cu). B1/B2 (Hopper kernels,
+// hopper_attention.cuh) take only its masked-key logit, bf16 packing and
+// quad reductions.
 //
 // One warp owns 16 query rows; a block of 4 warps owns a 64-row query tile.
 // Keys stream through shared memory in 64-key tiles (rows padded to 136

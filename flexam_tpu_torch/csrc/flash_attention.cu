@@ -5,156 +5,333 @@
 // when one key block covers every key: cross-attention over 512 text tokens).
 //
 // Math, as in the TPU kernels: logits in fp32 from bf16 q.k, with log2(e)
-// folded into the softmax scale so exp2 replaces exp; masked keys (past the
-// key length, or past a per-batch k_len) get the logit -1e30; running max,
-// sum and accumulator in fp32; probabilities cast to bf16 before P.V; the
-// output is acc / sum, cast to bf16.
+// folded into the softmax scale so exp2 replaces exp; keys at or past
+// min(k_len[b], Lk) get the logit -1e30; running max, sum and accumulator in
+// fp32; probabilities cast to bf16 before P.V; the output is acc / sum, cast
+// to bf16.
 //
 // Layout: q, k, v and o are [B, L, H, D] bf16, contiguous, D == 128. The
-// kernels index that layout directly (no transposes, no padding copies) and
-// mask the ragged edge of L themselves.
+// kernels read q, k and v in place through 4-D TMA tensor maps over
+// (D, H, L, B): rows past L read as zeros, so the ragged edge of L never
+// touches the next batch.
 //
 // What bounds it on an H100: at the flagship self-attention shape (B 2,
 // H 24, L 11,648) the work is 4*B*H*L*L*D = 3.3e12 flops against about 27 MB
-// of q/k/v/o, so the tensor cores bound it. The design is a first, simple
-// one: bf16 mma.sync m16n8k16 tiles (fp32 accumulate), 4 warps of 16 query
-// rows each (64 rows a block), 64-key tiles of K and V staged in padded
-// shared memory (conflict-free fragment loads; V read with ldmatrix.trans).
-// No wgmma, TMA, or warp specialisation yet, and loads are not overlapped
-// with the math: those are later work.
+// of q/k/v/o, so the tensor cores bound it (3.4 ms at 989 TFLOP/s); B2 at
+// 512 keys is 1.5e11 flops, also bound by the tensor cores (0.15 ms).
 //
-// B2 keeps no online carry: a first pass over K writes each row's fp32
-// logits (<= 512 keys) to shared memory, private to the thread that
-// computed them, and takes the row max; a second pass over V turns them
-// into probabilities and accumulates P.V. K and V stream through in 64-key
-// tiles and never sit whole in shared memory.
+// Design (Hopper, sm_90a), in hopper_attention.cuh's primitives:
+//  * a persistent CTA on each SM walks work items of 128 query rows of one
+//    (batch, head), q tiles fastest. It has three warpgroups. The producer
+//    warpgroup gives up registers (setmaxnreg.dec to 24) and one of its
+//    threads keeps TMA loads in flight: an item's Q, then its 128-key tiles
+//    of K and V into a ring of kStages stages that runs on across items
+//    (separate full barriers for K and V, so Q.K^T starts before V lands;
+//    one empty barrier a stage, released by all 256 consumer threads after
+//    their P.V). The next item's Q loads as soon as both consumers' last
+//    Q.K^T of the current one has landed, so its load overlaps their last
+//    P.V and epilogue.
+//  * two consumer warpgroups (setmaxnreg.inc to 240), 64 query rows each:
+//    S = Q K^T by wgmma m64n128k16 with Q and K from shared memory (both
+//    K-major, 128-byte swizzle); the online softmax on the fp32 accumulator
+//    (exp2 by the SFU, the scale folded into one FFMA); the probabilities
+//    packed in registers straight into the bf16 A fragments of O += P V, a
+//    wgmma whose B is V read MN-major (transposed). Q K_t^T is issued
+//    before P_{t-1} V_{t-1} (FA3's intra-warpgroup overlap), so the tensor
+//    cores have the next product while the softmax runs.
+//  * the key mask is applied only on the tile that holds the key edge;
+//    tiles wholly past k_len are not loaded (their probabilities are exactly
+//    0), except when k_len is 0 and every key is masked alike.
+//  * the epilogue writes acc / sum as bf16 straight from registers (rows
+//    past Lq are not written).
+//
+// B2 is B1's kernel with at most 4 key tiles (512 keys), a bound known at
+// compile time: an online softmax over <= 4 tiles, rather than one max per
+// row from a first pass and the logits recomputed in a second (1.5x the
+// flops) or kept in shared memory (148 KB a block at 512 keys, one block
+// an SM).
 
-#include "attention_tiles.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
 using flexam::bf16;
-using namespace flexam::attn;
+using namespace flexam::hopper;
 
-constexpr int kMaxSingleKv = 512;   // B2 key limit
+constexpr int kD = 128;                 // head dim
+constexpr int kBM = 128;                // query rows a CTA (2 x 64)
+constexpr int kBN = 128;                // keys a tile
+constexpr int kStages = 3;              // K/V ring depth
+constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
+constexpr int kSingleKvTiles = 4;       // B2: <= 512 keys
+constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
+constexpr int kBoxRows = 64;            // TMA box: 64 rows x 64 columns
+constexpr uint32_t kBoxBytes = kBoxRows * 64 * sizeof(bf16);     // 8 KB
+constexpr uint32_t kHalfBytes = 128 * 64 * sizeof(bf16);         // 16 KB
+constexpr uint32_t kTileBytes = 2 * kHalfBytes;                  // 32 KB
+constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+constexpr size_t kSmemBytes = 1024 + kTileBytes * (1 + 2 * kStages) + kBarBytes;
 
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
+struct Params {
   const int* k_len;  // [B] or null
+  bf16* o;           // [B, Lq, H, D]
   int B, H, Lq, Lk;
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// The head's base offset is formed from int batch / head indices: offsets
-// formed from the unsigned blockIdx fields compile B1 into another schedule
-// that runs 5 % slower on an H100 (flexam_tpu_torch/tools/attention_ab.py).
-__device__ __forceinline__ void store_out(const Args& a, const float acc[16][4],
-                                          float l0, float l1, int row0) {
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int stride = a.H * kD;
-  store_rows(a.o + (size_t)b * a.Lq * stride + h * kD, stride, acc, l0, l1,
-             row0, a.Lq);
-}
-
-// B1: one block per (q tile, head, batch); online softmax over key tiles.
-__global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
-  __shared__ __align__(16) bf16 ks[kBN * kLds];
-  __shared__ __align__(16) bf16 vs[kBN * kLds];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int stride = a.H * kD;
-  const size_t head_q = (size_t)b * a.Lq * stride + h * kD;
-  const size_t head_k = (size_t)b * a.Lk * stride + h * kD;
-  const int row0 = blockIdx.x * kBM + warp * 16;
-  const int valid = a.k_len ? min(a.k_len[b], a.Lk) : a.Lk;
-
-  uint32_t qa[8][4];
-  load_q(qa, a.q + head_q, row0, a.Lq, stride);
-
-  float acc[16][4];
-  zero_acc(acc);
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-
-  for (int n0 = 0; n0 < a.Lk; n0 += kBN) {
-    __syncthreads();
-    load_tile(ks, a.k + head_k, n0, a.Lk, stride);
-    load_tile(vs, a.v + head_k, n0, a.Lk, stride);
-    __syncthreads();
-
-    float s[8][4];
-    tile_logits(s, qa, ks, n0, valid, a.scale_log2);
-    online_softmax(s, acc, m0, m1, l0, l1);
-    tile_pv(acc, s, vs);
-  }
-  store_out(a, acc, quad_sum(l0), quad_sum(l1), row0);
-}
-
-// B2: all keys (<= 512) in one block's view; logits kept in shared memory,
-// one max and one sum per row, no rescaling of the accumulator.
-__global__ void __launch_bounds__(kThreads) single_kv_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kv = reinterpret_cast<bf16*>(smem);  // K tiles, then V tiles
-  const int n_tiles = (a.Lk + kBN - 1) / kBN;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // thread-private logit store: [warp][8-key group][lane] float4
-  float4* lg = reinterpret_cast<float4*>(smem + kBN * kLds * sizeof(bf16)) +
-               (size_t)warp * n_tiles * 8 * 32 + lane;
-  const int stride = a.H * kD;
-  const size_t head_q = (size_t)b * a.Lq * stride + h * kD;
-  const size_t head_k = (size_t)b * a.Lk * stride + h * kD;
-  const int row0 = blockIdx.x * kBM + warp * 16;
-  const int valid = a.k_len ? min(a.k_len[b], a.Lk) : a.Lk;
-
-  uint32_t qa[8][4];
-  load_q(qa, a.q + head_q, row0, a.Lq, stride);
-
-  float mx0 = kNeg, mx1 = kNeg;
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_tile(kv, a.k + head_k, t * kBN, a.Lk, stride);
-    __syncthreads();
-    float s[8][4];
-    tile_logits(s, qa, kv, t * kBN, valid, a.scale_log2);
+// Rows row0 .. row0 + 127 of head h, batch b, into a swizzled 128-row tile
+// at dst: two 64-column halves, each as two 64-row boxes.
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int h, int row0, int b) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      lg[(t * 8 + j) * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+      tma_load_4d(dst + half * kHalfBytes + part * kBoxBytes, map, bar,
+                  64 * half, h, row0 + kBoxRows * part, b);
+}
+
+// The (q tile, head, batch) of work item `wi`, q tiles fastest, so the CTAs
+// running at one time share heads (and their K/V in L2); and its key
+// tiles: up to the last tile holding a key before min(k_len[b], Lk), or
+// every tile when that is 0 (all keys masked alike).
+struct Work {
+  int q0, h, b, valid, n_tiles;
+};
+
+template <int kMaxTiles>
+__device__ __forceinline__ Work work_item(const Params& a, int wi) {
+  const int n_qt = (a.Lq + kBM - 1) / kBM;
+  Work w;
+  w.q0 = (wi % n_qt) * kBM;
+  w.h = (wi / n_qt) % a.H;
+  w.b = wi / (n_qt * a.H);
+  w.valid = a.k_len ? max(0, min(a.k_len[w.b], a.Lk)) : a.Lk;
+  w.n_tiles = ((w.valid > 0 ? w.valid : a.Lk) + kBN - 1) / kBN;
+  if (kMaxTiles > 0) w.n_tiles = min(w.n_tiles, kMaxTiles);
+  return w;
+}
+
+template <int kMaxTiles>
+__device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
+                                              const CUtensorMap* tk,
+                                              const CUtensorMap* tv,
+                                              const Params& a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kTileBytes;                      // + s * kTileBytes
+  const uint32_t v_s = q_s + (1 + kStages) * kTileBytes;
+  const uint32_t bars = q_s + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
+  const int n_work = (a.Lq + kBM - 1) / kBM * a.H * a.B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * 128);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2 * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Both roles walk the same work items and count key tiles across them
+  // (`it`), which gives each tile's stage and barrier phase.
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int it = 0, n = 0;
+      for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
+        const Work w = work_item<kMaxTiles>(a, wi);
+        // Q of the next item once both consumers' last Q.K^T has landed
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(q_full, kTileBytes);
+        load_tile(q_s, tq, q_full, w.h, w.q0, w.b);
+        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
+          mbar_arrive_expect_tx(k_full(s), kTileBytes);
+          load_tile(k_s + s * kTileBytes, tk, k_full(s), w.h, t * kBN, w.b);
+          mbar_arrive_expect_tx(v_full(s), kTileBytes);
+          load_tile(v_s + s * kTileBytes, tv, v_full(s), w.h, t * kBN, w.b);
+        }
+      }
+    }
+  } else {
+    // consumer c: query rows q0 + 64c .. q0 + 64c + 63 of each item
+    regs_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int quad = lane & 3;
+    const uint32_t q_c = q_s + c * kBoxBytes;   // its rows, in each half
+
+    // S = Q K^T over D in 8 steps of 16 (4 per 64-column half), issued
+    auto issue_qk = [&](float (&sc)[64], int stage) {
+      const uint32_t ks = k_s + stage * kTileBytes;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t off = (k >> 2) * kHalfBytes + (k & 3) * 32;
+        wgmma_m64n128k16_ss(sc, sw128_desc(q_c + off, 16, 1024),
+                            sw128_desc(ks + off, 16, 1024), k);
+      }
+      wgmma_commit();
+    };
+    // O += P V over a tile's keys in 8 steps of 16, issued; V is [keys, D]
+    // with D contiguous: MN-major, the two D halves 16 KB apart
+    auto issue_pv = [&](float (&o)[64], uint32_t (&p)[8][4], int stage) {
+      const uint32_t vs = v_s + stage * kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128k16_rs_tb(o, p[kk],
+                               sw128_desc(vs + kk * 16 * 128, kHalfBytes, 1024));
+      wgmma_commit();
+    };
+
+    float o[64], sc[64];
+    uint32_t p[8][4];
+    float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
+    int it = 0, n = 0;
+    for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
+      const Work w = work_item<kMaxTiles>(a, wi);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      m_a = m_b = kNeg;
+
+      // Probabilities of key tile t in sc, in place. The tile holding the
+      // key edge is scaled and masked first: keys past k_len get -1e30,
+      // keys past Lk (zero-filled by TMA) do not count at all.
+      auto tile_probs = [&](int t) {
+        const int n0 = t * kBN;
+        float scale = a.scale_log2;
+        if (n0 + kBN > w.valid) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+            sc[i] = key < w.valid ? sc[i] * scale
+                                  : (key < a.Lk ? kNeg : kNegInf);
+          }
+          scale = 1.f;
+        }
+        softmax_tile(sc, scale, m_a, m_b, al_a, al_b, sum_a, sum_b);
+      };
+
+      // Tile 0 alone; then, for each next tile t, Q K_t^T is issued before
+      // P_{t-1} V_{t-1}, so the tensor cores run the one while this
+      // warpgroup's softmax of S_t waits for it (the accumulator takes its
+      // rescale only once P_{t-1} V_{t-1} has landed).
+      mbar_wait(q_full, n & 1);
+      mbar_wait(k_full(it % kStages), (it / kStages) & 1);
+      wgmma_fence();
+      issue_qk(sc, it % kStages);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (w.n_tiles == 1) mbar_arrive(q_empty);
+      tile_probs(0);
+      l_a = sum_a;
+      l_b = sum_b;
+      probs_to_a(sc, p);
+      for (int t = 1; t < w.n_tiles; ++t) {
+        const int cur = it + t, prev = cur - 1;
+        mbar_wait(k_full(cur % kStages), (cur / kStages) & 1);
+        mbar_wait(v_full(prev % kStages), (prev / kStages) & 1);
+        wgmma_fence();
+        issue_qk(sc, cur % kStages);
+        issue_pv(o, p, prev % kStages);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        if (t == w.n_tiles - 1) mbar_arrive(q_empty);
+        tile_probs(t);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        fence_regs(sc);
+        mbar_arrive(empty(prev % kStages));
+        rescale_rows(o, al_a, al_b);
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+        probs_to_a(sc, p);
+      }
+      const int last = it + w.n_tiles - 1;
+      mbar_wait(v_full(last % kStages), (last / kStages) & 1);
+      wgmma_fence();
+      issue_pv(o, p, last % kStages);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty(last % kStages));
+      it += w.n_tiles;
+
+      // acc / sum as bf16, straight from registers to [B, Lq, H, D] (the
+      // Q buffer already holds the next item's Q): a quad writes 16
+      // contiguous bytes of a row; rows at or past Lq are not written
+      l_a = quad_sum(l_a);
+      l_b = quad_sum(l_b);
+      const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
+      bf16* base = a.o + (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
+      const size_t stride = (size_t)a.H * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (r_a < a.Lq)
+          *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
+              pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
+        if (r_b < a.Lq)
+          *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
+              pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
+      }
     }
   }
-  mx0 = quad_max(mx0);
-  mx1 = quad_max(mx1);
-
-  float acc[16][4];
-  zero_acc(acc);
-  float l0 = 0.f, l1 = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_tile(kv, a.v + head_k, t * kBN, a.Lk, stride);
-    __syncthreads();
-    float p[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 sv = lg[(t * 8 + j) * 32];
-      p[j][0] = exp2f(sv.x - mx0);
-      p[j][1] = exp2f(sv.y - mx0);
-      p[j][2] = exp2f(sv.z - mx1);
-      p[j][3] = exp2f(sv.w - mx1);
-      l0 += p[j][0] + p[j][1];
-      l1 += p[j][2] + p[j][3];
-    }
-    tile_pv(acc, p, kv);
-  }
-  store_out(a, acc, quad_sum(l0), quad_sum(l1), row0);
 }
 
-size_t single_kv_smem_bytes(int Lk) {
-  const int n_tiles = (Lk + kBN - 1) / kBN;
-  return kBN * kLds * sizeof(bf16) + (size_t)kWarps * n_tiles * 8 * 32 * sizeof(float4);
+// B1: a persistent CTA on each SM walks (128-row q tile, head, batch)
+// items; online softmax over 128-key tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params a) {
+  attention_cta<0>(&tq, &tk, &tv, a);
+}
+
+// B2: the same, for at most 512 keys (4 tiles).
+__global__ void __launch_bounds__(kThreads, 1)
+    single_kv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params a) {
+  attention_cta<kSingleKvTiles>(&tq, &tk, &tv, a);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const void* q, const void* k, const void* v,
+           void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
+           float scale_log2, void* stream) {
+  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_bl_hd_map(&tq, q, B, Lq, H, kBoxRows) ||
+      !make_bl_hd_map(&tk, k, B, Lk, H, kBoxRows) ||
+      !make_bl_hd_map(&tv, v, B, Lk, H, kBoxRows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const Params a{static_cast<const int*>(k_len), static_cast<bf16*>(o), B, H,
+                 Lq, Lk, scale_log2};
+  const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
+  const int grid = (int)(n_work < sms ? n_work : sms);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -165,31 +342,20 @@ extern "C" {
 int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
                            const void* k_len, int B, int H, int Lq, int Lk, int D,
                            float scale_log2, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<bf16*>(o),
-         static_cast<const int*>(k_len), B, H, Lq, Lk, scale_log2};
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return launch(flash_kernel, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
+                stream);
 }
+
+// Dynamic shared memory a B1 / B2 CTA takes, in bytes.
+int flexam_attention_smem_bytes() { return (int)kSmemBytes; }
 
 // B2 (Lk <= 512). Returns a cudaError_t.
 int flexam_single_kv_attention(const void* q, const void* k, const void* v, void* o,
                                const void* k_len, int B, int H, int Lq, int Lk, int D,
                                float scale_log2, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxSingleKv)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = single_kv_smem_bytes(Lk);
-  cudaError_t err = cudaFuncSetAttribute(
-      single_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<bf16*>(o),
-         static_cast<const int*>(k_len), B, H, Lq, Lk, scale_log2};
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  single_kv_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  if (Lk > kSingleKvTiles * kBN) return (int)cudaErrorInvalidValue;
+  return launch(single_kv_kernel, q, k, v, o, k_len, B, H, Lq, Lk, D,
+                scale_log2, stream);
 }
 
 }  // extern "C"

@@ -3,12 +3,15 @@
 Port of `flexam_tpu/ops/flash_attention.py`. The CUDA kernels live in
 `csrc/flash_attention.cu`:
 
-  * B1 `flash_attention` — online softmax over 64-key tiles (the TPU
+  * B1 `flash_attention` — online softmax over 128-key tiles (the TPU
     `_flash_kernel`), any key count;
-  * B2 `single_kv_attention` — at most 512 keys, one max and one sum per row
-    with no online carry (the TPU `_single_kv_kernel`, which the TPU wrapper
-    takes when one key block covers every key: the DiT's cross-attention
-    over 512 text tokens).
+  * B2 `single_kv_attention` — at most 512 keys (the TPU
+    `_single_kv_kernel`, which the TPU wrapper takes when one key block
+    covers every key: the DiT's cross-attention over 512 text tokens); on
+    the card, B1's kernel bounded to 4 key tiles.
+
+Both are Hopper kernels (TMA loads into an mbarrier ring, wgmma, a producer
+warp beside two consumer warpgroups); `csrc/flash_attention.cu` says how.
 
 Layout [B, L, H, D] (the reference `attention()` layout), bf16, D == 128 on
 the card. A CUDA tensor launches the kernel or raises; a CPU tensor takes

@@ -123,12 +123,18 @@ def group_mask_to_latent_channels(mask: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class FlexAMModels:
     """Parameter bundle for one generation setup (port layout: see
-    `io.convert.from_jax_params`)."""
+    `io.convert.from_jax_params`).
+
+    `t5_from_checkpoint` records where t5_params came from: True means a
+    real checkpoint, and then `tokenize()` refuses to run without the
+    matching tokenizer (hashed ids through trained weights would condition
+    generation on garbage, silently)."""
     cfg: FlexAMConfig
     dit_params: dict
     vae_params: dict
     t5_params: Optional[dict] = None
     dit2_params: Optional[dict] = None   # high-noise expert (timestep MoE)
+    t5_from_checkpoint: bool = False
 
 
 # The reference's default negative prompt.
@@ -181,9 +187,21 @@ class FlexAMGenerationPipeline:
 
     def tokenize(self, prompts: List[str]) -> Tuple[np.ndarray, np.ndarray]:
         """umT5 tokenization padded/truncated to text_length. Without a
-        tokenizer (random-weight runs) prompts hash to deterministic ids."""
+        tokenizer (random-weight runs) prompts hash to deterministic ids,
+        but never when the T5 weights came from a checkpoint: that raises
+        unless FLEXAM_ALLOW_HASHED_IDS=1 (debugging)."""
         tl = self.cfg.t5.text_length
         if self.tokenizer is None:
+            if (self.models.t5_from_checkpoint
+                    and os.environ.get("FLEXAM_ALLOW_HASHED_IDS") != "1"):
+                raise RuntimeError(
+                    "T5 weights were loaded from a checkpoint but no "
+                    "tokenizer is attached: hashed prompt ids would run "
+                    "trained weights on garbage token ids and the output "
+                    "would silently ignore the prompt. Pass tokenizer= to "
+                    "FlexAMGenerationPipeline (AutoTokenizer.from_pretrained"
+                    "(<ckpt>/google/umt5-xxl)), or set "
+                    "FLEXAM_ALLOW_HASHED_IDS=1 to override for debugging.")
             ids = np.zeros((len(prompts), tl), np.int32)
             for i, p in enumerate(prompts):
                 raw = np.frombuffer(p.encode()[:tl] or b"\x01",

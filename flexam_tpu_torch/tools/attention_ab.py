@@ -9,11 +9,15 @@ alone, with this tree's nvcc flags, into `build/attention_ab/<label>/`,
 where its SASS is written too (`<label>.sass`). The script prints one JSON
 line per result:
 
-  * "resources": each kernel's ptxas registers / spills / shared memory and
-    its SASS instruction count, and the opcodes whose counts differ from
-    the first other tree's;
-  * "same_output": whether every build gives B1's and B2's output bit for
-    bit as this tree's does;
+  * "resources": each kernel's ptxas registers / spills / static shared
+    memory, the dynamic shared memory a CTA takes (where the tree's library
+    reports it), any ptxas note on wgmma, the counts of the opcodes that
+    tell the designs apart (HGMMA, UTMALDG, ...), its SASS instruction
+    count, and the opcodes whose counts differ from the first other tree's;
+  * "within_bound": each build's B1 and B2 output held to the plain version
+    by `testing.check_attention` (the designs sum in different orders, so
+    their outputs are compared with the bound, not bit for bit), with the
+    worst element's error over its bound;
   * "timing": B1 at the flagship self-attention shape (q/k/v
     [2, 11648, 24, 128] bf16) and B2 (k/v [2, 512, 24, 128]), the trees
     in order and then in reverse order (repeated), each leg the median of
@@ -32,15 +36,21 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
 
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import LOG2E
+from flexam_tpu_torch.ops.flash_attention import LOG2E, attention_plain
+from flexam_tpu_torch.testing import check_attention
 
 ENTRY_POINTS = ("flexam_flash_attention", "flexam_single_kv_attention")
 KERNELS = ("flash_kernel", "single_kv_kernel")
+# opcodes that tell a Hopper design (wgmma, TMA, mbarriers) from an
+# mma.sync one
+KEY_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA", "LDSM", "LDS",
+               "STS", "BAR")
 
 
 def compile_tree(root: Path, label: str) -> tuple:
@@ -66,6 +76,19 @@ def ptxas_resources(log: str) -> dict:
         elif fn and ("registers" in line or "spill" in line):
             out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     return {k: " / ".join(v) for k, v in out.items()}
+
+
+def wgmma_notes(log: str) -> list:
+    """ptxas's notes on wgmma (e.g. instructions serialized)."""
+    return [ln.strip() for ln in log.splitlines() if "wgmma" in ln]
+
+
+def key_opcodes(ops: dict) -> dict:
+    """{kernel: {opcode: count}} of KEY_OPCODES, matched on the opcode's
+    stem (HGMMA.64x128x16.F32.BF16 counts as HGMMA)."""
+    return {k: {op: sum(n for name, n in c.items()
+                        if name.split(".")[0] == op) for op in KEY_OPCODES}
+            for k, c in ops.items()}
 
 
 def sass_opcodes(lib: Path) -> dict:
@@ -98,6 +121,16 @@ def load(lib: Path) -> ctypes.CDLL:
         fn.argtypes = build.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return dll
+
+
+def dynamic_smem(dll) -> int | None:
+    """Dynamic shared memory a B1/B2 CTA takes, where the library says
+    (trees before the Hopper design use static shared memory only)."""
+    fn = getattr(dll, "flexam_attention_smem_bytes", None)
+    if fn is None:
+        return None
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def launcher(dll, name, q, k, v, out):
@@ -144,9 +177,13 @@ def main() -> int:
         lib, log = compile_tree(root, label)
         libs[label] = load(lib)
         ops = sass_opcodes(lib)
+        keys = key_opcodes(ops)
         res[label] = {k: {"ptxas": ptxas_resources(log).get(k),
+                          "dynamic_smem_bytes": dynamic_smem(libs[label]),
+                          "key_opcodes": keys.get(k),
                           "sass_instructions": sum(ops.get(k, {}).values())}
                       for k in KERNELS}
+        res[label]["wgmma_notes"] = wgmma_notes(log)
         res[label]["_ops"] = ops
     diff = {}
     for label in trees:
@@ -177,7 +214,7 @@ def main() -> int:
                                  randn(B, L, H, D)),
              "B2 single_kv_kernel": ("flexam_single_kv_attention",
                                      randn(B, LT, H, D), randn(B, LT, H, D))}
-    same, timing = {}, {}
+    within, timing, failed = {}, {}, []
     for case, (name, k, v) in cases.items():
         outs = {lb: torch.empty_like(q) for lb in trees}
         runs = {lb: launcher(libs[lb], name, q, k, v, outs[lb])
@@ -185,8 +222,21 @@ def main() -> int:
         for run in runs.values():
             run()
         torch.cuda.synchronize()
-        same[case] = {lb: bool(torch.equal(outs[lb], outs["this"]))
-                      for lb in trees if lb != "this"}
+        ref = attention_plain(q, k, v, q_chunk=1024)
+        within[case] = {}
+        for lb in trees:
+            try:
+                err = check_attention(outs[lb], ref, f"{case} {lb}")
+                within[case][lb] = {"within": True, **{
+                    key: err[key] for key in ("max_abs_err",
+                                              "max_err_over_bound")}}
+            except AssertionError as e:
+                within[case][lb] = {"within": False, "error": str(e)[:300]}
+                failed.append(f"{case} {lb}")
+        within[case]["equal_to_this"] = {
+            lb: bool(torch.equal(outs[lb], outs["this"]))
+            for lb in trees if lb != "this"}
+        del ref
         legs = {lb: [] for lb in trees}
         order = list(trees)
         for _ in range(args.rounds):
@@ -196,11 +246,15 @@ def main() -> int:
                              f"over_{first}": statistics.median(v)
                              / statistics.median(legs[first])}
                         for lb, v in legs.items()}
-    print(json.dumps({"same_output": same}), flush=True)
+    print(json.dumps({"within_bound": within}), flush=True)
     print(json.dumps({"timing": timing}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
+    if failed:
+        print(f"attention_ab: outside check_attention's bound: {failed}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

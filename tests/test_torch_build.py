@@ -1,0 +1,87 @@
+"""The C entry points of the port's CUDA sources against the ctypes
+signatures the loader gives them (`flexam_tpu_torch/ops/build.py`
+`SIGNATURES`), on the CPU.
+
+ctypes trusts `argtypes`: a parameter added to a kernel's C entry point and
+not to SIGNATURES (or a pointer declared as an int) would pass the wrong
+bits, and only the card would show it. This test reads every `extern "C"`
+block of `csrc/*.cu` and holds each function's name, parameter count and
+parameter types to SIGNATURES, both ways round.
+"""
+
+import ctypes
+import re
+
+import pytest
+
+from flexam_tpu_torch.ops import build
+
+_ENTRY = re.compile(r"\bint\s+(flexam_\w+)\s*\(([^)]*)\)\s*\{")
+
+
+def _extern_c_blocks(text: str) -> list:
+    """The bodies of the `extern "C" { ... }` blocks of a source."""
+    blocks, pos = [], 0
+    while True:
+        start = text.find('extern "C" {', pos)
+        if start < 0:
+            return blocks
+        i = start + len('extern "C" {')
+        depth = 1
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        blocks.append(text[start:i])
+        pos = i
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter declaration is passed as."""
+    param = param.strip()
+    if "*" in param:
+        return ctypes.c_void_p
+    kind = param.split()[0]
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[kind]
+
+
+def _entry_points() -> dict:
+    """{name: [ctypes type of each parameter]} over every csrc/*.cu."""
+    found = {}
+    for path in sorted(build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for block in _extern_c_blocks(text):
+            for name, params in _ENTRY.findall(block):
+                params = params.strip()
+                assert name not in found, f"{name} defined twice"
+                found[name] = ([] if params in ("", "void") else
+                               [_ctype(p) for p in params.split(",")])
+    return found
+
+
+def test_every_entry_point_has_a_signature():
+    found = _entry_points()
+    assert found, "no extern \"C\" entry points found in csrc/*.cu"
+    assert sorted(found) == sorted(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_signature_matches_source(name):
+    params = _entry_points()[name]
+    declared = build.SIGNATURES[name]
+    assert len(params) == len(declared), (
+        f"{name}: {len(params)} parameters in the source, "
+        f"{len(declared)} in SIGNATURES")
+    assert params == declared, f"{name}: parameter types differ"
+
+
+def test_parser_sees_a_drift():
+    """The parser counts what the source says: a source with one parameter
+    more than SIGNATURES is caught."""
+    src = ('extern "C" {\nint flexam_flash_attention(const void* q, '
+           'const void* k, const void* v, void* o, const void* k_len, '
+           'int B, int H, int Lq, int Lk, int D, float s, int extra, '
+           'void* stream) {\n  return 0;\n}\n}  // extern "C"\n')
+    (name, params), = _ENTRY.findall(_extern_c_blocks(src)[0])
+    got = [_ctype(p) for p in params.split(",")]
+    assert got != build.SIGNATURES[name]
+    assert len(got) == len(build.SIGNATURES[name]) + 1

@@ -74,6 +74,115 @@ def test_attention_rejects_unsupported(dev):
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                            q.transpose(1, 2))             # not contiguous
+    # a contiguous view 2 bytes past a 16-byte boundary: refused before any
+    # launch, by both wrappers
+    flat = torch.zeros(8 * 2 * 128 + 1, device=dev, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 8, 2, 128)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = dict(fa.launches)
+    for fn in (fa.flash_attention, fa.single_kv_attention):
+        with pytest.raises(ValueError):
+            fn(odd, q, q)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("entry", ["flexam_flash_attention",
+                                   "flexam_single_kv_attention"])
+def test_attention_entry_refuses_bad_maps(dev, entry):
+    """The C entry points themselves (below the wrappers' checks) return an
+    error and launch nothing when a tensor map cannot be built: a pointer
+    off a 16-byte boundary, or a head dim other than 128; B2 also refuses
+    more than 512 keys."""
+    from flexam_tpu_torch.ops import build
+    fn = getattr(build.library(), entry)
+    q = _rand(dev, 1, 64, 2, 128)
+    out = torch.empty_like(q)
+    stream = build.stream_handle(q)
+
+    def call(qp, d=128, lk=64):
+        return fn(qp, q.data_ptr(), q.data_ptr(), out.data_ptr(), None,
+                  1, 2, 64, lk, d, 0.1, stream)
+
+    assert call(q.data_ptr() + 2) != 0
+    assert call(q.data_ptr(), d=64) != 0
+    if entry == "flexam_single_kv_attention":
+        assert call(q.data_ptr(), lk=513) != 0
+    torch.cuda.synchronize()
+    assert call(q.data_ptr()) == 0        # the same call, well formed
+    torch.cuda.synchronize()
+
+
+def _structured(dev, b, lq, lk, h, seed):
+    """q/k/v whose rows and columns all differ in known ways: q and k carry
+    a row-dependent offset along one dim (so each query row prefers other
+    keys, and a row or key swap moves the output), v a ramp over its
+    columns plus one over keys (so a transposed or mis-swizzled V, or a
+    column swap, is off by far more than the bound)."""
+    q, k, v = (_rand(dev, b, n, h, 128, seed=seed + i).float()
+               for i, n in enumerate((lq, lk, lk)))
+    rows = torch.arange(lq, device=dev, dtype=torch.float32)
+    keys = torch.arange(lk, device=dev, dtype=torch.float32)
+    q[..., 0] += 6.0 * (rows / lq - 0.5)[None, :, None]
+    k[..., 0] += 6.0 * (keys / lk - 0.5)[None, :, None]
+    cols = torch.arange(128, device=dev, dtype=torch.float32)
+    v = 0.25 * v + (cols / 32.0)[None, None, None, :] \
+        - (2.0 * keys / lk)[None, :, None, None]
+    return (t.to(torch.bfloat16) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,k_len", [
+    (1, 3, 1, 129, None),              # one query row, keys 1 past a tile
+    (2, 3, 77, 300, [300, 128]),       # k_len on a tile edge
+    (2, 3, 200, 2000, [1, 1000]),      # k_len 1, and inside a tile
+    (1, 3, 11647, 2049, None),         # rows 1 short of 91 tiles; 1 key past 16
+    (2, 1, 129, 2049, [2049, 1919]),   # keys ending mid-stage
+    (1, 3, 640, 513, [257]),           # 513 keys: B1 at the edge of B2
+])
+def test_flash_attention_tile_edges(dev, b, h, lq, lk, k_len):
+    """B1 where 128-row query tiles, 128-key tiles and the 2-stage ring end
+    raggedly, on inputs whose rows and columns all differ."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=40)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B1")
+
+
+@pytest.mark.parametrize("b,h,lq,lk,k_len", [
+    (1, 3, 77, 1, None),
+    (2, 3, 200, 64, [64, 1]),
+    (1, 3, 1, 96, None),
+    (2, 3, 11647, 300, [300, 128]),
+    (2, 1, 129, 512, None),
+    (2, 3, 256, 512, [511, 257]),
+])
+def test_single_kv_tile_edges(dev, b, h, lq, lk, k_len):
+    """B2 from 1 key to exactly 512 (4 key tiles), ragged query tiles and
+    k_len on and inside tile edges, on inputs whose rows and columns all
+    differ."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=50)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["single_kv_attention"]
+    got = fa.single_kv_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["single_kv_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B2")
+
+
+@pytest.mark.parametrize("lk,kernel", [(512, "single_kv_attention"),
+                                       (513, "flash_attention")])
+def test_attention_dispatch_at_512_keys(dev, lk, kernel):
+    """The dispatch sends 512 keys to B2 and 513 to B1."""
+    q, k, v = _structured(dev, 1, 300, lk, 2, seed=60)
+    before = dict(fa.launches)
+    got = attn.attention(q, k, v)
+    torch.cuda.synchronize()
+    after = dict(fa.launches)
+    assert after[kernel] == before[kernel] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    check_attention(got, fa.attention_plain(q, k, v), kernel)
 
 
 @pytest.mark.parametrize("s,l_rot", [(48, 40), (1, 1), (300, 300), (33, 64)])
