@@ -6,9 +6,11 @@
 Phases, each printing one JSON line with "phase" and "seconds" when it ends:
 
   env                  torch / CUDA versions and the card (nvidia-smi);
-  build                the CUDA kernels built from csrc/ by one nvcc call,
-                       with ptxas's registers / spills and the Hopper
-                       opcodes (HGMMA, UTMALDG, ...) in B1's and B2's SASS;
+  build                the CUDA kernels built from csrc/ (one nvcc a
+                       source, all started together, then one link), with
+                       ptxas's registers / spills and the Hopper opcodes
+                       (HGMMA, IGMMA, UTMALDG, ...) in the SASS of the
+                       attention kernels B1, B2, B5 and B6;
   kernels              B1, B2, B3 and B4 (both modes) at the flagship
                        shapes, B5 and B6 at the long-clip shape (23,296
                        tokens), each held to its plain PyTorch version, with
@@ -140,22 +142,38 @@ class StagePeaks:
         return max(self.gb.values())
 
 
+# the wgmma opcodes each attention kernel must have (int8 wgmma is IGMMA)
+HOPPER_OPCODES = {"flash_kernel": ("HGMMA", "UTMALDG"),
+                  "single_kv_kernel": ("HGMMA", "UTMALDG"),
+                  "sparse_attention_kernel": ("HGMMA", "UTMALDG"),
+                  "int8_attention_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
+
+
 def hopper_sass(lib: Path) -> dict:
-    """Counts of the opcodes that tell B1's and B2's Hopper design from an
-    mma.sync one (wgmma: HGMMA, TMA loads: UTMALDG, mbarriers: SYNCS; HMMA
-    is mma.sync) in their SASS, from cuobjdump; fails if either kernel
-    lacks HGMMA or UTMALDG. Null where the toolkit has no cuobjdump."""
+    """Counts of the opcodes that tell the attention kernels' Hopper design
+    from an mma.sync one (wgmma: HGMMA for bf16, IGMMA for int8; TMA
+    loads: UTMALDG; mbarriers: SYNCS; HMMA / IMMA are mma.sync) in their
+    SASS, from cuobjdump; fails if B1, B2 or B5 lacks HGMMA or UTMALDG, or
+    B6 lacks IGMMA, HGMMA or UTMALDG. Also B6's int -> float conversions
+    by full opcode: I2F.*.RP comes from integer divisions (the work-item
+    index); a conversion of each logit would add I2F (or I2FP) without RP.
+    Null where the toolkit has no cuobjdump."""
     from flexam_tpu_torch.tools.attention_ab import key_opcodes, sass_opcodes
     try:
         ops = sass_opcodes(lib)
     except (OSError, subprocess.CalledProcessError) as e:
         return {"cuobjdump": None, "reason": str(e)[:200]}
     keys = key_opcodes(ops)
-    for kernel in ("flash_kernel", "single_kv_kernel"):
+    for kernel, need in HOPPER_OPCODES.items():
         got = keys.get(kernel, {})
-        if not got.get("HGMMA") or not got.get("UTMALDG"):
-            raise AssertionError(f"{kernel}: no HGMMA / UTMALDG in its SASS "
-                                 f"({got})")
+        if not all(got.get(op) for op in need):
+            raise AssertionError(f"{kernel}: no {' / '.join(need)} in its "
+                                 f"SASS ({got})")
+    i2f = {op: n for op, n in ops["int8_attention_kernel"].items()
+           if op.split(".")[0] in ("I2F", "I2FP")}
+    keys["int8_attention_kernel_i2f"] = i2f
+    keys["int8_attention_kernel_i2f_outside_divisions"] = sum(
+        n for op, n in i2f.items() if ".RP" not in op)
     return keys
 
 
@@ -305,9 +323,11 @@ def long_kernels(dev, gen) -> dict:
     for i, r in enumerate(rows):
         bmask[i, r] = True
     tok_mask = bmask[tok_blk][:, tok_blk]            # [L, L] bool
-    bms, by = bound_ms(4.0 * B * H * pairs * blk * blk * D, nbytes)
+    flops = 4.0 * B * H * pairs * blk * blk * D
+    bms, by = bound_ms(flops, nbytes)
+    ms = cuda_ms(b5, 10)
     lines["sparse_attention"] = dict(
-        err, ms=cuda_ms(b5, 10),
+        err, ms=ms, tflops=flops / ms / 1e9, bound_share=bms / ms,
         plain_ms=cuda_ms(lambda: sp.masked_dense_attention(q, k, v, rows,
                                                            blk), 3, warmup=1),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -337,8 +357,11 @@ def long_kernels(dev, gen) -> dict:
     ops_bf = 2.0 * B * H * L * L * D        # P V in bf16
     t_ops = (ops_i8 / PEAK_INT8_OPS + ops_bf / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    ms = cuda_ms(b6, 10)
     lines["int8_attention"] = dict(
-        err, ms=cuda_ms(b6, 10),
+        err, ms=ms, tflops=(ops_i8 + ops_bf) / ms / 1e9,
+        bound_share=max(t_ops, t_bytes) / ms,
+        tflops_note="int8 and bf16 operations together, per second",
         quantize_ms=cuda_ms(lambda: i8.quantize_qk(q, k), 10),
         plain_ms=cuda_ms(lambda: i8.int8_attention_plain(q, k, v), 3,
                          warmup=1),
@@ -905,12 +928,16 @@ def main() -> int:
     log = Path(build.build_info.get("log", "")) if build.build_info.get(
         "log") else None
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln or "wgmma" in ln]
+              if "registers" in ln or "spill" in ln or "wgmma" in ln
+              or ln.startswith("== ")]
              if log else [])
+    lib = build.library()
     emit("build", t0, nvcc_seconds=build.build_info["seconds"],
+         nvcc_compile_seconds=build.build_info.get("compile_seconds"),
          cached=build.build_info["cached"], ptxas=ptxas,
-         attention_smem_bytes=build.library().flexam_attention_smem_bytes(),
-         b1_b2_sass=hopper_sass(Path(build.build_info["path"])))
+         attention_smem_bytes=lib.flexam_attention_smem_bytes(),
+         int8_attention_smem_bytes=lib.flexam_int8_attention_smem_bytes(),
+         attention_sass=hopper_sass(Path(build.build_info["path"])))
 
     phase_kernels(dev, results)
     torch.cuda.empty_cache()

@@ -79,18 +79,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// Rows row0 .. row0 + 127 of head h, batch b, into a swizzled 128-row tile
-// at dst: two 64-column halves, each as two 64-row boxes.
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int h, int row0, int b) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int part = 0; part < 2; ++part)
-      tma_load_4d(dst + half * kHalfBytes + part * kBoxBytes, map, bar,
-                  64 * half, h, row0 + kBoxRows * part, b);
-}
-
 // The (q tile, head, batch) of work item `wi`, q tiles fastest, so the CTAs
 // running at one time share heads (and their K/V in L2); and its key
 // tiles: up to the last tile holding a key before min(k_len[b], Lk), or
@@ -153,14 +141,16 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         // Q of the next item once both consumers' last Q.K^T has landed
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
         mbar_arrive_expect_tx(q_full, kTileBytes);
-        load_tile(q_s, tq, q_full, w.h, w.q0, w.b);
+        tma_load_bf16_tile(q_s, tq, q_full, w.h, w.q0, w.b);
         for (int t = 0; t < w.n_tiles; ++t, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
           mbar_arrive_expect_tx(k_full(s), kTileBytes);
-          load_tile(k_s + s * kTileBytes, tk, k_full(s), w.h, t * kBN, w.b);
+          tma_load_bf16_tile(k_s + s * kTileBytes, tk, k_full(s), w.h, t * kBN,
+                             w.b);
           mbar_arrive_expect_tx(v_full(s), kTileBytes);
-          load_tile(v_s + s * kTileBytes, tv, v_full(s), w.h, t * kBN, w.b);
+          tma_load_bf16_tile(v_s + s * kTileBytes, tv, v_full(s), w.h, t * kBN,
+                             w.b);
         }
       }
     }

@@ -1,15 +1,17 @@
 // Hopper (sm_90a) building blocks for the port's attention kernels: TMA
-// tensor maps and loads/stores, mbarriers, wgmma, register reallocation,
-// and the online softmax on wgmma accumulator fragments. Used by B1/B2
-// (flash_attention.cu); written so that B5 and B6 can adopt them.
-// Outputs leave by plain stores from registers: a persistent CTA frees its
-// Q buffer for the next item's load instead of staging the output there.
+// tensor maps and loads, mbarriers, wgmma (bf16 and s8), register
+// reallocation, and the online softmax on wgmma accumulator fragments.
+// Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
+// (int8_attention.cu). Outputs leave by plain stores from registers: a
+// persistent CTA frees its Q buffer for the next item's load instead of
+// staging the output there.
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, 128] bf16 tile
 // is two column halves of [rows, 64] (128 bytes a row), each 1024-byte
-// aligned; inside a half, the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8). TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B) and
-// wgmma reads it through descriptors with layout type 1.
+// aligned; a [rows, 128] int8 tile is one such span (128 bytes a row).
+// Inside a span, the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+// TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it
+// through descriptors with layout type 1.
 //
 // Fragments: a warpgroup (4 warps, 128 threads) owns 64 rows. In a wgmma
 // m64nN f32 accumulator d[N / 2], register i of lane l in warp w holds row
@@ -26,8 +28,9 @@
 namespace flexam {
 namespace hopper {
 
-// the masked-key logit, bf16 packing and quad reductions of the mma.sync
-// tile code (a wgmma fragment's rows sit in the same quads)
+// the masked-key logit, bf16 packing and quad reductions of
+// attention_tiles.cuh (a wgmma fragment's rows sit in quads as an mma.sync
+// fragment's do)
 using attn::kNeg;
 using attn::pack_bf16;
 using attn::quad_max;
@@ -71,6 +74,27 @@ inline bool make_bl_hd_map(CUtensorMap* map, const void* base, int B, int L,
   cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(base), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+// The same over a [B, L, H, 128] int8 tensor: a row of 128 bytes is one
+// 128-byte-swizzle span, so a box is (128 columns, 1 head, box_rows rows,
+// 1 batch). The bytes are copied as they are (UINT8 is the map type TMA
+// has for one-byte elements).
+inline bool make_bl_hd_map_i8(CUtensorMap* map, const void* base, int B,
+                              int L, int H, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t row = 128;
+  cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  cuuint64_t strides[3] = {row, row * H, row * H * L};
+  cuuint32_t box[4] = {128, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
                       const_cast<void*>(base), dims, strides, box, elem_strides,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -130,6 +154,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Rows row0 .. row0 + 127 of head h, batch b of a [B, L, H, 128] bf16 map
+// with 64-row boxes into a swizzled 128-row tile at dst (32 KB): two
+// 64-column halves of 16 KB, each as two 64-row boxes of 8 KB.
+__device__ __forceinline__ void tma_load_bf16_tile(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int h,
+                                                   int row0, int b) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+      tma_load_4d(dst + half * 16384 + part * 8192, map, bar, 64 * half, h,
+                  row0 + 64 * part, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -192,20 +231,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-#define FLEXAM_ACC64(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+// The same for an s32 accumulator.
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The 64 registers of an accumulator fragment as asm operands with
+// constraint c ("+f", "+r" or "=r").
+#define FLEXAM_REGS64(c, d)                                                    \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),      \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),      \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),    \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),    \
+      c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),    \
+      c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]),    \
+      c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),    \
+      c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),    \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
 
 #define FLEXAM_D64                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
@@ -222,7 +266,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLEXAM_D64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FLEXAM_ACC64(d)
+      : FLEXAM_REGS64("+f", d)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -236,11 +280,39 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLEXAM_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FLEXAM_ACC64(d)
+      : FLEXAM_REGS64("+f", d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-#undef FLEXAM_ACC64
+// A 64 x 128 x 32 step of int8 operands, s32 accumulate (exact): A and B
+// both K-major in shared memory, the only layout int8 wgmma takes. One
+// step is 32 bytes of K, as bf16's k16, so a descriptor advances as in
+// wgmma_m64n128k16_ss. The first step of a product writes d (d = A B,
+// "=r": the old d is dead, so its registers are free up to this step);
+// the others add to it.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss_first(int (&d)[64],
+                                                             uint64_t da,
+                                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " FLEXAM_D64
+      ", %64, %65, p;\n}\n"
+      : FLEXAM_REGS64("=r", d)
+      : "l"(da), "l"(db), "n"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " FLEXAM_D64
+      ", %64, %65, p;\n}\n"
+      : FLEXAM_REGS64("+r", d)
+      : "l"(da), "l"(db), "n"(1));
+}
+
+#undef FLEXAM_REGS64
 #undef FLEXAM_D64
 
 // ---------------------------------------------------------------------------
@@ -256,25 +328,27 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online-softmax step of a 128-key tile, up to the accumulator: s holds
-// this thread's raw q.k of rows a = l/4 and b = l/4 + 8 of its warp, whose
-// logits are s * `scale` (or, with scale 1, logits already scaled and
-// masked). Raises the running maxima m_a / m_b, turns s into
-// exp2(scale * s - m) in place, and returns the factors al_* that the
-// accumulator and the sums must take and this thread's share of the tile's
-// row sums. Scaling by a positive factor keeps the max, so the max is taken
-// on s and scaled once; the exponent is one FFMA.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float scale,
-                                             float& m_a, float& m_b,
-                                             float& al_a, float& al_b,
-                                             float& sum_a, float& sum_b) {
+// this thread's values of rows a = l/4 and b = l/4 + 8 of its warp, whose
+// logits are s * `scale_a` / s * `scale_b` (or, with scales 1, logits
+// already scaled and masked); the scales are positive. Raises the running
+// maxima m_a / m_b, turns s into exp2(scale * s - m) in place, and returns
+// the factors al_* that the accumulator and the sums must take and this
+// thread's share of the tile's row sums. Scaling by a positive factor
+// keeps the max, so the max is taken on s and scaled once; the exponent is
+// one FFMA.
+__device__ __forceinline__ void softmax_tile_rows(float (&s)[64], float scale_a,
+                                                  float scale_b, float& m_a,
+                                                  float& m_b, float& al_a,
+                                                  float& al_b, float& sum_a,
+                                                  float& sum_b) {
   float mx_a = s[0], mx_b = s[2];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
     mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
-  mx_a = fmaxf(m_a, quad_max(mx_a) * scale);
-  mx_b = fmaxf(m_b, quad_max(mx_b) * scale);
+  mx_a = fmaxf(m_a, quad_max(mx_a) * scale_a);
+  mx_b = fmaxf(m_b, quad_max(mx_b) * scale_b);
   al_a = ex2(m_a - mx_a);
   al_b = ex2(m_b - mx_b);
   m_a = mx_a;
@@ -282,13 +356,30 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float scale,
   sum_a = sum_b = 0.f;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    s[4 * j] = ex2(fmaf(s[4 * j], scale, -mx_a));
-    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale, -mx_a));
-    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale, -mx_b));
-    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale, -mx_b));
+    s[4 * j] = ex2(fmaf(s[4 * j], scale_a, -mx_a));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_a, -mx_a));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_b, -mx_b));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_b, -mx_b));
     sum_a += s[4 * j] + s[4 * j + 1];
     sum_b += s[4 * j + 2] + s[4 * j + 3];
   }
+}
+
+// The same with one scale for both rows (B1, B2, B5: the softmax scale).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float scale,
+                                             float& m_a, float& m_b,
+                                             float& al_a, float& al_b,
+                                             float& sum_a, float& sum_b) {
+  softmax_tile_rows(s, scale, scale, m_a, m_b, al_a, al_b, sum_a, sum_b);
+}
+
+// An s32 product as an fp32, exactly, for |s| < 2^22: s + 1.5 * 2^23 as
+// an integer is the fp32 bit pattern of 12582912 + s (the exponent stays
+// 2^23), and the subtraction is exact. One IADD and one FADD on full-rate
+// pipes, not the quarter-rate I2F. B6's products are at most
+// 127^2 * 128 = 2,064,512 in size.
+__device__ __forceinline__ float s32_to_f32_small(int s) {
+  return __int_as_float(s + 0x4B400000) - 12582912.0f;
 }
 
 // Rows a / b of a 64 x 128 accumulator times al_a / al_b.

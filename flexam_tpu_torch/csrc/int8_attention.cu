@@ -5,14 +5,16 @@
 // mean and quantizes q and k to int8 with one absmax scale per (batch,
 // head, block of rows) before the launch; this kernel gets the int8 tensors
 // and the scales expanded to one per query row and one per key, so a
-// 64-row tile that straddles two quantization blocks (1,456 rows at 23,296
-// tokens is 22.75 tiles) still uses each row's and each key's own scale.
+// 128-row item or 128-key tile that straddles two quantization blocks
+// (1,456 rows at 23,296 tokens is 11.375 tiles) still uses each row's and
+// each key's own scale.
 //
-// Math, as in the TPU kernel: int32 logits from int8 q.k (mma.sync
-// m16n8k32 s8.s8.s32, exact), dequantized by (q_scale * k_scale) *
-// (softmax scale * log2 e) in that order, masked to -1e30 at and past the
-// key count or k_len; online softmax in fp32 with exp2; probabilities cast
-// to bf16 for P.V (bf16 mma, fp32 accumulate); the output is acc / sum.
+// Math, as in the TPU kernel: int32 logits from int8 q.k (exact), times
+// q_scale[row] * k_scale[key] * (softmax scale * log2 e), masked to -1e30
+// at and past k_len; online softmax in fp32 with exp2; probabilities cast
+// to bf16 for P.V (bf16 products, fp32 accumulate); the output is
+// acc / sum. The dequantization is reassociated (module note below); keys
+// past the key count (TMA's zero fill) do not count at all.
 //
 // Layout: q8, k8 are [B, L, H, D] int8, v and o [B, L, H, D] bf16, D == 128,
 // contiguous; qs [B, H, Lq] and ks [B, H, Lk] fp32.
@@ -20,127 +22,307 @@
 // What bounds it on an H100: at 23,296 tokens (B 2, H 24) Q K^T is
 // 6.7e12 int8 operations (3.4 ms at 1,979 TOP/s) and P.V 6.7e12 bf16
 // flops (6.7 ms at 989 TFLOP/s), against about 0.5 GB of q/k/v/o: the
-// tensor cores bound it. The design is B1's: 4 warps of 16 query rows,
-// 64-key tiles of K (int8, rows padded to 144 bytes so the fragment loads
-// are conflict free) and V (bf16, ldmatrix.trans) staged in shared memory.
-// No wgmma, TMA or warp specialisation yet.
+// tensor cores bound it. Beside them, 2.6e10 logits are converted,
+// dequantized and exponentiated: exp2 on the quarter-rate SFU is about as
+// long as the int8 product, so each logit gets as few full-rate
+// instructions as B1's. Measured (PERF.md): with the softmax taken out
+// the kernel still takes 0.8 of its time, so what holds it back is the
+// wgmma pipeline it shares with B1, not the per-logit work.
+//
+// Design: B1's (flash_attention.cu), on hopper_attention.cuh.
+//  * a persistent CTA on each SM walks items of 128 query rows of one
+//    (batch, head), q tiles fastest. The producer warp (its warpgroup at 24
+//    registers) loads an item's Q8 (16 KB, one TMA box), then each 128-key
+//    tile's K8 (16 KB, one box) and V (32 KB) into a ring of kStages stages;
+//    its 32 lanes also write the tile's 128 key factors ks[key] * c into the
+//    stage (512 B) and arrive on the K barrier, which TMA's bytes and the
+//    32 lanes complete together.
+//  * two consumer warpgroups (240 registers), 64 query rows each: S = Q8 K8^T
+//    by 4 s8 wgmma m64n128k32 into an s32 accumulator (both operands K-major
+//    from shared memory), issued before P_{t-1} V_{t-1} (B1's bf16 wgmma
+//    with V MN-major) so the tensor cores run one while the softmax of the
+//    other runs.
+//  * each logit: an exact int -> float by the magic-number add (IADD, FADD;
+//    no I2F), one FMUL by its key's factor, then B1's softmax with the
+//    row's q scale folded into its FFMA: exp2(q_scale * (s * ks * c) - m),
+//    the max taken on s * ks * c and scaled once (q_scale > 0). This
+//    reassociates the plain version's s * ((qs * ks) * c): the logits agree
+//    to a few fp32 ulps, far inside check_int8_attention's bound.
+//  * the key mask only on the tile that holds the edge (there the row scale
+//    is applied before masking); tiles wholly past k_len are not loaded
+//    (their probabilities are exactly 0), except when k_len is 0 and every
+//    key is masked alike.
+//  * the accumulator's rescale is skipped when no row of a warp has a new
+//    maximum (its factor is exactly 1);
+//  * the epilogue writes acc / sum as bf16 straight from registers.
+//
+// Tried on the card and not kept (PERF.md): FA3's ping-pong of the two
+// consumer warpgroups, __int2float_rn (I2FP) in place of the
+// magic-number add (no faster),
+// and clusters of 2 CTAs sharing each K/V tile by TMA multicast (2 %
+// faster, L2 traffic is not what bounds it).
 
-#include "attention_tiles.cuh"
+#include "hopper_attention.cuh"
+
 
 namespace {
 
 using flexam::bf16;
-using namespace flexam::attn;
+using namespace flexam::hopper;
 
-constexpr int kLdsI8 = kD + 16;     // padded smem row of int8 K (bytes)
+constexpr int kD = 128;                 // head dim
+constexpr int kBM = 128;                // query rows a CTA (2 x 64)
+constexpr int kBN = 128;                // keys a tile
+constexpr int kStages = 4;              // K/V ring depth
+constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
+constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
+constexpr uint32_t kI8TileBytes = kBN * kD;                      // 16 KB
+constexpr uint32_t kVTileBytes = kBN * kD * sizeof(bf16);        // 32 KB
+constexpr uint32_t kFacBytes = kBN * sizeof(float);              // 512 B
+constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+constexpr size_t kSmemBytes = 1024 + kI8TileBytes * (1 + kStages) +
+                              kVTileBytes * kStages + kFacBytes * kStages +
+                              kBarBytes;
 
-struct I8Args {
-  const int8_t* q;   // [B, Lq, H, D]
-  const int8_t* k;   // [B, Lk, H, D]
-  const bf16* v;     // [B, Lk, H, D]
-  bf16* o;           // [B, Lq, H, D]
+struct Params {
   const float* qs;   // [B, H, Lq] scale of each query row
   const float* ks;   // [B, H, Lk] scale of each key
   const int* k_len;  // [B] or null
+  bf16* o;           // [B, Lq, H, D]
   int B, H, Lq, Lk;
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void mma_16832_s8(int c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The (q tile, head, batch) of work item `wi`, q tiles fastest, and its key
+// tiles: up to the last tile holding a key before min(k_len[b], Lk), or
+// every tile when that is 0 (all keys masked alike).
+struct Work {
+  int q0, h, b, valid, n_tiles;
+};
+
+__device__ __forceinline__ Work work_item(const Params& a, int wi) {
+  const int n_qt = (a.Lq + kBM - 1) / kBM;
+  Work w;
+  w.q0 = (wi % n_qt) * kBM;
+  w.h = (wi / n_qt) % a.H;
+  w.b = wi / (n_qt * a.H);
+  w.valid = a.k_len ? max(0, min(a.k_len[w.b], a.Lk)) : a.Lk;
+  w.n_tiles = ((w.valid > 0 ? w.valid : a.Lk) + kBN - 1) / kBN;
+  return w;
 }
 
-// A [kBN, kD] int8 tile (rows n0.., zero past `rows`) into padded shared
-// memory, 16 bytes a thread per step.
-__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
-                                             int n0, int rows, int row_stride) {
-  constexpr int kChunks = kBN * kD / 16;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(n0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * kLdsI8 + col) = val;
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Params a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kI8TileBytes;              // + s * kI8TileBytes
+  const uint32_t v_s = k_s + kStages * kI8TileBytes;    // + s * kVTileBytes
+  const uint32_t f_s = v_s + kStages * kVTileBytes;     // + s * kFacBytes
+  const uint32_t bars = f_s + kStages * kFacBytes;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
+  // the key factors as a generic pointer, for the consumers' float2 reads
+  const float* f_gen = reinterpret_cast<const float*>(
+      smem + (f_s - smem_u32(smem)));
+  const int n_work = (a.Lq + kBM - 1) / kBM * a.H * a.B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * 128);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 32);     // the producer warp's 32 lanes
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2 * 128);
+    }
+    mbar_init_fence();
   }
-}
+  __syncthreads();
 
-// The warp's 16 int8 query rows as m16n8k32 A fragments, 4 k-steps of 32.
-__device__ __forceinline__ void load_q_i8(uint32_t qa[4][4], const int8_t* qh,
-                                          int row0, int rows, int row_stride) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int ra = row0 + g, rb = row0 + g + 8;
+  // Both roles walk the same work items and count key tiles across them
+  // (`it`), which gives each tile's stage and barrier phase.
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: warp 0; lane 0 issues the TMA loads
+    regs_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0, n = 0;
+      for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
+        const Work w = work_item(a, wi);
+        const float* ks = a.ks + ((size_t)w.b * a.H + w.h) * a.Lk;
+        // Q of the next item once both consumers' last Q.K^T has landed
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(q_full, kI8TileBytes);
+          tma_load_4d(q_s, &tq, q_full, 0, w.h, w.q0, w.b);
+        }
+        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
+          // this lane's 4 keys' factors ks * c (0 past Lk)
+          const int key = t * kBN + 4 * lane;
+          float f[4];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int col = ks * 32 + tig * 4;
-    const int8_t* pa = qh + (size_t)ra * row_stride + col;
-    const int8_t* pb = qh + (size_t)rb * row_stride + col;
-    qa[ks][0] = ra < rows ? *reinterpret_cast<const uint32_t*>(pa) : 0u;
-    qa[ks][1] = rb < rows ? *reinterpret_cast<const uint32_t*>(pb) : 0u;
-    qa[ks][2] = ra < rows ? *reinterpret_cast<const uint32_t*>(pa + 16) : 0u;
-    qa[ks][3] = rb < rows ? *reinterpret_cast<const uint32_t*>(pb + 16) : 0u;
-  }
-}
-
-// B6: one block per (q tile, head, batch); online softmax over key tiles.
-__global__ void __launch_bounds__(kThreads) int8_attention_kernel(I8Args a) {
-  __shared__ __align__(16) int8_t ks8[kBN * kLdsI8];
-  __shared__ __align__(16) bf16 vs[kBN * kLds];
-  __shared__ float ksc[kBN];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int stride = a.H * kD;
-  const size_t head_q = (size_t)b * a.Lq * stride + h * kD;
-  const size_t head_k = (size_t)b * a.Lk * stride + h * kD;
-  const float* qs = a.qs + ((size_t)b * a.H + h) * a.Lq;
-  const float* ks = a.ks + ((size_t)b * a.H + h) * a.Lk;
-  const int row0 = blockIdx.x * kBM + warp * 16;
-  const int valid = a.k_len ? min(a.k_len[b], a.Lk) : a.Lk;
-
-  uint32_t qa[4][4];
-  load_q_i8(qa, a.q + head_q, row0, a.Lq, stride);
-  const float qs0 = row0 + g < a.Lq ? qs[row0 + g] : 0.f;
-  const float qs1 = row0 + g + 8 < a.Lq ? qs[row0 + g + 8] : 0.f;
-
-  float acc[16][4];
-  zero_acc(acc);
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-
-  for (int n0 = 0; n0 < a.Lk; n0 += kBN) {
-    __syncthreads();
-    load_tile_i8(ks8, a.k + head_k, n0, a.Lk, stride);
-    load_tile(vs, a.v + head_k, n0, a.Lk, stride);
-    if (threadIdx.x < kBN)
-      ksc[threadIdx.x] = n0 + threadIdx.x < a.Lk ? ks[n0 + threadIdx.x] : 0.f;
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int c[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int8_t* kp = ks8 + (j * 8 + g) * kLdsI8 + kk * 32 + tig * 4;
-        mma_16832_s8(c, qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                     *reinterpret_cast<const uint32_t*>(kp + 16));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + tig * 2 + (e & 1);
-        const float deq = __fmul_rn(__fmul_rn(e < 2 ? qs0 : qs1, ksc[col]),
-                                    a.scale_log2);
-        s[j][e] = n0 + col < valid ? __fmul_rn(__int2float_rn(c[e]), deq) : kNeg;
+          for (int e = 0; e < 4; ++e)
+            f[e] = key + e < a.Lk ? ks[key + e] * a.scale_log2 : 0.f;
+          asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                       ::"r"(f_s + s * kFacBytes + 16 * lane), "f"(f[0]),
+                         "f"(f[1]), "f"(f[2]), "f"(f[3]) : "memory");
+          if (lane == 0) {
+            mbar_arrive_expect_tx(k_full(s), kI8TileBytes);
+            tma_load_4d(k_s + s * kI8TileBytes, &tk, k_full(s), 0, w.h,
+                        t * kBN, w.b);
+            mbar_arrive_expect_tx(v_full(s), kVTileBytes);
+            tma_load_bf16_tile(v_s + s * kVTileBytes, &tv, v_full(s), w.h,
+                               t * kBN, w.b);
+          } else {
+            mbar_arrive(k_full(s));
+          }
+        }
       }
     }
-    online_softmax(s, acc, m0, m1, l0, l1);
-    tile_pv(acc, s, vs);
+  } else {
+    // consumer c: query rows q0 + 64c .. q0 + 64c + 63 of each item
+    regs_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int quad = lane & 3;
+    const uint32_t q_c = q_s + c * (kI8TileBytes / 2);   // its 64 rows
+
+    // S = Q8 K8^T over D in 4 steps of 32 bytes, issued
+    auto issue_qk = [&](int (&si)[64], int stage) {
+      const uint32_t ks = k_s + stage * kI8TileBytes;
+      wgmma_m64n128k32_s8_ss_first(si, sw128_desc(q_c, 16, 1024),
+                                   sw128_desc(ks, 16, 1024));
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        wgmma_m64n128k32_s8_ss(si, sw128_desc(q_c + 32 * k, 16, 1024),
+                               sw128_desc(ks + 32 * k, 16, 1024));
+      wgmma_commit();
+    };
+    // O += P V over a tile's keys in 8 steps of 16, issued; V is [keys, D]
+    // with D contiguous: MN-major, the two D halves 16 KB apart
+    auto issue_pv = [&](float (&o)[64], uint32_t (&p)[8][4], int stage) {
+      const uint32_t vs = v_s + stage * kVTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128k16_rs_tb(o, p[kk],
+                               sw128_desc(vs + kk * 16 * 128, 16384, 1024));
+      wgmma_commit();
+    };
+
+    float o[64], sc[64];
+    int si[64];
+    uint32_t p[8][4];
+    float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
+    int it = 0, n = 0;
+    for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
+      const Work w = work_item(a, wi);
+      const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
+      const float* qs = a.qs + ((size_t)w.b * a.H + w.h) * a.Lq;
+      // rows past Lq are zeros from TMA and are not stored
+      const float qs_a = r_a < a.Lq ? qs[r_a] : 1.f;
+      const float qs_b = r_b < a.Lq ? qs[r_b] : 1.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      m_a = m_b = kNeg;
+
+      // Probabilities of key tile t (stage `stage`) in sc, from si. Each
+      // logit is s * (ks * c), the row scale going into the softmax's
+      // FFMA; on the tile holding the key edge it is applied first and
+      // keys past k_len get -1e30, keys past Lk do not count at all.
+      auto tile_probs = [&](int t, int stage) {
+        const float* f = f_gen + stage * kBN + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 fk = *reinterpret_cast<const float2*>(f + 8 * j);
+          sc[4 * j] = s32_to_f32_small(si[4 * j]) * fk.x;
+          sc[4 * j + 1] = s32_to_f32_small(si[4 * j + 1]) * fk.y;
+          sc[4 * j + 2] = s32_to_f32_small(si[4 * j + 2]) * fk.x;
+          sc[4 * j + 3] = s32_to_f32_small(si[4 * j + 3]) * fk.y;
+        }
+        const int n0 = t * kBN;
+        float sa = qs_a, sb = qs_b;
+        if (n0 + kBN > w.valid) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+            sc[i] = key < w.valid ? sc[i] * ((i & 2) ? sb : sa)
+                                  : (key < a.Lk ? kNeg : kNegInf);
+          }
+          sa = sb = 1.f;
+        }
+        softmax_tile_rows(sc, sa, sb, m_a, m_b, al_a, al_b, sum_a, sum_b);
+      };
+
+      // Tile 0 alone; then, for each next tile t, Q K_t^T is issued before
+      // P_{t-1} V_{t-1} (B1's schedule).
+      mbar_wait(q_full, n & 1);
+      mbar_wait(k_full(it % kStages), (it / kStages) & 1);
+      wgmma_fence();
+      issue_qk(si, it % kStages);
+      wgmma_wait<0>();
+      fence_regs(si);
+      if (w.n_tiles == 1) mbar_arrive(q_empty);
+      tile_probs(0, it % kStages);
+      l_a = sum_a;
+      l_b = sum_b;
+      probs_to_a(sc, p);
+      for (int t = 1; t < w.n_tiles; ++t) {
+        const int cur = it + t, prev = cur - 1;
+        mbar_wait(k_full(cur % kStages), (cur / kStages) & 1);
+        mbar_wait(v_full(prev % kStages), (prev / kStages) & 1);
+        wgmma_fence();
+        issue_qk(si, cur % kStages);
+        issue_pv(o, p, prev % kStages);
+        wgmma_wait<1>();
+        fence_regs(si);
+        if (t == w.n_tiles - 1) mbar_arrive(q_empty);
+        tile_probs(t, cur % kStages);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        mbar_arrive(empty(prev % kStages));
+        // a factor of exactly 1 for every row of the warp (no new maximum)
+        // leaves the accumulator as it is
+        if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f))
+          rescale_rows(o, al_a, al_b);
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+        probs_to_a(sc, p);
+      }
+      const int last = it + w.n_tiles - 1;
+      mbar_wait(v_full(last % kStages), (last / kStages) & 1);
+      wgmma_fence();
+      issue_pv(o, p, last % kStages);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty(last % kStages));
+      it += w.n_tiles;
+
+      // acc / sum as bf16, straight from registers to [B, Lq, H, D]: a
+      // quad writes 16 contiguous bytes of a row; rows at or past Lq are
+      // not written
+      l_a = quad_sum(l_a);
+      l_b = quad_sum(l_b);
+      bf16* base = a.o + (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
+      const size_t stride = (size_t)a.H * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (r_a < a.Lq)
+          *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
+              pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
+        if (r_b < a.Lq)
+          *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
+              pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
+      }
+    }
   }
-  store_rows(a.o + head_q, stride, acc, quad_sum(l0), quad_sum(l1), row0, a.Lq);
 }
 
 }  // namespace
@@ -152,14 +334,34 @@ int flexam_int8_attention(const void* q8, const void* k8, const void* v, void* o
                           const void* qs, const void* ks, const void* k_len,
                           int B, int H, int Lq, int Lk, int D, float scale_log2,
                           void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  I8Args a{static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
-           static_cast<const bf16*>(v), static_cast<bf16*>(o),
-           static_cast<const float*>(qs), static_cast<const float*>(ks),
-           static_cast<const int*>(k_len), B, H, Lq, Lk, scale_log2};
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  int8_attention_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_bl_hd_map_i8(&tq, q8, B, Lq, H, kBM) ||
+      !make_bl_hd_map_i8(&tk, k8, B, Lk, H, kBN) ||
+      !make_bl_hd_map(&tv, v, B, Lk, H, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const Params a{static_cast<const float*>(qs), static_cast<const float*>(ks),
+                 static_cast<const int*>(k_len), static_cast<bf16*>(o), B, H,
+                 Lq, Lk, scale_log2};
+  const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
+  const int grid = (int)(n_work < sms ? n_work : sms);
+  int8_attention_kernel<<<grid, kThreads, kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a B6 CTA takes, in bytes.
+int flexam_int8_attention_smem_bytes() { return (int)kSmemBytes; }
 
 }  // extern "C"

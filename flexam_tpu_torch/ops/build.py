@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by ONE `nvcc -shared` call for `sm_90a`
-into `build/flexam_tpu_torch/<hash>/libflexam_kernels.so` at the root of the
+Every `csrc/*.cu` file is compiled for `sm_90a` by its own `nvcc -c`, all
+started together, and the objects are linked by one `nvcc -shared` into
+`build/flexam_tpu_torch/<hash>/libflexam_kernels.so` at the root of the
 checkout (a directory git ignores), at first use. The sources carry a plain
 `extern "C"` interface and include no PyTorch header, so the build takes
-seconds; the library is bound with `ctypes`. The hash covers the sources and
-the flags, so an edited source builds anew.
+seconds (the longest source's compile); the library is bound with `ctypes`.
+The hash covers the sources and the flags, so an edited source builds anew.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "flexam_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,10 +39,11 @@ SIGNATURES = {
     "flexam_attention_smem_bytes": [],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flexam_ln_modulation": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _F, _P],
+    "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _F, _P],
     "flexam_int8_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _P],
+    "flexam_int8_attention_smem_bytes": [],
 }
 
 _lock = threading.Lock()
@@ -66,11 +69,49 @@ def sources() -> list:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def compile_library(srcs: list, lib_path: Path) -> tuple:
+    """Compile each of `srcs` by its own `nvcc -c`, all started together,
+    and link the objects into `lib_path`; returns (nvcc's output, which
+    holds ptxas's -v report, and the seconds the compiles took). Raises if
+    a compile or the link fails."""
+    out_dir = lib_path.parent
+    tag = os.getpid()
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for src in srcs:
+        obj = out_dir / f"{Path(src).stem}.{tag}.o"
+        jobs.append((Path(src), obj, subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{out[-4000:]}")
+    compile_seconds = time.perf_counter() - t0
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"{lib_path.stem}.{tag}.so"
+    res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                          *[str(obj) for _, obj, _ in jobs]],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink()
+    os.replace(tmp, lib_path)
+    return log, compile_seconds
 
 
 def build() -> Path:
@@ -82,19 +123,17 @@ def build() -> Path:
         build_info.update(seconds=None, cached=True, path=str(lib_path))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libflexam_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, lib_path)
-    build_info.update(seconds=seconds, cached=False, path=str(lib_path),
-                      log=str(out_dir / "nvcc.log"))
+    try:
+        log, compile_seconds = compile_library(sorted(CSRC.glob("*.cu")),
+                                               lib_path)
+    except RuntimeError as e:
+        (out_dir / "nvcc.log").write_text(str(e))
+        raise
+    (out_dir / "nvcc.log").write_text(log)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      compile_seconds=compile_seconds, cached=False,
+                      path=str(lib_path), log=str(out_dir / "nvcc.log"))
     return lib_path
 
 

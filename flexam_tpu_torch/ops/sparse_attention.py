@@ -11,9 +11,10 @@ same mask.
 
 The CUDA kernel lives in `csrc/sparse_attention.cu`. It takes the
 compacted per-row key-block lists `kidx [nq, max_nnz]` and `nnz [nq]` as
-int32 tensors on the device and runs B1's online softmax over each query
-block's active key blocks only. `masked_dense_attention` is its plain
-version: dense attention under the token mask the rows expand to, with the
+int32 tensors on the device and a scratch int32 for the counter by which
+its CTAs take their work items (the entry point zeroes it), and runs B1's
+online softmax over each query block's active key blocks only.
+`masked_dense_attention` is its plain version: dense attention under the token mask the rows expand to, with the
 probabilities cast to q's dtype before P.V as in B1's plain version.
 
 Opt in with `FLEXAM_ATTENTION=sparse` (and `FLEXAM_SPARSE_WINDOW=w`), which
@@ -179,6 +180,9 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return masked_dense_attention(q, k, v, rows, blk, scale=scale)
     _check_geometry(q, k, rows, blk)
     check_inputs(q, k, v, None, "sparse_attention")
+    if min(len(r) for r in rows) < 1:
+        raise ValueError("sparse_attention: every query block needs at least "
+                         "one key block")
     if kidx is None or nnz is None:
         kidx, nnz = (torch.from_numpy(a).to(q.device)
                      for a in rows_to_arrays(rows))
@@ -189,12 +193,13 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("sparse_attention: kidx [nq, max_nnz] and nnz [nq] "
                          "must be contiguous int32 on q's device")
     b, _, h, d = q.shape
+    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     err = build.library().flexam_sparse_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kidx.data_ptr(), nnz.data_ptr(), b, h, len(rows), blk,
-        kidx.shape[1], d, float((d ** -0.5 if scale is None else scale)
-                                * LOG2E),
+        kidx.data_ptr(), nnz.data_ptr(), counter.data_ptr(), b, h, len(rows),
+        blk, kidx.shape[1], d,
+        float((d ** -0.5 if scale is None else scale) * LOG2E),
         build.stream_handle(q))
     build.check(err, "sparse_attention")
     launches["sparse_attention"] += 1

@@ -86,13 +86,16 @@ def check_sparse_attention(got, ref, name: str) -> dict:
 
 def check_int8_attention(got, ref, name: str) -> dict:
     """B6 against `int8_attention_plain`: B1's bound. Both take the same
-    int8 values and scales from the wrapper and form bit-identical logits
-    (exact int32 products, the same fp32 dequantization order); they differ
-    where B1 and its plain version do: each rounds its fp32 output to bf16
-    once (2 ulps), and each casts the unnormalized probabilities to bf16
-    against another running maximum (the kernel per 64-key tile, the plain
-    version per row), an independent 2^-9 relative error per term of P.V
-    whose sum stays within 5e-2 of mean |ref|."""
+    int8 values and scales from the wrapper and form the same exact int32
+    products; the kernel dequantizes them in another fp32 order (the key
+    factor ks * c first, the q scale in the exponent's FMA), so its logits
+    agree with the plain version's to a few fp32 ulps, a relative 1e-7
+    that is nothing beside bf16's 2^-9. Beyond that they differ where B1
+    and its plain version do: each rounds its fp32 output to bf16 once (2
+    ulps), and each casts the unnormalized probabilities to bf16 against
+    another running maximum (the kernel per 128-key tile, the plain version
+    per row), an independent 2^-9 relative error per term of P.V whose sum
+    stays within 5e-2 of mean |ref|."""
     return check_close(got, ref, name, ulps=2, floor=5e-2)
 
 

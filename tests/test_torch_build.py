@@ -85,3 +85,26 @@ def test_parser_sees_a_drift():
     got = [_ctype(p) for p in params.split(",")]
     assert got != build.SIGNATURES[name]
     assert len(got) == len(build.SIGNATURES[name]) + 1
+
+
+@pytest.mark.parametrize("params,expected", [
+    ("const void* kidx, const void* nnz, void* counter, int B", True),
+    ("const void* kidx, const void* nnz, int B", False),
+    ("const void* kidx, const void* counters, int B", False),
+])
+def test_attention_ab_finds_the_counter_by_name(tmp_path, params, expected):
+    """`tools/attention_ab.py` passes B5 a counter word only where the
+    tree's C entry point names a `counter` parameter."""
+    from flexam_tpu_torch.tools import attention_ab
+    csrc = tmp_path / "flexam_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "sparse_attention.cu").write_text(
+        f'extern "C" {{\nint flexam_sparse_attention(const void* q, '
+        f'{params}, void* stream) {{\n  return 0;\n}}\n}}\n')
+    assert attention_ab.takes_counter(tmp_path) is expected
+
+
+def test_attention_ab_reads_this_tree_s_counter():
+    from pathlib import Path
+    from flexam_tpu_torch.tools import attention_ab
+    assert attention_ab.takes_counter(Path(build.CSRC).parents[1])

@@ -309,3 +309,132 @@ def test_long_kernels_reject_unsupported(dev):
                                   nnz=torch.full((2,), 2, device=dev))
     with pytest.raises(NotImplementedError):
         attn.attention(q, q, q, backend="xla")
+
+
+@pytest.mark.parametrize("frames,window,spatial,b,h", [
+    (5, 2, 448, 2, 2),    # blk 896 = 7 key tiles: the long path's blocks
+    (9, 2, 100, 1, 3),    # blk 200: each block's second tile ends mid-tile
+    (7, 1, 64, 2, 2),     # blk 64: a row tile spans two query blocks
+])
+def test_sparse_attention_structured(dev, frames, window, spatial, b, h):
+    """B5 on inputs whose rows and columns all differ (a transposed or
+    mis-swizzled operand, a key of the next block counted, or a row of the
+    next block stored, is off by far more than the bound), at the long
+    path's block size and at blocks whose edges fall inside a tile."""
+    pol = sp.video_sparse_policy(frames, spatial, ref_tokens=spatial,
+                                 window=window)
+    rows, blk = pol["rows"], pol["blk"]
+    assert pol["video_len"] == len(rows) * blk
+    q, k, v = _structured(dev, b, pol["video_len"], pol["video_len"], h,
+                          seed=70)
+    before = sp.launches["sparse_attention"]
+    got = sp.sparse_flash_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before + 1
+    check_sparse_attention(got, sp.masked_dense_attention(q, k, v, rows, blk),
+                           "B5")
+
+
+@pytest.mark.parametrize("b,lq,lk,k_len", [
+    (2, 300, 400, [127, 128]),     # k_len one short of and on a tile edge
+    (2, 129, 257, [129, 1]),       # one key past a tile; a single key
+    (1, 700, 512, None),           # 512 keys: the text length
+    (2, 1000, 512, [512, 300]),
+    (1, 2000, 2000, None),         # quantization blocks of 1,024 rows
+])
+def test_int8_attention_structured(dev, b, lq, lk, k_len):
+    """B6 on inputs whose rows and columns all differ, with k_len around a
+    128-key tile's edge, and at the 512 text keys the explicit int8 choice
+    sends to it."""
+    q, k, v = _structured(dev, b, lq, lk, 2, seed=80)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    check_int8_attention(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                         "B6")
+
+
+def test_sparse_entry_refuses_bad_maps(dev):
+    """B5's C entry point returns an error and launches nothing for a
+    pointer off a 16-byte boundary or a head dim other than 128."""
+    from flexam_tpu_torch.ops import build
+    fn = build.library().flexam_sparse_attention
+    rows, blk = [[0, 1], [1]], 64
+    q = _rand(dev, 1, 2 * blk, 2, 128)
+    out = torch.empty_like(q)
+    kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = build.stream_handle(q)
+
+    def call(qp=q.data_ptr(), op=out.data_ptr(), d=128):
+        return fn(qp, q.data_ptr(), q.data_ptr(), op, kidx.data_ptr(),
+                  nnz.data_ptr(), counter.data_ptr(), 1, 2, 2, blk, 2, d, 0.1,
+                  stream)
+
+    before = sp.launches["sparse_attention"]
+    assert call(qp=q.data_ptr() + 2) != 0
+    assert call(op=out.data_ptr() + 2) != 0
+    assert call(d=64) != 0
+    torch.cuda.synchronize()
+    assert call() == 0                    # the same call, well formed
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before   # C calls, not the wrapper
+
+
+def test_sparse_entry_zeroes_its_counter(dev):
+    """B5's C entry point gives the right output whatever its counter word
+    holds at the call: garbage first, then what the first launch left."""
+    from flexam_tpu_torch.ops import build
+    fn = build.library().flexam_sparse_attention
+    pol = sp.video_sparse_policy(5, 200, ref_tokens=200, window=1)
+    rows, blk, L = pol["rows"], pol["blk"], pol["video_len"]
+    q, k, v = (_rand(dev, 1, L, 2, 128, seed=90 + i) for i in range(3))
+    kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
+    counter = torch.full((1,), 123456, dtype=torch.int32, device=dev)
+    ref = sp.masked_dense_attention(q, k, v, rows, blk)
+    before = sp.launches["sparse_attention"]
+    for _ in range(2):
+        out = torch.full_like(q, float("nan"))
+        assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  kidx.data_ptr(), nnz.data_ptr(), counter.data_ptr(), 1, 2,
+                  len(rows), blk, kidx.shape[1], 128,
+                  128 ** -0.5 * fa.LOG2E, build.stream_handle(q)) == 0
+        torch.cuda.synchronize()
+        check_sparse_attention(out, ref, "B5 from its C entry point")
+    assert sp.launches["sparse_attention"] == before   # C calls, not the wrapper
+
+
+def test_int8_entry_refuses_bad_maps(dev):
+    """B6's C entry point returns an error and launches nothing for an int8
+    or bf16 pointer off a 16-byte boundary or a head dim other than 128."""
+    from flexam_tpu_torch.ops import build
+    fn = build.library().flexam_int8_attention
+    q = _rand(dev, 1, 64, 2, 128)
+    q8, qs, k8, ks = i8.quantize_qk(q, q)
+    out = torch.empty_like(q)
+    stream = build.stream_handle(q)
+
+    def call(q8p=q8.data_ptr(), vp=q.data_ptr(), d=128):
+        return fn(q8p, k8.data_ptr(), vp, out.data_ptr(), qs.data_ptr(),
+                  ks.data_ptr(), None, 1, 2, 64, 64, d, 0.1, stream)
+
+    before = i8.launches["int8_attention"]
+    assert call(q8p=q8.data_ptr() + 1) != 0
+    assert call(vp=q.data_ptr() + 2) != 0
+    assert call(d=64) != 0
+    torch.cuda.synchronize()
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before
+
+
+def test_sparse_refuses_an_empty_block_list(dev):
+    """B5's wrapper refuses a query block with no key block (its kernel
+    needs at least one key tile an item) before any launch."""
+    q = _rand(dev, 1, 64, 2, 128)
+    before = sp.launches["sparse_attention"]
+    with pytest.raises(ValueError):
+        sp.sparse_flash_attention(q, q, q, [[0, 1], []], 32)
+    assert sp.launches["sparse_attention"] == before
