@@ -8,13 +8,17 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
   env                  torch / CUDA versions and the card (nvidia-smi);
   build                the CUDA kernels built from csrc/ (one nvcc a
                        source, all started together, then one link), with
-                       ptxas's registers / spills and the Hopper opcodes
-                       (HGMMA, IGMMA, UTMALDG, ...) in the SASS of the
-                       attention kernels B1, B2, B5 and B6;
+                       ptxas's registers / spills by kernel, the Hopper
+                       opcodes (HGMMA, IGMMA, UTMALDG, ...) in the SASS of
+                       the attention kernels B1, B2, B5 and B6, and the
+                       128-bit loads and stores of the row kernels B3, B4;
   kernels              B1, B2, B3 and B4 (both modes) at the flagship
                        shapes, B5 and B6 at the long-clip shape (23,296
                        tokens), each held to its plain PyTorch version, with
-                       its time, its bound and the library yardstick; then
+                       its time (20 back-to-back launches between two CUDA
+                       events, the median of 5 such runs, so the wrapper's
+                       host time is not counted), its bound and the library
+                       yardstick (B3/B4: GB/s beside out.copy_(x)'s); then
                        B6 on q/k whose size changes from one quantization
                        block to the next, and B2, B3 (RIFLEx tables) and B4
                        at the long path's shapes;
@@ -58,7 +62,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -88,22 +91,13 @@ def gpu_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of `fn` over `iters` runs, each timed with CUDA
-    events, after `warmup` untimed runs."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def device_ms(fn, **kw) -> float:
+    """Milliseconds per call of `fn` on the card, from back-to-back
+    launches between two CUDA events (`flexam_tpu_torch/tools/timing.py`:
+    20 calls a run, the median of 5 runs unless `kw` says otherwise), so
+    the wrapper's host time is not counted."""
+    from flexam_tpu_torch.tools.timing import device_ms as timed
+    return timed(fn, **kw)
 
 
 def compare(got, ref, bound_rel: float, name: str) -> dict:
@@ -157,13 +151,23 @@ def hopper_sass(lib: Path) -> dict:
     B6 lacks IGMMA, HGMMA or UTMALDG. Also B6's int -> float conversions
     by full opcode: I2F.*.RP comes from integer divisions (the work-item
     index); a conversion of each logit would add I2F (or I2FP) without RP.
-    Null where the toolkit has no cuobjdump."""
-    from flexam_tpu_torch.tools.attention_ab import key_opcodes, sass_opcodes
+    And the row kernels' (B3, B4) 128-bit global loads and stores, by
+    instantiation (`ln_mod_kernel<12>` serves 3072 features); fails if one
+    lacks either. Null where the toolkit has no cuobjdump."""
+    from flexam_tpu_torch.tools.attention_ab import (key_opcodes,
+                                                     sass_opcodes,
+                                                     wide_accesses)
     try:
         ops = sass_opcodes(lib)
     except (OSError, subprocess.CalledProcessError) as e:
         return {"cuobjdump": None, "reason": str(e)[:200]}
-    keys = key_opcodes(ops)
+    keys = {k: v for k, v in key_opcodes(ops).items() if k in HOPPER_OPCODES}
+    rows = {k: wide_accesses(v) for k, v in ops.items()
+            if k.startswith(("ln_mod_kernel", "rmsnorm_rope_kernel"))}
+    if len(rows) < 2 or not all(all(n.values()) for n in rows.values()):
+        raise AssertionError(f"row kernels without 128-bit global loads or "
+                             f"stores in their SASS: {rows}")
+    keys["row_kernels_128_bit"] = rows
     for kernel, need in HOPPER_OPCODES.items():
         got = keys.get(kernel, {})
         if not all(got.get(op) for op in need):
@@ -222,13 +226,14 @@ def phase_kernels(dev, results: dict) -> None:
         flops = 4.0 * B * H * L * lk * D
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound_ms(flops, nbytes)
-        ms = cuda_ms(lambda: fn(q, k, v), 10)
+        ms = device_ms(lambda: fn(q, k, v))
         lines[name] = dict(
             err, ms=ms, tflops=flops / ms / 1e9, bound_share=bms / ms,
-            plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, q_chunk=1024),
-                             3, warmup=1),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt), 10),
+            plain_ms=device_ms(lambda: fa.attention_plain(q, k, v,
+                                                          q_chunk=1024),
+                               launches=1, reps=3, warmup=1),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)),
             bound_ms=bms, bound_by=by,
             plain_compare="every query row; the plain version runs over "
                           "1024-row query chunks",
@@ -245,37 +250,60 @@ def phase_kernels(dev, results: dict) -> None:
     gamma = (1.0 + 0.1 * randn(DIM, dtype=torch.float32)).to(bf)
     tables = torch.from_numpy(make_rope_tables(D, 1024)).to(dev)
     cos, sin = build_video_rope(tables, (26, 16, 28), D)
+    # what this card streams: out.copy_(x) reads x and writes out once
+    copy_out = torch.empty_like(x)
+    copy_ms = device_ms(lambda: copy_out.copy_(x))
+    copy = dict(copy_ms=copy_ms, copy_gbps=4.0 * x.numel() / copy_ms / 1e6)
+    del copy_out
+
+    def streamed(nbytes, ms):
+        """The row kernels' bandwidth figures beside the copy's."""
+        bms, by = bound_ms(10.0 * x.numel(), nbytes)
+        return dict(ms=ms, gbps=nbytes / ms / 1e6, bound_share=bms / ms,
+                    bound_ms=bms, bound_by=by, **copy)
+
     got = fused.rmsnorm_rope(x, gamma, cos, sin, H)
     ref = fused.rmsnorm_rope_plain(x, gamma, cos, sin, H)
-    nbytes = 2.0 * 2 * x.numel() + 2 * DIM + 4.0 * 2 * cos.numel()
-    bms, by = bound_ms(10.0 * x.numel(), nbytes)
     lines["rmsnorm_rope"] = dict(
         check_rmsnorm_rope(got, ref, "rmsnorm_rope"),
-        ms=cuda_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H), 20),
-        plain_ms=cuda_ms(lambda: fused.rmsnorm_rope_plain(x, gamma, cos, sin,
-                                                          H), 10),
-        library_ms=None, bound_ms=bms, bound_by=by,
+        **streamed(2.0 * 2 * x.numel() + 2 * DIM + 4.0 * 2 * cos.numel(),
+                   device_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin,
+                                                        H))),
+        plain_ms=device_ms(lambda: fused.rmsnorm_rope_plain(x, gamma, cos, sin,
+                                                            H)),
+        library_ms=None,
         shape=f"x [{B},{L},{DIM}] bf16, tables [{L},{D // 2}] fp32")
 
-    # B4 both modes: binary (TI2V first frame known) and broadcast
+    # B4 both modes: binary (TI2V first frame known) and broadcast, with the
+    # main path's terms: the shift a fresh tensor, the scale a strided view
+    # of the [B, 2, 6, D] (binary) or [B, 1, 6, D] modulation tensor
     mask = torch.ones((B, L), device=dev)
     mask[:, 448:896] = 0.0     # the first video frame after the ref block
     for name, terms, m in (("ln_mod_binary", (B, 2, DIM), mask),
                            ("ln_mod_bcast", (B, DIM), None)):
-        sh, sc = randn(*terms, dtype=torch.float32), randn(
-            *terms, dtype=torch.float32)
+        mod = randn(B, terms[1] if m is not None else 1, 6, DIM,
+                    dtype=torch.float32)
+        sh = randn(*terms, dtype=torch.float32)
+        sc = mod[:, :, 1] if m is not None else mod[:, 0, 1]
         got = fused.ln_modulation(x, sh, sc, mask=m)
         ref = fused.ln_modulation_plain(x, sh, sc, mask=m)
-        nbytes = (2.0 * 2 * x.numel() + 4.0 * 2 * sh.numel()
-                  + (4.0 * m.numel() if m is not None else 0.0))
-        bms, by = bound_ms(10.0 * x.numel(), nbytes)
         lines[name] = dict(
             check_ln_modulation(got, ref, sh, m, name),
-            ms=cuda_ms(lambda: fused.ln_modulation(x, sh, sc, mask=m), 20),
-            plain_ms=cuda_ms(lambda: fused.ln_modulation_plain(x, sh, sc,
-                                                               mask=m), 10),
-            library_ms=None, bound_ms=bms, bound_by=by,
-            shape=f"x [{B},{L},{DIM}] bf16, shift/scale {list(terms)} fp32")
+            **streamed(2.0 * 2 * x.numel() + 4.0 * 2 * sh.numel()
+                       + (4.0 * m.numel() if m is not None else 0.0),
+                       device_ms(lambda: fused.ln_modulation(x, sh, sc,
+                                                             mask=m))),
+            plain_ms=device_ms(lambda: fused.ln_modulation_plain(x, sh, sc,
+                                                                 mask=m)),
+            library_ms=None,
+            shape=f"x [{B},{L},{DIM}] bf16, shift/scale {list(terms)} fp32 "
+                  "(scale a strided view)")
+        if m is not None:
+            # the kernel reads the strided scale as it is: its time on a
+            # contiguous copy of the same terms, beside
+            sc_c = sc.contiguous()
+            lines[name]["contiguous_terms_ms"] = device_ms(
+                lambda: fused.ln_modulation(x, sh, sc_c, mask=m))
     del x
     lines.update(long_kernels(dev, gen))
     results.update(lines)
@@ -325,13 +353,14 @@ def long_kernels(dev, gen) -> dict:
     tok_mask = bmask[tok_blk][:, tok_blk]            # [L, L] bool
     flops = 4.0 * B * H * pairs * blk * blk * D
     bms, by = bound_ms(flops, nbytes)
-    ms = cuda_ms(b5, 10)
+    ms = device_ms(b5)
     lines["sparse_attention"] = dict(
         err, ms=ms, tflops=flops / ms / 1e9, bound_share=bms / ms,
-        plain_ms=cuda_ms(lambda: sp.masked_dense_attention(q, k, v, rows,
-                                                           blk), 3, warmup=1),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=tok_mask), 10),
+        plain_ms=device_ms(lambda: sp.masked_dense_attention(q, k, v, rows,
+                                                             blk),
+                           launches=1, reps=3, warmup=1),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=tok_mask)),
         library="F.scaled_dot_product_attention with the boolean token mask",
         bound_ms=bms, bound_by=by, blocks=len(rows), blk=blk,
         active_pairs=pairs, density=pairs / len(rows) ** 2,
@@ -357,19 +386,19 @@ def long_kernels(dev, gen) -> dict:
     ops_bf = 2.0 * B * H * L * L * D        # P V in bf16
     t_ops = (ops_i8 / PEAK_INT8_OPS + ops_bf / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    ms = cuda_ms(b6, 10)
+    ms = device_ms(b6)
     lines["int8_attention"] = dict(
         err, ms=ms, tflops=(ops_i8 + ops_bf) / ms / 1e9,
         bound_share=max(t_ops, t_bytes) / ms,
         tflops_note="int8 and bf16 operations together, per second",
-        quantize_ms=cuda_ms(lambda: i8.quantize_qk(q, k), 10),
-        plain_ms=cuda_ms(lambda: i8.int8_attention_plain(q, k, v), 3,
-                         warmup=1),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                           10),
+        quantize_ms=device_ms(lambda: i8.quantize_qk(q, k)),
+        plain_ms=device_ms(lambda: i8.int8_attention_plain(q, k, v),
+                           launches=1, reps=3, warmup=1),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                    vt)),
         library="bf16 F.scaled_dot_product_attention (exact attention, not "
                 "the int8 function)",
-        b1_ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+        b1_ms=device_ms(lambda: fa.flash_attention(q, k, v)),
         b1_note="B1 at the same shape: what the auto ladder replaces (exact, "
                 "not the int8 function)",
         mean_rel_err_vs_exact=rel, mean_rel_err_bound_jax_test=0.02,
@@ -426,7 +455,7 @@ def long_path_shapes(dev, gen) -> dict:
     torch.cuda.synchronize()
     lines["long/single_kv_attention"] = dict(
         check_attention(got, ref, "long/single_kv_attention"),
-        ms=cuda_ms(lambda: fa.single_kv_attention(q, k, v), 10),
+        ms=device_ms(lambda: fa.single_kv_attention(q, k, v)),
         shape=f"q [{B},{L},{H},{D}] k/v [{B},{LT},{H},{D}] bf16")
     del q, k, v, got, ref
 
@@ -441,23 +470,26 @@ def long_path_shapes(dev, gen) -> dict:
     got = fused.rmsnorm_rope(x, gamma, cos, sin, H)
     ref = fused.rmsnorm_rope_plain(x, gamma, cos, sin, H)
     torch.cuda.synchronize()
+    ms = device_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H))
     lines["long/rmsnorm_rope"] = dict(
         check_rmsnorm_rope(got, ref, "long/rmsnorm_rope"),
-        ms=cuda_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H), 20),
+        ms=ms, gbps=(4.0 * x.numel() + 8.0 * cos.numel()) / ms / 1e6,
         riflex={"k": 6, "L_test": 51}, grid=[52, 16, 28],
         shape=f"x [{B},{L},{DIM}] bf16, tables [{L},{D // 2}] fp32")
     del got, ref
 
     mask = torch.ones((B, L), device=dev)
     mask[:, 448:896] = 0.0     # the first video frame after the ref block
+    # the scale a strided view of the modulation tensor, as on the main path
     sh = randn(B, 2, DIM, dtype=torch.float32)
-    sc = randn(B, 2, DIM, dtype=torch.float32)
+    sc = randn(B, 2, 6, DIM, dtype=torch.float32)[:, :, 1]
     got = fused.ln_modulation(x, sh, sc, mask=mask)
     ref = fused.ln_modulation_plain(x, sh, sc, mask=mask)
     torch.cuda.synchronize()
+    ms = device_ms(lambda: fused.ln_modulation(x, sh, sc, mask=mask))
     lines["long/ln_mod_binary"] = dict(
         check_ln_modulation(got, ref, sh, mask, "long/ln_mod_binary"),
-        ms=cuda_ms(lambda: fused.ln_modulation(x, sh, sc, mask=mask), 20),
+        ms=ms, gbps=4.0 * x.numel() / ms / 1e6,
         shape=f"x [{B},{L},{DIM}] bf16, shift/scale [{B},2,{DIM}] fp32")
     return lines
 
@@ -911,6 +943,8 @@ def main() -> int:
         return 3
     from flexam_tpu_torch.config import WAN22_5B_FLEXAM
     from flexam_tpu_torch.ops import build
+    from flexam_tpu_torch.tools.attention_ab import (ptxas_resources,
+                                                     wgmma_notes)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -927,14 +961,12 @@ def main() -> int:
     build.library()
     log = Path(build.build_info.get("log", "")) if build.build_info.get(
         "log") else None
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln or "wgmma" in ln
-              or ln.startswith("== ")]
-             if log else [])
+    text = log.read_text() if log else ""
     lib = build.library()
     emit("build", t0, nvcc_seconds=build.build_info["seconds"],
          nvcc_compile_seconds=build.build_info.get("compile_seconds"),
-         cached=build.build_info["cached"], ptxas=ptxas,
+         cached=build.build_info["cached"], ptxas=ptxas_resources(text),
+         wgmma_notes=wgmma_notes(text),
          attention_smem_bytes=lib.flexam_attention_smem_bytes(),
          int8_attention_smem_bytes=lib.flexam_int8_attention_smem_bytes(),
          attention_sass=hopper_sass(Path(build.build_info["path"])))
@@ -958,7 +990,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({k: r[k] for k in ("tflops", "bound_share") if k in r})})
+            **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
+                if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

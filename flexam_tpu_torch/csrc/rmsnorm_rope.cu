@@ -10,79 +10,143 @@
 //   3. pair j of each head (y[2j], y[2j+1]) rotated in fp32 by the half
 //      tables cos/sin [L_rot, dh/2] (token s < L_rot; later tokens pass
 //      through), then cast to bf16.
-// Each thread owns whole pairs, so the rotation needs no shuffle, and the
-// tables are read as they are (no sign-folded full-width expansion).
 // Multiplies and adds use the _rn intrinsics so that nvcc does not contract
 // them into FMAs: the result then rounds as the plain PyTorch version does.
 //
 // What bounds it on an H100: it reads x and writes the output once (4 bytes
-// a feature) and does a few flops per byte, so memory bandwidth bounds it.
-// One block per token row; the row is read once for the sum of squares and
-// once more (from L1) for the output.
+// a feature) and does a few flops per byte, so memory bandwidth does, and
+// HBM stays busy only with tens of KB in flight on each SM. The design
+// streams rows:
+//   * one warp a token row, held in registers as 16-byte vectors (all of a
+//     lane's loads issued before any is used); the sum of squares reduced by
+//     warp shuffles (no block barrier); 16-byte stores;
+//   * persistent CTAs, gridDim.y = batch; gamma is read once per CTA into
+//     shared memory (each lane reads its own columns' 16-byte vectors of
+//     it; held in registers beside the row, it took 209 registers at
+//     D = 3072, one CTA an SM, and spilled at 5120);
+//   * bf16(x * inv) * gamma as one bf16x2 multiply a pair;
+//   * a lane's 8 columns are 4 consecutive rotation pairs of one head (dh a
+//     multiple of 8), so its cos and sin are one float4 each from the
+//     token's table row; the column's table offset is computed once per CTA.
 
 #include "common.cuh"
 
 namespace {
 
 using flexam::bf16;
-using flexam::round_bf16;
 
-__global__ void rmsnorm_rope_kernel(const bf16* __restrict__ x,
-                                    const bf16* __restrict__ gamma,
-                                    const float* __restrict__ cos_t,
-                                    const float* __restrict__ sin_t,
-                                    bf16* __restrict__ out, int S, int D, int half_dh,
-                                    int L_rot, float eps) {
-  __shared__ float scratch[32];
-  const int row = blockIdx.x;
-  const int s = row % S;
-  const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * D);
-  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(gamma);
-  __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D);
-  const int pairs = D / 2;
+constexpr int kThreads = 256;       // 8 warps, a token row each at a time
 
-  float ss = 0.f;
-  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const float2 v = __bfloat1622float2(xr[p]);
-    ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)));
-  }
-  ss = flexam::block_sum(ss, scratch);
-  const float inv = 1.f / sqrtf(ss / (float)D + eps);
-  const bool rotate = s < L_rot;
+template <int NV>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_rope_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                    bf16* __restrict__ out, int S, int D, int half_dh, int L_rot,
+                    float eps) {
+  __shared__ uint4 g_smem[NV * 32];
+  const int b = blockIdx.y;
+  const int nvec = D >> 3;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * (kThreads / 32);
+  int s = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
 
-  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const float2 v = __bfloat1622float2(xr[p]);
-    const float2 g = __bfloat1622float2(g2[p]);
-    const float ye = round_bf16(__fmul_rn(round_bf16(__fmul_rn(v.x, inv)), g.x));
-    const float yo = round_bf16(__fmul_rn(round_bf16(__fmul_rn(v.y, inv)), g.y));
-    if (rotate) {
-      const int j = p % half_dh;
-      const float c = cos_t[(size_t)s * half_dh + j];
-      const float sn = sin_t[(size_t)s * half_dh + j];
-      orow[p] = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(ye, c), __fmul_rn(yo, sn)),
-                                      __fadd_rn(__fmul_rn(ye, sn), __fmul_rn(yo, c)));
-    } else {
-      orow[p] = __floats2bfloat162_rn(ye, yo);
+  uint4 xv[NV];
+  if (s < S) flexam::load_row<NV>(x + ((size_t)b * S + s) * D, lane, nvec, xv);
+  int j0[NV];                       // table offset of each vector's first pair
+#pragma unroll
+  for (int i = 0; i < NV; ++i) j0[i] = ((lane + 32 * i) * 4) % half_dh;
+  for (int c = threadIdx.x; c < nvec; c += kThreads)
+    g_smem[c] = reinterpret_cast<const uint4*>(gamma)[c];
+  __syncthreads();
+
+  while (s < S) {
+    bf16* orow = out + ((size_t)b * S + s) * D;
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      uint32_t w[4];
+      flexam::words(xv[i], w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float lo = flexam::bf16_lo(w[k]), hi = flexam::bf16_hi(w[k]);
+        ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(lo, lo), __fmul_rn(hi, hi)));
+      }
     }
+    const float inv = 1.f / sqrtf(flexam::warp_sum(ss) / (float)D + eps);
+    const bool rotate = s < L_rot;
+    const float* crow = cos_t + (size_t)s * half_dh;
+    const float* srow = sin_t + (size_t)s * half_dh;
+
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= nvec) continue;
+      uint32_t w[4], g[4];
+      flexam::words(xv[i], w);
+      flexam::words(g_smem[c], g);
+      // bf16(x * inv) * gamma in bf16x2
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = flexam::mul_bf16x2(
+            flexam::pack_bf16(__fmul_rn(flexam::bf16_lo(w[k]), inv),
+                              __fmul_rn(flexam::bf16_hi(w[k]), inv)), g[k]);
+      if (rotate) {
+        const float4 cv = __ldg(reinterpret_cast<const float4*>(crow + j0[i]));
+        const float4 sv = __ldg(reinterpret_cast<const float4*>(srow + j0[i]));
+        const float cs[4] = {cv.x, cv.y, cv.z, cv.w}, sn[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float ye = flexam::bf16_lo(w[p]), yo = flexam::bf16_hi(w[p]);
+          w[p] = flexam::pack_bf16(__fsub_rn(__fmul_rn(ye, cs[p]), __fmul_rn(yo, sn[p])),
+                                   __fadd_rn(__fmul_rn(ye, sn[p]), __fmul_rn(yo, cs[p])));
+        }
+      }
+      reinterpret_cast<uint4*>(orow)[c] = flexam::vec(w);
+    }
+
+    s += stride;
+    if (s < S) flexam::load_row<NV>(x + ((size_t)b * S + s) * D, lane, nvec, xv);
   }
+}
+
+template <int NV>
+int launch(const void* x, const void* gamma, const void* cos_t, const void* sin_t,
+           void* out, int B, int S, int D, int dh, int L_rot, float eps,
+           cudaStream_t stream) {
+  const int gx = flexam::persistent_ctas(rmsnorm_rope_kernel<NV>, kThreads, 0, B,
+                                         (S + kThreads / 32 - 1) / (kThreads / 32));
+  rmsnorm_rope_kernel<NV><<<dim3(gx, B), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<bf16*>(out), S, D, dh / 2, L_rot, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// B3. x/gamma/out bf16, x and out [rows = B * S, D]; cos/sin fp32
-// [L_rot, dh/2]. Returns a cudaError_t (0 on a clean launch).
+// B3. x/gamma/out bf16, x and out [B, S, D]; cos/sin fp32 [L_rot, dh/2].
+// dh a multiple of 8 dividing D, D up to 8192; every pointer 16-byte
+// aligned. Returns a cudaError_t (0 on a clean launch).
 int flexam_rmsnorm_rope(const void* x, const void* gamma, const void* cos_t,
-                        const void* sin_t, void* out, int rows, int S, int D, int dh,
+                        const void* sin_t, void* out, int B, int S, int D, int dh,
                         int L_rot, float eps, void* stream) {
-  if (rows <= 0 || S <= 0 || D <= 0 || dh <= 0 || dh % 2 != 0 || D % dh != 0)
+  if (B <= 0 || S <= 0 || D <= 0 || dh <= 0 || dh % 8 != 0 || D % dh != 0 ||
+      B > 65535 || L_rot < 0 ||
+      ((uintptr_t)x | (uintptr_t)gamma | (uintptr_t)cos_t | (uintptr_t)sin_t |
+       (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  rmsnorm_rope_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<bf16*>(out), S, D, dh / 2, L_rot, eps);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (flexam::row_vectors(D)) {
+#define FLEXAM_CASE(n) \
+  case n:              \
+    return launch<n>(x, gamma, cos_t, sin_t, out, B, S, D, dh, L_rot, eps, st);
+    FLEXAM_ROW_VECTORS(FLEXAM_CASE)
+#undef FLEXAM_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -38,7 +38,8 @@ SIGNATURES = {
                                    _F, _P],
     "flexam_attention_smem_bytes": [],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "flexam_ln_modulation": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "flexam_ln_modulation": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _P],
     "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
     "flexam_int8_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -10,7 +10,10 @@ Port of `flexam_tpu/ops/fused.py`. The CUDA kernels live in
     TI2V binary-timestep select (mask given: [B, 2, D] shift/scale pairs) or
     per-batch terms (no mask: [B, D]).
 
-A CUDA tensor (bf16, the DiT's compute dtype) launches the kernel or
+Both kernels stream token rows, a warp a row held in registers as 16-byte
+vectors; they take x 16-byte aligned with a width that is a multiple of 8
+up to `MAX_FEATURES` (B3: a head_dim that is a multiple of 8), and B4 reads
+its terms through their strides. A CUDA tensor (bf16, the DiT's compute dtype) launches the kernel or
 raises; a CPU tensor takes the plain version, which repeats the JAX math op
 for op (`core/layers.rms_norm` + `core/rope.apply_rope`; `_ln_mod_unfused`).
 """
@@ -53,22 +56,75 @@ def ln_modulation_plain(x: torch.Tensor, shift: torch.Tensor,
             + shift.to(dtype)[:, None]).to(dtype)
 
 
+# widest row the kernels hold in registers (csrc/common.cuh kMaxRowVectors
+# 16-byte vectors a lane, 32 lanes, 8 bf16 a vector)
+MAX_FEATURES = 8192
+
+
 def _check_x(x: torch.Tensor, name: str) -> None:
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous x [B, S, D], got "
                          f"{tuple(x.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bf16, got {x.dtype}")
+    if x.shape[2] % 8 or x.shape[2] > MAX_FEATURES:
+        raise ValueError(f"{name}: the kernel takes widths that are a "
+                         f"multiple of 8 up to {MAX_FEATURES}, got "
+                         f"{x.shape[2]}")
+    _aligned(x, name)
 
 
-def _on(t: torch.Tensor, like: torch.Tensor, dtype, shape, name: str):
-    """t as a contiguous `dtype` tensor of `shape` on like's device."""
+def _aligned(t: torch.Tensor, name: str) -> torch.Tensor:
+    """t, if its data starts on a 16-byte boundary (the kernels' vector
+    loads need it); raise otherwise."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: a tensor's data is not 16-byte aligned "
+                         f"(a view at an offset?)")
+    return t
+
+
+def _check_on(t: torch.Tensor, like: torch.Tensor, shape, name: str):
     if t.device != like.device:
         raise ValueError(f"{name}: all inputs must be on {like.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+
+
+def _on(t: torch.Tensor, like: torch.Tensor, dtype, shape, name: str):
+    """t as a contiguous `dtype` tensor of `shape` on like's device."""
+    _check_on(t, like, shape, name)
     return t.to(dtype).contiguous()
+
+
+def _terms(t: torch.Tensor, like: torch.Tensor, shape, name: str):
+    """t as an fp32 tensor of `shape` whose last dim is contiguous (a
+    strided view of the modulation tensor passes as it is), with its
+    strides in elements: (t, batch stride, branch stride or 0)."""
+    _check_on(t, like, shape, name)
+    if t.dtype != torch.float32 or t.stride(-1) != 1:
+        t = t.to(torch.float32).contiguous()
+    return t, t.stride(0), t.stride(1) if t.dim() == 3 else 0
+
+
+def rmsnorm_rope_args(x: torch.Tensor, gamma: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      num_heads: int) -> tuple:
+    """The checked arguments of B3's kernel: (gamma, cos, sin) as the kernel
+    reads them, and head_dim. Raises on what the kernel does not take."""
+    name = "rmsnorm_rope"
+    _check_x(x, name)
+    d = x.shape[2]
+    dh = d // num_heads
+    if d % num_heads or dh % 8:
+        raise ValueError(f"{name}: the kernel takes heads of a head_dim that "
+                         f"is a multiple of 8; {d} features do not split so "
+                         f"into {num_heads} heads")
+    lr = cos.shape[0]
+    return (_aligned(_on(gamma, x, x.dtype, (d,), name), name),
+            _aligned(_on(cos, x, torch.float32, (lr, dh // 2), name), name),
+            _aligned(_on(sin, x, torch.float32, (lr, dh // 2), name), name),
+            dh)
 
 
 def rmsnorm_rope(x: torch.Tensor, gamma: torch.Tensor, cos: torch.Tensor,
@@ -78,25 +134,32 @@ def rmsnorm_rope(x: torch.Tensor, gamma: torch.Tensor, cos: torch.Tensor,
     cos/sin are the [L_rot, dh/2] half tables; returns [B, S, H, dh]."""
     if not x.is_cuda:
         return rmsnorm_rope_plain(x, gamma, cos, sin, num_heads, eps)
-    name = "rmsnorm_rope"
-    _check_x(x, name)
+    g, c, sn, dh = rmsnorm_rope_args(x, gamma, cos, sin, num_heads)
     b, s, d = x.shape
-    dh = d // num_heads
-    if d % num_heads or dh % 2:
-        raise ValueError(f"{name}: {d} features do not split into "
-                         f"{num_heads} heads of an even head_dim")
-    g = _on(gamma, x, x.dtype, (d,), name)
-    lr = cos.shape[0]
-    c = _on(cos, x, torch.float32, (lr, dh // 2), name)
-    sn = _on(sin, x, torch.float32, (lr, dh // 2), name)
     out = torch.empty_like(x)
     err = build.library().flexam_rmsnorm_rope(
         x.data_ptr(), g.data_ptr(), c.data_ptr(), sn.data_ptr(),
-        out.data_ptr(), b * s, s, d, dh, lr, float(eps),
+        out.data_ptr(), b, s, d, dh, c.shape[0], float(eps),
         build.stream_handle(x))
-    build.check(err, name)
-    launches[name] += 1
+    build.check(err, "rmsnorm_rope")
+    launches["rmsnorm_rope"] += 1
     return out.view(b, s, num_heads, dh)
+
+
+def ln_modulation_args(x: torch.Tensor, shift: torch.Tensor,
+                       scale: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> tuple:
+    """The checked arguments of B4's kernel: (shift, batch stride, branch
+    stride, scale, batch stride, branch stride, mask). Raises on what the
+    kernel does not take."""
+    name = "ln_mod_binary" if mask is not None else "ln_mod_bcast"
+    _check_x(x, name)
+    b, s, d = x.shape
+    terms = (b, 2, d) if mask is not None else (b, d)
+    m = _on(mask, x, torch.float32, (b, s), name) if mask is not None \
+        else None
+    return (*_terms(shift, x, terms, name), *_terms(scale, x, terms, name),
+            m)
 
 
 def ln_modulation(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
@@ -104,25 +167,22 @@ def ln_modulation(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """B4: fused affine-free LayerNorm + `ln*(1+scale)+shift` over
     x [B, S, D]. Binary mode (mask [B, S] given): shift/scale [B, 2, D]
-    pairs, row 0 where mask = 1, row 1 where mask = 0. Broadcast mode:
-    shift/scale [B, D] (or [B, 1, D])."""
+    pairs, row 0 where mask = 1, row 1 where mask = 0, the fp32 mix of the
+    two elsewhere. Broadcast mode: shift/scale [B, D] (or [B, 1, D]). The
+    terms may be strided views whose last dim is contiguous."""
     if mask is None and shift.dim() == 3:
         shift, scale = shift[:, 0], scale[:, 0]
     if not x.is_cuda:
         return ln_modulation_plain(x, shift, scale, mask, eps)
     name = "ln_mod_binary" if mask is not None else "ln_mod_bcast"
-    _check_x(x, name)
+    sh, sh_b, sh_r, sc, sc_b, sc_r, m = ln_modulation_args(x, shift, scale,
+                                                           mask)
     b, s, d = x.shape
-    terms = (b, 2, d) if mask is not None else (b, d)
-    sh = _on(shift, x, torch.float32, terms, name)
-    sc = _on(scale, x, torch.float32, terms, name)
-    m = _on(mask, x, torch.float32, (b, s), name) if mask is not None \
-        else None
     out = torch.empty_like(x)
     err = build.library().flexam_ln_modulation(
         x.data_ptr(), sh.data_ptr(), sc.data_ptr(),
         m.data_ptr() if m is not None else None, out.data_ptr(),
-        b * s, s, d, float(eps), build.stream_handle(x))
+        b, s, d, sh_b, sh_r, sc_b, sc_r, float(eps), build.stream_handle(x))
     build.check(err, name)
     launches[name] += 1
     return out

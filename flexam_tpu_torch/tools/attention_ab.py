@@ -1,35 +1,45 @@
-"""B1, B2, B5 and B6 built from several source trees, side by side on one
-CUDA card.
+"""B1-B6 built from several source trees, side by side on one CUDA card.
 
     python -m flexam_tpu_torch.tools.attention_ab --other LABEL=DIR [...]
 
 Each DIR is the root of another checkout (for example the parent commit,
 unpacked with `git archive` into a git-ignored directory); this tree is
-"this". Each tree's `flexam_tpu_torch/csrc/{flash,sparse,int8}_attention.cu`
-are built as this tree's `ops/build.py` builds its library (one `nvcc -c`
-a source, all started together, then one link), into
+"this". Each tree's `flexam_tpu_torch/csrc/` kernels (`SOURCES`: the
+attention kernels and the row kernels B3, B4) are built by
+`build.compile_library`, as the port's library is built, into
 `build/attention_ab/<label>/`, where its SASS is written too
 (`<label>.sass`); each tree's entry points are bound with the ctypes
-signatures of its own `ops/build.py`. The script prints one JSON line per
-result:
+signatures of its own `ops/build.py`, and B3's and B4's arguments are
+passed by the parameter names of the tree's C declarations. The script
+prints one JSON line per result:
 
   * "resources": each kernel's ptxas registers / spills / static shared
     memory, the dynamic shared memory a CTA takes (where the tree's library
     reports it), any ptxas note on wgmma, the counts of the opcodes that
-    tell the designs apart (HGMMA, IGMMA, UTMALDG, ...), its SASS
+    tell the designs apart (HGMMA, IGMMA, UTMALDG, ...) and of 128-bit
+    global loads and stores (LDG.E.128 / STG.E.128, any suffix), its SASS
     instruction count, and the opcodes whose counts differ from the first
-    other tree's;
+    other tree's. A kernel instantiated for several row widths (B3, B4) is
+    reported at the flagship width's instantiation (`FLAGSHIP_NV`);
   * "within_bound": each build's output held to the plain version by the
     kernel's check in `testing` (the designs sum in different orders, so
     their outputs are compared with the bound, not bit for bit), with the
     worst element's error over its bound;
   * "timing": B1 at the flagship self-attention shape (q/k/v
-    [2, 11648, 24, 128] bf16), B2 (k/v [2, 512, 24, 128]), and B5 (the
-    w=2 policy: 26 blocks of 896) and B6 at the long-clip shape (q/k/v
-    [2, 23296, 24, 128]), the trees in order and then in reverse order
-    (repeated), each leg the median of CUDA-event-timed launches, and each
-    tree's median over the first's. B6 times its kernel alone, on q/k
-    quantized once by this tree's wrapper;
+    [2, 11648, 24, 128] bf16), B2 (k/v [2, 512, 24, 128]), B5 (the w=2
+    policy: 26 blocks of 896) and B6 at the long-clip shape (q/k/v
+    [2, 23296, 24, 128]), B4 (binary and broadcast) and B3 at the flagship
+    shape (x [2, 11648, 3072] bf16), B4 binary and B3 with the RIFLEx
+    tables at the long path's (x [2, 23296, 3072]); the trees in order and
+    then in reverse order (repeated), each leg `timing.device_ms` (20
+    back-to-back launches between two events, the median of 5 such runs),
+    each tree's median over the first's. B6 times its kernel alone, on q/k
+    quantized once by this tree's wrapper. B3/B4 also time `out.copy_(x)`
+    in the same rounds (what the card streams) and give each tree's GB/s
+    and share of the bound (x read and the output written once at
+    3.35 TB/s). B4 gets the main path's terms: strided views of a
+    [B, 2, 6, D] modulation tensor where the tree's entry point takes
+    strides, contiguous copies (made once) where it does not;
 
 then the nvidia-smi name and power limit.
 """
@@ -50,20 +60,29 @@ from pathlib import Path
 
 import torch
 
+from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
 from flexam_tpu_torch.ops import build
 from flexam_tpu_torch.ops.flash_attention import LOG2E, attention_plain
+from flexam_tpu_torch.ops.fused import ln_modulation_plain, rmsnorm_rope_plain
 from flexam_tpu_torch.ops.int8_attention import (int8_attention_plain,
                                                  quantize_qk)
 from flexam_tpu_torch.ops.sparse_attention import (masked_dense_attention,
                                                    rows_to_arrays,
                                                    video_sparse_policy)
 from flexam_tpu_torch.testing import (check_attention, check_int8_attention,
+                                      check_ln_modulation, check_rmsnorm_rope,
                                       check_sparse_attention)
+from flexam_tpu_torch.tools.timing import device_ms
 
 ENTRY_POINTS = ("flexam_flash_attention", "flexam_single_kv_attention",
-                "flexam_sparse_attention", "flexam_int8_attention")
+                "flexam_sparse_attention", "flexam_int8_attention",
+                "flexam_ln_modulation", "flexam_rmsnorm_rope")
 KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
-           "int8_attention_kernel")
+           "int8_attention_kernel", "ln_mod_kernel", "rmsnorm_rope_kernel")
+# the row kernels' instantiation at the flagship width (3072 features: 12
+# 16-byte vectors a lane)
+FLAGSHIP_NV = 12
+PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 # opcodes that tell a Hopper design (wgmma: HGMMA for bf16, IGMMA for int8;
 # TMA; mbarriers) from an mma.sync one (HMMA, IMMA), and B6's int -> float
 # conversions (I2F, I2FP)
@@ -71,7 +90,8 @@ KEY_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA", "IMMA",
                "LDSM", "LDS", "STS", "BAR", "I2F", "I2FP", "MUFU")
 
 
-SOURCES = ("flash_attention.cu", "sparse_attention.cu", "int8_attention.cu")
+SOURCES = ("flash_attention.cu", "sparse_attention.cu", "int8_attention.cu",
+           "ln_modulation.cu", "rmsnorm_rope.cu")
 
 
 def compile_tree(root: Path, label: str) -> tuple:
@@ -85,15 +105,50 @@ def compile_tree(root: Path, label: str) -> tuple:
     return lib, log
 
 
+def c_params(root: Path, source: str, entry: str) -> list:
+    """Parameter names of the C entry point `entry` in root's csrc/`source`
+    (empty if the source does not declare it)."""
+    src = (root / "flexam_tpu_torch" / "csrc" / source).read_text()
+    params = re.search(rf"int {entry}\(([^)]*)\)", src)
+    if not params:
+        return []
+    return [re.findall(r"\w+", p)[-1] for p in params.group(1).split(",")
+            if p.strip()]
+
+
 def takes_counter(root: Path) -> bool:
     """Whether root's B5 entry point takes a work counter (the Hopper B5
     does; the mma.sync one before it does not), read from the parameter
     names of its C declaration."""
-    src = (root / "flexam_tpu_torch" / "csrc" / "sparse_attention.cu"
-           ).read_text()
-    params = re.search(r"int flexam_sparse_attention\(([^)]*)\)", src)
-    return bool(params) and re.search(r"\bcounter\b",
-                                      params.group(1)) is not None
+    return "counter" in c_params(root, "sparse_attention.cu",
+                                 "flexam_sparse_attention")
+
+
+def kernel_label(symbol: str):
+    """The kernel of KERNELS a (mangled) symbol names, with its template
+    argument where it has one ("ln_mod_kernel<12>"); None for any other
+    symbol."""
+    for k in KERNELS:
+        i = symbol.find(k)
+        if i >= 0:
+            nv = re.match(r"ILi(\d+)E", symbol[i + len(k):])
+            return f"{k}<{nv.group(1)}>" if nv else k
+    return None
+
+
+def flagship(by_label: dict, kernel: str):
+    """The entry of `kernel` in a dict keyed by `kernel_label`: the kernel
+    itself, or its instantiation at the flagship width."""
+    return by_label.get(kernel, by_label.get(f"{kernel}<{FLAGSHIP_NV}>"))
+
+
+def wide_accesses(ops) -> dict:
+    """Counts of 128-bit global loads and stores in a kernel's SASS opcode
+    counts (LDG.E.128, LDG.E.128.CONSTANT, STG.E.128, ...)."""
+    return {f"{op}.E.128": sum(n for name, n in ops.items()
+                               if name.split(".")[0] == op
+                               and ".128" in name)
+            for op in ("LDG", "STG")}
 
 
 def tree_signatures(root: Path) -> dict:
@@ -107,12 +162,13 @@ def tree_signatures(root: Path) -> dict:
 
 
 def ptxas_resources(log: str) -> dict:
-    """{kernel: "Used N registers, ... / spill line"} from `ptxas -v`."""
+    """{kernel label: "Used N registers, ... / spill line"} from
+    `ptxas -v`."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = next((k for k in KERNELS if k in m.group(1)), None)
+            fn = kernel_label(m.group(1))
         elif fn and ("registers" in line or "spill" in line):
             out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     return {k: " / ".join(v) for k, v in out.items()}
@@ -132,8 +188,8 @@ def key_opcodes(ops: dict) -> dict:
 
 
 def sass_opcodes(lib: Path) -> dict:
-    """{kernel: Counter of SASS opcodes} from cuobjdump; the listing is
-    written beside the library."""
+    """{kernel label: Counter of SASS opcodes} from cuobjdump; the listing
+    is written beside the library."""
     tool = shutil.which("cuobjdump") or str(
         Path(build._nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -143,7 +199,7 @@ def sass_opcodes(lib: Path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = next((k for k in KERNELS if k in m.group(1)), None)
+            fn = kernel_label(m.group(1))
             if fn:
                 out[fn] = collections.Counter()
             continue
@@ -231,19 +287,18 @@ def int8_launcher(dll, quantized, v, out):
     return run
 
 
-def leg_ms(run, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        run()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        run()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def row_launcher(dll, root: Path, entry: str, source: str, values: dict):
+    """B3 / B4 from `dll`, its arguments passed by the parameter names of
+    root's C declaration of `entry` (`values` maps every name a tree's
+    declaration may use to its argument, and "tensors" to the tensors
+    behind the pointers)."""
+    fn = getattr(dll, entry)
+    args = tuple(values[n] for n in c_params(root, source, entry))
+
+    def run():
+        build.check(fn(*args), entry)
+    run.tensors = values["tensors"]
+    return run
 
 
 def main() -> int:
@@ -264,10 +319,14 @@ def main() -> int:
         libs[label] = load(lib, root)
         ops = sass_opcodes(lib)
         keys = key_opcodes(ops)
-        res[label] = {k: {"ptxas": ptxas_resources(log).get(k),
+        ptxas = ptxas_resources(log)
+        res[label] = {k: {"ptxas": flagship(ptxas, k),
                           "dynamic_smem_bytes": dynamic_smem(libs[label], k),
-                          "key_opcodes": keys.get(k),
-                          "sass_instructions": sum(ops.get(k, {}).values())}
+                          "key_opcodes": flagship(keys, k),
+                          "wide_accesses": wide_accesses(
+                              flagship(ops, k) or {}),
+                          "sass_instructions": sum(
+                              (flagship(ops, k) or {}).values())}
                       for k in KERNELS}
         res[label]["wgmma_notes"] = wgmma_notes(log)
         res[label]["_ops"] = ops
@@ -276,8 +335,8 @@ def main() -> int:
         if label == first:
             continue
         for k in KERNELS:
-            a = res[first]["_ops"].get(k, {})
-            b = res[label]["_ops"].get(k, {})
+            a = flagship(res[first]["_ops"], k) or {}
+            b = flagship(res[label]["_ops"], k) or {}
             diff.setdefault(label, {})[k] = {
                 op: [a.get(op, 0), b.get(op, 0)]
                 for op in sorted(set(a) | set(b)) if a.get(op, 0) != b.get(op, 0)}
@@ -291,9 +350,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     B, H, D, L, LT, LL = 2, 24, 128, 11648, 512, 52 * 448
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     def attention_case(name, q, k, v):
         outs = {lb: torch.empty_like(q) for lb in trees}
@@ -323,9 +381,70 @@ def main() -> int:
         return runs, outs, lambda: int8_attention_plain(q, k, v), \
             check_int8_attention
 
+    def rows_x(L):
+        """x [B, L, 3072] bf16 whose rows have their own offset and scale,
+        as DiT hidden states have (so B4's mean subtraction matters)."""
+        f = torch.float32
+        return (randn(B, L, H * D, dtype=f)
+                * torch.exp(0.5 * randn(B, L, 1, dtype=f))
+                + 4.0 * randn(B, L, 1, dtype=f)).to(torch.bfloat16)
+
+    def ln_case(x, binary):
+        b, s, d = x.shape
+        mod = randn(b, 2, 6, d, dtype=torch.float32)   # the main path's terms
+        sh, sc = (mod[:, :, 0], mod[:, :, 1]) if binary \
+            else (mod[:, 0, 0], mod[:, 0, 1])
+        mask = None
+        if binary:
+            mask = torch.ones((b, s), device=dev)
+            mask[:, 448:896] = 0.0       # the first video frame, known
+        outs = {lb: torch.empty_like(x) for lb in trees}
+        runs = {}
+        for lb, root in trees.items():
+            strided = "sh_b" in c_params(root, "ln_modulation.cu",
+                                         "flexam_ln_modulation")
+            tsh, tsc = (sh, sc) if strided else (sh.contiguous(),
+                                                 sc.contiguous())
+            runs[lb] = row_launcher(libs[lb], root, "flexam_ln_modulation",
+                                    "ln_modulation.cu", dict(
+                x=x.data_ptr(), shift=tsh.data_ptr(), scale=tsc.data_ptr(),
+                mask=mask.data_ptr() if binary else None,
+                out=outs[lb].data_ptr(), rows=b * s, B=b, S=s, D=d,
+                sh_b=tsh.stride(0), sh_r=tsh.stride(1) if binary else 0,
+                sc_b=tsc.stride(0), sc_r=tsc.stride(1) if binary else 0,
+                eps=1e-6, stream=build.stream_handle(x),
+                tensors=(x, tsh, tsc, mask, outs[lb])))
+        nbytes = 4.0 * x.numel() + 4.0 * 2 * sh.numel() \
+            + (4.0 * mask.numel() if binary else 0.0)
+        return runs, outs, lambda: ln_modulation_plain(x, sh, sc, mask=mask), \
+            lambda got, ref, name: check_ln_modulation(got, ref, sh, mask,
+                                                       name), nbytes
+
+    def rms_case(x, grid, riflex=None):
+        b, s, d = x.shape
+        gamma = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(x.dtype)
+        tables = torch.from_numpy(make_rope_tables(D, 1024, riflex=riflex))
+        cos, sin = (t.float().contiguous() for t in
+                    build_video_rope(tables.to(dev), grid, D))
+        outs = {lb: torch.empty_like(x) for lb in trees}
+        runs = {lb: row_launcher(libs[lb], root, "flexam_rmsnorm_rope",
+                                 "rmsnorm_rope.cu", dict(
+            x=x.data_ptr(), gamma=gamma.data_ptr(), cos_t=cos.data_ptr(),
+            sin_t=sin.data_ptr(), out=outs[lb].data_ptr(), rows=b * s, B=b,
+            S=s, D=d, dh=D, L_rot=cos.shape[0], eps=1e-6,
+            stream=build.stream_handle(x),
+            tensors=(x, gamma, cos, sin, outs[lb])))
+            for lb, root in trees.items()}
+        nbytes = 4.0 * x.numel() + 2.0 * d + 4.0 * 2 * cos.numel()
+        return runs, outs, lambda: rmsnorm_rope_plain(
+            x, gamma, cos, sin, H).reshape(b, s, d), check_rmsnorm_rope, nbytes
+
     within, timing, failed = {}, {}, []
 
-    def run_case(case, runs, outs, ref_fn, check):
+    def run_case(case, runs, outs, ref_fn, check, nbytes=None):
+        """Hold each tree's output to the plain version, then time the
+        trees in turns; a row kernel (`nbytes` given) has `out.copy_(x)`
+        timed beside it, with the copy's bytes (x read, out written)."""
         for run in runs.values():
             run()
         torch.cuda.synchronize()
@@ -344,15 +463,26 @@ def main() -> int:
             lb: bool(torch.equal(outs[lb], outs["this"]))
             for lb in runs if lb != "this"}
         del ref
-        legs = {lb: [] for lb in runs}
-        order = list(runs)
+        timed = dict(runs)
+        x = None
+        if nbytes is not None:
+            x = next(iter(runs.values())).tensors[0]
+            copy_out = torch.empty_like(x)
+            timed["copy"] = lambda: copy_out.copy_(x)
+        legs = {lb: [] for lb in timed}
+        order = list(timed)
         for _ in range(args.rounds):
             for lb in order + order[::-1]:
-                legs[lb].append(leg_ms(runs[lb]))
+                legs[lb].append(device_ms(timed[lb]))
         timing[case] = {lb: {"legs_ms": v, "median_ms": statistics.median(v),
                              f"over_{first}": statistics.median(v)
                              / statistics.median(legs[first])}
                         for lb, v in legs.items()}
+        if nbytes is not None:
+            for lb, t in timing[case].items():
+                moved = 4.0 * x.numel() if lb == "copy" else nbytes
+                t.update(gbps=moved / t["median_ms"] / 1e6,
+                         bound_share=moved / PEAK_BYTES * 1e3 / t["median_ms"])
 
     q = randn(B, L, H, D)
     for case, name, lk in (("B1 flash_kernel", "flexam_flash_attention", L),
@@ -364,6 +494,16 @@ def main() -> int:
     q, k, v = randn(B, LL, H, D), randn(B, LL, H, D), randn(B, LL, H, D)
     run_case("B5 sparse_attention_kernel", *sparse_case(q, k, v))
     run_case("B6 int8_attention_kernel", *int8_case(q, k, v))
+    del q, k, v
+    x = rows_x(L)
+    run_case("B4 ln_mod_kernel binary", *ln_case(x, True))
+    run_case("B4 ln_mod_kernel broadcast", *ln_case(x, False))
+    run_case("B3 rmsnorm_rope_kernel", *rms_case(x, (26, 16, 28)))
+    x = rows_x(LL)
+    run_case("long/B4 ln_mod_kernel binary", *ln_case(x, True))
+    run_case("long/B3 rmsnorm_rope_kernel riflex",
+             *rms_case(x, (52, 16, 28), riflex={"k": 6, "L_test": 51}))
+    del x
     print(json.dumps({"within_bound": within}), flush=True)
     print(json.dumps({"timing": timing}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -108,3 +108,92 @@ def test_attention_ab_reads_this_tree_s_counter():
     from pathlib import Path
     from flexam_tpu_torch.tools import attention_ab
     assert attention_ab.takes_counter(Path(build.CSRC).parents[1])
+
+
+@pytest.mark.parametrize("symbol,label", [
+    ("_ZN12_GLOBAL__N_113ln_mod_kernelILi12EEEvPK13__nv_bfloat16PKfS5_S5_"
+     "PS1_iiiiiiif", "ln_mod_kernel<12>"),
+    ("_ZN12_GLOBAL__N_119rmsnorm_rope_kernelILi20EEEvPK13__nv_bfloat16S3_"
+     "PKfS5_PS1_iiiif", "rmsnorm_rope_kernel<20>"),
+    ("_ZN12_GLOBAL__N_113ln_mod_kernelEPK13__nv_bfloat16PKfS5_S5_PS1_iiif",
+     "ln_mod_kernel"),
+    ("_ZN12_GLOBAL__N_112flash_kernelE14CUtensorMap_stS0_S0_6Params",
+     "flash_kernel"),
+    ("_Z10other_kernelPf", None),
+])
+def test_attention_ab_labels_kernels(symbol, label):
+    """Mangled symbols map to their kernel, a template with its row-vector
+    count (the row kernels are instantiated for several widths)."""
+    from flexam_tpu_torch.tools import attention_ab
+    assert attention_ab.kernel_label(symbol) == label
+
+
+def test_attention_ab_reports_the_flagship_instantiation():
+    from flexam_tpu_torch.tools import attention_ab
+    by_label = {"ln_mod_kernel<4>": 1, "ln_mod_kernel<12>": 2,
+                "flash_kernel": 3}
+    assert attention_ab.flagship(by_label, "ln_mod_kernel") == 2
+    assert attention_ab.flagship(by_label, "flash_kernel") == 3
+    assert attention_ab.flagship({"ln_mod_kernel": 5}, "ln_mod_kernel") == 5
+    assert attention_ab.flagship(by_label, "rmsnorm_rope_kernel") is None
+
+
+def test_attention_ab_counts_wide_accesses():
+    from flexam_tpu_torch.tools import attention_ab
+    ops = {"LDG.E.128": 12, "LDG.E.128.CONSTANT": 2, "LDG.E": 5,
+           "STG.E.128": 12, "STG.E.64": 1, "LDS.128": 3}
+    assert attention_ab.wide_accesses(ops) == {"LDG.E.128": 14,
+                                               "STG.E.128": 12}
+
+
+@pytest.mark.parametrize("params,names", [
+    ("const void* x, const void* shift, const void* scale, const void* mask, "
+     "void* out, int rows, int S, int D, float eps, void* stream",
+     ["x", "shift", "scale", "mask", "out", "rows", "S", "D", "eps",
+      "stream"]),
+    ("const void* x, const void* shift, const void* scale,\n"
+     "                         const void* mask, void* out, int B, int S, "
+     "int D, int sh_b,\n int sh_r, int sc_b, int sc_r, float eps, "
+     "void* stream",
+     ["x", "shift", "scale", "mask", "out", "B", "S", "D", "sh_b", "sh_r",
+      "sc_b", "sc_r", "eps", "stream"]),
+])
+def test_attention_ab_reads_parameter_names(tmp_path, params, names):
+    """A tree's B3/B4 arguments are passed by the names of its C
+    declaration, so a parent whose entry point takes `rows` and this tree's,
+    which takes `B` and the terms' strides, are both bound right."""
+    from flexam_tpu_torch.tools import attention_ab
+    csrc = tmp_path / "flexam_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "ln_modulation.cu").write_text(
+        f'extern "C" {{\nint flexam_ln_modulation({params}) {{\n'
+        f'  return 0;\n}}\n}}\n')
+    assert attention_ab.c_params(tmp_path, "ln_modulation.cu",
+                                 "flexam_ln_modulation") == names
+    assert attention_ab.c_params(tmp_path, "ln_modulation.cu",
+                                 "flexam_rmsnorm_rope") == []
+
+    called = []
+
+    class Lib:
+        def flexam_ln_modulation(self, *args):
+            called.append(args)
+            return 0
+    values = {n: f"<{n}>" for n in names + ["rows", "B", "sh_b"]}
+    values["tensors"] = ()
+    attention_ab.row_launcher(Lib(), tmp_path, "flexam_ln_modulation",
+                              "ln_modulation.cu", values)()
+    assert called == [tuple(f"<{n}>" for n in names)]
+
+
+def test_attention_ab_binds_this_tree_s_row_kernels():
+    """This tree's B3/B4 declarations name exactly the parameters
+    SIGNATURES gives types for."""
+    from pathlib import Path
+    from flexam_tpu_torch.tools import attention_ab
+    root = Path(build.CSRC).parents[1]
+    for source, entry in (("ln_modulation.cu", "flexam_ln_modulation"),
+                          ("rmsnorm_rope.cu", "flexam_rmsnorm_rope")):
+        names = attention_ab.c_params(root, source, entry)
+        assert len(names) == len(build.SIGNATURES[entry])
+        assert names[0] == "x" and names[-1] == "stream"

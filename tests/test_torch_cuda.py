@@ -214,6 +214,143 @@ def test_ln_modulation_edges(dev, mode, s, d):
     check_ln_modulation(got, ref, sh, mask, "B4")
 
 
+def _rows(dev, b, s, d, seed):
+    """x [b, s, d] bf16 whose rows have their own offset and scale, as DiT
+    hidden states have."""
+    return (_rand(dev, b, s, d, seed=seed).float()
+            * torch.exp(0.5 * _rand(dev, b, s, 1, seed=seed + 1).float())
+            + 4.0 * _rand(dev, b, s, 1, seed=seed + 2).float()
+            ).to(torch.bfloat16)
+
+
+def _ln_mod_once(x, sh, sc, mask, name):
+    """B4 launched once (its counter says so), held to its plain version."""
+    key = "ln_mod_binary" if mask is not None else "ln_mod_bcast"
+    before = dict(fused.launches)
+    got = fused.ln_modulation(x, sh, sc, mask=mask)
+    torch.cuda.synchronize()
+    assert fused.launches[key] == before[key] + 1
+    assert sum(fused.launches.values()) == sum(before.values()) + 1
+    check_ln_modulation(got, fused.ln_modulation_plain(x, sh, sc, mask=mask),
+                        sh, mask, name)
+
+
+@pytest.mark.parametrize("mode", ["binary", "bcast"])
+@pytest.mark.parametrize("d", [1536, 3072, 5120])
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 13), (1, 300), (3, 300)])
+def test_ln_modulation_widths(dev, mode, d, b, s):
+    """B4 at every config width, with row counts that do not divide evenly
+    among the persistent CTAs' warps, and the terms as the main path gives
+    them: the scale a strided view of the [B, 2, 6, D] modulation tensor."""
+    g = torch.Generator(device=dev).manual_seed(d + s)
+    x = _rows(dev, b, s, d, seed=20)
+    mod = torch.randn((b, 2, 6, d), generator=g, device=dev)
+    if mode == "binary":
+        sh, sc = mod[:, :, 0] + mod[:, :, 3], mod[:, :, 1]
+        mask = (torch.rand((b, s), generator=g, device=dev) > 0.5).float()
+    else:
+        sh, sc, mask = mod[:, 0, 0] + mod[:, 0, 3], mod[:, 0, 1], None
+    _ln_mod_once(x, sh, sc, mask, f"B4 {mode} D={d} B={b} S={s}")
+
+
+@pytest.mark.parametrize("d", [1536, 3072, 5120])
+def test_ln_modulation_mixed_mask(dev, d):
+    """A mask that is not 0 or 1 (0.25, 0.7 among 0 and 1) takes the fp32
+    mix of the two branches' terms, as the JAX kernel does."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    b, s = 2, 300
+    x = _rows(dev, b, s, d, seed=30)
+    values = torch.tensor([0.0, 1.0, 0.25, 0.7], device=dev)
+    mask = values[torch.randint(0, 4, (b, s), generator=g, device=dev)]
+    assert all(bool((mask == v).any()) for v in values)
+    mod = torch.randn((b, 2, 6, d), generator=g, device=dev)
+    _ln_mod_once(x, mod[:, :, 0], mod[:, :, 1], mask, f"B4 mixed D={d}")
+
+
+@pytest.mark.parametrize("d", [1536, 3072, 5120])
+@pytest.mark.parametrize("b,s,l_rot", [(1, 300, 263), (3, 300, 300),
+                                       (1, 13, 64), (3, 1, 1)])
+def test_rmsnorm_rope_widths(dev, d, b, s, l_rot):
+    """B3 at every config width (heads of 128), with the RoPE table shorter
+    than, as long as and longer than the sequence."""
+    heads = d // 128
+    x = _rand(dev, b, s, d, seed=40)
+    gamma = 1.0 + 0.1 * _rand(dev, d, seed=41)
+    g = torch.Generator(device=dev).manual_seed(l_rot)
+    ang = torch.rand((l_rot, 64), generator=g, device=dev) * 6.0
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = fused.launches["rmsnorm_rope"]
+    got = fused.rmsnorm_rope(x, gamma, cos, sin, heads)
+    torch.cuda.synchronize()
+    assert fused.launches["rmsnorm_rope"] == before + 1
+    check_rmsnorm_rope(got, fused.rmsnorm_rope_plain(x, gamma, cos, sin,
+                                                     heads),
+                       f"B3 D={d} B={b} S={s} L_rot={l_rot}")
+
+
+def test_row_kernels_refuse_what_they_do_not_take(dev):
+    """Widths past the register-held row, widths not a multiple of 8, head
+    dims not a multiple of 8 and views off a 16-byte boundary raise in the
+    wrappers, with no launch."""
+    before = dict(fused.launches)
+    base = torch.zeros(4 * 384 + 1, dtype=torch.bfloat16, device=dev)
+    off = base[1:].view(1, 4, 384)           # contiguous, 2 bytes off
+    ang = torch.zeros((4, 64), device=dev)
+    ones = torch.ones(384, dtype=torch.bfloat16, device=dev)
+
+    def ln(x, d):
+        t = torch.zeros((1, 2, d), device=dev)
+        return fused.ln_modulation(x, t, t, mask=torch.ones((1, 4),
+                                                            device=dev))
+    with pytest.raises(ValueError):
+        ln(off, 384)
+    with pytest.raises(ValueError):
+        ln(_rand(dev, 1, 4, 100), 100)
+    with pytest.raises(ValueError):
+        ln(_rand(dev, 1, 4, 8200), 8200)
+    with pytest.raises(ValueError):
+        fused.rmsnorm_rope(off, ones, ang.cos(), ang.sin(), 3)
+    with pytest.raises(ValueError):                         # head_dim 12
+        fused.rmsnorm_rope(_rand(dev, 1, 4, 384), ones, ang[:, :6],
+                           ang[:, :6], 32)
+    tab = torch.zeros(4 * 64 + 1, device=dev)[1:].view(4, 64)
+    with pytest.raises(ValueError):                         # table 4 B off
+        fused.rmsnorm_rope(_rand(dev, 1, 4, 384), ones, tab, tab, 3)
+    assert fused.launches == before
+
+
+def test_row_entries_refuse_bad_arguments(dev):
+    """The C entry points of B3 and B4 return an error, with no launch, for
+    a pointer off a 16-byte boundary or a width they do not take."""
+    from flexam_tpu_torch.ops import build
+    lib = build.library()
+    x = _rand(dev, 1, 4, 384)
+    out = torch.empty_like(x)
+    t = torch.zeros((1, 2, 384), device=dev)
+    m = torch.ones((1, 4), device=dev)
+    tab = torch.zeros((4, 64), device=dev)
+    stream = build.stream_handle(x)
+
+    def ln(xp=x.data_ptr(), d=384):
+        return lib.flexam_ln_modulation(xp, t.data_ptr(), t.data_ptr(),
+                                        m.data_ptr(), out.data_ptr(), 1, 4, d,
+                                        768, 384, 768, 384, 1e-6, stream)
+
+    def rms(xp=x.data_ptr(), d=384, dh=128):
+        return lib.flexam_rmsnorm_rope(xp, x.data_ptr(), tab.data_ptr(),
+                                       tab.data_ptr(), out.data_ptr(), 1, 4, d,
+                                       dh, 4, 1e-6, stream)
+    assert ln(xp=x.data_ptr() + 2) != 0
+    assert ln(d=100) != 0
+    assert ln(d=8200) != 0
+    assert rms(xp=x.data_ptr() + 2) != 0
+    assert rms(d=384, dh=12) != 0
+    assert rms(d=8320, dh=128) != 0
+    torch.cuda.synchronize()
+    assert ln() == 0 and rms() == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("frames,window,spatial", [
     (6, 1, 40),      # blk 40: one ragged 64-row tile and key tile a block
     (5, 0, 72),      # blk 72: a full tile and a ragged one
