@@ -34,6 +34,25 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        released after encoding; then a 1-step denoise with
                        no known frame (the broadcast B4 mode). Launch counts
                        are reset just before and read just after;
+  generate_from_tracks conditioning from tracks on the same pipeline,
+                       weights and prompt context: a grid of 4,680 tracks
+                       (density 10, drifting (0.5, 0.2) px a frame,
+                       distinct depths) at 512x896x97f. The device
+                       rasterizer's six streams are held to the numpy
+                       rasterizer's bit for bit (pixels that differ: 0);
+                       prepare_conditioning_from_tracks (full_edit, first
+                       frame, streamed encode) is timed with its peak
+                       memory and held to prepare_conditioning on the
+                       numpy-rasterized videos (bound below); then
+                       generate_from_cond, 2 Euler steps at CFG 6.0 and
+                       the streamed decode, with B1-B4 launched and B5/B6
+                       not. At 17 frames (whole-clip encode):
+                       foreground_edit with a video, mask video and raster
+                       mask (per-token timestep), and background_edit with
+                       a video and no mask video, whose denoise step must
+                       launch B4's broadcast mode. One more prepare from
+                       tracks runs under torch.profiler
+                       ("prepare_from_tracks_profile");
   generate_long        the long-clip path on the same pipeline, weights and
                        prompt context: 512x896x201f (23,296 tokens with the
                        ref block), first frame known, RIFLEx (k 6, L_test
@@ -56,6 +75,17 @@ cudnn.allow_tf32 = False), so fp32 work on the card runs in full fp32. Any
 failure raises and exits non-zero.
 Without a CUDA device, or without the flexam_tpu_torch package beside this
 script, it exits non-zero and prints no result.
+
+The track path against the host path (generate_from_tracks): each latent of
+the cond within 5e-2 of its max |ref| (the bound reference_check uses for
+bf16 models). The two paths feed the bf16 VAE encoder the same normalized
+streams, rounded differently: the host path rounds each clip to fp16 and
+then to bf16, the track path rounds the fp32 value to bf16 once, and for
+the first frame it rounds the frame to fp16 before normalizing. So some
+input elements differ by one bf16 ulp (2^-8 of their size), about the
+rounding error every bf16 layer of the encoder adds; the latents then
+differ at the level of the encoder's own bf16 noise, not of a fault (a
+wrong stream, frame or mask would move them by the size of the latents).
 """
 
 from __future__ import annotations
@@ -74,6 +104,8 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 SEED = 1234
 FLAGSHIP_LATENT = (25, 32, 56)     # 97 frames at 512 x 896, 16x VAE
 GENERATE_VIDEO = (17, 512, 896)    # frames, height, width of the main path
+TRACKS_VIDEO = (97, 512, 896)      # the track path: 11,648 tokens
+TRACK_DENSITY = 10                 # grid spacing in pixels: 4,680 points
 LONG_VIDEO = (201, 512, 896)       # the long-clip path: 51 latent frames
 LONG_TOKENS = 52 * 448             # with the ref block: 23,296
 
@@ -773,6 +805,210 @@ def phase_generate(dev, cfg, dit_params, results: dict):
     return pipe, context
 
 
+def grid_tracks(frames: int, height: int, width: int, density: int, seed: int):
+    """A grid of points, one every `density` pixels, drifting (0.5, 0.2) px
+    a frame (the JAX demo's synthetic tracks), all visible, with distinct
+    depths (a random permutation of an even ladder in [1, 3]) so that the
+    painter's order, and so every pixel, is defined exactly."""
+    import numpy as np
+    ys = np.arange(0, height, density, dtype=np.float32) + density / 2
+    xs = np.arange(0, width, density, dtype=np.float32) + density / 2
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    n = gx.size
+    depth = np.linspace(1.0, 3.0, n, dtype=np.float32)[
+        np.random.RandomState(seed).permutation(n)]
+    base = np.stack([gx.reshape(-1), gy.reshape(-1), depth], axis=1)
+    t = np.arange(frames, dtype=np.float32)[:, None, None]
+    drift = np.concatenate([t * 0.5, t * 0.2, t * 0.0], axis=2)
+    return (base[None] + drift).astype(np.float32), np.ones((frames, n), bool)
+
+
+def phase_generate_from_tracks(dev, pipe, context) -> None:
+    """Conditioning from tracks on the card, through generate_from_cond
+    (module docstring). Reuses the main path's pipeline, DiT weights and
+    context."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.conditioning import (cosine_positional_encoding,
+                                               rasterize_cos_videos,
+                                               rasterize_depth_video,
+                                               rasterize_tracking_video)
+    from flexam_tpu_torch.conditioning.rasterize_device import \
+        DeviceRasterizer
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    T, Hp, Wp = TRACKS_VIDEO
+    tracks, vis = grid_tracks(T, Hp, Wp, TRACK_DENSITY, SEED + 6)
+    rs = np.random.RandomState(SEED + 7)
+    first = (rs.randint(0, 256, (1, 3, 1, Hp, Wp)) / 255.0).astype(np.float32)
+    out = {"frames": T, "points": int(tracks.shape[1])}
+    stage = {}
+
+    # the rasterizer on the card against the numpy rasterizer, bit for bit
+    t1 = time.perf_counter()
+    enc = cosine_positional_encoding(tracks, Hp, Wp)
+    host = {"tracking": rasterize_tracking_video(tracks, vis, Hp, Wp),
+            "depth": rasterize_depth_video(tracks, vis, Hp, Wp)}
+    host.update({f"cos_{i}": v for i, v in
+                 rasterize_cos_videos(enc, tracks, vis, Hp, Wp).items()})
+    stage["numpy_rasterize"] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rast = DeviceRasterizer(tracks, vis, Hp, Wp, device=dev)
+    on_card = {"tracking": rast.tracking_video(),
+               "depth": rast.depth_video()}
+    on_card.update({f"cos_{i}": v for i, v in enumerate(rast.cos_videos())})
+    torch.cuda.synchronize()
+    stage["device_rasterize"] = time.perf_counter() - t1
+    differ, painted = {}, {}
+    for k, v in on_card.items():
+        ref = torch.from_numpy(host[k]).to(dev)
+        if v.device != ref.device or v.dtype != torch.float32 \
+                or v.shape != ref.shape:
+            raise AssertionError(f"device rasterizer {k}: {v.device} "
+                                 f"{v.dtype} {tuple(v.shape)}")
+        differ[k] = int((v != ref).any(dim=1).sum().item())
+        painted[k] = float((ref != 0).any(dim=1).float().mean().item())
+    del on_card, rast, ref
+    if any(differ.values()) or min(painted.values()) < 0.05:
+        raise AssertionError(f"device rasterizer against numpy: pixels that "
+                             f"differ {differ}, painted share {painted}")
+    out["rasterizer_pixels_differing"] = differ
+    out["rasterizer_painted_share"] = painted
+
+    # prepare from tracks (full_edit from a first frame, streamed encode)
+    torch.cuda.empty_cache()
+    peaks = StagePeaks()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    cond = pipe.prepare_conditioning_from_tracks(tracks, vis, Hp, Wp,
+                                                 first_frame=first)
+    torch.cuda.synchronize()
+    stage["prepare_from_tracks"] = time.perf_counter() - t1
+    peaks.mark("prepare_from_tracks")
+    vcfg = pipe.cfg.vae
+    latent_shape = (vcfg.latent_channels,
+                    (T - 1) // vcfg.temporal_compression_ratio + 1,
+                    Hp // vcfg.spatial_compression_ratio,
+                    Wp // vcfg.spatial_compression_ratio)  # (48, 25, 32, 56)
+    if tuple(cond["latent_shape"]) != latent_shape \
+            or not cond["first_frame_known"] or not cond["per_token_t"]:
+        raise AssertionError(f"prepare_from_tracks: latent shape "
+                             f"{cond['latent_shape']}, first frame known "
+                             f"{cond['first_frame_known']}")
+    keys = ("control_latents", "mask_latents", "masked_video_latents",
+            "additional_control", "ref_latents", "mask_ti2v")
+    off = [k for k in keys if cond[k].device != dev]
+    if off:
+        raise AssertionError(f"prepare_from_tracks: {off} not on {dev}")
+    t1 = time.perf_counter()
+    emit("prepare_from_tracks_profile", t1, **profile_forward(
+        lambda: pipe.prepare_conditioning_from_tracks(tracks, vis, Hp, Wp,
+                                                      first_frame=first)))
+    peaks.mark("prepare_from_tracks_profile")
+
+    # against the host path on the numpy-rasterized videos
+    mask = np.ones((1, 1, T, Hp, Wp), np.float32)
+    mask[:, :, 0] = 0.0
+    t1 = time.perf_counter()
+    host_cond = pipe.prepare_conditioning(
+        np.repeat(first, T, axis=2), mask, host["tracking"], host["depth"],
+        [host[f"cos_{i}"] for i in range(4)], first)
+    torch.cuda.synchronize()
+    stage["prepare_host_videos"] = time.perf_counter() - t1
+    peaks.mark("prepare_host_videos")
+    del host, mask
+    out["against_host_path"] = {k: compare(cond[k], host_cond[k], 5e-2,
+                                           f"generate_from_tracks/{k}")
+                                for k in keys}
+    del host_cond
+    torch.cuda.empty_cache()
+
+    # generate from the cond: 2 steps and the streamed decode
+    step_times = []
+
+    def progress(done, total):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        if done == total:
+            peaks.mark("denoise_2_steps")
+
+    reset_launch_counts()
+    t_den = time.perf_counter()
+    video = pipe.generate_from_cond(cond, context, num_inference_steps=2,
+                                    guidance_scale=6.0, seed=SEED,
+                                    progress_cb=progress)
+    t_end = time.perf_counter()
+    peaks.mark("decode_streamed")
+    counts = launch_counts()
+    stage["denoise_2_steps"] = step_times[-1] - t_den
+    stage["decode_streamed"] = t_end - step_times[-1]
+    must = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
+            "ln_mod_binary")
+    if any(counts[k] == 0 for k in must) or counts["sparse_attention"] \
+            or counts["int8_attention"]:
+        raise AssertionError(f"generate_from_tracks: launches {counts}; "
+                             f"expected {must} > 0, B5 and B6 0")
+    if video.shape != (1, 3, T, Hp, Wp) or not np.isfinite(video).all() \
+            or video.min() < 0.0 or video.max() > 1.0:
+        raise AssertionError(f"generate_from_tracks: output {video.shape}, "
+                             f"range [{video.min()}, {video.max()}]")
+    out["output_range"] = [float(video.min()), float(video.max())]
+    del video, cond
+
+    # fg / bg edits at 17 frames (whole-clip encode, masked-group producer)
+    Tf = GENERATE_VIDEO[0]
+    ftracks, fvis = grid_tracks(Tf, Hp, Wp, TRACK_DENSITY, SEED + 8)
+    fvideo = (rs.randint(0, 256, (1, 3, Tf, Hp, Wp)) / 255.0).astype(
+        np.float32)
+    fmask = np.zeros((1, 1, Tf, Hp, Wp), np.float32)
+    fmask[..., : Wp // 2] = 1.0
+    if pipe._use_streaming(1, Tf, Hp, Wp):
+        raise AssertionError("17 frames should encode whole")
+    t1 = time.perf_counter()
+    fg = pipe.prepare_conditioning_from_tracks(
+        ftracks, fvis, Hp, Wp, generate_type="foreground_edit",
+        raster_mask=fmask[0, 0], video=fvideo, mask_video=fmask,
+        ref_image=fvideo[:, :, :1])
+    torch.cuda.synchronize()
+    stage["prepare_foreground_edit_17f"] = time.perf_counter() - t1
+    if not fg["per_token_t"] or fg["first_frame_known"]:
+        raise AssertionError(f"foreground_edit: per_token_t "
+                             f"{fg['per_token_t']}, first frame known "
+                             f"{fg['first_frame_known']}")
+    t1 = time.perf_counter()
+    bg = pipe.prepare_conditioning_from_tracks(
+        ftracks, fvis, Hp, Wp, generate_type="background_edit",
+        raster_mask=1.0 - fmask[0, 0], video=fvideo)
+    torch.cuda.synchronize()
+    stage["prepare_background_edit_17f"] = time.perf_counter() - t1
+    if bg["per_token_t"]:
+        raise AssertionError("background_edit with no mask video: "
+                             "per_token_t should be false")
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    lat = pipe.denoise(bg, context, num_inference_steps=1, guidance_scale=6.0,
+                       seed=SEED)
+    torch.cuda.synchronize()
+    stage["background_edit_denoise_1_step"] = time.perf_counter() - t1
+    peaks.mark("edits_17f")
+    bg_counts = launch_counts()
+    if not bg_counts["ln_mod_bcast"] or bg_counts["ln_mod_binary"] \
+            or not bool(lat.isfinite().all().item()):
+        raise AssertionError(f"background_edit step: launches {bg_counts}")
+    for name, c in (("foreground_edit", fg), ("background_edit", bg)):
+        bad = [k for k in keys if not bool(c[k].isfinite().all().item())]
+        if bad:
+            raise AssertionError(f"{name}: non-finite {bad}")
+    emit("generate_from_tracks", t0, stages=stage,
+         step_seconds=[b - a for a, b in zip([t_den] + step_times[:-1],
+                                             step_times)],
+         resident_at_start_gb=peaks.resident_gb,
+         peak_memory_allocated_gb_by_stage=peaks.gb, launches=counts,
+         background_edit_step_launches=bg_counts, **out)
+
+
 def phase_generate_long(dev, pipe, context, results: dict) -> None:
     """The long-clip path: 512x896x201f through generate_from_cond with the
     auto attention ladder (B6), then one step under FLEXAM_ATTENTION=sparse
@@ -978,6 +1214,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipe, context = phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
     del dit_params
+    torch.cuda.empty_cache()
+    phase_generate_from_tracks(dev, pipe, context)
     torch.cuda.empty_cache()
     phase_generate_long(dev, pipe, context, results)
 

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither jax nor anything of
-the JAX package, its entry points refuse to run on the CPU unless asked,
-and `chip_smoke.py` fails cleanly where there is no CUDA device."""
+the JAX package, nor the host libraries the card's machine lacks
+(matplotlib, cv2, PIL), its entry points refuse to run on the CPU unless
+asked, and `chip_smoke.py` fails cleanly where there is no CUDA device."""
 
 import ast
 import os
@@ -44,6 +45,46 @@ def test_no_jax_import_in_source(path):
     """AST scan: no `import jax*` and no `flexam_tpu.*` import."""
     bad = [n for n in _imported_roots(path) if _forbidden(n)]
     assert not bad, f"{path}: imports {bad}"
+
+
+# host libraries the card's machine does not have
+HOST_ONLY = ("matplotlib", "cv2", "PIL")
+
+
+def _host_only(name: str) -> bool:
+    return name.split(".")[0] in HOST_ONLY
+
+
+@pytest.mark.parametrize("path", [p for p, _ in _modules()]
+                         + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+def test_no_host_only_library_import(path):
+    """AST scan: no `import matplotlib`, `cv2` or `PIL` anywhere in the
+    port or the smoke (the conditioning modules keep their own Spectral
+    table and numpy painter)."""
+    bad = [n for n in _imported_roots(path) if _host_only(n)]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_importing_the_port_loads_no_host_only_library():
+    """In a fresh interpreter, importing every module of the port and
+    building a device rasterizer leaves no matplotlib, cv2 or PIL module in
+    sys.modules."""
+    names = [n for _, n in _modules()]
+    code = ("import sys\n"
+            + "".join(f"import {n}\n" for n in names)
+            + "import numpy as np\n"
+              "from flexam_tpu_torch.conditioning.rasterize_device import "
+              "DeviceRasterizer\n"
+              "tr = np.random.RandomState(0).rand(3, 5, 3).astype('f4') * 8\n"
+              "DeviceRasterizer(tr, None, 8, 8, device='cpu').depth_video()\n"
+              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              f"{HOST_ONLY!r})\n"
+              "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_importing_the_port_loads_no_jax():
@@ -98,3 +139,17 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_track_path_defaults_to_cuda():
+    """The device rasterizer runs on CUDA unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+    import numpy as np
+    from flexam_tpu_torch.conditioning.rasterize_device import \
+        DeviceRasterizer
+    tracks = np.zeros((2, 3, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceRasterizer(tracks, None, 8, 8)
+    rast = DeviceRasterizer(tracks, None, 8, 8, device="cpu")
+    assert rast.tracking_video().device.type == "cpu"
