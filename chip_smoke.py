@@ -61,7 +61,36 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        self-attention); then 1 step under
                        FLEXAM_ATTENTION=sparse (B5). Launch counts are reset
                        and read around each; a profiled step of each
-                       follows ("denoise_long_profile").
+                       follows ("denoise_long_profile");
+  checkpoint_load      reference-format checkpoint files at full
+                       Wan2.2-Fun-5B width, random bf16 weights: the DiT as
+                       two .safetensors shards (2 of 30 blocks),
+                       Wan2.2_VAE.pth in full, the umT5 .pth (2 of 24
+                       layers); the depth is cut only to bound the disk and
+                       the write time. The port's loaders read them back
+                       onto the card (seconds and GB/s a file, the full
+                       depth extrapolated from the per-block time), every
+                       leaf equal to what was written in value and in the
+                       dtype JAX's loader gives it; then a 1-step
+                       apply_tracks at 512x896x17f on the loaded models
+                       (hashed prompt ids under FLEXAM_ALLOW_HASHED_IDS=1),
+                       and a 4-step denoise in chunks of 2 with snapshots,
+                       resumed from the step-1 snapshot: equal to the
+                       uninterrupted run bit for bit;
+  demo                 `flexam_tpu_torch.demo.main` in process at
+                       --random_init 5b, 512x896, four runs: full_edit with
+                       synthetic tracks at 49 frames (6,272 tokens with the
+                       ref block, 2 steps, zeros for input); full_edit from
+                       a tracks .npz without extrinsics with camera motion
+                       (solved poses) and object motion, 49 frames, 2 steps;
+                       background_edit at 17 frames with an .npz mask video
+                       and an .npy repaint frame, 1 step; full_edit at 17
+                       frames, 7 steps, TeaCache threshold 1e9 (5 forwards
+                       computed, 2 skipped: B1 launched 5 x 30 times). Each
+                       run's stage seconds, peak memory and launch counts
+                       (reset before it). Every demo mode passes a mask
+                       video, so the blocks run B4's per-token mode, not
+                       B4' (which the generate phases cover).
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -1133,6 +1162,371 @@ def phase_generate_long(dev, pipe, context, results: dict) -> None:
     emit("denoise_long_profile", t0, **prof)
 
 
+CKPT_LAYERS = 2                    # DiT blocks / umT5 layers written
+DEMO_PROMPT = "a red fox runs through fresh snow"
+
+
+class StageTimer:
+    """Wall seconds of named stages inside a call the smoke does not own
+    (`demo.main`): wraps each (owner, attribute) callable while active and
+    synchronises the card before stopping its clock. Nested stages count
+    in both (generate_from_cond's denoise and decode are their own)."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds = {}
+        self.returned = {}
+
+    def __enter__(self):
+        import torch
+        self._orig = []
+        for owner, name in self.targets:
+            orig = getattr(owner, name)
+            self._orig.append((owner, name, orig))
+
+            def wrapped(*a, _orig=orig, _name=name, **kw):
+                t = time.perf_counter()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + (
+                    time.perf_counter() - t)
+                self.returned[_name] = out
+                return out
+
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._orig:
+            setattr(owner, name, orig)
+        return False
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def phase_checkpoint_load(dev) -> None:
+    """Reference-format checkpoint files at full Wan2.2-Fun-5B width, written
+    from random bf16 trees and read back by the port's loaders (module
+    docstring); then a 1-step apply_tracks and a denoise resumed from its
+    step-1 snapshot on the loaded models."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.config import WAN22_5B_FLEXAM
+    from flexam_tpu_torch.io import checkpoints as ck
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.models.t5 import init_t5_params
+    from flexam_tpu_torch.models.vae import init_vae_params
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flexam_tpu_torch.orchestrator import FlexAMOrchestrator
+    from flexam_tpu_torch.pipeline import (FlexAMGenerationPipeline,
+                                           FlexAMModels)
+
+    t0 = time.perf_counter()
+    full = WAN22_5B_FLEXAM
+    cfg = dataclasses.replace(
+        full, dit=dataclasses.replace(full.dit, num_layers=CKPT_LAYERS),
+        t5=dataclasses.replace(full.t5, num_layers=CKPT_LAYERS))
+    root = HERE / "build" / "smoke_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    bf = torch.bfloat16
+    written = {
+        "dit": ck.dit_state_dict(init_dit_params(cfg.dit, seed=SEED + 10,
+                                                 dtype=bf, device=dev)),
+        "vae": ck.vae_state_dict(init_vae_params(cfg.vae, seed=SEED + 11,
+                                                 dtype=bf, device=dev),
+                                 cfg.vae),
+        "t5": ck.t5_state_dict(init_t5_params(cfg.t5, seed=SEED + 12,
+                                              dtype=bf, device=dev)),
+    }
+    # a bf16 checkpoint throughout (the DiT's modulation tables are made in
+    # float32)
+    written = {n: {k: v.to(bf) for k, v in sd.items()}
+               for n, sd in written.items()}
+    keys = sorted(written["dit"])
+    files = {"dit": [root / f"diffusion_pytorch_model-0000{i + 1}-of-00002"
+                     ".safetensors" for i in range(2)],
+             "vae": [root / "Wan2.2_VAE.pth"],
+             "t5": [root / "models_t5_umt5-xxl-enc-bf16.pth"]}
+    io = {}
+    for name in ("dit", "vae", "t5"):
+        t1 = time.perf_counter()
+        host = {k: v.cpu() for k, v in written[name].items()}
+        if name == "dit":
+            half = len(keys) // 2
+            for path, part in zip(files[name], (keys[:half], keys[half:])):
+                ck.save_safetensors(str(path), {k: host[k] for k in part})
+        else:
+            torch.save(host, str(files[name][0]))
+        del host
+        nbytes = sum(f.stat().st_size for f in files[name])
+        ws = time.perf_counter() - t1
+        io[name] = {"files": [f.name for f in files[name]], "gb": nbytes / 1e9,
+                    "write_seconds": ws, "write_gb_per_s": nbytes / 1e9 / ws}
+
+    def timed_load(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tree = fn(*args, device=dev, **kw)
+        torch.cuda.synchronize()
+        return tree, time.perf_counter() - t1
+
+    dit, io["dit"]["read_seconds"] = timed_load(
+        ck.load_dit_checkpoint, str(root), cfg.dit, dtype=torch.float32,
+        matrix_dtype=bf)
+    vae, io["vae"]["read_seconds"] = timed_load(
+        ck.load_vae_checkpoint, str(files["vae"][0]), cfg.vae)
+    t5, io["t5"]["read_seconds"] = timed_load(
+        ck.load_t5_checkpoint, str(files["t5"][0]), cfg.t5)
+    # the same loads without blocks / layers: the per-block time, and the
+    # full depth extrapolated from it
+    for name, fn, path, sub, depth in (
+            ("dit", ck.load_dit_checkpoint, str(root), cfg.dit,
+             full.dit.num_layers),
+            ("t5", ck.load_t5_checkpoint, str(files["t5"][0]), cfg.t5,
+             full.t5.num_layers)):
+        kw = dict(matrix_dtype=bf) if name == "dit" else {}
+        tree, t_base = timed_load(fn, path, dataclasses.replace(
+            sub, num_layers=0), **kw)
+        del tree
+        per_block = (io[name]["read_seconds"] - t_base) / CKPT_LAYERS
+        io[name]["read_seconds_without_blocks"] = t_base
+        io[name]["read_seconds_per_block"] = per_block
+        io[name]["extrapolated_full_depth_read_seconds"] = (
+            t_base + depth * per_block)
+        io[name]["full_depth_blocks"] = depth
+    for name in io:
+        io[name]["read_gb_per_s"] = io[name]["gb"] / io[name]["read_seconds"]
+
+    # every loaded leaf against the tensor written, in value and in the
+    # dtype JAX's loader gives it (float32 from a .pth; the DiT's float32
+    # load cast to bf16 where the demo casts: per-block leaves and leaves
+    # of 2+ dims)
+    leaves, bad = 0, []
+    for name, tree in (("dit", ck.dit_state_dict(dit)),
+                       ("vae", ck.vae_state_dict(vae, cfg.vae)),
+                       ("t5", ck.t5_state_dict(t5))):
+        ref = written[name]
+        if sorted(tree) != sorted(ref):
+            raise AssertionError(f"checkpoint_load {name}: keys differ")
+        for k, got in tree.items():
+            want = ref[k]
+            if name == "dit":
+                dtype = bf if (k.startswith("blocks.") or want.dim() >= 2) \
+                    else torch.float32
+            else:
+                dtype = torch.float32
+            leaves += 1
+            if got.dtype != dtype or got.device != want.device or \
+                    not torch.equal(got.float(), want.float()):
+                bad.append(f"{name}:{k} {got.dtype}")
+    if bad:
+        raise AssertionError(f"checkpoint_load: {len(bad)} leaves differ "
+                             f"from what was written: {bad[:5]}")
+    del written
+    torch.cuda.empty_cache()
+
+    # a 1-step apply_tracks on the loaded models (hashed prompt ids)
+    models = FlexAMModels(cfg=cfg, dit_params=dit, vae_params=vae,
+                          t5_params=t5, t5_from_checkpoint=True)
+    pipe = FlexAMGenerationPipeline(models, device=dev)
+    del dit, vae, t5
+    try:
+        pipe.tokenize([DEMO_PROMPT])
+        raise AssertionError("checkpoint T5 without a tokenizer took "
+                             "hashed ids")
+    except RuntimeError:
+        pass
+    T, Hp, Wp = GENERATE_VIDEO
+    tracks, vis = grid_tracks(T, Hp, Wp, TRACK_DENSITY, SEED + 13)
+    rs = np.random.RandomState(SEED + 14)
+    first = (rs.randint(0, 256, (1, 3, 1, Hp, Wp)) / 255.0).astype(np.float32)
+    stage = {}
+    os.environ["FLEXAM_ALLOW_HASHED_IDS"] = "1"
+    try:
+        orch = FlexAMOrchestrator(pipe, output_dir=str(root / "out"),
+                                  save_tracking=False)
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        out = orch.apply_tracks(tracks, vis, Hp, Wp, prompt=DEMO_PROMPT,
+                                first_frame=first, num_inference_steps=1,
+                                guidance_scale=6.0, density=0.1, seed=SEED)
+        torch.cuda.synchronize()
+        stage["apply_tracks_1_step_17f"] = time.perf_counter() - t1
+        counts = launch_counts()
+        if out.shape != (1, 3, T, Hp, Wp) or not np.isfinite(out).all() \
+                or out.min() < 0.0 or out.max() > 1.0:
+            raise AssertionError(f"checkpoint_load apply_tracks: output "
+                                 f"{out.shape}")
+        if any(counts[k] == 0 for k in MAIN_PATH_KERNELS[:4]):
+            raise AssertionError(f"checkpoint_load apply_tracks: launches "
+                                 f"{counts}")
+        del out
+
+        # denoise 4 steps in chunks of 2 with snapshots, then resumed from
+        # the step-1 snapshot
+        cond = pipe.prepare_conditioning_from_tracks(tracks, vis, Hp, Wp,
+                                                     first_frame=first)
+        context = pipe.encode_prompt(DEMO_PROMPT)
+        pipe.steps_per_launch = 2
+        snaps = {}
+        kw = dict(num_inference_steps=4, guidance_scale=6.0, seed=SEED,
+                  density=0.1)
+        t1 = time.perf_counter()
+        whole = pipe.denoise(cond, context, **kw,
+                             checkpoint_cb=lambda i, snap: snaps.update(
+                                 {i: snap}))
+        torch.cuda.synchronize()
+        stage["denoise_4_steps_snapshots"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        resumed = pipe.denoise(cond, context, resume=snaps[1], **kw)
+        torch.cuda.synchronize()
+        stage["denoise_resumed_from_step_1"] = time.perf_counter() - t1
+    finally:
+        del os.environ["FLEXAM_ALLOW_HASHED_IDS"]
+    resume = {"snapshot_steps": sorted(snaps),
+              "equal": bool(torch.equal(resumed, whole)),
+              "max_abs_diff": float((resumed - whole).abs().max())}
+    if sorted(snaps) != [1, 3] or not resume["equal"]:
+        raise AssertionError(f"checkpoint_load resume: {resume}")
+    del pipe, cond, context, whole, resumed, snaps
+    shutil.rmtree(root, ignore_errors=True)
+    emit("checkpoint_load", t0, width="Wan2.2-Fun-5B",
+         cut=f"depth only: DiT {CKPT_LAYERS} of {full.dit.num_layers} blocks, "
+             f"umT5 {CKPT_LAYERS} of {full.t5.num_layers} layers (disk and "
+             "write time); the VAE in full",
+         reads_from="the page cache (the files were just written)",
+         files=io, leaves_checked=leaves, stages=stage,
+         apply_tracks_launches=counts, resume=resume)
+
+
+def phase_demo(dev, results: dict) -> None:
+    """`flexam_tpu_torch.demo.main` in process at --random_init 5b,
+    512x896, in four runs (module docstring), each with its stage seconds,
+    peak memory and launch counts (reset before each run)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import demo, orchestrator
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline as Pipe
+
+    t0 = time.perf_counter()
+    root = HERE / "build" / "smoke_demo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    Hp, Wp = GENERATE_VIDEO[1:]
+    # fixtures: tracks without extrinsics, an object mask, a mask video
+    # (.npz frame dump) and a repaint frame
+    tracks, vis = grid_tracks(49, Hp, Wp, TRACK_DENSITY, SEED + 15)
+    np.savez(root / "tracks.npz", tracks=tracks, visibility=vis)
+    omask = np.zeros((Hp, Wp), np.uint8)
+    omask[Hp // 4: 3 * Hp // 4, Wp // 3: 2 * Wp // 3] = 255
+    np.save(root / "object_mask.npy", omask)
+    mv = np.zeros((17, Hp, Wp, 3), np.uint8)
+    mv[:, Hp // 4: 3 * Hp // 4, Wp // 4: 3 * Wp // 4] = 255
+    np.savez(root / "mask.npz", video=mv, fps=16)
+    rs = np.random.RandomState(SEED + 16)
+    np.save(root / "repaint.npy", rs.randint(0, 256, (Hp, Wp, 3),
+                                             dtype=np.uint8))
+    base = ["--prompt", DEMO_PROMPT, "--random_init", "5b", "--sample_size",
+            str(Hp), str(Wp), "--seed", str(SEED)]
+    runs = [
+        ("full_edit_synthetic_49f", 49, 2,
+         ["--generate_type", "full_edit", "--synthetic_tracks"]),
+        ("full_edit_solved_camera_object_49f", 49, 2,
+         ["--generate_type", "full_edit", "--tracks_npz",
+          str(root / "tracks.npz"), "--camera_motion",
+          "trans 0.1 0 0.2; rot y 10", "--object_motion", "up",
+          "--object_mask", str(root / "object_mask.npy")]),
+        ("background_edit_17f", 17, 1,
+         ["--generate_type", "background_edit", "--synthetic_tracks",
+          "--mask_path", str(root / "mask.npz"), "--repaint",
+          str(root / "repaint.npy")]),
+        ("full_edit_teacache_17f", 17, 7,
+         ["--generate_type", "full_edit", "--synthetic_tracks",
+          "--teacache_thresh", "1e9"]),
+    ]
+    out_runs, demo_launches = {}, {}
+    for name, frames, steps, extra in runs:
+        argv = base + extra + ["--video_length", str(frames),
+                               "--num_inference_steps", str(steps),
+                               "--output_dir", str(root / name)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        targets = [(demo, "_build_models"), (Pipe, "encode_prompt"),
+                   (Pipe, "prepare_conditioning_from_tracks"),
+                   (Pipe, "denoise"), (Pipe, "decode_u8"),
+                   (orchestrator, "save_video")]
+        t1 = time.perf_counter()
+        with StageTimer(targets) as st:
+            out = demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = launch_counts()
+        pipe = st.returned["_build_models"]
+        info = dict(pipe.last_denoise_info)
+        layers = pipe.cfg.dit.num_layers
+        lat = st.returned["prepare_conditioning_from_tracks"]["latent_shape"]
+        tokens = (lat[1] + 1) * (lat[2] // 2) * (lat[3] // 2)
+        del pipe
+        st.returned.clear()
+        if out.shape != (1, 3, frames, Hp, Wp) or not np.isfinite(out).all() \
+                or out.min() < 0.0 or out.max() > 1.0:
+            raise AssertionError(f"demo {name}: output {out.shape}")
+        must = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
+                "ln_mod_binary")
+        if any(counts[k] == 0 for k in must) or counts["sparse_attention"] \
+                or counts["int8_attention"]:
+            raise AssertionError(f"demo {name}: launches {counts}")
+        forwards = info.get("teacache_computed_forwards", steps)
+        if counts["flash_attention"] != forwards * layers:
+            raise AssertionError(f"demo {name}: flash_attention "
+                                 f"{counts['flash_attention']} launches for "
+                                 f"{forwards} forwards of {layers} blocks")
+        if name == "full_edit_teacache_17f" and (
+                counts["flash_attention"] != 5 * layers
+                or info.get("teacache_computed_forwards") != 5.0
+                or info.get("teacache_skipped_forwards") != 2.0):
+            raise AssertionError(f"demo {name}: TeaCache ran "
+                                 f"{info}, launches {counts}")
+        written = sorted(os.listdir(root / name))
+        out_runs[name] = {
+            "frames": frames, "steps": steps, "tokens": tokens,
+            "wall_seconds": wall, "stages": dict(st.seconds),
+            "denoise_seconds_per_step": st.seconds["denoise"] / steps,
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "denoise_info": info, "written": written,
+            "output_range": [float(out.min()), float(out.max())]}
+        for k, n in counts.items():
+            demo_launches[k] = demo_launches.get(k, 0) + n
+        del out
+    for k in results:
+        results[k]["demo_launches"] = demo_launches.get(k, 0)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("demo", t0, runs=out_runs, launches_all_runs=demo_launches)
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -1160,6 +1554,8 @@ LONG_PATH_KERNELS = ("int8_attention", "single_kv_attention", "rmsnorm_rope",
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1218,6 +1614,13 @@ def main() -> int:
     phase_generate_from_tracks(dev, pipe, context)
     torch.cuda.empty_cache()
     phase_generate_long(dev, pipe, context, results)
+    del pipe, context
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_checkpoint_load(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_demo(dev, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1228,6 +1631,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "demo_launches": r["demo_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,10 @@ layout change between the two lives here:
 Weights are already in torch layout in the JAX package (Linear [out, in],
 conv [O, I, *K]), so no transpose is needed. bfloat16 leaves (numpy's
 ml_dtypes bfloat16) arrive as torch.bfloat16.
+
+The checkpoint loaders (`io/checkpoints.py`, `models/t5.py`) build their
+trees with the per-block lists already in place and convert each leaf
+through `leaf`, the one conversion both paths share.
 """
 
 from __future__ import annotations
@@ -32,6 +36,21 @@ def _tensor(a, device) -> torch.Tensor:
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def leaf(a, device, dtype=None, then=None) -> torch.Tensor:
+    """One leaf on `device`: a torch tensor or a numpy array (bfloat16
+    included), cast to `dtype` (JAX's `np.asarray(a, dtype)`) and then to
+    `then` (a second cast, as the demo's bf16 cast after a float32 load).
+    The cast runs on the device, after the copy, so a host tensor is never
+    widened on the host."""
+    t = a if torch.is_tensor(a) else _tensor(a, "cpu")
+    t = t.to(device, copy=True)
+    if dtype is not None:
+        t = t.to(dtype)
+    if then is not None:
+        t = t.to(then)
+    return t
 
 
 def _convert(node, device):

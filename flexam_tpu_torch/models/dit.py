@@ -12,8 +12,9 @@ LayerNorm + AdaLN prologues of a block as kernel B4; attention goes through
 `core.attention` (B1/B2 on CUDA). On a CPU tensor every kernel takes its
 plain version. `attn_fn` replaces the attention of every block (the
 pipeline passes B5's sparse closure there); RIFLEx comes in through the
-RoPE tables (`make_rope_tables_for(..., riflex=)`). TeaCache and the camera
-adapter are not ported yet.
+RoPE tables (`make_rope_tables_for(..., riflex=)`).
+`dit_forward_teacache` is the TeaCache forward. The camera adapter is not
+ported yet.
 
 Parameters are the JAX tree with `blocks` as a list of per-block dicts
 (`io.convert.from_jax_params` maps a JAX tree, `init_dit_params` makes a
@@ -422,14 +423,144 @@ def dit_forward(
     tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
         _dit_prepare(params, cfg, x, t, context, density, y,
                      additional_control, full_ref, rope_tables, binary_t_mask)
+    tokens = _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn)
+    return _dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref)
+
+
+def _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn):
     for bp in params["blocks"]:
         tokens = _block_forward(bp, tokens, e0, de0, cos, sin, ctx, cfg,
                                 attn_fn)
+    return tokens
+
+
+def _dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref):
+    """Head, the ref tokens stripped, unpatchify."""
     tokens = _head_forward(params["head"], tokens, e_head, de_head)
     if l_ref:
         tokens = tokens[:, l_ref:]
         grid = (grid[0] - 1, grid[1], grid[2])
     return _unpatchify(tokens, grid, cfg.patch_size, cfg.out_dim)
+
+
+# ---------------------------------------------------------------------------
+# TeaCache
+# ---------------------------------------------------------------------------
+
+def init_teacache_state(batch: int, seq_len: int, dim: int,
+                        dtype=torch.bfloat16, device="cuda") -> dict:
+    """TeaCache state carried across steps (`FlexAM/models/cache_utils.py
+    :21-77`); `computed` counts the forwards that ran the blocks."""
+    dev = resolve_device(device)
+    return {
+        "prev_mod": torch.zeros((batch, 6, dim), device=dev),
+        "accum": torch.zeros((), device=dev),
+        "residual": torch.zeros((batch, seq_len, dim), dtype=dtype, device=dev),
+        "computed": torch.zeros((), device=dev),
+    }
+
+
+# Fitted rescale polynomials per model family
+# (`cache_utils.py:get_teacache_coefficients`)
+TEACACHE_COEFFICIENTS = {
+    "wan2.1-1.3b": (-5.21862437e+04, 9.23041404e+03, -5.28275948e+02,
+                    1.36987616e+01, -4.99875664e-02),
+    "wan2.1-t2v-14b": (-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
+                       5.87365115e+01, -3.15583525e-01),
+    "wan2.1-i2v-14b-480p": (2.57151496e+05, -3.54229917e+04, 1.40286849e+03,
+                            -1.35890334e+01, 1.32517977e-01),
+    "wan2.2": (8.10705460e+03, 2.13393892e+03, -3.72934672e+02,
+               1.66203073e+01, -4.17769401e-02),
+}
+
+
+def get_teacache_coefficients(model_name: str):
+    """Model-name keyed lookup (`cache_utils.py:4-18`)."""
+    n = model_name.lower()
+    if any(k in n for k in ("wan2.1-t2v-1.3b", "wan2.1-fun-1.3b",
+                            "wan2.1-fun-v1.1-1.3b", "wan2.1-vace-1.3b")):
+        return TEACACHE_COEFFICIENTS["wan2.1-1.3b"]
+    if "wan2.1-t2v-14b" in n:
+        return TEACACHE_COEFFICIENTS["wan2.1-t2v-14b"]
+    if "wan2.1-i2v-14b-480p" in n:
+        return TEACACHE_COEFFICIENTS["wan2.1-i2v-14b-480p"]
+    if any(k in n for k in ("wan2.1-i2v-14b-720p", "wan2.1-fun-14b", "wan2.2",
+                            "wan2.1-vace-14b")):
+        return TEACACHE_COEFFICIENTS["wan2.2"]
+    print(f"The model {model_name} is not supported by TeaCache.")
+    return None
+
+
+WAN22_TEACACHE_COEFFICIENTS = TEACACHE_COEFFICIENTS["wan2.2"]
+
+
+def _polyval(coefficients: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Horner's rule, highest power first (`jnp.polyval`)."""
+    out = torch.zeros_like(x)
+    for c in coefficients:
+        out = out * x + c
+    return out
+
+
+def dit_forward_teacache(
+    params: dict,
+    cfg: DiTConfig,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    context: torch.Tensor,
+    tea_state: dict,
+    step_index: int,
+    density: Optional[torch.Tensor] = None,
+    y: Optional[torch.Tensor] = None,
+    additional_control: Optional[torch.Tensor] = None,
+    full_ref: Optional[torch.Tensor] = None,
+    rope_tables: Optional[torch.Tensor] = None,
+    attn_fn: Callable = attention,
+    coefficients=WAN22_TEACACHE_COEFFICIENTS,
+    rel_l1_thresh: float = 0.10,
+    num_skip_start_steps: int = 5,
+    binary_t_mask: Optional[torch.Tensor] = None,
+):
+    """TeaCache forward (`wan_transformer3d_FlexAM.py:977-1008,1048-1051`):
+    the polynomial-rescaled relative L1 change of the modulated input
+    accumulates across steps; below the threshold the block stack is
+    skipped and the cached residual added instead. JAX decides with
+    `lax.cond` on the device; here the decision is one scalar read on the
+    host a step (one sync), so that a skipped step launches no block.
+
+    Returns (velocity, new_tea_state)."""
+    tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
+        _dit_prepare(params, cfg, x, t, context, density, y,
+                     additional_control, full_ref, rope_tables, binary_t_mask)
+
+    # the modulated input: e0 (scalar t) or the last token's (per-token t);
+    # the last token is always a t-valued one, so in binary mode it is the
+    # pair's t branch
+    mod = (e0[1][:, 0] if isinstance(e0, tuple) else e0[:, -1]).float()
+    prev_mod = tea_state["prev_mod"]
+    rel = (mod - prev_mod).abs().mean() / (prev_mod.abs().mean() + 1e-12)
+    coeffs = torch.as_tensor(coefficients, dtype=torch.float32,
+                             device=rel.device)
+    accum = tea_state["accum"] + _polyval(coeffs, rel)
+    should_calc = (step_index < num_skip_start_steps
+                   or bool((accum >= rel_l1_thresh).item()))
+    if should_calc:
+        accum = torch.zeros_like(accum)
+        out = _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx,
+                          attn_fn)
+        residual = out - tokens
+        tokens = out
+    else:
+        residual = tea_state["residual"]
+        tokens = tokens + residual.to(tokens.dtype)
+    new_state = {
+        "prev_mod": mod,
+        "accum": accum,
+        "residual": residual.to(tea_state["residual"].dtype),
+        "computed": tea_state["computed"] + float(should_calc),
+    }
+    return (_dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref),
+            new_state)
 
 
 def make_rope_tables_for(cfg: DiTConfig, device="cpu",

@@ -141,3 +141,76 @@ def init_t5_params(cfg: T5Config, seed: int = 0, dtype=torch.bfloat16,
         params["shared_pos_embedding"] = n((cfg.num_buckets, h),
                                            (2 * cfg.num_buckets * h) ** -0.5)
     return params
+
+
+def t5_params_from_state_dict(sd, cfg: T5Config, dtype=torch.float32,
+                              device="cuda") -> dict:
+    """Map a `WanT5EncoderModel` state dict to the port's per-layer tree on
+    `device`, every leaf cast to `dtype` (JAX's loader gives float32)."""
+    from flexam_tpu_torch.io.checkpoints import _source
+    from flexam_tpu_torch.io.convert import leaf
+
+    dev = resolve_device(device)
+
+    def g(key):
+        return leaf(_source(sd, key)[0], dev, dtype)
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"blocks.{i}"
+        blocks.append({
+            "norm1": g(f"{p}.norm1.weight"),
+            "attn": {"q": g(f"{p}.attn.q.weight"),
+                     "k": g(f"{p}.attn.k.weight"),
+                     "v": g(f"{p}.attn.v.weight"),
+                     "o": g(f"{p}.attn.o.weight")},
+            "norm2": g(f"{p}.norm2.weight"),
+            "ffn": {"gate": g(f"{p}.ffn.gate.0.weight"),
+                    "fc1": g(f"{p}.ffn.fc1.weight"),
+                    "fc2": g(f"{p}.ffn.fc2.weight")},
+            "pos_embedding": g(f"{p}.pos_embedding.embedding.weight"),
+        })
+    return {"token_embedding": g("token_embedding.weight"), "blocks": blocks,
+            "norm": g("norm.weight")}
+
+
+def t5_params_from_hf_state_dict(sd, cfg: T5Config, dtype=torch.float32,
+                                 device="cuda") -> dict:
+    """Map a HuggingFace `T5EncoderModel` state dict (`encoder.block.N.
+    layer.0.SelfAttention.q.weight`, gated `DenseGatedActDense`; keys with
+    or without the `encoder.` prefix) to the port's per-layer tree. The
+    relative-attention bias of block 0 becomes `shared_pos_embedding` when
+    cfg.shared_pos (T5 v1.1 keeps one table)."""
+    from flexam_tpu_torch.io.checkpoints import _source
+    from flexam_tpu_torch.io.convert import leaf
+
+    dev = resolve_device(device)
+
+    def g(key):
+        k = key if key in sd else f"encoder.{key}"
+        return leaf(_source(sd, k)[0], dev, dtype)
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"block.{i}.layer"
+        blocks.append({
+            "norm1": g(f"{p}.0.layer_norm.weight"),
+            "attn": {"q": g(f"{p}.0.SelfAttention.q.weight"),
+                     "k": g(f"{p}.0.SelfAttention.k.weight"),
+                     "v": g(f"{p}.0.SelfAttention.v.weight"),
+                     "o": g(f"{p}.0.SelfAttention.o.weight")},
+            "norm2": g(f"{p}.1.layer_norm.weight"),
+            "ffn": {"gate": g(f"{p}.1.DenseReluDense.wi_0.weight"),
+                    "fc1": g(f"{p}.1.DenseReluDense.wi_1.weight"),
+                    "fc2": g(f"{p}.1.DenseReluDense.wo.weight")},
+        })
+    params = {
+        "token_embedding": (g("shared.weight") if "shared.weight" in sd
+                            else g("embed_tokens.weight")),
+        "blocks": blocks,
+        "norm": g("final_layer_norm.weight"),
+    }
+    if cfg.shared_pos:
+        params["shared_pos_embedding"] = g(
+            "block.0.layer.0.SelfAttention.relative_attention_bias.weight")
+    return params

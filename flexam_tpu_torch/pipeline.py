@@ -19,8 +19,10 @@ Conditioning from tracks (`prepare_conditioning_from_tracks`) rasterizes
 the control streams on the pipeline's device (`conditioning/
 rasterize_device.py`) and encodes them group by group, so the full-size
 clips never exist at once.
-Not ported yet: TeaCache, the camera adapter, denoise checkpoint/resume,
-the quantized weight modes and the multi-device attention wrappers.
+TeaCache (`teacache_thresh`) skips the DiT's blocks on steps whose
+modulated input barely moved; `denoise(checkpoint_cb=, resume=)` snapshots
+and resumes the solver state. Not ported yet: the camera adapter, the
+quantized weight modes and the multi-device attention wrappers.
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ from flexam_tpu_torch.conditioning.rasterize_device import DeviceRasterizer
 from flexam_tpu_torch.config import FlexAMConfig
 from flexam_tpu_torch.core.attention import attention as default_attention
 from flexam_tpu_torch.device import resolve_device
-from flexam_tpu_torch.models.dit import dit_forward, make_rope_tables_for
+from flexam_tpu_torch.models.dit import (WAN22_TEACACHE_COEFFICIENTS,
+                                         dit_forward, dit_forward_teacache,
+                                         init_teacache_state,
+                                         make_rope_tables_for)
 from flexam_tpu_torch.models.t5 import t5_encode
 from flexam_tpu_torch.models.vae import vae_decode, vae_encode_mode
 from flexam_tpu_torch.models.vae_stream import (vae_decode_streamed_u8,
@@ -558,11 +563,24 @@ class FlexAMGenerationPipeline:
         density: Optional[float] = None,
         cfg_skip_ratio: float = 0.0,
         latents=None,                      # explicit initial noise
+        teacache_thresh: float = 0.0,      # 0 = off; the reference's: 0.10
+        teacache_skip_start: int = 5,
+        teacache_coefficients=None,        # 5-tuple; None = the Wan2.2 table
+        resume: Optional[dict] = None,     # a snapshot from checkpoint_cb
+        checkpoint_cb=None,                # cb(step, snapshot)
         progress_cb=None,                  # cb(done, total) after each step
     ) -> torch.Tensor:
         """The CFG flow-matching loop. Without `latents`, the initial noise
         is drawn from a torch.Generator seeded with `seed` (torch cannot
-        replay jax.random: pass the JAX noise as `latents` to match it)."""
+        replay jax.random: pass the JAX noise as `latents` to match it).
+
+        The steps run in chunks of `steps_per_launch` within each segment
+        (the timestep-MoE boundary and the cfg-skip tail split the loop), as
+        JAX's launches do: after each chunk `checkpoint_cb(step, snapshot)`
+        gets the last step's index and {"step", "sampler_state"} (host numpy
+        arrays), and `resume=` that snapshot skips the chunks up to it.
+        TeaCache state starts afresh in each segment; `last_denoise_info`
+        counts the forwards that ran and were skipped."""
         scfg = self.cfg.scheduler
         dcfg = self.cfg.dit
         tables = build_schedule(
@@ -588,6 +606,12 @@ class FlexAMGenerationPipeline:
                      - int(cfg_skip_ratio * num_inference_steps)
                      if cfg_skip_ratio > 0 else num_inference_steps)
         do_cfg = guidance_scale > 1.0 and context.shape[0] == 2
+        segments = []
+        bounds = sorted({0, high_steps, min(skip_from, n), n})
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            if a < b:
+                segments.append((a, b, b <= high_steps,
+                                 do_cfg and a < skip_from))
 
         dt = self.compute_dtype
         sched = schedule_arrays(tables, self.device)
@@ -602,23 +626,22 @@ class FlexAMGenerationPipeline:
         # per-token timestep pattern: tokens of known content get t = 0
         tok_pattern = mask_ti2v[0, 0, :, ::ph, ::pw].reshape(-1)
         per_token_t = bool(cond.get("per_token_t", True))
+        tokens = (lt + int(dcfg.add_ref_conv)) * (lh // ph) * (lw // pw)
+        use_teacache = teacache_thresh > 0.0
+        tea_coeffs = (teacache_coefficients if teacache_coefficients
+                      is not None else WAN22_TEACACHE_COEFFICIENTS)
 
         attn_fn = self._resolve_attn_fn(lt, lh, lw)
 
-        state = sampler_init_state(latents, tables.order)
-        if ffk:   # pin the known latents before the first step
-            state = ((1 - mask_ti2v) * known + mask_ti2v * state[0],) + state[1:]
+        def pin(x):   # the known region of the first frame
+            return (1 - mask_ti2v) * known + mask_ti2v * x
 
-        for i in range(n):
-            params = (self.models.dit2_params if i < high_steps
-                      else self.models.dit_params)
-            with_cfg = do_cfg and i < skip_from
+        def step(params, state, tea, i, with_cfg):
             batch = 2 if with_cfg else 1
             ctx = context if with_cfg else context[-1:]
             rep = (batch, 1, 1, 1, 1)
             t_in = sched["timesteps"][i].expand(batch).contiguous()
-            pred = dit_forward(
-                params, dcfg, state[0].to(dt).repeat(rep), t_in, ctx,
+            kw = dict(
                 density=(torch.full((batch,), float(density),
                                     device=self.device)
                          if density is not None else None),
@@ -628,6 +651,14 @@ class FlexAMGenerationPipeline:
                 rope_tables=self.rope_tables, attn_fn=attn_fn,
                 binary_t_mask=(tok_pattern[None].expand(batch, -1)
                                if per_token_t else None))
+            x = state[0].to(dt).repeat(rep)
+            if use_teacache:
+                pred, tea = dit_forward_teacache(
+                    params, dcfg, x, t_in, ctx, tea, i,
+                    coefficients=tea_coeffs, rel_l1_thresh=teacache_thresh,
+                    num_skip_start_steps=teacache_skip_start, **kw)
+            else:
+                pred = dit_forward(params, dcfg, x, t_in, ctx, **kw)
             if with_cfg:
                 uncond, cond_p = pred[0:1], pred[1:2]
                 v = uncond + guidance_scale * (cond_p - uncond)
@@ -635,11 +666,60 @@ class FlexAMGenerationPipeline:
                 v = pred
             state, x_next = sampler_step(sched, tables.convert, state, v, i)
             if ffk:
-                x_next = (1 - mask_ti2v) * known + mask_ti2v * x_next
-                state = (x_next,) + state[1:]
-            if progress_cb is not None:
-                progress_cb(i + 1, n)
+                state = (pin(x_next),) + state[1:]
+            return state, tea
+
+        state = sampler_init_state(latents, tables.order)
+        resume_step = -1
+        if resume is not None:
+            state = tuple(self._tensor(s) for s in resume["sampler_state"])
+            resume_step = int(resume["step"])
+        spl = max(1, int(self.steps_per_launch))
+        computed = 0.0
+        for a, b, use_dit2, with_cfg in segments:
+            params = (self.models.dit2_params if use_dit2
+                      else self.models.dit_params)
+            tea = (init_teacache_state(2 if with_cfg else 1, tokens, dcfg.dim,
+                                       dt, self.device)
+                   if use_teacache else None)
+            c0 = a
+            while c0 < b:
+                length = min(spl, b - c0)
+                if c0 + length <= resume_step + 1:
+                    c0 += length
+                    continue
+                if ffk:   # pinned at chunk entry, as JAX's launches do
+                    state = (pin(state[0]),) + state[1:]
+                for i in range(c0, c0 + length):
+                    state, tea = step(params, state, tea, i, with_cfg)
+                    if progress_cb is not None:
+                        progress_cb(i + 1, n)
+                c0 += length
+                if checkpoint_cb is not None:
+                    checkpoint_cb(c0 - 1, {
+                        "step": c0 - 1,
+                        "sampler_state": [s.cpu().numpy() for s in state]})
+            if tea is not None:
+                computed += float(tea["computed"])
+        self.last_denoise_info = {"steps": n}
+        if use_teacache:
+            self.last_denoise_info.update(
+                teacache_computed_forwards=computed,
+                teacache_skipped_forwards=float(n - computed))
         return state[0]
+
+    # The denoise runs in chunks of this many steps (JAX's launch length):
+    # only the cadence of checkpoint_cb's snapshots, so that their step
+    # numbers equal JAX's.
+    steps_per_launch = 14
+
+    def set_dit_params(self, params):
+        """Replace the DiT weights (a LoRA merge, a checkpoint swap)."""
+        self.models.dit_params = params
+
+    def release_dit(self):
+        """Drop the DiT weights (after the last denoise of a one-shot run)."""
+        self.models.dit_params = None
 
     # -- full generate --------------------------------------------------------
 
@@ -648,8 +728,9 @@ class FlexAMGenerationPipeline:
                  negative_prompt=None, num_inference_steps=50,
                  guidance_scale=6.0, seed=1245644, density=None,
                  scheduler_type=None, shift=None, boundary=None,
-                 cfg_skip_ratio=0.0, latents=None, output_type="np",
-                 progress_cb=None):
+                 cfg_skip_ratio=0.0, teacache_thresh=0.0,
+                 teacache_skip_start=5, teacache_coefficients=None,
+                 latents=None, output_type="np", progress_cb=None):
         """End-to-end call: video in [0, 1], [1, 3, T, H, W]; returns the
         generated video [1, 3, T, H, W] in [0, 1] (numpy, from the uint8
         decode) or, with output_type="latent", the latents."""
@@ -661,22 +742,28 @@ class FlexAMGenerationPipeline:
             cond, context, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, seed=seed, density=density,
             scheduler_type=scheduler_type, shift=shift, boundary=boundary,
-            cfg_skip_ratio=cfg_skip_ratio, latents=latents,
+            cfg_skip_ratio=cfg_skip_ratio, teacache_thresh=teacache_thresh,
+            teacache_skip_start=teacache_skip_start,
+            teacache_coefficients=teacache_coefficients, latents=latents,
             output_type=output_type, progress_cb=progress_cb)
 
     def generate_from_cond(self, cond, context, num_inference_steps=50,
                            guidance_scale=6.0, seed=1245644, density=None,
                            scheduler_type=None, shift=None, boundary=None,
-                           cfg_skip_ratio=0.0, latents=None, output_type="np",
-                           progress_cb=None):
+                           cfg_skip_ratio=0.0, teacache_thresh=0.0,
+                           teacache_skip_start=5, teacache_coefficients=None,
+                           latents=None, output_type="np", progress_cb=None):
         """Denoise + decode from a prepared conditioning dict."""
         lat = self.denoise(cond, context,
                            num_inference_steps=num_inference_steps,
                            guidance_scale=guidance_scale, seed=seed,
                            scheduler_type=scheduler_type, shift=shift,
                            boundary=boundary, density=density,
-                           cfg_skip_ratio=cfg_skip_ratio, latents=latents,
-                           progress_cb=progress_cb)
+                           cfg_skip_ratio=cfg_skip_ratio,
+                           teacache_thresh=teacache_thresh,
+                           teacache_skip_start=teacache_skip_start,
+                           teacache_coefficients=teacache_coefficients,
+                           latents=latents, progress_cb=progress_cb)
         if output_type == "latent":
             return lat.cpu().numpy()
         return self.decode_u8(lat).float().div(255.0).numpy()

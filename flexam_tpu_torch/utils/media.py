@@ -1,0 +1,364 @@
+"""Media input and output: videos and images <-> numpy arrays.
+
+Port of `flexam_tpu/utils/media.py` (`get_video_input`,
+`get_image_to_video_input`, `get_maskvideo_input`, `get_image_latent`,
+`save_video`). Tensors are numpy [B, C, T, H, W] float32 in [0, 1];
+`sample_size` is (height, width).
+
+JAX decodes files with OpenCV and PIL, which the card's machine lacks and
+the port does not import. The readers here take what needs no decoder:
+
+  * numpy arrays, as JAX's readers do;
+  * `.npy` files (a video [T, H, W, 3], an image [H, W, 3] or [H, W]);
+  * `.npz` frame dumps as JAX's own `save_video` writes them when no
+    encoder is present (`video` uint8 [T, H, W, 3] and `fps`), and images
+    saved the same way (`image`).
+
+Any other file raises, naming the decoder it would need. Resizing, where a
+file is not at `sample_size` already, is the port's own: images follow
+PIL's `resize` (bicubic, antialiased when shrinking) in PIL's own 22-bit
+fixed point, so equal to it; video frames follow OpenCV's `INTER_LINEAR`
+in floating point, within one uint8 level of it. At `sample_size` both
+return the frames unchanged, as PIL and OpenCV do.
+
+`save_video` writes through `imageio` when it imports, else the `.npz`
+frame dump (JAX's order, without its OpenCV step).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple, Union
+
+import numpy as np
+
+VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".flv",
+                    ".wmv")
+_PRECISION_BITS = 32 - 8 - 2       # PIL's fixed point for 8-bit images
+
+
+def _no_decoder(path: str, what: str):
+    return ValueError(
+        f"cannot read {path}: decoding this {what} needs "
+        f"{'OpenCV or imageio' if what == 'video' else 'PIL'}, which the "
+        "PyTorch port does not use. Pass a numpy array, an .npy file, or an "
+        ".npz frame dump (keys video [T, H, W, 3] uint8 and fps, as "
+        "save_video writes without an encoder)")
+
+
+def is_video_path(path: Optional[str]) -> bool:
+    """A video file by extension, an .npz frame dump with a `video` key, or
+    an .npy of 4 dims."""
+    if not path:
+        return False
+    low = path.lower()
+    if low.endswith(VIDEO_EXTENSIONS):
+        return True
+    if low.endswith(".npz"):
+        with np.load(path) as z:
+            return "video" in z.files
+    if low.endswith(".npy"):
+        return np.load(path, mmap_mode="r").ndim == 4
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Resampling
+# ---------------------------------------------------------------------------
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter (a = -0.5)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0,
+                    np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a,
+                             0.0))
+
+
+def _pil_coeffs(in_n: int, out_n: int):
+    """PIL's `precompute_coeffs` for the bicubic filter and its 8-bit fixed
+    point (`normalize_coeffs_8bpc`): per output pixel the first input index
+    and the integer weights [out_n, k]."""
+    scale = in_n / out_n
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    bounds = np.zeros(out_n, np.int64)
+    kk = np.zeros((out_n, ksize), np.int64)
+    for xx in range(out_n):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_n) - xmin
+        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / fscale))
+        total = 0.0
+        for v in w:          # PIL sums in order
+            total += v
+        if total != 0.0:
+            w = w / total
+        scaled = w * (1 << _PRECISION_BITS)
+        kk[xx, :xmax] = np.where(w < 0, (-0.5 + scaled).astype(np.int64),
+                                 (0.5 + scaled).astype(np.int64))
+        bounds[xx] = xmin
+    return bounds, kk
+
+
+def _pil_pass(img: np.ndarray, out_n: int, axis: int) -> np.ndarray:
+    """One PIL resampling pass over `axis` of a uint8 array."""
+    in_n = img.shape[axis]
+    bounds, kk = _pil_coeffs(in_n, out_n)
+    x = np.moveaxis(img, axis, -1).astype(np.int64)
+    idx = np.clip(bounds[:, None] + np.arange(kk.shape[1]), 0, in_n - 1)
+    acc = (x[..., idx] * kk).sum(-1) + (1 << (_PRECISION_BITS - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, -1, axis)
+
+
+def resize_image_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's `Image.resize((w, h))` (default bicubic) of a uint8 [H, W] or
+    [H, W, C] image, to `size` = (h, w): the horizontal pass first, each
+    pass rounded to uint8, as PIL does."""
+    h, w = size
+    out = np.asarray(img, np.uint8)
+    if out.shape[:2] == (h, w):
+        return out.copy()
+    if out.shape[1] != w:
+        out = _pil_pass(out, w, 1)
+    if out.shape[0] != h:
+        out = _pil_pass(out, h, 0)
+    return out
+
+
+def _linear_weights(in_n: int, out_n: int):
+    """OpenCV's INTER_LINEAR taps: half-pixel centres, clamped at the
+    borders, no antialiasing."""
+    f = (np.arange(out_n) + 0.5) * (in_n / out_n) - 0.5
+    lo = np.floor(f).astype(np.int64)
+    frac = f - lo
+    frac = np.where(lo < 0, 0.0, frac)
+    lo = np.clip(lo, 0, in_n - 1)
+    frac = np.where(lo >= in_n - 1, 0.0, frac)
+    hi = np.minimum(lo + 1, in_n - 1)
+    return lo, hi, frac
+
+
+def resize_frames_u8(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """OpenCV's `cv2.resize(frame, (w, h))` (INTER_LINEAR) of uint8 frames
+    [T, H, W, C], in float64 (OpenCV's 11-bit fixed point differs by at
+    most one level)."""
+    h, w = size
+    if frames.shape[1:3] == (h, w):
+        return frames.copy()
+    x = frames.astype(np.float64)
+    lo, hi, fr = _linear_weights(frames.shape[2], w)
+    x = x[:, :, lo] * (1 - fr)[None, None, :, None] \
+        + x[:, :, hi] * fr[None, None, :, None]
+    lo, hi, fr = _linear_weights(frames.shape[1], h)
+    x = x[:, lo] * (1 - fr)[None, :, None, None] \
+        + x[:, hi] * fr[None, :, None, None]
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+def to_gray_u8(img: np.ndarray) -> np.ndarray:
+    """PIL's convert("L") of an RGB uint8 image (ITU-R 601-2 luma in its
+    16-bit fixed point)."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        return img.astype(np.uint8)
+    rgb = img[..., :3].astype(np.int64)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Readers
+# ---------------------------------------------------------------------------
+
+def _as_u8(a: np.ndarray) -> np.ndarray:
+    """Stored frames as uint8: booleans become 0 / 255, floats in [0, 1]
+    are scaled, other types are taken as levels."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return a.astype(np.uint8) * 255
+    if np.issubdtype(a.dtype, np.floating):
+        return np.clip(np.rint(a * 255.0), 0, 255).astype(np.uint8)
+    return a.astype(np.uint8)
+
+
+def read_video_frames(path: str) -> Tuple[np.ndarray, Optional[float]]:
+    """(frames uint8 [T, H, W, 3], fps or None) of an .npz frame dump or a
+    4-dim .npy."""
+    low = path.lower()
+    if low.endswith(".npz"):
+        with np.load(path) as z:
+            if "video" not in z.files:
+                raise ValueError(f"{path}: no `video` array in the .npz")
+            fps = float(z["fps"]) if "fps" in z.files else None
+            return _as_u8(z["video"]), fps
+    if low.endswith(".npy"):
+        frames = np.load(path)
+        if frames.ndim != 4:
+            raise ValueError(f"{path}: a video .npy is [T, H, W, 3]")
+        return _as_u8(frames), None
+    raise _no_decoder(path, "video")
+
+
+def _read_video(path: str, sample_size, video_length: Optional[int],
+                fps: Optional[float]) -> np.ndarray:
+    """JAX's `_read_video_cv2`: frames at `sample_size`, every
+    (original fps // fps)-th frame when `fps` is given, the first
+    `video_length` of them."""
+    frames, original_fps = read_video_frames(path)
+    if fps is not None and original_fps:
+        frames = frames[::max(1, int(original_fps // fps))]
+    frames = resize_frames_u8(frames, tuple(sample_size))
+    if video_length is not None:
+        frames = frames[:video_length]
+    return frames
+
+
+def read_image(path: str) -> np.ndarray:
+    """A uint8 image [H, W] or [H, W, C] from an .npy, or an .npz with an
+    `image` (or single-frame `video`) array."""
+    low = path.lower()
+    if low.endswith(".npy"):
+        return _as_u8(np.load(path))
+    if low.endswith(".npz"):
+        with np.load(path) as z:
+            if "image" in z.files:
+                return _as_u8(z["image"])
+            if "video" in z.files:
+                return _as_u8(z["video"][0])
+        raise ValueError(f"{path}: no `image` array in the .npz")
+    raise _no_decoder(path, "image")
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """PIL's convert("RGB"): grey repeated, alpha dropped."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, axis=2)
+    return img[..., :3]
+
+
+def _load_image(img, sample_size) -> np.ndarray:
+    """An RGB uint8 image [H, W, 3] at `sample_size`."""
+    if isinstance(img, str):
+        arr = _rgb(read_image(img))
+    else:
+        arr = np.asarray(img, np.uint8)
+    return resize_image_u8(arr, tuple(sample_size))
+
+
+def load_mask_image(path: str, sample_size) -> np.ndarray:
+    """A grey uint8 mask image at `sample_size` (PIL's convert("L") and
+    resize)."""
+    return resize_image_u8(to_gray_u8(read_image(path)), tuple(sample_size))
+
+
+def get_video_input(
+    input_video: Union[str, np.ndarray, None],
+    video_length: Optional[int],
+    sample_size: Tuple[int, int],
+    fps: Optional[float] = None,
+    validation_video_mask: Optional[str] = None,
+    ref_image: Union[str, np.ndarray, None] = None,
+):
+    """`get_video_to_video_latent`. Returns (video [1,3,T,H,W] in [0,1] |
+    None, mask [1,1,T,H,W] in {0,255} | None, ref [1,3,1,H,W] | None)."""
+    video = mask = ref = None
+    if input_video is not None:
+        if isinstance(input_video, str):
+            arr = _read_video(input_video, sample_size, video_length, fps)
+        else:
+            arr = np.asarray(input_video)[:video_length]
+        video = (arr.transpose(3, 0, 1, 2)[None].astype(np.float32) / 255.0)
+        if validation_video_mask is not None:
+            m = load_mask_image(validation_video_mask, sample_size)
+            m = np.where(m < 240, 0, 255).astype(np.float32)
+            mask = np.tile(m[None, None, None], (1, 1, video.shape[2], 1, 1))
+        else:
+            mask = np.full((1, 1) + video.shape[2:], 255.0, np.float32)
+    if ref_image is not None:
+        ref = get_image_latent(ref_image, sample_size)
+    return video, mask, ref
+
+
+def get_image_to_video_input(
+    image_start: Union[str, np.ndarray],
+    video_length: int,
+    sample_size: Tuple[int, int],
+    image_end: Union[str, np.ndarray, None] = None,
+):
+    """`get_image_to_video_latent` (single-image branch): the start frame
+    tiled, mask 0 on frame 0 and 255 after."""
+    start = _load_image(image_start, sample_size)      # [H, W, 3] uint8
+    video = np.tile(start.transpose(2, 0, 1)[None, :, None],
+                    (1, 1, video_length, 1, 1)).astype(np.float32) / 255.0
+    mask = np.zeros((1, 1, video_length) + start.shape[:2], np.float32)
+    mask[:, :, 1:] = 255.0
+    if image_end is not None:
+        end = _load_image(image_end, sample_size)
+        video[:, :, -1] = end.transpose(2, 0, 1).astype(np.float32) / 255.0
+        mask[:, :, -1] = 0.0
+    return video, mask
+
+
+def get_maskvideo_input(mask_path: str, video_length: int,
+                        sample_size: Tuple[int, int],
+                        fps: Optional[float] = None) -> np.ndarray:
+    """`get_maskvideo_to_video_latent`: a mask video -> [T, 3, H, W] float
+    in [0, 1]."""
+    arr = _read_video(mask_path, sample_size, video_length, fps)
+    return arr.transpose(0, 3, 1, 2).astype(np.float32) / 255.0
+
+
+def _pad_image(img: np.ndarray, new_width: int, new_height: int) -> np.ndarray:
+    """`padding_image`: aspect-preserving letterbox on white."""
+    h, w = img.shape[:2]
+    ratio = min(new_width / w, new_height / h)
+    rw, rh = int(w * ratio), int(h * ratio)
+    resized = resize_image_u8(img, (rh, rw))
+    canvas = np.full((new_height, new_width, 3), 255, np.uint8)
+    top, left = (new_height - rh) // 2, (new_width - rw) // 2
+    canvas[top:top + rh, left:left + rw] = resized
+    return canvas
+
+
+def get_image_latent(ref_image, sample_size,
+                     padding: bool = False) -> np.ndarray:
+    """`get_image_latent`: -> [1, 3, 1, H, W] in [0, 1]."""
+    if isinstance(ref_image, str):
+        img = _rgb(read_image(ref_image))
+    else:
+        img = np.asarray(np.asarray(ref_image), np.uint8)
+    if padding:
+        img = _pad_image(img, sample_size[1], sample_size[0])
+    img = resize_image_u8(img, tuple(sample_size))
+    arr = img.astype(np.float32) / 255.0
+    return arr.transpose(2, 0, 1)[None, :, None]
+
+
+# ---------------------------------------------------------------------------
+# Writer
+# ---------------------------------------------------------------------------
+
+def save_video(video: np.ndarray, path: str, fps: int = 16):
+    """Save [1, 3, T, H, W] or [3, T, H, W] float [0, 1] to `path` through
+    imageio; without it, or where it fails, a .npz frame dump at
+    `path + ".npz"` (keys video uint8 [T, H, W, 3] and fps), which the
+    readers here take. Returns the path written."""
+    v = np.asarray(video)
+    if v.ndim == 5:
+        v = v[0]
+    frames = (np.clip(v.transpose(1, 2, 3, 0), 0, 1) * 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio
+        imageio.mimsave(path, list(frames), fps=fps)
+        return path
+    except Exception as e:
+        alt = path + ".npz"
+        np.savez_compressed(alt, video=frames, fps=fps)
+        print(f"video encoders unavailable ({e}); saved raw frames to {alt}")
+        return alt

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither jax nor anything of
 the JAX package, nor the host libraries the card's machine lacks
-(matplotlib, cv2, PIL), its entry points refuse to run on the CPU unless
+(matplotlib, cv2, PIL, and safetensors / ml_dtypes, which the checkpoint
+readers do without), its entry points refuse to run on the CPU unless
 asked, and `chip_smoke.py` fails cleanly where there is no CUDA device."""
 
 import ast
@@ -47,8 +48,8 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-# host libraries the card's machine does not have
-HOST_ONLY = ("matplotlib", "cv2", "PIL")
+# host libraries the card's machine does not have (or may lack)
+HOST_ONLY = ("matplotlib", "cv2", "PIL", "safetensors", "ml_dtypes")
 
 
 def _host_only(name: str) -> bool:
@@ -58,16 +59,18 @@ def _host_only(name: str) -> bool:
 @pytest.mark.parametrize("path", [p for p, _ in _modules()]
                          + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
 def test_no_host_only_library_import(path):
-    """AST scan: no `import matplotlib`, `cv2` or `PIL` anywhere in the
-    port or the smoke (the conditioning modules keep their own Spectral
-    table and numpy painter)."""
+    """AST scan: no `import matplotlib`, `cv2`, `PIL`, `safetensors` or
+    `ml_dtypes` anywhere in the port or the smoke (the conditioning modules
+    keep their own Spectral table and numpy painter, the masks and media
+    readers their own OpenCV / PIL steps, the checkpoint loaders their own
+    safetensors reader)."""
     bad = [n for n in _imported_roots(path) if _host_only(n)]
     assert not bad, f"{path}: imports {bad}"
 
 
 def test_importing_the_port_loads_no_host_only_library():
     """In a fresh interpreter, importing every module of the port and
-    building a device rasterizer leaves no matplotlib, cv2 or PIL module in
+    building a device rasterizer leaves none of those libraries in
     sys.modules."""
     names = [n for _, n in _modules()]
     code = ("import sys\n"
