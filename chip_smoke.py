@@ -90,7 +90,30 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        run's stage seconds, peak memory and launch counts
                        (reset before it). Every demo mode passes a mask
                        video, so the blocks run B4's per-token mode, not
-                       B4' (which the generate phases cover).
+                       B4' (which the generate phases cover);
+  serving              the serving session, `flexam_tpu_torch.tools.
+                       serving_bench.main` in process at Wan2.2-Fun-5B width
+                       and 512x896x97f (11,648 tokens, CFG batch 2, random
+                       weights from seeds, a random text context and no
+                       umT5), in four modes: bf16 (resident), int8 (int8
+                       block linears), fp8 (e4m3 weight storage) and int8
+                       with --attention sparse (B5), 2 runs of 2 steps each
+                       (prepare from tracks, denoise, streamed decode). One
+                       line a mode: the records and summary, the peak
+                       memory, the resident DiT's bytes and the launches
+                       (reset before each mode; the bench hands the first
+                       frame, which the pipeline marks known token by token,
+                       so the blocks run B4's binary mode; the line says
+                       which ran). The int8 tree must hold 300
+                       weight_q leaves, the fp8 tree float8 leaves, the
+                       sparse run must launch B5. Before the sessions
+                       ("serving_checks"): the card's int8 GEMM gives the
+                       CPU's int32 accumulators for the same int8 operands;
+                       a 5B block's linears quantized on the card equal
+                       numpy's quantization byte for byte; one ffn linear
+                       at the flagship rows and one flagship forward in int8
+                       and in fp8 stay within the bounds below of bf16 (and
+                       the int8 forward is profiled).
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -104,6 +127,21 @@ cudnn.allow_tf32 = False), so fp32 work on the card runs in full fp32. Any
 failure raises and exits non-zero.
 Without a CUDA device, or without the flexam_tpu_torch package beside this
 script, it exits non-zero and prints no result.
+
+The quantized modes against bf16 (serving_checks), relative L2 error. One
+linear: int8 rounds each token's activations to steps of amax/127 and each
+weight row to its own; for random activations amax is about 3.9 standard
+deviations over 3072 features, for the uniform (xavier) weights 1.73, so
+the output's error is sqrt(3.9^2 + 1.73^2) / (127 sqrt 12) = 0.0097 of its
+size. e4m3 keeps 3 mantissa bits (a rounding error of 2^-3 / sqrt 12 of a
+weight's binade) above 2^-6, and below 2^-6, where it is subnormal, a fixed
+step of 2^-9: the random ffn weights (xavier, |w| < 0.0186) lie mostly
+there, so the error is about 2^-9 / sqrt 12 = 5.6e-4 against a weight rms
+of 0.0107, 0.053 of the output (q/k/v/o, |w| < 0.031: about 0.03). Bound
+for one linear: twice that, 0.02 (JAX's own test bound for int8) and 0.1.
+A forward runs 30 blocks whose branch errors add independently in the
+residual stream, at most sqrt(30) times one linear's error: int8 0.053,
+fp8 0.29; the bounds are 0.06 and 0.3.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -119,6 +157,7 @@ wrong stream, frame or mask would move them by the size of the latents).
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -255,7 +294,7 @@ def phase_kernels(dev, results: dict) -> None:
     import torch
     import torch.nn.functional as F
     from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
-    from flexam_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import fused
     from flexam_tpu_torch.testing import (check_attention,
                                           check_ln_modulation,
@@ -378,7 +417,7 @@ def long_kernels(dev, gen) -> dict:
     gives them ("long/..." lines)."""
     import torch
     import torch.nn.functional as F
-    from flexam_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import int8_attention as i8
     from flexam_tpu_torch.ops import sparse_attention as sp
     from flexam_tpu_torch.testing import (block_scaled, check_int8_attention,
@@ -497,7 +536,7 @@ def long_path_shapes(dev, gen) -> dict:
     known."""
     import torch
     from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
-    from flexam_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import fused
     from flexam_tpu_torch.testing import (check_attention,
                                           check_ln_modulation,
@@ -1527,6 +1566,193 @@ def phase_demo(dev, results: dict) -> None:
     emit("demo", t0, runs=out_runs, launches_all_runs=demo_launches)
 
 
+# Relative L2 bounds of the quantized modes against bf16, derived in the
+# module docstring
+LINEAR_BOUND = {"int8": 0.02, "fp8": 0.1}       # 2x one linear's error
+FORWARD_BOUND = {"int8": 0.06, "fp8": 0.3}
+SERVING_MODES = (("bf16", ["--mode", "bf16"]), ("int8", ["--mode", "int8"]),
+                 ("fp8", ["--mode", "fp8"]),
+                 ("int8_sparse", ["--mode", "int8", "--attention", "sparse"]))
+
+
+def serving_checks(dev) -> dict:
+    """What the serving sessions rest on, on the card: int8 accumulators
+    equal to the CPU's, a block's weight quantization equal to numpy's byte
+    for byte, one linear and one flagship forward in int8 and in fp8 within
+    their bounds of bf16 (the int8 forward also profiled)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.config import WAN22_5B_FLEXAM
+    from flexam_tpu_torch.core.layers import linear
+    from flexam_tpu_torch.io.convert import map_leaves
+    from flexam_tpu_torch.models.dit import (dit_forward, init_dit_params,
+                                             make_rope_tables_for)
+    from flexam_tpu_torch.ops import qlinear as Q
+    from flexam_tpu_torch.utils.fp8 import FP8, convert_weights_to_fp8
+
+    out = {}
+    dcfg = WAN22_5B_FLEXAM.dit
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    # int32 accumulators: the card's GEMM against the CPU's for the same
+    # int8 operands (1,024 rows of the ffn's fc1, 3072 -> 14336)
+    a = torch.randint(-127, 128, (1024, dcfg.dim), generator=gen,
+                      device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (dcfg.ffn_dim, dcfg.dim), generator=gen,
+                      device=dev, dtype=torch.int8)
+    acc = Q.int_mm(a, w).cpu()
+    ref = torch._int_mm(a.cpu(), w.cpu().t())
+    out["int32_accumulators_differing"] = int((acc != ref).sum())
+    if out["int32_accumulators_differing"]:
+        raise AssertionError(f"int_mm on the card: {out}")
+    # a block's linears quantized on the card against numpy, byte for byte
+    shapes = {f"{m}.{n}": (dcfg.dim, dcfg.dim) for m in ("self_attn",
+                                                         "cross_attn")
+              for n in "qkvo"}
+    shapes.update({"ffn.fc1": (dcfg.ffn_dim, dcfg.dim),
+                   "ffn.fc2": (dcfg.dim, dcfg.ffn_dim)})
+    differing = 0
+    for name, shp in shapes.items():
+        wt = (torch.randn(shp, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        qd = Q.quantize_linear_params({"weight": wt})
+        qh, sh = Q._quantize_weight_host(wt.float().cpu().numpy())
+        differing += int((qd["weight_q"].cpu().numpy() != qh).sum())
+        differing += int((qd["w_scale"].cpu().numpy().view(np.uint32)
+                          != sh.view(np.uint32)).sum())
+    out["block_quantization_bytes_differing"] = differing
+    if differing:
+        raise AssertionError(f"weight quantization on the card: {out}")
+
+    params = init_dit_params(dcfg, seed=SEED + 41, dtype=torch.bfloat16,
+                             device=dev)
+    bf = torch.bfloat16
+    lt, lh, lw = FLAGSHIP_LATENT
+    c = dcfg.out_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf)
+
+    # one linear at the flagship rows (11,648 tokens): block 0's ffn fc1
+    xr = randn(2, (lt + 1) * (lh // 2) * (lw // 2), dcfg.dim)
+    lin = params["blocks"][0]["ffn"]["fc1"]
+    y_ref = linear(xr, lin).float()
+    for mode, y in (("int8", Q.qlinear(xr, Q.quantize_linear_params(lin))),
+                    ("fp8", linear(xr, {**lin,
+                                        "weight": lin["weight"].to(FP8)}))):
+        rel = float((y.float() - y_ref).norm() / y_ref.norm())
+        out[f"linear_rel_err_{mode}"] = rel
+        if not rel < LINEAR_BOUND[mode]:
+            raise AssertionError(f"{mode} linear: relative error {rel} "
+                                 f"(bound {LINEAR_BOUND[mode]})")
+    del xr, y, y_ref
+
+    inp = dict(x=randn(2, c, lt, lh, lw),
+               y=randn(2, dcfg.in_dim - c, lt, lh, lw),
+               additional_control=randn(2, dcfg.in_dim_cnn_block - c,
+                                        lt, lh, lw),
+               full_ref=randn(2, c, lh, lw),
+               context=randn(2, dcfg.text_len, dcfg.text_dim))
+    t = torch.full((2,), 900.0, device=dev)
+    dens = torch.full((2,), 0.5, device=dev)
+    rope = make_rope_tables_for(dcfg, dev)
+
+    def forward(p):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            o = dit_forward(p, dcfg, inp["x"], t, inp["context"],
+                            density=dens, y=inp["y"],
+                            additional_control=inp["additional_control"],
+                            full_ref=inp["full_ref"], rope_tables=rope)
+            torch.cuda.synchronize()
+            return o, time.perf_counter() - t1
+
+    forward(params)                                    # warm-up
+    base, out["forward_seconds_bf16"] = forward(params)
+    base = base.float()
+    for mode in ("fp8", "int8"):
+        # fp8 converts a copy of the containers; int8, last, in place
+        q = (convert_weights_to_fp8(map_leaves(params, lambda k, t, b: t))
+             if mode == "fp8" else Q.convert_dit_to_int8(params))
+        o, secs = forward(q)
+        rel = float((o.float() - base).norm() / base.norm())
+        out[f"forward_seconds_{mode}"] = secs
+        out[f"forward_rel_err_{mode}"] = rel
+        if not (bool(o.isfinite().all()) and rel < FORWARD_BOUND[mode]):
+            raise AssertionError(f"{mode} flagship forward: relative error "
+                                 f"{rel} (bound {FORWARD_BOUND[mode]})")
+        del o
+    with torch.no_grad():
+        out["int8_forward_profile"] = profile_forward(
+            lambda: dit_forward(q, dcfg, inp["x"], t, inp["context"],
+                                density=dens, y=inp["y"],
+                                additional_control=inp["additional_control"],
+                                full_ref=inp["full_ref"], rope_tables=rope))
+    del params, q, base, inp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(dev, results: dict) -> None:
+    """`flexam_tpu_torch.tools.serving_bench.main` in process at 5B width,
+    512x896x97f, in the modes bf16, int8, fp8 and int8 with sparse
+    attention, 2 runs of 2 steps each (module docstring), after the checks
+    of `serving_checks`."""
+    import gc
+
+    import torch
+    from flexam_tpu_torch.config import WAN22_5B_FLEXAM
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flexam_tpu_torch.tools import serving_bench
+
+    t0 = time.perf_counter()
+    emit("serving_checks", t0, **serving_checks(dev))
+    frames, hp, wp = TRACKS_VIDEO
+    layers = WAN22_5B_FLEXAM.dit.num_layers
+    total = {}
+    for name, argv in SERVING_MODES:
+        t1 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        recs, summary = serving_bench.main(argv + ["--runs", "2", "--steps",
+                                                   "2"])
+        counts = launch_counts()
+        sparse = "sparse" in name
+        dtypes = summary["dit_dtypes"]
+        forwards = len(recs) * 2                      # 2 steps a run
+        bad = [r for r in recs if r["video_shape"] != [1, 3, frames, hp, wp]
+               or not r["latents_finite"]]
+        want = {"single_kv_attention": forwards * layers,
+                "rmsnorm_rope": 2 * forwards * layers,
+                "sparse_attention" if sparse else "flash_attention":
+                    forwards * layers}
+        if bad or counts["int8_attention"] or any(
+                counts[k] != n for k, n in want.items()) or (
+                counts["ln_mod_bcast"] + counts["ln_mod_binary"]
+                != 2 * forwards * layers):
+            raise AssertionError(f"serving {name}: records {recs}, "
+                                 f"launches {counts}")
+        if (dtypes.get("int8", 0) != (10 * layers if "int8" in name else 0)
+                or ("float8_e4m3fn" in dtypes) != (name == "fp8")):
+            raise AssertionError(f"serving {name}: DiT leaves {dtypes}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        emit(f"serving_{name}", t1, records=recs, summary=summary,
+             peak_memory_allocated_gb=summary["peak_alloc_gb"],
+             dit_bytes=summary["dit_bytes"], launches=counts,
+             b4_mode="broadcast" if counts["ln_mod_bcast"] else "binary")
+    for k in results:
+        results[k]["serving_launches"] = total.get(k, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serving", t0, launches_all_modes=total)
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -1621,6 +1847,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_demo(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serving(dev, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1632,6 +1861,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "demo_launches": r["demo_launches"],
+            "serving_launches": r["serving_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,8 @@ use (`ops/build.py`); on a CPU tensor every wrapper takes the kernel's plain
 PyTorch version instead.
 """
 
+__version__ = "0.1.0"
+
 from flexam_tpu_torch.config import (  # noqa: F401
     WAN22_5B_FLEXAM,
     DiTConfig,
@@ -16,3 +18,15 @@ from flexam_tpu_torch.config import (  # noqa: F401
     VAEConfig,
     tiny_test_config,
 )
+
+
+def __getattr__(name):
+    """The lazy top-level API, as JAX's (keeps `import flexam_tpu_torch`
+    light)."""
+    if name in ("FlexAMGenerationPipeline", "FlexAMModels"):
+        from flexam_tpu_torch import pipeline
+        return getattr(pipeline, name)
+    if name == "FlexAMOrchestrator":
+        from flexam_tpu_torch.orchestrator import FlexAMOrchestrator
+        return FlexAMOrchestrator
+    raise AttributeError(name)

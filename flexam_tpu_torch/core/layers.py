@@ -3,8 +3,8 @@
 Port of `flexam_tpu/core/layers.py`, with the same accumulate and cast
 points: statistics in fp32, the normalized value cast back to the input
 dtype before any learned scale. Parameters are plain dicts of tensors in
-torch layout (Linear weight [out, in]). The int8 `weight_q` branch of the
-JAX `linear` is not ported (int8 linears are opt-in).
+torch layout (Linear weight [out, in]); a linear holding {"weight_q",
+"w_scale"} takes the int8 path of `ops/qlinear.py`, as in JAX.
 """
 
 from __future__ import annotations
@@ -88,7 +88,14 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """y = x @ W^T + b with torch Linear weight layout W: [out, in]."""
+    """y = x @ W^T + b with torch Linear weight layout W: [out, in].
+
+    Params holding {"weight_q", "w_scale"} take the int8 dynamic-quantized
+    path (`ops/qlinear.py`, opt-in through `convert_dit_to_int8`); a stored
+    float8 weight is cast to x's dtype like any other."""
+    if "weight_q" in params:
+        from flexam_tpu_torch.ops.qlinear import qlinear
+        return qlinear(x, params)
     y = torch.matmul(x, params["weight"].to(x.dtype).t())
     if params.get("bias") is not None:
         y = y + params["bias"].to(x.dtype)

@@ -29,9 +29,14 @@ Wan2.2_VAE.pth, models_t5_umt5-xxl-enc-bf16.pth, google/umt5-xxl}, or
 `--random_init tiny|5b`. Without a tokenizer (random weights) the prompt
 goes in as hashed ids.
 
+Quantized DiT weights: `--quant int8|fp8` (or FLEXAM_QUANT) quantizes the
+DiT when the pipeline is built, from the float32 values of a checkpoint as
+it loads; `--prequant FILE` serves a `tools/prequant_ckpt.py` file (or a
+serve bundle with `dit/` + `vae/`) in its mode, in place of the
+checkpoint's or the random DiT.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the quantized DiT (`--quant`, `--prequant`, FLEXAM_QUANT: A10); the
-perception models (`--tracking_method flow`, DELTA tracking of a video,
+the perception models (`--tracking_method flow`, DELTA tracking of a video,
 FLEXAM_MOGE_CKPT / FLEXAM_VGGT_CKPT / FLEXAM_PI3_CKPT: A14); the native
 repaint (`--repaint true`, FLEXAM_FLUX_*: A14).
 
@@ -58,9 +63,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="random weights instead of a checkpoint (smoke)")
     p.add_argument("--quant", type=str, default=None,
                    choices=["int8", "fp8"],
-                   help="DiT weight quantization (not ported yet: A10)")
+                   help="DiT weight quantization: int8 block GEMMs or fp8 "
+                        "storage (both halve the resident weights); also "
+                        "via FLEXAM_QUANT")
     p.add_argument("--prequant", type=str, default=None,
-                   help="prequantized DiT .npz (not ported yet: A10)")
+                   help="prequantized DiT .npz from tools/prequant_ckpt "
+                        "(replaces the transformer weights of "
+                        "--checkpoint_path or --random_init; no quantize "
+                        "pass at start-up); serve bundles also carry the "
+                        "VAE under vae/")
     p.add_argument("--num_inference_steps", type=int, default=40)
     p.add_argument("--repaint", type=str, default=None)
     p.add_argument("--camera_motion", type=str, default=None)
@@ -137,11 +148,45 @@ def _synthetic_grid_tracks(video_length, height, width, density):
     return tracks.astype(np.float32), vis
 
 
+def _load_prequant(path, device):
+    """A prequantized DiT `.npz` (tools/prequant_ckpt, either package's):
+    returns (host tree in the port's layout, the quant mode its leaves
+    imply, the bundle's VAE on `device` or None), so the pipeline's
+    conversion passes it through and its narrow leaves cross as they are.
+    Serve bundles carry the VAE under vae/, stored bf16 and cast to float32
+    on the device."""
+    import torch
+
+    from flexam_tpu_torch.io.checkpoints import restore_pytree_nested
+    from flexam_tpu_torch.io.convert import (from_jax_params, map_leaves,
+                                             tree_leaves)
+    from flexam_tpu_torch.ops.qlinear import is_quantized
+    from flexam_tpu_torch.utils.fp8 import FP8
+
+    tree = restore_pytree_nested(path)
+    bvae = None
+    if isinstance(tree, dict) and "dit" in tree and "vae" in tree:
+        bvae = map_leaves(
+            from_jax_params(tree["vae"], device),
+            lambda k, t, b: t.float() if t.dtype == torch.bfloat16 else t)
+        tree = tree["dit"]
+    tree = from_jax_params(tree, "cpu")
+    if is_quantized(tree):
+        return tree, "int8", bvae
+    if any(t.dtype == FP8 for t in tree_leaves(tree)):
+        return tree, "fp8", bvae
+    raise ValueError(
+        f"{path} holds no quantized leaves — produce it with "
+        "tools/prequant_ckpt, or load it via --checkpoint_path")
+
+
 def _build_models(args):
     """The pipeline of `--checkpoint_path` or `--random_init`. Random weights
     are drawn on the device from fixed seeds: float32 for tiny, bf16 for 5b
     (the JAX CLI draws the 5B VAE and umT5 in float32; either way they are
-    random values, and the pipeline computes in the DiT's dtype)."""
+    random values, and the pipeline computes in the DiT's dtype). A
+    Namespace without the quant attributes (a serve-style caller) runs
+    unquantized."""
     import torch
 
     from flexam_tpu_torch.config import WAN22_5B_FLEXAM, tiny_test_config
@@ -153,25 +198,29 @@ def _build_models(args):
 
     quant = getattr(args, "quant", None)
     prequant = getattr(args, "prequant", None)
-    env_quant = os.environ.get("FLEXAM_QUANT", "")
-    if quant or prequant or env_quant not in ("", "none"):
-        raise _not_ported("quantized DiT weights (--quant, --prequant, "
-                          "FLEXAM_QUANT)", "A10")
     device = _device(getattr(args, "platform", None))
+    bundle_vae = None
+    if prequant:
+        dit, quant, bundle_vae = _load_prequant(prequant, device)
 
     if args.checkpoint_path:
         from flexam_tpu_torch.io.checkpoints import (load_dit_checkpoint,
                                                      load_t5_checkpoint,
                                                      load_vae_checkpoint)
         cfg = WAN22_5B_FLEXAM
-        # float32 as JAX loads it, then the JAX CLI's bf16 cast, leaf by
-        # leaf on the device
-        dit = load_dit_checkpoint(args.checkpoint_path, cfg.dit,
-                                  dtype=torch.float32, device=device,
-                                  matrix_dtype=torch.bfloat16)
-        vae = load_vae_checkpoint(
+        if not prequant:
+            # float32 as JAX loads it, then the JAX CLI's bf16 cast, leaf
+            # by leaf on the device; a quant mode quantizes the weights it
+            # stores narrow from their float32 values as they load, as the
+            # JAX CLI quantizes its float32 host tree
+            mode = quant or os.environ.get("FLEXAM_QUANT", "")
+            dit = load_dit_checkpoint(
+                args.checkpoint_path, cfg.dit, dtype=torch.float32,
+                device=device, matrix_dtype=torch.bfloat16,
+                quant=mode if mode not in ("", "none") else None)
+        vae = (bundle_vae if bundle_vae is not None else load_vae_checkpoint(
             os.path.join(args.checkpoint_path, "Wan2.2_VAE.pth"), cfg.vae,
-            device=device)
+            device=device))
         t5 = load_t5_checkpoint(
             os.path.join(args.checkpoint_path,
                          "models_t5_umt5-xxl-enc-bf16.pth"), cfg.t5,
@@ -182,7 +231,8 @@ def _build_models(args):
         models = FlexAMModels(cfg=cfg, dit_params=dit, vae_params=vae,
                               t5_params=t5, t5_from_checkpoint=True)
         return FlexAMGenerationPipeline(models, tokenizer=tokenizer,
-                                        device=device)
+                                        device=device, quant=quant,
+                                        compute_dtype=torch.bfloat16)
 
     if args.random_init not in ("tiny", "5b"):
         raise SystemExit("pass --checkpoint_path or --random_init tiny|5b")
@@ -191,12 +241,14 @@ def _build_models(args):
     dtype = torch.float32 if tiny else torch.bfloat16
     models = FlexAMModels(
         cfg=cfg,
-        dit_params=init_dit_params(cfg.dit, seed=0, dtype=dtype,
-                                   device=device),
-        vae_params=init_vae_params(cfg.vae, seed=1, dtype=dtype,
-                                   device=device),
+        dit_params=(dit if prequant else init_dit_params(
+            cfg.dit, seed=0, dtype=dtype, device=device)),
+        vae_params=(bundle_vae if bundle_vae is not None else
+                    init_vae_params(cfg.vae, seed=1, dtype=dtype,
+                                    device=device)),
         t5_params=init_t5_params(cfg.t5, seed=2, dtype=dtype, device=device))
-    return FlexAMGenerationPipeline(models, device=device)
+    return FlexAMGenerationPipeline(models, device=device, quant=quant,
+                                    compute_dtype=dtype)
 
 
 def _load_mask_image(path, h, w):

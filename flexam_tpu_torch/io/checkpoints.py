@@ -295,11 +295,18 @@ class _Putter:
     modulation tables, as JAX loads them), then, with `matrix_dtype`, every
     float32 leaf of two or more dims in JAX's stacked layout (a per-block
     leaf counts one more dim) to `matrix_dtype`, as the JAX demo casts the
-    loaded tree."""
+    loaded tree.
 
-    def __init__(self, sd, device, dtype, matrix_dtype):
+    With `quant`, the weights that mode stores narrow are quantized from
+    their float32 values as they load, one leaf at a time on the device, as
+    the JAX demo quantizes its float32 host tree: "int8" quantizes the block
+    linears (`ops/qlinear.py`), "fp8" stores every fp8-eligible weight as
+    float8 (`utils/fp8.py`). The rest follows `matrix_dtype`."""
+
+    def __init__(self, sd, device, dtype, matrix_dtype, quant=None):
         self.sd, self.dev = sd, resolve_device(device)
         self.dtype, self.matrix_dtype = dtype, matrix_dtype
+        self.quant = quant
 
     def then(self, dtype, ndim: int):
         if (self.matrix_dtype is not None and dtype == torch.float32
@@ -307,13 +314,23 @@ class _Putter:
             return self.matrix_dtype
         return None
 
-    def __call__(self, key: str, in_block: bool = False, dtype=None):
+    def __call__(self, key: str, in_block: bool = False, dtype=None,
+                 fp8_ok: bool = False):
         t, _ = _source(self.sd, key)
         dtype = dtype or self.dtype
+        if self.quant == "fp8" and fp8_ok and t.ndim >= 2:
+            return leaf(t, self.dev, torch.float32).to(torch.float8_e4m3fn)
         return leaf(t, self.dev, dtype, self.then(dtype, t.ndim + in_block))
 
-    def lin(self, prefix: str, in_block: bool = False) -> dict:
-        p = {"weight": self(prefix + ".weight", in_block)}
+    def lin(self, prefix: str, in_block: bool = False,
+            int8_ok: bool = False) -> dict:
+        if self.quant == "int8" and int8_ok:
+            from flexam_tpu_torch.ops.qlinear import quantize_linear_params
+            t, _ = _source(self.sd, prefix + ".weight")
+            p = quantize_linear_params(
+                {"weight": leaf(t, self.dev, torch.float32)})
+        else:
+            p = {"weight": self(prefix + ".weight", in_block, fp8_ok=True)}
         if prefix + ".bias" in self.sd:
             p["bias"] = self(prefix + ".bias", in_block)
         return p
@@ -321,11 +338,12 @@ class _Putter:
 
 def dit_params_from_state_dict(sd: Mapping, cfg: DiTConfig,
                                dtype=torch.float32, device="cuda",
-                               matrix_dtype=None) -> dict:
+                               matrix_dtype=None, quant=None) -> dict:
     """Map a `Wan2_2Transformer3DModel_FlexAM` state dict to the port's DiT
     tree on `device`. Pads the patch embedding's input channels with zeros
-    for checkpoints with fewer input channels than `cfg.in_dim`."""
-    put = _Putter(sd, device, dtype, matrix_dtype)
+    for checkpoints with fewer input channels than `cfg.in_dim`. `quant`
+    ("int8" | "fp8") quantizes while loading (see `_Putter`)."""
+    put = _Putter(sd, device, dtype, matrix_dtype, quant)
     dev = put.dev
 
     w, _ = _source(sd, "patch_embedding.weight")
@@ -334,7 +352,8 @@ def dit_params_from_state_dict(sd: Mapping, cfg: DiTConfig,
         pad = torch.zeros((patch_w.shape[0], cfg.in_dim - patch_w.shape[1])
                           + tuple(patch_w.shape[2:]), dtype=dtype, device=dev)
         patch_w = torch.cat([patch_w, pad], dim=1)
-    then = put.then(dtype, patch_w.dim())
+    then = (torch.float8_e4m3fn if quant == "fp8"
+            else put.then(dtype, patch_w.dim()))
     if then is not None:
         patch_w = patch_w.to(then)
 
@@ -363,10 +382,10 @@ def dit_params_from_state_dict(sd: Mapping, cfg: DiTConfig,
 
         def attn(kind):
             return {
-                "q": put.lin(f"{p}.{kind}.q", True),
-                "k": put.lin(f"{p}.{kind}.k", True),
-                "v": put.lin(f"{p}.{kind}.v", True),
-                "o": put.lin(f"{p}.{kind}.o", True),
+                "q": put.lin(f"{p}.{kind}.q", True, True),
+                "k": put.lin(f"{p}.{kind}.k", True, True),
+                "v": put.lin(f"{p}.{kind}.v", True, True),
+                "o": put.lin(f"{p}.{kind}.o", True, True),
                 "norm_q": put(f"{p}.{kind}.norm_q.weight", True),
                 "norm_k": put(f"{p}.{kind}.norm_k.weight", True),
             }
@@ -374,8 +393,8 @@ def dit_params_from_state_dict(sd: Mapping, cfg: DiTConfig,
         blk = {
             "self_attn": attn("self_attn"),
             "cross_attn": attn("cross_attn"),
-            "ffn": {"fc1": put.lin(f"{p}.ffn.0", True),
-                    "fc2": put.lin(f"{p}.ffn.2", True)},
+            "ffn": {"fc1": put.lin(f"{p}.ffn.0", True, True),
+                    "fc2": put.lin(f"{p}.ffn.2", True, True)},
             "modulation": put(f"{p}.modulation", True, torch.float32),
             "modulation_density": put(f"{p}.modulation_density", True,
                                       torch.float32),
@@ -387,7 +406,7 @@ def dit_params_from_state_dict(sd: Mapping, cfg: DiTConfig,
     params["blocks"] = blocks
 
     if cfg.add_ref_conv and "ref_conv.weight" in sd:
-        params["ref_conv"] = {"weight": put("ref_conv.weight"),
+        params["ref_conv"] = {"weight": put("ref_conv.weight", fp8_ok=True),
                               "bias": put("ref_conv.bias")}
     if cfg.add_cnn_block and "cnn_conv1.0.weight" in sd:
         cnn = {}
@@ -546,9 +565,9 @@ def load_vae_checkpoint(path: str, cfg: VAEConfig, device="cuda") -> dict:
 
 
 def load_dit_checkpoint(path: str, cfg: DiTConfig, dtype=torch.float32,
-                        device="cuda", matrix_dtype=None) -> dict:
+                        device="cuda", matrix_dtype=None, quant=None) -> dict:
     return dit_params_from_state_dict(load_safetensors_dir(path), cfg, dtype,
-                                      device, matrix_dtype)
+                                      device, matrix_dtype, quant)
 
 
 def load_t5_checkpoint(path: str, cfg: T5Config, dtype=torch.float32,

@@ -12,7 +12,13 @@ layout change between the two lives here:
 
 Weights are already in torch layout in the JAX package (Linear [out, in],
 conv [O, I, *K]), so no transpose is needed. bfloat16 leaves (numpy's
-ml_dtypes bfloat16) arrive as torch.bfloat16.
+ml_dtypes bfloat16) arrive as torch.bfloat16, float8_e4m3fn leaves (the
+fp8 storage mode) as torch.float8_e4m3fn through a uint8 view, keyed on
+the dtype's name (`torch.from_numpy` refuses ml_dtypes arrays, and the port
+never imports ml_dtypes); int8 `weight_q` and float32 `w_scale` leaves of
+quantized trees cross as they are. `stack_blocks` is the inverse of the
+block unstacking, for files that the JAX package reads; `deploy_dtype` is
+JAX's one rule for the dtype a quantized tree's other leaves deploy in.
 
 The checkpoint loaders (`io/checkpoints.py`, `models/t5.py`) build their
 trees with the per-block lists already in place and convert each leaf
@@ -31,10 +37,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if torch.is_tensor(a):        # a restored `.npz` leaf (host tensor)
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a.view(np.uint8))).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
@@ -93,7 +104,61 @@ def _unstack(tree):
     return [pick(tree, i) for i in range(n)]
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def map_leaves(tree, fn):
+    """A new tree of `fn(key, leaf, in_block)` over the leaves: `key` is the
+    leaf's dict key, `in_block` whether it lies under `blocks` (the port's
+    per-block list, one dim fewer than JAX's stacked layout)."""
+    def visit(key, node, in_block):
+        if isinstance(node, dict):
+            return {k: visit(k, v, in_block) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [visit(key, v, in_block or key == "blocks") for v in node]
+        return fn(key, node, in_block)
+    return visit("", tree, False)
+
+
+def deploy_dtype(t, key: str, in_block: bool, wide=torch.bfloat16):
+    """JAX's deploy cast of a quantized DiT tree (`_put_quantized`,
+    `prequant_ckpt._cast_wide_to_bf16`): `wide` for a float32 leaf of two
+    or more dims in JAX's stacked layout, except the quantization scales
+    (`w_scale`), which stay float32; None for every other leaf."""
+    if (t.dtype == torch.float32 and t.dim() + in_block >= 2
+            and key != "w_scale"):
+        return wide
+    return None
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 and float8 included) or a tensor, as a
+    tensor, without a copy where none is needed."""
+    return a if torch.is_tensor(a) else _tensor(a, "cpu")
+
+
+def stack_blocks(tree: dict) -> dict:
+    """The port's per-block list stacked on a leading axis (JAX's layout),
+    for host trees written to files the JAX package reads."""
+    blocks = tree.get("blocks")
+    if not isinstance(blocks, list):
+        return tree
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return {**tree, "blocks": stack(blocks)}
+
+
 def from_jax_params(tree, device="cuda") -> dict:
     """The port's parameter tree for a JAX parameter tree of numpy arrays
-    (DiT, umT5 or VAE), on `device`."""
+    or host tensors (DiT, umT5 or VAE), on `device`."""
     return _convert(tree, resolve_device(device))

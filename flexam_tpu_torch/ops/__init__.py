@@ -1,11 +1,19 @@
 """The port's kernels: B1/B2 in `flash_attention`, B3/B4 in `fused`, B5 in
-`sparse_attention`, B6 in `int8_attention`."""
+`sparse_attention`, B6 in `int8_attention`; the int8 linears (a cuBLASLt
+GEMM, not a kernel of the port) in `qlinear`.
+
+As in the JAX package, `flash_attention` and `int8_flash_attention` name
+the functions; the launch counters are read from the modules first."""
 
 from flexam_tpu_torch.ops import (flash_attention, fused, int8_attention,
                                   sparse_attention)
 
 _COUNTERS = (flash_attention.launches, fused.launches,
              sparse_attention.launches, int8_attention.launches)
+
+from flexam_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402,F401,F811
+from flexam_tpu_torch.ops.int8_attention import (  # noqa: E402,F401
+    int8_attention as int8_flash_attention)
 
 
 def launch_counts() -> dict:

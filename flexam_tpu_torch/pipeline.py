@@ -21,8 +21,10 @@ rasterize_device.py`) and encodes them group by group, so the full-size
 clips never exist at once.
 TeaCache (`teacache_thresh`) skips the DiT's blocks on steps whose
 modulated input barely moved; `denoise(checkpoint_cb=, resume=)` snapshots
-and resumes the solver state. Not ported yet: the camera adapter, the
-quantized weight modes and the multi-device attention wrappers.
+and resumes the solver state. `quant="int8"` (int8 block linears,
+`ops/qlinear.py`) or `quant="fp8"` (float8 weight storage, `utils/fp8.py`),
+or FLEXAM_QUANT, quantizes both DiT experts when the pipeline is built.
+Not ported yet: the camera adapter and the multi-device attention wrappers.
 """
 
 from __future__ import annotations
@@ -147,6 +149,40 @@ class FlexAMModels:
     t5_from_checkpoint: bool = False
 
 
+def _put_quantized(tree, device, wide_dtype=torch.bfloat16):
+    """A quantized DiT tree on `device` by JAX's upload rule: a leaf on the
+    host (a numpy array, or a tensor on another device than `device`)
+    crosses at its storage width when it is int8 or float8, and float32
+    leaves of two or more dims (in JAX's stacked layout) become `wide_dtype`
+    first, the quantization scales excepted (`io.convert.deploy_dtype`).
+    Leaves already on `device` pass through untouched, as JAX's device
+    trees do."""
+    from flexam_tpu_torch.io.convert import (deploy_dtype, host_tensor,
+                                             leaf, map_leaves)
+
+    def put(key, node, in_block):
+        if torch.is_tensor(node) and node.device.type == device.type:
+            return node
+        t = host_tensor(node)
+        return leaf(t, device, then=deploy_dtype(t, key, in_block,
+                                                 wide_dtype))
+    return map_leaves(tree, put)
+
+
+def _quantize_dit(params, quant: str, device):
+    """`params` in the `quant` mode ("int8" | "fp8"), on `device`."""
+    if quant == "int8":
+        from flexam_tpu_torch.ops.qlinear import convert_dit_to_int8
+        params = convert_dit_to_int8(params)
+    else:
+        from flexam_tpu_torch.utils.fp8 import convert_weights_to_fp8
+        params = convert_weights_to_fp8(params)
+    return _put_quantized(params, device)
+
+
+QUANT_MODES = ("int8", "fp8")
+
+
 # The reference's default negative prompt.
 DEFAULT_NEGATIVE_PROMPT = (
     "Bright tones, overexposed, static, blurred details, subtitles, style, "
@@ -163,15 +199,37 @@ class FlexAMGenerationPipeline:
     raises where there is none; pass device="cpu" for the plain path."""
 
     def __init__(self, models: FlexAMModels, tokenizer=None, device="cuda",
-                 attn_fn=None):
+                 attn_fn=None, quant: Optional[str] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.models = models
         self.cfg = models.cfg
         self.tokenizer = tokenizer
         # the pipeline computes in its DiT weights' dtype: bf16 on the card,
-        # fp32 for fp32 weights (the CPU parity tests)
-        self.compute_dtype = \
-            models.dit_params["patch_embedding"]["weight"].dtype
+        # fp32 for fp32 weights (the CPU parity tests); float8-stored
+        # weights compute in bf16
+        if compute_dtype is None:
+            wdt = models.dit_params["patch_embedding"]["weight"].dtype
+            compute_dtype = (torch.bfloat16 if wdt == torch.float8_e4m3fn
+                             else wdt)
+        self.compute_dtype = compute_dtype
+        # opt-in DiT weight quantization, quant=... or FLEXAM_QUANT=...:
+        # "int8" runs the block GEMMs as int8 (`ops/qlinear.py`), "fp8"
+        # stores the weights as float8 (`utils/fp8.py`); both halve the
+        # resident weights, and both apply to both experts
+        quant = (quant if quant is not None
+                 else os.environ.get("FLEXAM_QUANT", ""))
+        if quant in ("", "none"):
+            quant = None
+        elif quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r} "
+                             "(supported: 'int8', 'fp8')")
+        self.quant = quant
+        if quant:
+            for name in ("dit_params", "dit2_params"):
+                if getattr(models, name) is not None:
+                    setattr(models, name, _quantize_dit(
+                        getattr(models, name), quant, self.device))
         self.attn_fn = attn_fn or default_attention
         self._sparse_attn_cache = {}
         self.rope_tables = make_rope_tables_for(models.cfg.dit, self.device)
@@ -714,7 +772,12 @@ class FlexAMGenerationPipeline:
     steps_per_launch = 14
 
     def set_dit_params(self, params):
-        """Replace the DiT weights (a LoRA merge, a checkpoint swap)."""
+        """Replace the DiT weights (a LoRA merge, a checkpoint swap). In a
+        quantized pipeline the new tree is brought to the pipeline's mode
+        as the constructor does (an already-quantized tree passes through,
+        a host tree crosses by `_put_quantized`'s rule)."""
+        if self.quant:
+            params = _quantize_dit(params, self.quant, self.device)
         self.models.dit_params = params
 
     def release_dit(self):

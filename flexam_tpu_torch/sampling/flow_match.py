@@ -429,6 +429,21 @@ def sampler_step(arrays: dict, convert: bool, state, velocity: torch.Tensor,
     return (x_next, x_corr, hist), x_next
 
 
+def make_sampler(tables: ScheduleTables, device="cpu"):
+    """(init_state, step) closures over the tables, as JAX's `make_sampler`:
+    `init_state(x0)` and `step(state, velocity, i) -> (state, x_next)`."""
+    arrays = schedule_arrays(tables, device)
+    order, convert = tables.order, tables.convert
+
+    def init_state(x0: torch.Tensor):
+        return sampler_init_state(x0, order)
+
+    def step(state, velocity: torch.Tensor, i: int):
+        return sampler_step(arrays, convert, state, velocity, int(i))
+
+    return init_state, step
+
+
 def add_noise(sample: torch.Tensor, noise: torch.Tensor, sigma):
     """x_t = (1 - sigma) x0 + sigma noise."""
     return (1.0 - sigma) * sample + sigma * noise

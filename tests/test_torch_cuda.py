@@ -11,11 +11,12 @@ Each element is held to a few bf16 ulps of its own size, with the bounds
 `chip_smoke.py` uses (`flexam_tpu_torch/testing.py` states them and why).
 """
 
+import importlib
+
 import pytest
 import torch
 
 from flexam_tpu_torch.core import attention as attn
-from flexam_tpu_torch.ops import flash_attention as fa
 from flexam_tpu_torch.ops import fused
 from flexam_tpu_torch.ops import int8_attention as i8
 from flexam_tpu_torch.ops import sparse_attention as sp
@@ -24,6 +25,8 @@ from flexam_tpu_torch.testing import (block_scaled, check_attention,
                                       check_ln_modulation,
                                       check_rmsnorm_rope,
                                       check_sparse_attention)
+
+fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 

@@ -5,7 +5,11 @@ background_edit, camera + object motion, the MoGe image path and camera
 control with solved poses. Each produces its result at the right shape,
 deterministically under one seed (two runs, equal). The two cases that
 need perception models the port lacks (`--repaint true`, the flow tracker)
-raise NotImplementedError naming ROADMAP A14.
+raise NotImplementedError naming ROADMAP A14. The quantized modes
+(`--quant int8|fp8`, FLEXAM_QUANT, `--prequant`) run, deterministically;
+with `--checkpoint_path` the DiT is quantized from the checkpoint's float32
+values as it loads, and equals the JAX CLI's quantized host tree exactly
+(int8 weights and float32 scales, e4m3 bytes, the bf16 rest).
 
 The fixtures are the JAX test's, in the formats the port reads without a
 decoder: the input and mask videos as `.npz` frame dumps, the repaint and
@@ -16,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from flexam_tpu_torch.demo import main
 from flexam_tpu_torch.utils.media import read_video_frames
@@ -177,8 +182,8 @@ def test_full_native_video_path(fixtures, tmp_path):
 
 
 @pytest.mark.parametrize("extra,env,error,match", [
-    (["--quant", "int8"], {}, NotImplementedError, "A10"),
-    ([], {"FLEXAM_QUANT": "fp8"}, NotImplementedError, "A10"),
+    (["--quant", "int4"], {}, SystemExit, "2"),
+    ([], {"FLEXAM_QUANT": "fp4"}, ValueError, "quant"),
     (["--camera_motion", "trans 0.1 0 0"], {"FLEXAM_VGGT_CKPT": "x"},
      NotImplementedError, "A14"),
     (["--platform", "tpu"], {}, ValueError, "cuda"),
@@ -190,6 +195,112 @@ def test_refusals(fixtures, tmp_path, monkeypatch, extra, env, error, match):
                    "--output_dir", str(tmp_path / "x")] + extra
     with pytest.raises(error, match=match):
         main(argv)
+
+
+@pytest.mark.parametrize("extra,env", [
+    (["--quant", "int8"], {}),
+    (["--quant", "fp8"], {}),
+    ([], {"FLEXAM_QUANT": "int8"}),
+], ids=["int8", "fp8", "env_int8"])
+def test_quant_runs(fixtures, tmp_path, monkeypatch, extra, env):
+    """The quantized DiT modes run end to end, deterministically, and the
+    pipeline holds the quantized tree."""
+    from flexam_tpu_torch import demo
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    built = []
+    build = demo._build_models
+    monkeypatch.setattr(demo, "_build_models",
+                        lambda args: built.append(build(args)) or built[-1])
+    _run_twice(BASE + ["--generate_type", "full_edit", "--synthetic_tracks",
+                       "--input_path", fixtures["video"]] + extra,
+               tmp_path, "q")
+    mode = extra[1] if extra else env["FLEXAM_QUANT"]
+    assert built[0].quant == mode
+    fc1 = built[0].models.dit_params["blocks"][0]["ffn"]["fc1"]
+    assert (fc1["weight_q"].dtype == torch.int8 if mode == "int8"
+            else fc1["weight"].dtype == torch.float8_e4m3fn)
+
+
+def test_prequant_run(fixtures, tmp_path):
+    """`--prequant` with a file from tools/prequant_ckpt runs end to end."""
+    from flexam_tpu_torch.tools.prequant_ckpt import main as prequant_main
+
+    path = str(tmp_path / "tiny_int8.npz")
+    assert prequant_main(["--checkpoint", "random:tiny", "--mode", "int8",
+                          "--out", path]) == 0
+    _run_twice(BASE + ["--generate_type", "full_edit", "--synthetic_tracks",
+                       "--input_path", fixtures["video"],
+                       "--prequant", path], tmp_path, "pq")
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_checkpoint_quant_matches_jax_host_tree(tmp_path, monkeypatch, mode):
+    """`--checkpoint_path` with `--quant`: the DiT the port builds equals
+    the JAX CLI's (its float32 host tree quantized, then uploaded by
+    `_put_quantized`) leaf for leaf in dtype and bytes. Quantizing after the
+    bf16 cast would give other int8 values and e4m3 bytes."""
+    import sys
+    import types
+
+    import jax
+
+    import flexam_tpu.config as jcfg_mod
+    import flexam_tpu_torch.config as tcfg
+    from flexam_tpu import pipeline as jpipe
+    from flexam_tpu.io.checkpoints import load_dit_checkpoint as jload
+    from flexam_tpu.ops.qlinear import convert_dit_to_int8 as jint8
+    from flexam_tpu.utils.fp8 import convert_weights_to_fp8 as jfp8
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch.io import checkpoints as ck
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.models.t5 import init_t5_params
+    from flexam_tpu_torch.models.vae import init_vae_params
+
+    cfg = tcfg.tiny_test_config()
+    ck.save_safetensors(str(tmp_path / "model.safetensors"), ck.dit_state_dict(
+        init_dit_params(cfg.dit, seed=5, dtype=torch.float32, device="cpu")))
+    torch.save(ck.vae_state_dict(init_vae_params(cfg.vae, seed=6, device="cpu",
+                                                 dtype=torch.float32), cfg.vae),
+               str(tmp_path / "Wan2.2_VAE.pth"))
+    torch.save(ck.t5_state_dict(init_t5_params(cfg.t5, seed=7, device="cpu",
+                                               dtype=torch.float32)),
+               str(tmp_path / "models_t5_umt5-xxl-enc-bf16.pth"))
+    stub = types.ModuleType("transformers")
+    stub.AutoTokenizer = types.SimpleNamespace(
+        from_pretrained=lambda path: None)
+    monkeypatch.setitem(sys.modules, "transformers", stub)
+    monkeypatch.setattr(tcfg, "WAN22_5B_FLEXAM", cfg)
+    args = demo.build_argparser().parse_args(
+        ["--prompt", "x", "--platform", "cpu", "--checkpoint_path",
+         str(tmp_path), "--quant", mode])
+    pipe = demo._build_models(args)
+    assert pipe.compute_dtype == torch.bfloat16
+
+    host = jload(str(tmp_path), jcfg_mod.tiny_test_config().dit,
+                 dtype=np.float32)
+    ref = jax.tree_util.tree_map(np.asarray, jpipe._put_quantized(
+        (jint8 if mode == "int8" else jfp8)(host)))
+
+    def check(port, j, layer=None):
+        if isinstance(port, dict):
+            assert set(port) == set(j)
+            for k, v in port.items():
+                check(v, j[k], layer)
+        elif isinstance(port, list):
+            for i, v in enumerate(port):
+                check(v, j, i)
+        else:
+            a = np.asarray(j if layer is None else j[layer])
+            assert str(port.dtype).replace("torch.", "") == str(a.dtype)
+            if port.element_size() == 1:
+                assert port.contiguous().view(torch.uint8).numpy().tobytes() \
+                    == a.view(np.uint8).tobytes()
+            else:
+                np.testing.assert_array_equal(port.float().numpy(),
+                                              a.astype(np.float32))
+    check(pipe.models.dit_params, ref)
 
 
 def test_checkpoint_path_branch(fixtures, tmp_path, monkeypatch):

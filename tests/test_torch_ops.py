@@ -9,6 +9,8 @@ bf16 at one bf16 ulp (rtol 8e-3), since the two frameworks may round an
 intermediate differently by one ulp.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +21,9 @@ from flexam_tpu.ops.flash_attention import flash_attention as jax_flash
 from flexam_tpu.ops.fused import ln_modulation as jax_ln_mod
 from flexam_tpu.ops.fused import rmsnorm_rope as jax_rmsnorm_rope
 from flexam_tpu_torch.core import attention as tattn
-from flexam_tpu_torch.ops import flash_attention as tflash
 from flexam_tpu_torch.ops import fused as tfused
+
+tflash = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
 
 F32 = dict(rtol=2e-4, atol=1e-5)
 BF16 = dict(rtol=8e-3, atol=8e-3)

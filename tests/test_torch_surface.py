@@ -1,0 +1,103 @@
+"""The port's package surface against the JAX package's (ROADMAP C2): each
+`__init__` of `flexam_tpu_torch` exports the public names of its
+`flexam_tpu` counterpart, except an explicit list of names whose modules
+wait for unported ROADMAP items. The top level's names are JAX's lazy
+`__getattr__` ones plus its eager ones. `make_sampler` is driven as
+`tests/test_sampling.py:9,21` drives JAX's.
+"""
+
+import importlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flexam_tpu
+import flexam_tpu_torch
+
+# names of the JAX package whose modules are not ported yet, by ROADMAP item
+WAITING = {
+    "": {"FirstFrameRepainter"},                           # A item 7
+    ".utils": {"save_videos_grid"},                        # A item 3
+    ".perception": {"estimate_depth", "register_depth_backend",
+                    "find_delta_checkpoint", "track_video_delta",
+                    "track_video_flow"},                   # A item 7
+}
+# JAX's lazy top-level API (`flexam_tpu/__init__.py` `__getattr__`)
+LAZY = ("FlexAMGenerationPipeline", "FlexAMModels", "FlexAMOrchestrator",
+        "FirstFrameRepainter")
+SUBPACKAGES = ["", ".ops", ".core", ".models", ".utils", ".sampling",
+               ".conditioning", ".io", ".perception"]
+
+
+def _public(mod):
+    return {n for n in dir(mod) if not n.startswith("_")
+            and not isinstance(getattr(mod, n), types.ModuleType)}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "top")
+def test_init_exports_match_jax(sub):
+    jmod = importlib.import_module("flexam_tpu" + sub)
+    tmod = importlib.import_module("flexam_tpu_torch" + sub)
+    want = _public(jmod) | (set(LAZY) if not sub else set())
+    waiting = WAITING.get(sub, set())
+    missing = {n for n in want - waiting if not hasattr(tmod, n)}
+    assert not missing, f"flexam_tpu_torch{sub} lacks {sorted(missing)}"
+    # a waiting name that has been ported must leave the list
+    assert not {n for n in waiting if hasattr(tmod, n)}, waiting
+    for n in want - waiting:
+        obj = getattr(tmod, n)
+        assert not isinstance(obj, types.ModuleType), n
+        assert callable(obj) or not callable(getattr(jmod, n, obj)), n
+
+
+def test_top_level_is_lazy_and_versioned():
+    assert flexam_tpu_torch.__version__ == flexam_tpu.__version__
+    from flexam_tpu_torch.orchestrator import FlexAMOrchestrator
+    from flexam_tpu_torch.pipeline import (FlexAMGenerationPipeline,
+                                           FlexAMModels)
+    assert flexam_tpu_torch.FlexAMGenerationPipeline is FlexAMGenerationPipeline
+    assert flexam_tpu_torch.FlexAMModels is FlexAMModels
+    assert flexam_tpu_torch.FlexAMOrchestrator is FlexAMOrchestrator
+    with pytest.raises(AttributeError):
+        flexam_tpu_torch.FirstFrameRepainter
+
+
+def test_ops_names_functions_after_counters():
+    """`ops.flash_attention` is the function, as in JAX, and the launch
+    counters still read the kernel modules."""
+    import flexam_tpu_torch.ops as ops
+    fa_mod = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    assert ops.flash_attention is fa_mod.flash_attention
+    assert ops.int8_flash_attention is ops.int8_attention.int8_attention
+    assert ops._COUNTERS[0] is fa_mod.launches
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts()) >= {"flash_attention", "int8_attention"}
+    q = torch.randn(1, 8, 1, 128)
+    out = ops.flash_attention(q, q, q)
+    assert out.shape == q.shape and ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("kind,order", [("flow_match_euler", 1),
+                                        ("flow_unipc", 2), ("flow_dpm", 2)])
+def test_make_sampler_matches_jax(kind, order):
+    """`make_sampler(tables)` steps as JAX's (`tests/test_sampling.py:21`):
+    the same x after every step on the same velocities."""
+    from flexam_tpu.sampling import build_schedule as jbuild
+    from flexam_tpu.sampling import make_sampler as jmake
+    from flexam_tpu_torch.sampling import build_schedule, make_sampler
+
+    rs = np.random.RandomState(0)
+    x0 = rs.randn(1, 4, 2, 4, 4).astype(np.float32)
+    vels = [rs.randn(*x0.shape).astype(np.float32) for _ in range(6)]
+    jinit, jstep = jmake(jbuild(kind, 6, shift=5.0, solver_order=order))
+    tinit, tstep = make_sampler(build_schedule(kind, 6, shift=5.0,
+                                               solver_order=order))
+    js, ts = jinit(jnp.asarray(x0)), tinit(torch.from_numpy(x0))
+    for i, v in enumerate(vels):
+        js, jx = jstep(js, jnp.asarray(v), np.int32(i))
+        ts, tx = tstep(ts, torch.from_numpy(v), np.int32(i))
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=2e-4,
+                                   atol=2e-5)
