@@ -113,7 +113,39 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        numpy's quantization byte for byte; one ffn linear
                        at the flagship rows and one flagship forward in int8
                        and in fp8 stay within the bounds below of bf16 (and
-                       the int8 forward is profiled).
+                       the int8 forward is profiled);
+  serve                the generation server (`flexam_tpu_torch.serve`) as
+                       `--host --random_init 5b` builds it (umT5-XXL, the
+                       VAE and the DiT resident, random bf16), serving on
+                       127.0.0.1 in a thread and driven with http.client
+                       only, at 512x896: /health (backend cuda, the card's
+                       name); a control-video job, 17f, 2 steps at CFG 6.0,
+                       its progress seen at 1/2 and 2/2; a tracks job at
+                       97f (11,648 tokens, a first frame, 2 steps) with a
+                       job queued behind it (queue_position 0) and
+                       cancelled before it runs; an 8-step 17f job
+                       cancelled after its first step (it must end
+                       cancelled before step 8, device memory back within
+                       256 MB); a 33-frame long video in 17-frame windows;
+                       camera conditions on a DiT without the adapter (state
+                       error, JAX's text); one blocking UI form request
+                       (POST /generate). One line a job: wall seconds from
+                       submit to result, stage seconds, the host seconds of
+                       the result's npz + base64 encoding, peak memory and
+                       launches (B1-B4 launched, B5, B6 and the exact branch
+                       not); then the B4 mode each job ran;
+  serve_cli            `python -m flexam_tpu_torch.serve --host --random_init
+                       tiny --platform cuda` in a subprocess and its
+                       `--client`, which must receive (1, 3, 9, 32, 32): the
+                       tiny config's head_dim 24 through the dispatcher's
+                       exact branch on the card;
+  serve_camera         the serve phase's weights with a Control-Camera
+                       adapter (24 channels, downscale 16, the 5B VAE's
+                       compression), a 17-pose camera_conditions request at
+                       512x896x17f, 2 steps at CFG 6.0, against the same
+                       request without it (finite latents, outputs that
+                       differ); the adapter's forward on the CFG batch
+                       timed by back-to-back launches.
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -1209,11 +1241,15 @@ class StageTimer:
     """Wall seconds of named stages inside a call the smoke does not own
     (`demo.main`): wraps each (owner, attribute) callable while active and
     synchronises the card before stopping its clock. Nested stages count
-    in both (generate_from_cond's denoise and decode are their own)."""
+    in both (generate_from_cond's denoise and decode are their own).
+    `seconds` sums each stage's calls; `last` holds its last call's seconds
+    and `calls` its number of calls."""
 
     def __init__(self, targets):
         self.targets = targets
         self.seconds = {}
+        self.last = {}
+        self.calls = {}
         self.returned = {}
 
     def __enter__(self):
@@ -1227,8 +1263,10 @@ class StageTimer:
                 t = time.perf_counter()
                 out = _orig(*a, **kw)
                 torch.cuda.synchronize()
-                self.seconds[_name] = self.seconds.get(_name, 0.0) + (
-                    time.perf_counter() - t)
+                dt = time.perf_counter() - t
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + dt
+                self.last[_name] = dt
+                self.calls[_name] = self.calls.get(_name, 0) + 1
                 self.returned[_name] = out
                 return out
 
@@ -1754,6 +1792,493 @@ def phase_serving(dev, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The generation server
+# ---------------------------------------------------------------------------
+
+SERVE_VIDEO = (17, 512, 896)       # the server's 17-frame jobs
+# the JAX package's refusal of camera conditioning without the adapter
+# (`flexam_tpu/pipeline.py:1138-1147`), which the port's text must equal
+CAMERA_REFUSAL = ("camera_video given but this model config has no "
+                  "Control-Camera adapter (add_control_adapter is false) — "
+                  "the conditioning would be silently ignored; use a "
+                  "Camera-variant config")
+SERVE_KERNELS = ("flash_attention", "single_kv_attention", "rmsnorm_rope")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, body=None, timeout=900):
+    """(status, parsed JSON or raw bytes) of one request, as a remote
+    client sends it."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.getheader("Content-Type") == "application/json":
+        return resp.status, json.loads(data)
+    return resp.status, data
+
+
+def _poll(port: int, jid: str, until, interval=0.02, timeout=600.0):
+    """/status of job `jid` every `interval` s until `until(status)`; returns
+    (the last status, every step seen in a progress)."""
+    seen = []
+    t_end = time.perf_counter() + timeout
+    while True:
+        _, st = _http(port, "GET", f"/status/{jid}")
+        prog = st.get("progress")
+        if prog and (not seen or seen[-1] != prog["step"]):
+            seen.append(prog["step"])
+        if until(st):
+            return st, seen
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"serve: job {jid} stuck at {st}")
+        time.sleep(interval)
+
+
+def _counts() -> dict:
+    """Kernel launches and the exact branch's calls since the last reset."""
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.ops import launch_counts
+    return {**launch_counts(), **exact_calls}
+
+
+def _reset_counts() -> None:
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.ops import reset_launch_counts
+    reset_launch_counts()
+    exact_calls["exact_attention"] = 0
+
+
+def _check_serve_launches(name: str, counts: dict) -> str:
+    """B1-B4 launched, B5, B6 and the exact branch not; returns B4's mode."""
+    b4 = counts["ln_mod_binary"] + counts["ln_mod_bcast"]
+    if any(counts[k] == 0 for k in SERVE_KERNELS) or b4 == 0 or (
+            counts["sparse_attention"] or counts["int8_attention"]
+            or counts["exact_attention"]):
+        raise AssertionError(f"serve {name}: launches {counts}")
+    return ("broadcast" if not counts["ln_mod_binary"] else
+            "binary" if not counts["ln_mod_bcast"] else "both")
+
+
+def _serve_targets():
+    from flexam_tpu_torch import serve
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline as Pipe
+    return [(Pipe, "encode_prompt"), (Pipe, "prepare_conditioning"),
+            (Pipe, "prepare_conditioning_from_tracks"), (Pipe, "denoise"),
+            (Pipe, "decode_u8"), (serve, "_encode_array")]
+
+
+def _camera_rows(n: int):
+    """`n` camera poses, [fx fy cx cy 0 0 + the 3x4 world-to-camera], a
+    slow yaw and dolly (the trajectory JSON of the sampler's
+    camera_conditions)."""
+    import numpy as np
+    rows = []
+    for i in range(n):
+        a = 0.05 * i
+        c, s = np.cos(a), np.sin(a)
+        w2c = [[c, 0, s, 0.1 * i], [0, 1, 0, 0.02 * i], [-s, 0, c, 1.0]]
+        rows.append([0.47, 0.84, 0.5, 0.5, 0, 0,
+                     *np.asarray(w2c).reshape(-1).tolist()])
+    return rows
+
+
+def phase_serve(dev, results: dict):
+    """`flexam_tpu_torch.serve` at Wan2.2-Fun-5B width as `--host
+    --random_init 5b` builds it, driven over HTTP on 127.0.0.1 (module
+    docstring). Returns the pipeline for `serve_camera`."""
+    import argparse
+    import base64
+    import gc
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch.serve import (GenerationServer, _decode_array,
+                                        _encode_array)
+
+    t0 = time.perf_counter()
+    pipe = demo._build_models(argparse.Namespace(
+        checkpoint_path=None, random_init="5b", quant=None, prequant=None,
+        platform="cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    srv = GenerationServer(pipe)
+    port = _free_port()
+    th = threading.Thread(target=srv.serve,
+                          kwargs=dict(port=port, host="127.0.0.1"),
+                          daemon=True)
+    th.start()
+    while srv.httpd is None:
+        time.sleep(0.05)
+    T, Hp, Wp = SERVE_VIDEO
+    rs = np.random.RandomState(SEED + 60)
+    jobs, total = {}, {}
+
+    def run(name, submit, finish, check=True):
+        """One job: counts reset, stage clocks on, `submit()` -> job id (or
+        the reply of a blocking request), `finish(jid)` -> (status, reply);
+        its line of numbers."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        with StageTimer(_serve_targets()) as st:
+            jid = submit()
+            status, reply = finish(jid)
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        counts = _counts()
+        rec = {"wall_seconds": wall, "state": status.get("state"),
+               "progress": status.get("progress"),
+               "stages": dict(st.seconds),
+               # the result's encode is a job's last `_encode_array`
+               # (the UI form's zero input video is encoded before it)
+               "encode_result_seconds": st.last.get("_encode_array"),
+               "encode_array_calls": st.calls.get("_encode_array", 0),
+               "last_denoise_info": (dict(pipe.last_denoise_info)
+                                     if status.get("state") == "done"
+                                     else None),
+               "peak_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts}
+        if check:
+            rec["b4_mode"] = _check_serve_launches(name, counts)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        jobs[name] = rec
+        print(json.dumps({"serve_job": name, **rec}), flush=True)
+        return rec, reply
+
+    def submit(payload):
+        return lambda: _http(port, "POST", "/submit", payload)[1]["job_id"]
+
+    def until_done(expect="done", seen_out=None, interval=0.25):
+        def finish(jid):
+            st, seen = _poll(port, jid, lambda s: s["state"] not in (
+                "queued", "running"), interval=interval)
+            if seen_out is not None:
+                seen_out.extend(seen)
+            if st["state"] != expect:
+                raise AssertionError(f"serve: job {jid} ended {st}")
+            if expect != "done":
+                return st, None
+            code, out = _http(port, "GET", f"/result/{jid}")
+            if code != 200:
+                raise AssertionError(f"serve: /result/{jid}: {code} {out}")
+            return st, _decode_array(out["video"])
+        return finish
+
+    def video_ok(name, video, frames):
+        if video.dtype != np.uint8 or video.shape != (1, 3, frames, Hp, Wp):
+            raise AssertionError(f"serve {name}: video {video.dtype} "
+                                 f"{video.shape}")
+
+    def clip(frames=T):
+        return rs.rand(1, 3, frames, Hp, Wp).astype(np.float32)
+
+    # (a) health
+    code, health = _http(port, "GET", "/health")
+    if code != 200 or health.get("backend") != "cuda" or \
+            torch.cuda.get_device_name(0) != health.get("device_name"):
+        raise AssertionError(f"serve: /health {code} {health}")
+
+    # (b) a control-video job, 17f, 2 steps, CFG 6.0, progress 1/2 and 2/2
+    mask = np.ones((1, 1, T, Hp, Wp), np.float32)
+    mask[:, :, 0] = 0.0
+    seen = []
+    rec, video = run("control_video_17f", submit({
+        "prompt": DEMO_PROMPT, "video": _encode_array(clip()),
+        "mask_video": _encode_array(mask),
+        "control_video": _encode_array(clip()),
+        "num_inference_steps": 2, "guidance_scale": 6.0, "seed": SEED,
+        "density": 0.1}), until_done(seen_out=seen, interval=0.005))
+    video_ok("control_video_17f", video, T)
+    if seen != [1, 2]:
+        raise AssertionError(f"serve: progress seen {seen}, not 1/2, 2/2")
+    rec["progress_seen"] = seen
+
+    # (c) a tracks job at 97 frames while (d) waits behind it and is
+    # cancelled in the queue
+    F97 = TRACKS_VIDEO[0]
+    tracks, vis = grid_tracks(F97, Hp, Wp, TRACK_DENSITY, SEED + 61)
+    queued = {}
+    tracks_job = submit({
+        "prompt": DEMO_PROMPT, "tracks": _encode_array(tracks),
+        "visibility": _encode_array(vis),
+        "first_frame": _encode_array(clip(1)), "height": Hp, "width": Wp,
+        "num_inference_steps": 2, "guidance_scale": 6.0, "seed": SEED,
+        "density": 0.1})
+    waiting_job = submit({"prompt": "waits", "video": _encode_array(
+        np.zeros((1, 3, 5, 32, 32), np.float32)), "num_inference_steps": 1})
+
+    def submit_tracks_then_queue():
+        jid = tracks_job()
+        _poll(port, jid, lambda s: s["state"] != "queued")
+        qid = waiting_job()
+        _, st = _http(port, "GET", f"/status/{qid}")
+        _, cancel = _http(port, "POST", f"/cancel/{qid}")
+        queued.update(id=qid, status=st, cancel=cancel)
+        return jid
+
+    rec, video = run("tracks_97f", submit_tracks_then_queue, until_done())
+    video_ok("tracks_97f", video, F97)
+    _, st = _http(port, "GET", f"/status/{queued['id']}")
+    if (queued["status"].get("queue_position") != 0
+            or queued["status"].get("state") != "queued"
+            or queued["cancel"] != {"state": "cancelled"}
+            or st["state"] != "cancelled" or st["progress"] is not None):
+        raise AssertionError(f"serve: the queued job {queued}, then {st}")
+    jobs["queued_cancelled"] = {"status_while_queued": queued["status"],
+                                "cancel": queued["cancel"], "final": st}
+    rec["result_uint8_bytes"] = int(video.nbytes)
+    del video
+
+    # (e) an 8-step job cancelled once a step has run
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+
+    def cancel_after_a_step(jid):
+        _poll(port, jid, lambda s: (s.get("progress") or {}).get(
+            "step", 0) >= 1 or s["state"] not in ("queued", "running"),
+            interval=0.005)
+        _http(port, "POST", f"/cancel/{jid}")
+        return until_done("cancelled")(jid)
+
+    rec, _ = run("cancelled_8_steps_17f", submit({
+        "prompt": DEMO_PROMPT, "video": _encode_array(clip()),
+        "mask_video": _encode_array(mask), "num_inference_steps": 8,
+        "guidance_scale": 6.0, "seed": SEED}), cancel_after_a_step)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    rec["memory_allocated_before_gb"] = before / 1e9
+    rec["memory_allocated_after_gb"] = after / 1e9
+    if not (1 <= rec["progress"]["step"] < 8) or after - before > 256e6:
+        raise AssertionError(f"serve: cancelled job {rec}")
+
+    # (f) a long video: 33 frames in 17-frame windows, overlap 4, 1 step
+    rec, video = run("long_video_33f", submit({
+        "prompt": DEMO_PROMPT, "video_length": 33,
+        "partial_video_length": 17, "overlap_video_length": 4,
+        "height": Hp, "width": Wp, "num_inference_steps": 1,
+        "guidance_scale": 6.0, "seed": SEED}), until_done())
+    video_ok("long_video_33f", video, 33)
+
+    # (g) camera conditions on a DiT without the adapter: JAX's refusal
+    def refused(jid):
+        st, _ = until_done("error")(jid)
+        if st["error"] != CAMERA_REFUSAL:
+            raise AssertionError(f"serve: camera refusal {st['error']!r}")
+        return st, None
+
+    run("camera_refused_17f", submit({
+        "prompt": DEMO_PROMPT, "camera_conditions": json.dumps(
+            _camera_rows(T)), "video_length": T, "height": Hp, "width": Wp,
+        "num_inference_steps": 2, "guidance_scale": 6.0}), refused,
+        check=False)
+
+    # (h) one blocking UI form request, with the queue idle
+    def ui_request():
+        code, out = _http(port, "POST", "/generate", {
+            "prompt": DEMO_PROMPT, "num_inference_steps": 1,
+            "guidance_scale": 6.0, "seed": SEED, "video_length": T,
+            "height": Hp, "width": Wp, "density": 0.1})
+        if code != 200 or "mp4" not in out:
+            raise AssertionError(f"serve: /generate {code} "
+                                 f"{str(out)[:300]}")
+        return out
+
+    rec, out = run("ui_form_17f", ui_request,
+                   lambda out: ({"state": "done"}, out))
+    video_ok("ui_form_17f", _decode_array(out["video"]), T)
+    raw = base64.b64decode(out["mp4"])
+    rec["mp4_field"] = {"bytes": len(raw), "head": raw[:4].hex()}
+    if raw[:2] == b"PK":                 # save_video's .npz frame dump
+        frames = np.load(io.BytesIO(raw))["video"]
+        if frames.shape != (T, Hp, Wp, 3):
+            raise AssertionError(f"serve: the UI's frames {frames.shape}")
+        rec["mp4_field"]["npz_frames"] = list(frames.shape)
+
+    srv.httpd.shutdown()
+    th.join(30)
+    for k in results:
+        results[k]["serve_launches"] = total.get(k, 0)
+    emit("serve", t0, setup_seconds=setup_s, health=health,
+         queued_cancelled=jobs["queued_cancelled"],
+         cancelled_job_memory_gb={
+             k: jobs["cancelled_8_steps_17f"][k] for k in (
+                 "memory_allocated_before_gb", "memory_allocated_after_gb")},
+         result_uint8_bytes_97f=jobs["tracks_97f"]["result_uint8_bytes"],
+         progress_seen_17f=jobs["control_video_17f"]["progress_seen"],
+         ui_mp4_field=jobs["ui_form_17f"]["mp4_field"],
+         wall_seconds={k: v["wall_seconds"] for k, v in jobs.items()
+                       if "wall_seconds" in v},
+         launches_all_jobs=total)
+    return pipe
+
+
+def phase_serve_cli(dev) -> None:
+    """`python -m flexam_tpu_torch.serve --host --random_init tiny
+    --platform cuda` in a subprocess, and its `--client` (9 frames, 32x32):
+    the tiny config's head_dim 24 on the card, through the exact branch."""
+    import shutil
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    logdir = HERE / "build" / "smoke_serve_cli"
+    shutil.rmtree(logdir, ignore_errors=True)
+    logdir.mkdir(parents=True)
+    log = open(logdir / "server.log", "w")
+    server = subprocess.Popen(
+        [sys.executable, "-m", "flexam_tpu_torch.serve", "--host",
+         "--random_init", "tiny", "--platform", "cuda", "--port", str(port)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t_end = time.perf_counter() + 180
+        health = None
+        while health is None:
+            if server.poll() is not None or time.perf_counter() > t_end:
+                raise AssertionError(
+                    "serve_cli: the server did not answer /health: "
+                    + (logdir / "server.log").read_text()[-2000:])
+            try:
+                health = _http(port, "GET", "/health", timeout=5)[1]
+            except OSError:
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-m", "flexam_tpu_torch.serve", "--client",
+             "--port", str(port)], cwd=HERE, capture_output=True,
+            text=True, timeout=300)
+        t_client = time.perf_counter() - t1
+        if client.returncode != 0 or \
+                "received video (1, 3, 9, 32, 32)" not in client.stdout:
+            raise AssertionError(f"serve_cli: client rc {client.returncode}"
+                                 f" {client.stdout[-500:]} "
+                                 f"{client.stderr[-1500:]}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait(30)
+        log.close()
+    if health.get("backend") != "cuda":
+        raise AssertionError(f"serve_cli: /health {health}")
+    emit("serve_cli", t0, server_up_seconds=t_up,
+         client_seconds=t_client, client_stdout=client.stdout.strip(),
+         health=health, server_log_tail=(
+             logdir / "server.log").read_text().splitlines()[-3:])
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+def phase_serve_camera(dev, pipe) -> None:
+    """The Control-Camera path at 5B width: the serve phase's weights with a
+    camera adapter (24 input channels, downscale 16 = the 5B VAE's spatial
+    compression, so its grid lands on the patch grid), random bf16;
+    `GenerationServer.handle` of a 17-pose camera_conditions payload at
+    512x896x17f, 2 steps, CFG 6.0, against the same call without it; the
+    adapter's forward on the CFG batch timed by `device_ms`."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.conditioning.camera import (
+        camera_inputs_from_trajectory, fold_camera_video)
+    from flexam_tpu_torch.models.dit import _camera_adapter, init_dit_params
+    from flexam_tpu_torch.pipeline import (FlexAMGenerationPipeline,
+                                           FlexAMModels)
+    from flexam_tpu_torch.serve import (GenerationServer, _decode_array,
+                                        _encode_array)
+
+    t0 = time.perf_counter()
+    base = pipe.cfg
+    dcfg = dataclasses.replace(
+        base.dit, add_control_adapter=True, in_dim_control_adapter=24,
+        downscale_factor_control_adapter=16)
+    if base.vae.spatial_compression_ratio != 16:
+        raise AssertionError("serve_camera: the 5B VAE is not 16x")
+    adapter = init_dit_params(dataclasses.replace(dcfg, num_layers=0),
+                              seed=SEED + 70, device=dev)["control_adapter"]
+    m = pipe.models
+    cam_pipe = FlexAMGenerationPipeline(FlexAMModels(
+        cfg=dataclasses.replace(base, dit=dcfg),
+        dit_params={**m.dit_params, "control_adapter": adapter},
+        vae_params=m.vae_params, t5_params=m.t5_params), device=dev)
+    srv = GenerationServer(cam_pipe)
+    T, Hp, Wp = SERVE_VIDEO
+    rows = _camera_rows(T)
+    cam, video0, mask1 = camera_inputs_from_trajectory(rows, T, Hp, Wp)
+    y = torch.from_numpy(fold_camera_video(cam)).to(dev, torch.bfloat16)
+    lt, lh, lw = (T - 1) // 4 + 1, Hp // 16, Wp // 16
+    if y.shape != (1, 24, lt, Hp, Wp):
+        raise AssertionError(f"serve_camera: folded camera {y.shape}")
+    tok = _camera_adapter(adapter, y, (2, 2), 16)
+    if tok.shape != (1, lt * (lh // 2) * (lw // 2), dcfg.dim):
+        raise AssertionError(f"serve_camera: adapter tokens {tok.shape}, "
+                             f"not the DiT's {lt}x{lh // 2}x{lw // 2} grid")
+    y2 = y.repeat(2, 1, 1, 1, 1)
+    with torch.no_grad():
+        adapter_ms = device_ms(
+            lambda: _camera_adapter(adapter, y2, (2, 2), 16), launches=5)
+    del tok, y2
+    kw = {"prompt": DEMO_PROMPT, "num_inference_steps": 2,
+          "guidance_scale": 6.0, "seed": SEED}
+    outs, recs = {}, {}
+    for name, payload in (
+            ("camera", {**kw, "camera_conditions": json.dumps(rows),
+                        "video_length": T, "height": Hp, "width": Wp}),
+            ("no_camera", {**kw, "video": _encode_array(video0),
+                           "mask_video": _encode_array(mask1)})):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with StageTimer(_serve_targets()) as st:
+            out = srv.handle(payload)
+        counts = _counts()
+        lat = st.returned["denoise"]
+        if not bool(lat.isfinite().all()):
+            raise AssertionError(f"serve_camera {name}: latents not finite")
+        outs[name] = _decode_array(out["video"])
+        recs[name] = {"stages": dict(st.seconds), "launches": counts,
+                      "b4_mode": _check_serve_launches(name, counts),
+                      "peak_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}
+    a, b = outs["camera"], outs["no_camera"]
+    if a.shape != (1, 3, T, Hp, Wp) or a.shape != b.shape:
+        raise AssertionError(f"serve_camera: {a.shape} {b.shape}")
+    differing = float((a != b).mean())
+    if differing == 0.0:
+        raise AssertionError("serve_camera: the camera changed nothing")
+    del cam_pipe, srv, adapter, outs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_camera", t0, adapter_ms_cfg_batch=adapter_ms,
+         adapter_input=list(y.shape), runs=recs,
+         output_values_differing=differing)
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
@@ -1850,6 +2375,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serving(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_pipe = phase_serve(dev, results)
+    phase_serve_cli(dev)
+    phase_serve_camera(dev, serve_pipe)
+    del serve_pipe
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1862,6 +2393,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "demo_launches": r["demo_launches"],
             "serving_launches": r["serving_launches"],
+            "serve_launches": r["serve_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,6 +24,13 @@ package picks xla off the TPU). On a CPU tensor each kernel takes its plain
 version; on CUDA there is no fallback: an input the kernel does not take
 raises.
 
+Head dims the kernels do not take (not a multiple of 128: the tiny test
+config's 24, the SVD UNet's 64) go to `exact_attention`, the counterpart of
+JAX's `xla_attention`, for the pallas and pallas_int8 backends alike: where
+JAX's dispatcher catches its kernels' NotImplementedError, this one decides
+by shape before any launch, on both devices. `exact_calls` counts the
+branch's calls beside the kernels' launch counters.
+
 Inputs use layout [B, L, H, D]; `k_len` masks padded keys.
 """
 
@@ -46,6 +53,19 @@ from flexam_tpu_torch.ops.int8_attention import int8_attention
 # default: the JAX package's threshold (a 201-frame clip at 512x896, 52 x
 # 448 tokens), kept so that both packages compute the same function.
 INT8_AUTO_MIN_TOKENS = 23296
+
+# calls of the exact branch (head dims the kernels do not take)
+exact_calls = {"exact_attention": 0}
+
+
+def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    k_len: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over [B, L, H, D]: JAX's `xla_attention`,
+    work XLA emits there, so here the plain version in torch ops
+    (`attention_plain`), counted in `exact_calls`."""
+    exact_calls["exact_attention"] += 1
+    return attention_plain(q, k, v, k_len=k_len, scale=scale)
 
 
 @functools.lru_cache(maxsize=1)
@@ -110,9 +130,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "not have: on CUDA it runs its own kernels (pallas, "
                 "pallas_int8, sparse)")
         return attention_plain(q, k, v, k_len=k_len, scale=scale)
-    # B6 takes head dims that are a multiple of 128; the JAX package sends
-    # the others to exact attention
-    if backend == "pallas_int8" and q.shape[-1] % 128 == 0:
+    # the kernels take head dims that are a multiple of 128; the JAX
+    # package sends the others to exact attention
+    if q.shape[-1] % 128 != 0:
+        return exact_attention(q, k, v, k_len=k_len, scale=scale)
+    if backend == "pallas_int8":
         return int8_attention(q, k, v, k_len=k_len, scale=scale)
     if not q.is_cuda:
         return attention_plain(q, k, v, k_len=k_len, scale=scale)

@@ -10,6 +10,9 @@ layout change between the two lives here:
     per-block dicts and loops over it;
   * a "compute_dtype" entry (a numpy/JAX dtype) becomes a torch dtype.
 
+Every other key crosses as it is, the Control-Camera adapter's
+`control_adapter.{conv,res_conv1,res_conv2}.{weight,bias}` included.
+
 Weights are already in torch layout in the JAX package (Linear [out, in],
 conv [O, I, *K]), so no transpose is needed. bfloat16 leaves (numpy's
 ml_dtypes bfloat16) arrive as torch.bfloat16, float8_e4m3fn leaves (the

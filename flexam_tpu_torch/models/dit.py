@@ -1,10 +1,12 @@
 """Wan2.2 FlexAM DiT in PyTorch.
 
 Port of `flexam_tpu/models/dit.py` (`dit_forward` and what it calls):
-patch embedding, the reference-frame token prepend, the 5-conv control
-fusion CNN, time and density embeddings (fp32), scalar and binary
-timesteps, the block stack (a Python loop over per-block parameter dicts)
-and the head + unpatchify.
+patch embedding, the Control-Camera adapter (`_camera_adapter`, added to
+the patch tokens when the config has `add_control_adapter` and a folded
+camera video comes in as `y_camera`), the reference-frame token prepend,
+the 5-conv control fusion CNN, time and density embeddings (fp32), scalar
+and binary timesteps, the block stack (a Python loop over per-block
+parameter dicts) and the head + unpatchify.
 
 On the kernel path (head_dim % 128 == 0, the dispatch by shape of the JAX
 `_use_fused`) the q/k RMSNorm + RoPE runs as kernel B3 and the two
@@ -13,8 +15,8 @@ LayerNorm + AdaLN prologues of a block as kernel B4; attention goes through
 plain version. `attn_fn` replaces the attention of every block (the
 pipeline passes B5's sparse closure there); RIFLEx comes in through the
 RoPE tables (`make_rope_tables_for(..., riflex=)`).
-`dit_forward_teacache` is the TeaCache forward. The camera adapter is not
-ported yet.
+`dit_forward_teacache` is the TeaCache forward; as JAX's, it takes no
+`y_camera`.
 
 Parameters are the JAX tree with `blocks` as a list of per-block dicts
 (`io.convert.from_jax_params` maps a JAX tree, `init_dit_params` makes a
@@ -119,6 +121,14 @@ def init_dit_params(cfg: DiTConfig, seed: int = 0, dtype=torch.bfloat16,
     if cfg.add_ref_conv:
         params["ref_conv"] = _conv_init(gen, (dim, cfg.in_dim_ref_conv, ph, pw),
                                         dtype, dev)
+    if cfg.add_control_adapter:
+        cin = (cfg.in_dim_control_adapter
+               * cfg.downscale_factor_control_adapter ** 2)
+        params["control_adapter"] = {
+            "conv": _conv_init(gen, (dim, cin, ph, pw), dtype, dev),
+            "res_conv1": _conv_init(gen, (dim, dim, 3, 3), dtype, dev),
+            "res_conv2": _conv_init(gen, (dim, dim, 3, 3), dtype, dev),
+        }
     if cfg.add_cnn_block:
         c1, c2 = cfg.cnn_block_dims
 
@@ -169,6 +179,31 @@ def _ref_embed(ref: torch.Tensor, p: dict, patch_hw: Tuple[int, int]):
     xt = xt.reshape(b, ho * wo, -1)
     wmat = p["weight"].reshape(p["weight"].shape[0], -1)
     return torch.matmul(xt, wmat.to(xt.dtype).t()) + p["bias"].to(xt.dtype)
+
+
+def _camera_adapter(p: dict, y_camera: torch.Tensor,
+                    patch_hw: Tuple[int, int], downscale: int) -> torch.Tensor:
+    """`SimpleAdapter` (`wan_camera_adapter.py:5-41`): PixelUnshuffle with
+    channel order (c, dy, dx), a conv of stride = kernel = the patch to the
+    patch grid, and one ReLU residual block of two 3x3 convs. y_camera
+    [B, C, F, H, W] (the Plucker camera video folded 4 frames to channels)
+    -> tokens [B, F*H'*W', dim]."""
+    b, c, f, h, w = y_camera.shape
+    d = downscale
+    x = y_camera.transpose(1, 2).reshape(b * f, c, h // d, d, w // d, d)
+    x = x.permute(0, 1, 3, 5, 2, 4).reshape(b * f, c * d * d, h // d, w // d)
+
+    def conv(xx, pp, **kw):
+        return F.conv2d(xx, pp["weight"].to(xx.dtype),
+                        pp["bias"].to(xx.dtype), **kw)
+
+    x = conv(x, p["conv"], stride=patch_hw)
+    res = conv(torch.relu(conv(x, p["res_conv1"], padding=1)),
+               p["res_conv2"], padding=1)
+    x = x + res
+    dim, hh, ww = x.shape[1:]
+    return x.reshape(b, f, dim, hh * ww).transpose(2, 3).reshape(
+        b, f * hh * ww, dim)
 
 
 def _conv3d(x: torch.Tensor, p: dict, padding) -> torch.Tensor:
@@ -319,7 +354,8 @@ def _f32(lin: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def _dit_prepare(params, cfg: DiTConfig, x, t, context, density, y,
-                 additional_control, full_ref, rope_tables, binary_t_mask):
+                 additional_control, full_ref, rope_tables, y_camera,
+                 binary_t_mask):
     """Everything before the block stack: tokens plus the per-step
     conditioning tensors."""
     compute_dtype = x.dtype
@@ -338,6 +374,11 @@ def _dit_prepare(params, cfg: DiTConfig, x, t, context, density, y,
     tokens, grid = _patch_embed(x, params["patch_embedding"], cfg.patch_size)
     b = tokens.shape[0]
     f, gh, gw = grid
+
+    if cfg.add_control_adapter and y_camera is not None:
+        tokens = tokens + _camera_adapter(
+            params["control_adapter"], y_camera.to(tokens.dtype), (ph, pw),
+            cfg.downscale_factor_control_adapter)
 
     l_ref = 0
     if cfg.add_ref_conv and full_ref is not None:
@@ -417,12 +458,14 @@ def dit_forward(
     full_ref: Optional[torch.Tensor] = None,             # [B, C_lat, H, W]
     rope_tables: Optional[torch.Tensor] = None,          # [max_seq, dh//2]
     attn_fn: Callable = attention,
+    y_camera: Optional[torch.Tensor] = None,             # [B, C*4, F, H, W]
     binary_t_mask: Optional[torch.Tensor] = None,        # [B, L_video]
 ) -> torch.Tensor:
     """Velocity prediction [B, out_dim, F, H, W]."""
     tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
         _dit_prepare(params, cfg, x, t, context, density, y,
-                     additional_control, full_ref, rope_tables, binary_t_mask)
+                     additional_control, full_ref, rope_tables, y_camera,
+                     binary_t_mask)
     tokens = _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn)
     return _dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref)
 
@@ -531,7 +574,8 @@ def dit_forward_teacache(
     Returns (velocity, new_tea_state)."""
     tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
         _dit_prepare(params, cfg, x, t, context, density, y,
-                     additional_control, full_ref, rope_tables, binary_t_mask)
+                     additional_control, full_ref, rope_tables, None,
+                     binary_t_mask)
 
     # the modulated input: e0 (scalar t) or the last token's (per-token t);
     # the last token is always a t-valued one, so in binary mode it is the

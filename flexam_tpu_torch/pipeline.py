@@ -24,7 +24,9 @@ modulated input barely moved; `denoise(checkpoint_cb=, resume=)` snapshots
 and resumes the solver state. `quant="int8"` (int8 block linears,
 `ops/qlinear.py`) or `quant="fp8"` (float8 weight storage, `utils/fp8.py`),
 or FLEXAM_QUANT, quantizes both DiT experts when the pipeline is built.
-Not ported yet: the camera adapter and the multi-device attention wrappers.
+`generate(camera_video=)` drives the DiT's Control-Camera adapter (the
+folded camera video rides in the cond as "y_camera"). Not ported yet: the
+multi-device attention wrappers.
 """
 
 from __future__ import annotations
@@ -652,6 +654,15 @@ class FlexAMGenerationPipeline:
             latents = torch.randn((1, c, lt, lh, lw), generator=gen,
                                   device=self.device)
         latents = self._tensor(latents)
+        y_camera = cond.get("y_camera")
+        if y_camera is not None and teacache_thresh > 0.0:
+            # JAX passes y_camera on to dit_forward_teacache, which has no
+            # such parameter, and raises TypeError there
+            raise TypeError(
+                "camera conditioning (cond['y_camera']) cannot run with "
+                "TeaCache (teacache_thresh > 0): the TeaCache forward takes "
+                "no y_camera, in the JAX package as here; run with "
+                "teacache_thresh=0")
 
         n = tables.num_steps
         # timestep-MoE boundary: the high-noise expert takes t >= boundary
@@ -709,6 +720,8 @@ class FlexAMGenerationPipeline:
                 rope_tables=self.rope_tables, attn_fn=attn_fn,
                 binary_t_mask=(tok_pattern[None].expand(batch, -1)
                                if per_token_t else None))
+            if y_camera is not None:   # Control-Camera adapter input
+                kw["y_camera"] = y_camera.to(dt).repeat(rep)
             x = state[0].to(dt).repeat(rep)
             if use_teacache:
                 pred, tea = dit_forward_teacache(
@@ -788,19 +801,37 @@ class FlexAMGenerationPipeline:
 
     def generate(self, video, prompt, mask_video=None, control_video=None,
                  depth_video=None, cos_videos=None, ref_image=None,
-                 negative_prompt=None, num_inference_steps=50,
-                 guidance_scale=6.0, seed=1245644, density=None,
-                 scheduler_type=None, shift=None, boundary=None,
-                 cfg_skip_ratio=0.0, teacache_thresh=0.0,
+                 camera_video=None, negative_prompt=None,
+                 num_inference_steps=50, guidance_scale=6.0, seed=1245644,
+                 density=None, scheduler_type=None, shift=None,
+                 boundary=None, cfg_skip_ratio=0.0, teacache_thresh=0.0,
                  teacache_skip_start=5, teacache_coefficients=None,
-                 latents=None, output_type="np", progress_cb=None):
+                 output_type="np", progress_cb=None, latents=None):
         """End-to-end call: video in [0, 1], [1, 3, T, H, W]; returns the
         generated video [1, 3, T, H, W] in [0, 1] (numpy, from the uint8
-        decode) or, with output_type="latent", the latents."""
+        decode) or, with output_type="latent", the latents. The parameters
+        are JAX's, in its order, less its `offload_dit_for_decode` (the 16
+        GB chip's offload) and plus `latents` (the initial noise), last.
+        `camera_video` [B, 6, T, H, W] (the Plucker camera video) drives the
+        Control-Camera adapter, which the config must have."""
         context = self.encode_prompt(prompt, negative_prompt,
                                      do_cfg=guidance_scale > 1.0)
         cond = self.prepare_conditioning(video, mask_video, control_video,
                                          depth_video, cos_videos, ref_image)
+        if camera_video is not None:
+            # the first frame repeated 4x and 4-frame groups folded into
+            # channels (`pipeline_wan2_2_fun_control_FlexAM.py:697-707`)
+            if not getattr(self.cfg.dit, "add_control_adapter", False):
+                raise ValueError(
+                    "camera_video given but this model config has no "
+                    "Control-Camera adapter (add_control_adapter is "
+                    "false) — the conditioning would be silently "
+                    "ignored; use a Camera-variant config")
+            from flexam_tpu_torch.conditioning.camera import \
+                fold_camera_video
+            cond["y_camera"] = self._tensor(
+                fold_camera_video(np.asarray(camera_video, np.float32)),
+                self.compute_dtype)
         return self.generate_from_cond(
             cond, context, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, seed=seed, density=density,
@@ -815,8 +846,9 @@ class FlexAMGenerationPipeline:
                            scheduler_type=None, shift=None, boundary=None,
                            cfg_skip_ratio=0.0, teacache_thresh=0.0,
                            teacache_skip_start=5, teacache_coefficients=None,
-                           latents=None, output_type="np", progress_cb=None):
-        """Denoise + decode from a prepared conditioning dict."""
+                           output_type="np", progress_cb=None, latents=None):
+        """Denoise + decode from a prepared conditioning dict (its
+        "y_camera", if any, drives the camera adapter)."""
         lat = self.denoise(cond, context,
                            num_inference_steps=num_inference_steps,
                            guidance_scale=guidance_scale, seed=seed,

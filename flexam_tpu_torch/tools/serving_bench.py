@@ -42,8 +42,9 @@ this session's does not.
 
 Not ported: `bf16-offload` (the 16 GB chip's offload, ROADMAP A15) raises;
 `--aot-cache`, `--steps-per-launch`, the link probe and the compile cache
-are TPU workarounds (A15). `--tiny` runs on the CPU only: the tiny config's
-head_dim 24 has no kernel on the card (ROADMAP B-hd).
+are TPU workarounds (A15). `--tiny` runs on either device; on the card its
+head_dim 24 takes the dispatcher's exact branch (`core.attention.
+exact_attention`), as JAX's takes `xla_attention`.
 """
 
 from __future__ import annotations
@@ -112,8 +113,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="RIFLEx long-video RoPE: rescale the K-th temporal "
                          "frequency for this run's latent frame count")
     ap.add_argument("--tiny", action="store_true",
-                    help="tiny config on the CPU; pair with --platform cpu "
-                         "--size 32 32 --frames 9 --steps 2")
+                    help="tiny config; pair with --size 32 32 --frames 9 "
+                         "--steps 2")
     ap.add_argument("--platform", default=None,
                     help="cpu runs on the CPU; none or cuda on the card")
     return ap
@@ -133,11 +134,6 @@ def main(argv=None):
     from flexam_tpu_torch.device import resolve_device
 
     device = resolve_device(_device(args.platform))
-    if args.tiny and device.type == "cuda":
-        raise NotImplementedError(
-            "--tiny runs on the CPU only (--platform cpu): the tiny "
-            "config's head_dim 24 has no attention kernel on the card and "
-            "no exact branch there yet (ROADMAP B-hd)")
     saved_env = {k: os.environ.get(k)
                  for k in ("FLEXAM_ATTENTION", "FLEXAM_SPARSE_WINDOW")}
     if args.attention == "sparse":

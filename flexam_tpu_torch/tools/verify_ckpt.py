@@ -1,0 +1,86 @@
+"""Checkpoint-map verification CLI (the reference's own load report,
+`wan_transformer3d_FlexAM.py:1321-1329`, for each loader of the port).
+
+Port of `flexam_tpu/tools/verify_ckpt.py`:
+
+    python -m flexam_tpu_torch.tools.verify_ckpt --model dit path/transformer/
+    python -m flexam_tpu_torch.tools.verify_ckpt --model vae path/Wan2.2_VAE.pth
+    python -m flexam_tpu_torch.tools.verify_ckpt --model t5  path/models_t5_umt5-xxl-enc-bf16.pth
+
+The dit, vae and t5 loaders (`io/checkpoints.py`) are name-mapped: they
+raise on any missing key, so success means every expected tensor was
+found. Exit status 0 = the checkpoint passes, 1 = it does not. The
+checkpoint loads onto the card unless `--platform cpu` asks for the CPU.
+The perception kinds (delta, moge, unidepth, pi3, vggt, zoe, dav2) and the
+FLUX / SVD kinds need loaders that are not ported yet (ROADMAP A item 7):
+they raise NotImplementedError, where the JAX tool reports, and the JAX
+tool's `--threshold` (the coverage bar of those shape-mapped loaders) comes
+with them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+KINDS = ["delta", "moge", "unidepth", "dit", "vae", "t5", "pi3", "vggt",
+         "zoe", "dav2", "flux", "flux-ae", "svd-unet", "svd-vae",
+         "svd-clip"]
+PORTED = ("dit", "vae", "t5")
+
+
+def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
+    """Name-mapped loaders raise on any missing key: success means 100% of
+    the expected tensors were found."""
+    try:
+        load_fn()
+    except KeyError as e:
+        print(f"{kind}[{path}]: FAILED — missing checkpoint key {e}")
+        return False
+    except Exception as e:  # malformed file, wrong format ...
+        print(f"{kind}[{path}]: FAILED — {type(e).__name__}: {e}")
+        return False
+    print(f"{kind}[{path}]: OK — all expected tensors found "
+          "(exact name-mapped loader)")
+    return True
+
+
+def verify(kind: str, path: str, device=None) -> bool:
+    """True when the `kind` loader maps every expected tensor of `path`,
+    loaded onto `device` (CUDA unless the caller asks for the CPU)."""
+    if kind not in KINDS:
+        raise SystemExit(f"unknown --model {kind}")
+    if kind not in PORTED:
+        raise NotImplementedError(
+            f"verify_ckpt --model {kind}: its loader is not ported to "
+            "flexam_tpu_torch yet (ROADMAP A item 7); the JAX tool "
+            "(python -m flexam_tpu.tools.verify_ckpt) has it")
+    from flexam_tpu_torch.config import FlexAMConfig
+    from flexam_tpu_torch.device import resolve_device
+    from flexam_tpu_torch.io import checkpoints as ck
+    device = resolve_device("cuda" if device is None else device)
+    cfg = FlexAMConfig()
+    load = {"dit": lambda: ck.load_dit_checkpoint(path, cfg.dit,
+                                                  device=device),
+            "vae": lambda: ck.load_vae_checkpoint(path, cfg.vae,
+                                                  device=device),
+            "t5": lambda: ck.load_t5_checkpoint(path, cfg.t5,
+                                                device=device)}[kind]
+    return _report_name_mapped(kind, path, load)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--model", required=True, choices=KINDS)
+    ap.add_argument("--platform", default=None,
+                    help="torch device to load onto: cuda (the default) "
+                         "or cpu")
+    ap.add_argument("path")
+    args = ap.parse_args(argv)
+    from flexam_tpu_torch.demo import _device
+    return 0 if verify(args.model, args.path,
+                       _device(args.platform)) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

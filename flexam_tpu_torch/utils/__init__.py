@@ -17,5 +17,6 @@ from flexam_tpu_torch.utils.media import (  # noqa: F401
     get_maskvideo_input,
     get_video_input,
     save_video,
+    save_videos_grid,
 )
 from flexam_tpu_torch.utils.timing import metrics, timer  # noqa: F401

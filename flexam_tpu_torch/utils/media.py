@@ -2,8 +2,10 @@
 
 Port of `flexam_tpu/utils/media.py` (`get_video_input`,
 `get_image_to_video_input`, `get_maskvideo_input`, `get_image_latent`,
-`save_video`). Tensors are numpy [B, C, T, H, W] float32 in [0, 1];
-`sample_size` is (height, width).
+`save_video`, and the writers `save_videos_grid`,
+`save_videos_comparison`, `merge_video_audio`, `color_transfer`).
+Tensors are numpy [B, C, T, H, W] float32 in [0, 1]; `sample_size` is
+(height, width).
 
 JAX decodes files with OpenCV and PIL, which the card's machine lacks and
 the port does not import. The readers here take what needs no decoder:
@@ -22,12 +24,19 @@ in floating point, within one uint8 level of it. At `sample_size` both
 return the frames unchanged, as PIL and OpenCV do.
 
 `save_video` writes through `imageio` when it imports, else the `.npz`
-frame dump (JAX's order, without its OpenCV step).
+frame dump (JAX's order, without its OpenCV step). The writers' OpenCV
+steps are rebuilt in numpy: `save_videos_comparison` resizes as
+`cv2.resize` (INTER_LINEAR, half-pixel centres) does float frames, and
+`color_transfer` converts RGB <-> LAB as `cv2.cvtColor` does uint8 images,
+in OpenCV's fixed point and scaling of L, a and b (within one level).
+`merge_video_audio` runs the same `ffmpeg` command as JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import subprocess
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -141,20 +150,28 @@ def _linear_weights(in_n: int, out_n: int):
     return lo, hi, frac
 
 
+def resize_frames_linear(frames: np.ndarray, size: Tuple[int, int]
+                         ) -> np.ndarray:
+    """`cv2.resize(frame, (w, h))` (INTER_LINEAR) of float frames
+    [T, H, W, C], in the frames' dtype: OpenCV's taps (half-pixel centres,
+    clamped borders, no antialiasing), rows after columns."""
+    h, w = size
+    x = np.asarray(frames)
+    lo, hi, fr = _linear_weights(x.shape[2], w)
+    fr = fr.astype(x.dtype)[None, None, :, None]
+    x = x[:, :, lo] * (1 - fr) + x[:, :, hi] * fr
+    lo, hi, fr = _linear_weights(x.shape[1], h)
+    fr = fr.astype(x.dtype)[None, :, None, None]
+    return x[:, lo] * (1 - fr) + x[:, hi] * fr
+
+
 def resize_frames_u8(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """OpenCV's `cv2.resize(frame, (w, h))` (INTER_LINEAR) of uint8 frames
     [T, H, W, C], in float64 (OpenCV's 11-bit fixed point differs by at
     most one level)."""
-    h, w = size
-    if frames.shape[1:3] == (h, w):
+    if frames.shape[1:3] == tuple(size):
         return frames.copy()
-    x = frames.astype(np.float64)
-    lo, hi, fr = _linear_weights(frames.shape[2], w)
-    x = x[:, :, lo] * (1 - fr)[None, None, :, None] \
-        + x[:, :, hi] * fr[None, None, :, None]
-    lo, hi, fr = _linear_weights(frames.shape[1], h)
-    x = x[:, lo] * (1 - fr)[None, :, None, None] \
-        + x[:, hi] * fr[None, :, None, None]
+    x = resize_frames_linear(frames.astype(np.float64), size)
     return np.clip(np.rint(x), 0, 255).astype(np.uint8)
 
 
@@ -362,3 +379,157 @@ def save_video(video: np.ndarray, path: str, fps: int = 16):
         np.savez_compressed(alt, video=frames, fps=fps)
         print(f"video encoders unavailable ({e}); saved raw frames to {alt}")
         return alt
+
+
+# ---------------------------------------------------------------------------
+# Writers of grids, comparisons and audio; colour transfer
+# ---------------------------------------------------------------------------
+
+def save_videos_grid(videos: np.ndarray, path: str, n_rows: int = 6,
+                     fps: int = 12, rescale: bool = False):
+    """`save_videos_grid` (:59-88): [B, C, T, H, W] -> tiled grid video."""
+    v = np.asarray(videos)
+    b, c, t, h, w = v.shape
+    if rescale:
+        v = (v + 1.0) / 2.0
+    cols = min(n_rows, b)
+    rows = (b + cols - 1) // cols
+    grid = np.zeros((c, t, rows * h, cols * w), v.dtype)
+    for i in range(b):
+        r, cc = divmod(i, cols)
+        grid[:, :, r * h:(r + 1) * h, cc * w:(cc + 1) * w] = v[i]
+    save_video(grid[None], path, fps=fps)
+
+
+def save_videos_comparison(videos, path: str, fps: int = 16,
+                           labels=None):
+    """Side-by-side comparison grid (`save_videos_comparison`,
+    `utils.py:90-241`): [1, 3, T, H, W]-shaped videos stacked horizontally
+    (tracking | original | generated | ...), each cut to the shortest clip
+    and resized to the tallest (keeping its aspect, width truncated)."""
+    vs = [np.asarray(v) for v in videos]
+    t = min(v.shape[2] for v in vs)
+    h = max(v.shape[3] for v in vs)
+
+    def fit(v):
+        if v.shape[3] != h:
+            w = int(v.shape[4] * (h / v.shape[3]))
+            frames = resize_frames_linear(
+                v[0, :, :t].transpose(1, 2, 3, 0), (h, w))
+            return frames.transpose(3, 0, 1, 2)[None]
+        return v[:, :, :t]
+
+    grid = np.concatenate([fit(v) for v in vs], axis=4)
+    return save_video(grid, path, fps=fps)
+
+
+def merge_video_audio(video_path: str, audio_path: str):
+    """ffmpeg mux (`utils.py:243-301`); best-effort host-side: the muxed
+    path, or `video_path` where ffmpeg is missing or fails."""
+    out = video_path.replace(".mp4", "_with_audio.mp4")
+    cmd = ["ffmpeg", "-y", "-i", video_path, "-i", audio_path, "-c:v",
+           "copy", "-c:a", "aac", "-shortest", out]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        return out
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        print(f"audio mux failed ({e}); keeping silent video")
+        return video_path
+
+
+# OpenCV's 8-bit RGB <-> CIE L*a*b* (sRGB, D65), rebuilt in its integer
+# arithmetic: the matrices and white point it uses, its fixed-point shifts
+# and its tables (`initLabTabs`). LAB -> RGB equals cv2.cvtColor on every
+# one of the 256^3 inputs; RGB -> LAB is within one level of it (1,675 of
+# the 256^3 colours differ by one, in a or b).
+_RGB2XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                     [0.212671, 0.715160, 0.072169],
+                     [0.019334, 0.119193, 0.950227]])
+_XYZ2RGB = np.array([[3.240479, -1.53715, -0.498535],
+                     [-0.969256, 1.875991, 0.041556],
+                     [0.055648, -0.204043, 1.057311]])
+_D65 = np.array([0.950456, 1.0, 1.088754])
+_XYZ_SHIFT, _LAB_SHIFT2, _GAMMA_SHIFT = 12, 15, 3
+_LAB_BASE, _INV_GAMMA_SHIFT, _MIN_AB = 1 << 14, 12, -8145
+
+
+def _descale(v, n):
+    return (v + (1 << (n - 1))) >> n
+
+
+@functools.lru_cache(maxsize=1)
+def _lab_tables():
+    x = np.arange(256) / 255.0
+    lin = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+    gamma = np.rint(255.0 * (1 << _GAMMA_SHIFT) * lin).astype(np.int64)
+    t = np.arange(256 * 3 // 2 * (1 << _GAMMA_SHIFT)) / (
+        255.0 * (1 << _GAMMA_SHIFT))
+    cbrt = np.rint((1 << _LAB_SHIFT2) * np.where(
+        t < 0.008856, t * 7.787 + 16.0 / 116.0, np.cbrt(t))).astype(np.int64)
+    to_xyz = np.rint((1 << _XYZ_SHIFT) * _RGB2XYZ
+                     / _D65[:, None]).astype(np.int64)
+    # LAB -> RGB: y and f(y) by L, x and z by f, linear RGB -> sRGB
+    base = _LAB_BASE
+    li = np.arange(256) * 100.0 / 255.0
+    low = np.arange(256) <= 20
+    y = np.rint(base * np.where(low, li / 903.3, ((li + 16) / 116) ** 3))
+    fy = np.rint(base * np.where(low, 7.787 * li / 903.3 + 16 / 116,
+                                 (li + 16) / 116))
+    v = np.arange(_MIN_AB, base * 9 // 4 + _MIN_AB)
+    lin_seg = (np.sign(v * 108) * (np.abs(v * 108) // 841)
+               - base * 16 // 116 * 108 // 841)
+    cube = v * v // base * v
+    xz = np.where(v <= 3390, lin_seg, np.sign(cube) * (np.abs(cube) // base))
+    to_rgb = np.rint((1 << _XYZ_SHIFT) * _XYZ2RGB
+                     * _D65[None, :]).astype(np.int64)
+    n = 1 << _INV_GAMMA_SHIFT
+    g = np.arange(n) / n
+    inv = np.rint(255.0 * np.where(g <= 0.0031308, g * 12.92,
+                                   1.055 * g ** (1 / 2.4) - 0.055))
+    return (gamma, cbrt, to_xyz, y.astype(np.int64), fy.astype(np.int64),
+            xz, to_rgb, inv.astype(np.int64))
+
+
+def rgb_to_lab_u8(img: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(img, cv2.COLOR_RGB2LAB)` of uint8 RGB [..., 3]: the
+    sRGB curve, XYZ over the D65 white, CIE L*a*b* with OpenCV's 8-bit
+    scaling (L * 255 / 100, a + 128, b + 128)."""
+    gamma, cbrt, to_xyz = _lab_tables()[:3]
+    xyz = _descale(gamma[np.asarray(img, np.int64)] @ to_xyz.T, _XYZ_SHIFT)
+    fx, fy, fz = (cbrt[xyz[..., i]] for i in range(3))
+    s = _LAB_SHIFT2
+    lab = np.stack([
+        _descale((116 * 255 + 50) // 100 * fy
+                 - (16 * 255 * (1 << s) + 50) // 100, s),
+        _descale(500 * (fx - fy) + 128 * (1 << s), s),
+        _descale(200 * (fy - fz) + 128 * (1 << s), s)], axis=-1)
+    return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+def lab_to_rgb_u8(lab: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)` of uint8 LAB [..., 3]: the
+    inverse of `rgb_to_lab_u8`, linear RGB clipped to [0, 1]."""
+    *_, y_tab, fy_tab, xz, to_rgb, inv = _lab_tables()
+    lab = np.asarray(lab, np.int64)
+    base = _LAB_BASE
+    y, fy = y_tab[lab[..., 0]], fy_tab[lab[..., 0]]
+    adiv = ((5 * lab[..., 1] * 53687 + (1 << 7)) >> 13) - 128 * base // 500
+    bdiv = (((lab[..., 2] * 41943 + (1 << 4)) >> 9)
+            - 128 * base // 200 + 1)
+    xyz = np.stack([xz[fy + adiv - _MIN_AB], y, xz[fy - bdiv - _MIN_AB]],
+                   axis=-1)
+    shift = _XYZ_SHIFT + 14 - _INV_GAMMA_SHIFT
+    rgb = np.clip(_descale(xyz @ to_rgb.T, shift), 0,
+                  (1 << _INV_GAMMA_SHIFT) - 1)
+    return inv[rgb].astype(np.uint8)
+
+
+def color_transfer(source: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """LAB-space mean/std transfer (`utils.py:31-57`). [H,W,3] uint8."""
+    sc = rgb_to_lab_u8(source).astype(np.float32)
+    dc = rgb_to_lab_u8(target).astype(np.float32)
+    s_mean, s_std = sc.mean((0, 1)), sc.std((0, 1))
+    d_mean, d_std = dc.mean((0, 1)), dc.std((0, 1))
+    out = (sc - s_mean) / (s_std + 1e-6) * d_std + d_mean
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return lab_to_rgb_u8(out)

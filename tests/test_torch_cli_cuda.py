@@ -1,13 +1,16 @@
-"""The CLI slice on the card: checkpoint loading onto CUDA, the foreground
-mask's dilation on the device, TeaCache's kernel launches and a resumed
-denoise.
+"""The CLI slice on the card: checkpoint loading onto CUDA (the loaders and
+`tools.verify_ckpt`'s default), the foreground mask's dilation on the
+device, TeaCache's kernel launches, a resumed denoise, and `demo
+--random_init tiny` / `serving_bench --tiny` (head_dim 24, through the
+dispatcher's exact branch).
 
 These need a CUDA device and skip without one. On a machine with an H100:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cli_cuda.py
 
 The pipeline is the tiny config widened to head_dim 128 (dim 256, 2 heads),
-the width the attention kernels take, in bf16.
+the width the attention kernels take, in bf16; the two tiny runs keep
+head_dim 24.
 """
 
 import dataclasses
@@ -90,6 +93,44 @@ def test_loaders_onto_the_card(dev, tmp_path):
                        dit["blocks"][1]["ffn"]["fc1"]["weight"])
 
 
+def write_tiny_checkpoints(tmp_path):
+    """Reference-format dit / vae / t5 files of the tiny config, written
+    from random bf16 trees: {kind: path}."""
+    cfg = tiny_test_config()
+    kw = dict(dtype=torch.bfloat16, device="cpu")
+    d = tmp_path / "tiny_transformer"
+    d.mkdir()
+    ck.save_safetensors(str(d / "model.safetensors"), ck.dit_state_dict(
+        init_dit_params(cfg.dit, seed=1, **kw)))
+    torch.save(ck.vae_state_dict(init_vae_params(cfg.vae, seed=2, **kw),
+                                 cfg.vae), str(tmp_path / "tiny_vae.pth"))
+    torch.save(ck.t5_state_dict(init_t5_params(cfg.t5, seed=3, **kw)),
+               str(tmp_path / "tiny_t5.pth"))
+    return cfg, {"dit": str(d), "vae": str(tmp_path / "tiny_vae.pth"),
+                 "t5": str(tmp_path / "tiny_t5.pth")}
+
+
+@pytest.mark.parametrize("kind", ["dit", "vae", "t5"])
+def test_verify_ckpt_loads_onto_the_card(dev, tmp_path, monkeypatch, kind):
+    """`tools.verify_ckpt` with no `--platform` loads onto CUDA (the tool's
+    config swapped for the tiny one) and passes a full file."""
+    import flexam_tpu_torch.config as tcfg
+    from flexam_tpu_torch.tools import verify_ckpt
+    cfg, paths = write_tiny_checkpoints(tmp_path)
+    monkeypatch.setattr(tcfg, "FlexAMConfig", lambda: cfg)
+    loader = {"dit": "load_dit_checkpoint", "vae": "load_vae_checkpoint",
+              "t5": "load_t5_checkpoint"}[kind]
+    loaded = []
+    orig = getattr(ck, loader)
+    monkeypatch.setattr(ck, loader, lambda *a, **kw: loaded.append(
+        orig(*a, **kw)) or loaded[-1])
+    assert verify_ckpt.verify(kind, paths[kind]) is True
+    assert verify_ckpt.main(["--model", kind, paths[kind]]) == 0
+    assert len(loaded) == 2
+    for tree in loaded:
+        assert {t.device.type for _, t in _leaves(tree)} == {"cuda"}
+
+
 def test_fg_mask_dilation_on_the_card(dev):
     rng = np.random.RandomState(0)
     mv = np.zeros((4, 3, 96, 128), np.float32)
@@ -161,3 +202,38 @@ def test_resume_equals_uninterrupted(pipe):
     assert sorted(snaps) == [1, 3]
     resumed = pipe.denoise(cond, ctx, resume=snaps[1], **kw)
     assert torch.equal(resumed, full)
+
+
+def test_demo_tiny_on_the_card(dev, tmp_path):
+    """`demo --random_init tiny` on CUDA: head_dim 24 runs through the
+    dispatcher's exact branch, and no attention kernel launches."""
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.demo import main
+    reset_launch_counts()
+    calls = exact_calls["exact_attention"]
+    out = main(["--prompt", "a test scene", "--random_init", "tiny",
+                "--sample_size", "32", "32", "--video_length", "9",
+                "--num_inference_steps", "2", "--density", "8",
+                "--generate_type", "full_edit", "--synthetic_tracks",
+                "--output_dir", str(tmp_path)])
+    assert out.shape == (1, 3, 9, 32, 32) and np.isfinite(out).all()
+    # self- and cross-attention in each of 2 blocks, 2 CFG steps
+    assert exact_calls["exact_attention"] - calls == 2 * 2 * 2
+    assert launch_counts()["flash_attention"] == 0
+
+
+def test_serving_bench_tiny_on_the_card(dev):
+    """`serving_bench --tiny` on CUDA (the refusal is gone): one run."""
+    import contextlib
+    import io
+
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.tools import serving_bench
+    calls = exact_calls["exact_attention"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        recs, summary = serving_bench.main(
+            ["--tiny", "--steps", "1", "--size", "32", "32", "--frames", "9",
+             "--mode", "bf16", "--runs", "1"])
+    assert recs[0]["video_shape"] == [1, 3, 9, 32, 32]
+    assert recs[0]["latents_finite"]
+    assert exact_calls["exact_attention"] > calls

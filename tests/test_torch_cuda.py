@@ -578,3 +578,40 @@ def test_sparse_refuses_an_empty_block_list(dev):
     with pytest.raises(ValueError):
         sp.sparse_flash_attention(q, q, q, [[0, 1], []], 32)
     assert sp.launches["sparse_attention"] == before
+
+
+@pytest.mark.parametrize("d", [24, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k_len", [None, [300, 77]])
+def test_exact_branch_on_the_card(dev, d, dtype, k_len):
+    """Head dims the kernels do not take go to the dispatcher's exact
+    branch on CUDA (plain torch ops, no launch), held to `attention_plain`
+    within the attention bound; each call is counted."""
+    from flexam_tpu_torch.ops import launch_counts
+    q, k, v = (_rand(dev, 2, n, 3, d, seed=s).to(dtype)
+               for n, s in ((200, 11), (300, 12), (300, 13)))
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    for backend in ("pallas", "pallas_int8"):
+        calls = attn.exact_calls["exact_attention"]
+        kernels = launch_counts()
+        got = attn.attention(q, k, v, k_len=kl, backend=backend)
+        torch.cuda.synchronize()
+        assert attn.exact_calls["exact_attention"] == calls + 1
+        assert launch_counts() == kernels
+        assert got.dtype == dtype and got.is_cuda
+        check_attention(got, fa.attention_plain(q, k, v, k_len=kl),
+                        f"exact d={d}")
+
+
+def test_head_dim_128_launches_kernels_not_the_branch(dev):
+    q = _rand(dev, 2, 700, 2, 128, seed=14)
+    ctx = _rand(dev, 2, 64, 2, 128, seed=15)
+    calls = attn.exact_calls["exact_attention"]
+    b1, b2 = (fa.launches[k] for k in ("flash_attention",
+                                       "single_kv_attention"))
+    attn.attention(q, q, q, backend="pallas")             # B1: 700 keys
+    attn.attention(q, ctx, ctx, backend="pallas")         # B2: 64 keys
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == b1 + 1
+    assert fa.launches["single_kv_attention"] == b2 + 1
+    assert attn.exact_calls["exact_attention"] == calls

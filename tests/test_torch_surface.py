@@ -20,7 +20,6 @@ import flexam_tpu_torch
 # names of the JAX package whose modules are not ported yet, by ROADMAP item
 WAITING = {
     "": {"FirstFrameRepainter"},                           # A item 7
-    ".utils": {"save_videos_grid"},                        # A item 3
     ".perception": {"estimate_depth", "register_depth_backend",
                     "find_delta_checkpoint", "track_video_delta",
                     "track_video_flow"},                   # A item 7

@@ -1,0 +1,135 @@
+"""The port's tools against the JAX package's, on the CPU: `compare_latents`
+(`psnr`, `ssim`, and the CLI's output and exit code on the same dumps) and
+`verify_ckpt` (junk files fail the dit, vae and t5 kinds as in JAX; files
+written from tiny random trees pass; the device defaults to CUDA; the
+perception and FLUX / SVD kinds raise, naming ROADMAP A item 7). The
+hygiene scan covers the server and both tools."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from flexam_tpu.tools import compare_latents as jcl
+from flexam_tpu.tools import verify_ckpt as jvc
+from flexam_tpu_torch.tools import compare_latents as tcl
+from flexam_tpu_torch.tools import verify_ckpt as tvc
+
+
+def test_psnr_ssim_match_jax():
+    rs = np.random.RandomState(0)
+    a = rs.rand(3, 16, 20)
+    for b in (a, a + rs.randn(*a.shape) * 1e-3, a + 0.1,
+              rs.rand(3, 16, 20)):
+        assert tcl.psnr(a, b) == jcl.psnr(a, b)
+        assert tcl.psnr(a, b, peak=1.0) == jcl.psnr(a, b, peak=1.0)
+        assert tcl.ssim(a, b) == jcl.ssim(a, b)
+        assert tcl.ssim(a, b, peak=2.0, win=5) == jcl.ssim(a, b, peak=2.0,
+                                                          win=5)
+
+
+def _run(main, argv, capsys):
+    try:
+        main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    return code, capsys.readouterr().out
+
+
+def test_compare_latents_cli_matches_jax(tmp_path, capsys):
+    rs = np.random.RandomState(2)
+    x = rs.randn(3, 4, 4).astype(np.float32)
+    np.savez(tmp_path / "a.npz", latents=x, other=x[:2])
+    np.savez(tmp_path / "b.npz", latents=x + 1e-4, other=x[:2] + 0.5)
+    np.savez(tmp_path / "c.npz", latents=x[:2])
+    np.savez(tmp_path / "d.npz", unrelated=x)
+    np.save(tmp_path / "e.npy", x)
+    torch.save(torch.from_numpy(x + 1e-3), str(tmp_path / "f.pt"))
+    a, b, c, d, e, f = (str(tmp_path / n) for n in (
+        "a.npz", "b.npz", "c.npz", "d.npz", "e.npy", "f.pt"))
+    cases = [[a, b], [a, b, "--key", "latents"],
+             [a, b, "--per-step", "--key", "latents"],
+             [a, b, "--threshold", "0"], [a, c], [a, d], [e, f]]
+    for argv in cases:
+        assert _run(tcl.main, argv, capsys) == _run(jcl.main, argv,
+                                                    capsys), argv
+    # both exit codes occur among the cases: a pass, and a shape mismatch
+    assert _run(tcl.main, cases[1], capsys)[0] == 0
+    assert _run(tcl.main, cases[4], capsys)[0] == 1
+
+
+def test_compare_latents_module_entry(tmp_path):
+    x = np.random.RandomState(3).randn(2, 4, 4).astype(np.float32)
+    np.savez(tmp_path / "a.npz", latents=x)
+    np.savez(tmp_path / "b.npz", latents=x + 1e-4)
+    out = subprocess.run(
+        [sys.executable, "-m", "flexam_tpu_torch.tools.compare_latents",
+         str(tmp_path / "a.npz"), str(tmp_path / "b.npz")],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "latents" in out.stdout and "dB" in out.stdout
+
+
+@pytest.fixture
+def junk(tmp_path):
+    from flexam_tpu_torch.io.checkpoints import save_safetensors
+    d = tmp_path / "transformer"
+    d.mkdir()
+    save_safetensors(str(d / "model.safetensors"),
+                     {"junk.weight": torch.zeros(3, 3)})
+    pth = tmp_path / "junk.pth"
+    torch.save({"junk.weight": torch.zeros(3, 3)}, str(pth))
+    return {"dit": str(d), "vae": str(pth), "t5": str(pth)}
+
+
+@pytest.mark.parametrize("kind", ["dit", "vae", "t5"])
+def test_verify_ckpt_junk_fails_as_in_jax(junk, kind, capsys):
+    assert jvc.verify(kind, junk[kind]) is False
+    assert tvc.verify(kind, junk[kind], "cpu") is False
+    assert "FAILED" in capsys.readouterr().out
+    assert tvc.main(["--model", kind, "--platform", "cpu", junk[kind]]) == 1
+
+
+@pytest.mark.parametrize("kind", ["dit", "vae", "t5"])
+def test_verify_ckpt_passes_a_full_file_on_the_cpu(tmp_path, monkeypatch,
+                                                   kind, capsys):
+    """`--platform cpu` loads every expected tensor of a file the loader
+    can read (the tool's config swapped for the tiny one)."""
+    import flexam_tpu_torch.config as tcfg
+    from tests.test_torch_cli_cuda import write_tiny_checkpoints
+    cfg, paths = write_tiny_checkpoints(tmp_path)
+    monkeypatch.setattr(tcfg, "FlexAMConfig", lambda: cfg)
+    assert tvc.verify(kind, paths[kind], "cpu") is True
+    assert tvc.main(["--model", kind, "--platform", "cpu",
+                     paths[kind]]) == 0
+    assert "OK" in capsys.readouterr().out
+
+
+def test_verify_ckpt_defaults_to_cuda(junk):
+    """Without `--platform cpu` the tool loads onto the card, and asking
+    for the card where there is none raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvc.verify("vae", junk["vae"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvc.main(["--model", "vae", junk["vae"]])
+
+
+@pytest.mark.parametrize("kind", ["delta", "moge", "unidepth", "pi3",
+                                  "vggt", "zoe", "dav2", "flux", "flux-ae",
+                                  "svd-unet", "svd-vae", "svd-clip"])
+def test_verify_ckpt_unported_kinds_raise(junk, kind):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tvc.verify(kind, junk["vae"])
+
+
+def test_hygiene_scans_the_server_and_tools():
+    from tests.test_torch_hygiene import ROOT, _modules
+    names = {p.relative_to(ROOT).as_posix() for p, _ in _modules()}
+    assert {"flexam_tpu_torch/serve.py",
+            "flexam_tpu_torch/tools/compare_latents.py",
+            "flexam_tpu_torch/tools/verify_ckpt.py"} <= names
