@@ -145,7 +145,35 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        512x896x17f, 2 steps at CFG 6.0, against the same
                        request without it (finite latents, outputs that
                        differ); the adapter's forward on the CFG batch
-                       timed by back-to-back launches.
+                       timed by back-to-back launches;
+  track                the video-input path at full width, on a textured
+                       512x896x97f clip whose scene moves by (-1, -1) px a
+                       frame: (a) UniDepth V2 (ViT-L/14, bf16, random
+                       weights) through the depth registry, with seconds,
+                       frames/s, tokens a frame, peak and the exact
+                       branch's calls; (b) the device flow tracker at
+                       density 10 (4,590 tracks) on that depth, held to the
+                       known translation (bounds below); (c) DenseTrack3D
+                       (the reference config, fp32) written as a
+                       reference-format densetrack3d.pth of random values,
+                       read back by `load_densetrack3d` (every tensor
+                       mapped), and `track_video_delta` on the UniDepth
+                       depth, with its windows and early exits; (d) the
+                       three models at tiny configs on the card and on the
+                       CPU, held to each other (bounds below); (e)
+                       `python -m flexam_tpu_torch.tools.track --method
+                       delta` on the clip, then `demo.main` at --random_init
+                       5b, 49 frames, 1 step, full_edit from the clip: DELTA
+                       tracking (FLEXAM_DELTA_CKPT), the flow tracker, and
+                       --repaint true, each with its stage seconds, peak and
+                       launches (B1-B4 required, B1 30 times a generation:
+                       the repaint's frame is a second one; every run
+                       passes a mask video, so B4 runs its per-token
+                       mode); (f), run before the others while the
+                       serve phase's 5B pipeline is resident, one
+                       `track_method: "flow"` job over HTTP on a bare 17f
+                       clip, 1 step. Launch counts are reset before each run
+                       of (e) and (f) and read after it ("track_launches").
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -174,6 +202,37 @@ for one linear: twice that, 0.02 (JAX's own test bound for int8) and 0.1.
 A forward runs 30 blocks whose branch errors add independently in the
 residual stream, at most sqrt(30) times one linear's error: int8 0.053,
 fp8 0.29; the bounds are 0.06 and 0.3.
+
+The flow tracker against the known translation (track (b)). A step's
+error is the dense flow's error at the track: the LK design (4 pyramid
+levels, 4 iterations a level, 15x15 windows, at half resolution above 384p)
+leaves 0.23 px per axis a step on this texture, unbiased (`python -m
+flexam_tpu_torch.tools.flow_accuracy --platform cpu`, this phase's clip and
+seed, on the CPU, where the port equals the JAX package). Under an integer translation a track sees the same texture at
+every step, so its step errors are correlated: after 96 steps its error
+lies between the random walk's sqrt(96) x 0.23 = 2.3 px and the straight
+line's 96 x 0.23 = 22 px per axis; the CPU run gives 7.0 px per axis, a
+median end-point error of 8.07 px (p90 15.3), a mean error vector of
+0.30 px, and 0.85 of the tracks that stay inside visible at the end. The
+card computes the same function with other rounding, which reshuffles the
+walk, not its spread. Bounds: median end-point error under 12 px (1.5 x the
+CPU's), mean error vector under 1.5 px, visible share at least 0.5. A
+fault of sign, scale or indexing moves the end points by tens of pixels (a
+tracker that does not move: 136 px).
+
+The card against the CPU (track (d)), the same tiny models in fp32 on both
+(TF32 off). Their sums run in other orders (cuBLAS, cuDNN, the GPU's
+reductions), which changes a K-term fp32 sum by at most about K x 2^-24 of
+its size, 1e-4 for the widest (K = 1536), and typically 1e-6. DenseTrack3D's
+positions move only by its delta head's outputs (about 1e-2 cells at
+random init) and are otherwise grid coordinates passed through resizes and
+a convex upsample, so their difference stays near 1e-5 of ~100 px: bound
+1e-2 px; visibilities (sigmoids of O(1) logits) 1e-3, with a flip allowed
+only where the CPU's value lies within 1e-3 of 0.5; depths and UniDepth's
+outputs 1e-3 of their largest value. The flow tracker's chained positions
+are bounded the same (1e-2 px) where both keep a track; a forward-backward
+or border test may decide a track otherwise only where its value sits at
+the threshold, so at most 1 % of the visibility entries may differ.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -2117,6 +2176,7 @@ def phase_serve(dev, results: dict):
 
     srv.httpd.shutdown()
     th.join(30)
+    srv.pipe = None     # its job worker thread lives on; the weights need not
     for k in results:
         results[k]["serve_launches"] = total.get(k, 0)
     emit("serve", t0, setup_seconds=setup_s, health=health,
@@ -2270,6 +2330,7 @@ def phase_serve_camera(dev, pipe) -> None:
     differing = float((a != b).mean())
     if differing == 0.0:
         raise AssertionError("serve_camera: the camera changed nothing")
+    srv.pipe = None     # its job worker thread lives on; the weights need not
     del cam_pipe, srv, adapter, outs, a, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -2279,6 +2340,408 @@ def phase_serve_camera(dev, pipe) -> None:
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Video input: UniDepth V2, the flow tracker, DenseTrack3D, the CLIs, serve
+# ---------------------------------------------------------------------------
+
+TRACK_SHIFT = (1, 1)               # the textured clip's motion, px a frame
+TRACK_FLOW_BOUND_PX = 12.0         # median end-point error (docstring)
+TRACK_FLOW_BIAS_PX = 1.5           # mean end-point error vector
+TRACK_FLOW_VISIBLE = 0.5           # visible share of the tracks inside
+TRACK_DEMO_FRAMES = 49
+SERVE_TRACK_FRAMES = 17
+TRACK_DT_TINY = dict(stride=4, window_len=8, model_resolution=(64, 96),
+                     upsample_factor=4, latent_dim=32, dim=64, num_heads=4,
+                     num_blocks=2, iters=2, num_virtual_tracks=8,
+                     compute="float32")
+TRACK_UD_TINY = dict(
+    patch_size=14, embed_dim=32, depth=4, num_heads=2, mlp_ratio=4.0,
+    num_register_tokens=2, layer_scale_init=1.0, output_idx=(1, 2, 3, 4),
+    pretrain_img_size=28, hidden_dim=16, dec_num_heads=2, expansion=2,
+    dec_depths=(1, 1, 1), out_dim=4, kernel_size=3, layer_scale=1.0,
+    pixels_min=28 * 28, pixels_max=56 * 56, ratio_bounds=(0.5, 2.0),
+    compute="float32")
+# the card against the CPU at the tiny configs (module docstring)
+CARD_CPU_UV_PX = 1e-2
+CARD_CPU_VIS = 1e-3
+CARD_CPU_REL = 1e-3
+CARD_CPU_FLIP_SHARE = 0.01
+
+
+def _track_targets():
+    from flexam_tpu_torch import demo, repaint
+    from flexam_tpu_torch.perception import flow_device, tracking
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline as Pipe
+    return [(demo, "_build_models"), (tracking, "dispatch_tracking"),
+            (tracking, "track_video_delta"),
+            (flow_device, "track_video_flow_device"),
+            (repaint.FirstFrameRepainter, "repaint"),
+            (Pipe, "encode_prompt"),
+            (Pipe, "prepare_conditioning_from_tracks"), (Pipe, "denoise"),
+            (Pipe, "decode_u8")]
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def track_serve_job(dev, pipe, track: dict, total: dict) -> None:
+    """(f): one job with `track_method: "flow"` and a bare 17-frame clip,
+    over HTTP on the serve phase's 5B pipeline: the server tracks the clip
+    on the card, anchors full_edit on its first frame, 1 step at CFG 6.0."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.serve import (GenerationServer, _decode_array,
+                                        _encode_array)
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+
+    _, Hp, Wp = TRACKS_VIDEO
+    T = SERVE_TRACK_FRAMES
+    clip = textured_clip(T, Hp, Wp, TRACK_SHIFT, SEED + 80, dev)
+    video = clip.transpose(3, 0, 1, 2)[None].astype(np.float32) / 255.0
+    srv = GenerationServer(pipe)
+    port = _free_port()
+    th = threading.Thread(target=srv.serve,
+                          kwargs=dict(port=port, host="127.0.0.1"),
+                          daemon=True)
+    th.start()
+    while srv.httpd is None:
+        time.sleep(0.05)
+    try:
+        payload = {"prompt": DEMO_PROMPT, "video": _encode_array(video),
+                   "track_method": "flow", "track_density": TRACK_DENSITY,
+                   "num_inference_steps": 1, "guidance_scale": 6.0,
+                   "seed": SEED, "density": 0.1}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        with StageTimer(_serve_targets() + _track_targets()[1:4]) as st:
+            jid = _http(port, "POST", "/submit", payload)[1]["job_id"]
+            status, _ = _poll(port, jid, lambda s: s["state"] not in (
+                "queued", "running"), interval=0.05)
+            if status["state"] != "done":
+                raise AssertionError(f"track serve: job ended {status}")
+            code, out = _http(port, "GET", f"/result/{jid}")
+        wall = time.perf_counter() - t1
+        counts = _counts()
+    finally:
+        srv.httpd.shutdown()
+        th.join(30)
+        srv.pipe = None     # the job worker thread keeps the server alive
+    result = _decode_array(out["video"])
+    if code != 200 or result.shape != (1, 3, T, Hp, Wp):
+        raise AssertionError(f"track serve: /result {code} {result.shape}")
+    if st.calls.get("track_video_flow_device") != 1:
+        raise AssertionError(f"track serve: tracker calls {st.calls}")
+    b4 = _check_serve_launches("track_method_flow", counts)
+    _add(total, counts)
+    track["serve_flow_17f"] = {
+        "wall_seconds": wall, "stages": dict(st.seconds),
+        "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "b4_mode": b4}
+    print(json.dumps({"track_serve": "track_method_flow_17f",
+                      **track["serve_flow_17f"]}), flush=True)
+
+
+def track_card_vs_cpu(dev) -> dict:
+    """(d): DenseTrack3D, UniDepth V2 and the flow tracker at tiny configs,
+    on the card and on the CPU with the same weights and inputs, in fp32
+    (TF32 off); the bounds are derived in the module docstring."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.perception import densetrack3d as dt
+    from flexam_tpu_torch.perception import unidepth as ud
+    from flexam_tpu_torch.perception.flow_device import \
+        track_video_flow_device
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    out = {}
+    rs = np.random.RandomState(SEED + 90)
+    # DenseTrack3D
+    cpu_m = dt.DenseTrack3D(**TRACK_DT_TINY, seed=SEED + 91, device="cpu")
+    gpu_m = dt.DenseTrack3D(**TRACK_DT_TINY, seed=SEED + 91, device=dev)
+    gpu_m.params = to(cpu_m.params, dev)
+    video = rs.rand(1, 11, 3, 72, 104).astype(np.float32)
+    depth = 1.0 + rs.rand(1, 11, 1, 72, 104).astype(np.float32)
+    ref = dt.DensePredictor3D(cpu_m)(video, depth)
+    got = dt.DensePredictor3D(gpu_m)(video, depth)
+    uv_err = (got["trajs_uv"].cpu() - ref["trajs_uv"]).abs().max().item()
+    vis_err = (got["vis"].cpu() - ref["vis"]).abs().max().item()
+    d_rel = ((got["trajs_depth"].cpu() - ref["trajs_depth"]).abs().max()
+             / ref["trajs_depth"].abs().max()).item()
+    flips = ((got["vis"].cpu() > 0.5) != (ref["vis"] > 0.5))
+    near = (ref["vis"] - 0.5).abs() < CARD_CPU_VIS
+    if not (uv_err <= CARD_CPU_UV_PX and vis_err <= CARD_CPU_VIS
+            and d_rel <= CARD_CPU_REL and not (flips & ~near).any()):
+        raise AssertionError(f"track card vs cpu, densetrack3d: uv {uv_err}"
+                             f" vis {vis_err} depth rel {d_rel} flips "
+                             f"{int(flips.sum())}")
+    out["densetrack3d"] = {
+        "uv_max_abs_px": uv_err, "vis_max_abs": vis_err,
+        "depth_max_rel": d_rel, "vis_flips": int(flips.sum()),
+        "early_exit_windows": [cpu_m.last_info["early_exit_windows"],
+                               gpu_m.last_info["early_exit_windows"]]}
+    # UniDepth V2
+    cfg = ud.UniDepthV2Config(**TRACK_UD_TINY)
+    cpu_u = ud.UniDepthV2(cfg, seed=SEED + 92, device="cpu")
+    gpu_u = ud.UniDepthV2(cfg, params=to(cpu_u.params, dev), device=dev)
+    rgb = rs.rand(3, 3, 30, 44).astype(np.float32) * 255
+    ref, got = cpu_u.infer(rgb), gpu_u.infer(rgb)
+    out["unidepth"] = {k: compare(torch.from_numpy(got[k]),
+                                  torch.from_numpy(ref[k]), CARD_CPU_REL,
+                                  f"track card vs cpu, unidepth {k}")
+                       for k in ("depth", "points", "confidence",
+                                 "intrinsics")}
+    # the flow tracker
+    clip = textured_clip(6, 64, 80, TRACK_SHIFT, SEED + 93, "cpu")
+    clip = clip.astype(np.float32) / 255.0
+    rt, rv = track_video_flow_device(clip, density=8, device="cpu")
+    gt, gv = track_video_flow_device(clip, density=8, device=dev)
+    both = rv & gv
+    err = float(np.abs(gt - rt)[both].max()) if both.any() else 0.0
+    flip_share = float((rv != gv).mean())
+    if not (err <= CARD_CPU_UV_PX and flip_share <= CARD_CPU_FLIP_SHARE
+            and both.mean() > 0.5):
+        raise AssertionError(f"track card vs cpu, flow: {err} px, flips "
+                             f"{flip_share}, visible {both.mean()}")
+    out["flow"] = {"tracks_max_abs_px": err, "vis_flip_share": flip_share,
+                   "visible_share": float(both.mean())}
+    return out
+
+
+def phase_track(dev, results: dict, track: dict, total: dict) -> None:
+    """The video-input path at full width (module docstring): (a) UniDepth
+    V2 on a textured 512x896x97f clip moving by a known translation, (b)
+    the flow tracker on it, held to the translation, (c) DenseTrack3D from
+    a reference-format checkpoint file, (d) the card against the CPU at
+    tiny configs, (e) `tools.track` and three `demo.main` runs at 5B width
+    (DELTA, flow, --repaint true); (f) ran before it, on the serve phase's
+    pipeline. Launch counts are reset before each run of (e)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.perception import unidepth
+    from flexam_tpu_torch.perception.densetrack3d import (DenseTrack3D,
+                                                          load_densetrack3d)
+    from flexam_tpu_torch.perception.depth import (DEPTH_BACKENDS,
+                                                   estimate_depth,
+                                                   register_depth_backend)
+    from flexam_tpu_torch.perception.flow_device import \
+        track_video_flow_device
+    from flexam_tpu_torch.perception.tracking import track_video_delta
+    from flexam_tpu_torch.tools.flow_accuracy import (end_point_errors,
+                                                      textured_clip)
+
+    t0 = time.perf_counter()
+    root = HERE / "build" / "smoke_track"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    F, Hp, Wp = TRACKS_VIDEO
+    clip_u8 = textured_clip(F, Hp, Wp, TRACK_SHIFT, SEED + 70, dev)
+    video = clip_u8.astype(np.float32) / 255.0             # [T, H, W, 3]
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def stop(t1):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    # (a) UniDepth V2 (ViT-L/14, bf16, random weights) on the clip
+    exact_calls["exact_attention"] = 0
+    t1 = start()
+    depth = estimate_depth(video, backend="unidepth", device=dev)
+    secs, peak = stop(t1)
+    model = unidepth._BACKEND_CACHE[("__random__", str(dev))]
+    (_, _, _, net_hw) = model.geometry(Hp, Wp)
+    patches = (net_hw[0] // 14) * (net_hw[1] // 14)
+    if depth.shape != (F, Hp, Wp) or not np.isfinite(depth).all() or \
+            not (depth > 0).all():
+        raise AssertionError(f"track: unidepth depth {depth.shape}")
+    chunk = unidepth.video_chunk(model, Hp, Wp)
+    track["unidepth_profile"] = profile_forward(
+        lambda: unidepth.predict_depth_video(model, video[:chunk], chunk))
+    track["unidepth"] = {
+        "seconds": secs, "frames_per_second": F / secs,
+        "network_input_hw": list(net_hw), "patches_per_frame": patches,
+        "tokens_per_frame": patches + 1 + model.cfg.num_register_tokens,
+        "chunk_frames": chunk,
+        "peak_memory_allocated_gb": peak,
+        "exact_calls": exact_calls["exact_attention"],
+        "depth_range": [float(depth.min()), float(depth.max())]}
+    unidepth._BACKEND_CACHE.clear()
+    del model
+    # (b), (c) and the tool read this depth through the registry
+    register_depth_backend("smoke_unidepth", lambda v, **kw: depth[:len(v)])
+
+    # (b) the flow tracker against the known translation
+    t1 = start()
+    tracks, vis = track_video_flow_device(video, density=TRACK_DENSITY,
+                                          depth_backend="smoke_unidepth",
+                                          device=dev)
+    secs, peak = stop(t1)
+    acc = end_point_errors(tracks, vis, TRACK_SHIFT, Hp, Wp)
+    grid = (len(range(TRACK_DENSITY // 2, Hp, TRACK_DENSITY))
+            * len(range(TRACK_DENSITY // 2, Wp, TRACK_DENSITY)))
+    if tracks.shape != (F, grid, 3) or not (
+            acc["median_end_point_error_px"] < TRACK_FLOW_BOUND_PX
+            and acc["mean_error_px"] < TRACK_FLOW_BIAS_PX
+            and acc["visible_share"] >= TRACK_FLOW_VISIBLE):
+        raise AssertionError(f"track: flow tracks {tracks.shape}, {acc}")
+    track["flow"] = {"seconds": secs, "peak_memory_allocated_gb": peak,
+                     "tracks": list(tracks.shape),
+                     "bound_px": TRACK_FLOW_BOUND_PX, **acc}
+
+    # (c) DenseTrack3D (reference config, fp32) from a checkpoint file
+    path = root / "densetrack3d.pth"
+    written = DenseTrack3D(compute="float32", seed=SEED + 71, device=dev)
+    torch.save({"model": {k: v.cpu() for k, v in
+                          written.state_dict().items()}}, str(path))
+    del written
+    t1 = time.perf_counter()
+    model = load_densetrack3d(str(path), device=dev, compute="float32")
+    load_s = time.perf_counter() - t1
+    if not model.load_ok or model.load_report["missed"]:
+        raise AssertionError(f"track: densetrack3d load {model.load_report}")
+    t1 = start()
+    dtracks, dvis = track_video_delta(video, density=TRACK_DENSITY,
+                                      model=model,
+                                      depth_backend="smoke_unidepth")
+    secs, peak = stop(t1)
+    hd, wd = model.cfg.dense_reso
+    n = -(-hd // TRACK_DENSITY) * -(-wd // TRACK_DENSITY)
+    if dtracks.shape != (F, n, 3) or not np.isfinite(dtracks).all() or \
+            not (dtracks[..., 2] > 0).all():
+        raise AssertionError(f"track: densetrack3d tracks {dtracks.shape}")
+    info = model.last_info
+    # one window (16 frames, 4 iterations) under the profiler
+    track["densetrack3d_profile"] = profile_forward(
+        lambda: track_video_delta(video[:model.cfg.window_len],
+                                  density=TRACK_DENSITY, model=model,
+                                  depth_backend="smoke_unidepth"))
+    track["densetrack3d"] = {
+        "seconds": secs, "load_seconds": load_s,
+        "checkpoint_mb": path.stat().st_size / 1e6,
+        "tensors_mapped": len(model.load_report["loaded"]),
+        "peak_memory_allocated_gb": peak, "tracks": list(dtracks.shape),
+        "windows": len(info["window_starts"]),
+        "early_exit_windows": info["early_exit_windows"],
+        "iterations": info["iters"], "checked_deltas": info["checked_deltas"],
+        "visible_share": float(dvis.mean())}
+    del model, dtracks
+    del DEPTH_BACKENDS["smoke_unidepth"]
+
+    # (d) the card against the CPU
+    track["card_vs_cpu"] = track_card_vs_cpu(dev)
+    for k in ("unidepth", "unidepth_profile", "flow", "densetrack3d",
+              "densetrack3d_profile", "card_vs_cpu"):
+        print(json.dumps({"track_part": k, **track[k]}), flush=True)
+
+    # (e) the CLIs at 5B width
+    clip_path = root / "clip.npz"
+    np.savez(clip_path, video=clip_u8, fps=16)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flexam_tpu_torch.tools.track",
+         "--input", str(clip_path), "--output", str(root / "tracks.npz"),
+         "--method", "delta", "--delta_ckpt", str(path),
+         "--density", str(TRACK_DENSITY),
+         "--video_length", str(F), "--sample_size", str(Hp), str(Wp)],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"track: tools.track rc {proc.returncode} "
+                             f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
+    written = np.load(root / "tracks.npz")
+    if written["tracks"].shape != (F, n, 3):
+        raise AssertionError(f"track: tools.track {written['tracks'].shape}")
+    track["tools_track"] = {"seconds": tool_s,
+                            "tracks": list(written["tracks"].shape),
+                            "stdout_tail": proc.stdout.strip()
+                            .splitlines()[-2:]}
+
+    demo_clip = root / "clip49.npz"
+    np.savez(demo_clip, video=clip_u8[:TRACK_DEMO_FRAMES], fps=16)
+    del video, clip_u8
+    base = ["--prompt", DEMO_PROMPT, "--random_init", "5b", "--sample_size",
+            str(Hp), str(Wp), "--seed", str(SEED), "--input_path",
+            str(demo_clip), "--video_length", str(TRACK_DEMO_FRAMES),
+            "--num_inference_steps", "1", "--generate_type", "full_edit"]
+    runs = [("delta_49f", ["--tracking_method", "DELTA"],
+             "track_video_delta"),
+            ("flow_49f", ["--tracking_method", "flow"],
+             "track_video_flow_device"),
+            ("repaint_49f", ["--repaint", "true", "--synthetic_tracks"],
+             "repaint")]
+    must = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
+            "ln_mod_binary")
+    demo_runs = {}
+    os.environ["FLEXAM_DELTA_CKPT"] = str(path)
+    try:
+        for name, extra, stage in runs:
+            t1 = start()
+            _reset_counts()
+            with StageTimer(_track_targets()) as st:
+                out = demo.main(base + extra + ["--output_dir",
+                                                str(root / name)])
+            wall, peak = stop(t1)
+            counts = _counts()
+            st.returned.clear()
+            if out.shape != (1, 3, TRACK_DEMO_FRAMES, Hp, Wp) or \
+                    not np.isfinite(out).all():
+                raise AssertionError(f"track demo {name}: {out.shape}")
+            if st.calls.get(stage) != 1 or any(
+                    counts[k] == 0 for k in must) or \
+                    counts["sparse_attention"] or counts["int8_attention"]:
+                raise AssertionError(f"track demo {name}: {st.calls}, "
+                                     f"launches {counts}")
+            # one forward of 30 blocks a generation: the video's, and the
+            # repainted frame's before it (896 tokens with its ref block)
+            forwards = 2 if name == "repaint_49f" else 1
+            if counts["flash_attention"] != 30 * forwards:
+                raise AssertionError(f"track demo {name}: B1 launched "
+                                     f"{counts['flash_attention']} times")
+            _add(total, counts)
+            demo_runs[name] = {"wall_seconds": wall,
+                               "stages": dict(st.seconds),
+                               "peak_memory_allocated_gb": peak,
+                               "launches": counts}
+            print(json.dumps({"track_demo": name, **demo_runs[name]}),
+                  flush=True)
+            del out
+    finally:
+        os.environ.pop("FLEXAM_DELTA_CKPT", None)
+    track["demo"] = demo_runs
+    for k in results:
+        results[k]["track_launches"] = total.get(k, 0)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("track", t0, **track, launches_all_runs=total)
+
 
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
@@ -2380,7 +2843,12 @@ def main() -> int:
     serve_pipe = phase_serve(dev, results)
     phase_serve_cli(dev)
     phase_serve_camera(dev, serve_pipe)
+    track, track_total = {}, {}
+    track_serve_job(dev, serve_pipe, track, track_total)
     del serve_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_track(dev, results, track, track_total)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2394,6 +2862,7 @@ def main() -> int:
             "demo_launches": r["demo_launches"],
             "serving_launches": r["serving_launches"],
             "serve_launches": r["serve_launches"],
+            "track_launches": r["track_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,4 +29,7 @@ def __getattr__(name):
     if name == "FlexAMOrchestrator":
         from flexam_tpu_torch.orchestrator import FlexAMOrchestrator
         return FlexAMOrchestrator
+    if name == "FirstFrameRepainter":
+        from flexam_tpu_torch.repaint import FirstFrameRepainter
+        return FirstFrameRepainter
     raise AttributeError(name)

@@ -103,10 +103,18 @@ def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
-                dtype=torch.float32, device="cpu") -> dict:
-    """Xavier-uniform weight, zero bias (the JAX `linear_init` default)."""
-    limit = math.sqrt(6.0 / (in_dim + out_dim))
-    w = torch.empty((out_dim, in_dim), dtype=dtype, device=device)
-    w.uniform_(-limit, limit, generator=gen)
-    return {"weight": w,
-            "bias": torch.zeros((out_dim,), dtype=dtype, device=device)}
+                dtype=torch.float32, device="cpu", bias: bool = True,
+                scale: Optional[float] = None) -> dict:
+    """Xavier-uniform weight (normal * `scale` when given) and a zero bias
+    unless `bias` is false, as the JAX `linear_init`."""
+    if scale is None:
+        limit = math.sqrt(6.0 / (in_dim + out_dim))
+        w = torch.empty((out_dim, in_dim), dtype=dtype, device=device)
+        w.uniform_(-limit, limit, generator=gen)
+    else:
+        w = (torch.randn((out_dim, in_dim), generator=gen, device=device)
+             * scale).to(dtype)
+    p = {"weight": w}
+    if bias:
+        p["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return p

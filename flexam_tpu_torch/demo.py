@@ -35,10 +35,18 @@ it loads; `--prequant FILE` serves a `tools/prequant_ckpt.py` file (or a
 serve bundle with `dit/` + `vae/`) in its mode, in place of the
 checkpoint's or the random DiT.
 
+A video without tracks is tracked on the device (`perception/
+tracking.py dispatch_tracking`): `--tracking_method DELTA` (the default)
+runs DenseTrack3D from `--delta_ckpt` / FLEXAM_DELTA_CKPT, or the flow
+tracker when no checkpoint maps; `--tracking_method flow` runs the device
+flow tracker (JAX's host Farneback needs OpenCV, which the port does not
+use). `--repaint true` generates the first frame natively, depth-conditioned
+(`repaint.py`, depth from `perception/depth.py`).
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the perception models (`--tracking_method flow`, DELTA tracking of a video,
-FLEXAM_MOGE_CKPT / FLEXAM_VGGT_CKPT / FLEXAM_PI3_CKPT: A14); the native
-repaint (`--repaint true`, FLEXAM_FLUX_*: A14).
+the MoGe, VGGT and Pi3 models (FLEXAM_MOGE_CKPT / FLEXAM_VGGT_CKPT /
+FLEXAM_PI3_CKPT) and the FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT with
+FLEXAM_FLUX_AE): A14.
 
 `main` returns the generated video, [1, 3, T, H, W] float in [0, 1], and
 writes it to `<output_dir>/result.mp4` (`utils.media.save_video`).
@@ -92,7 +100,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dilation_pixels", type=int, default=200)
     p.add_argument("--tracks_npz", type=str, default=None)
     p.add_argument("--delta_ckpt", type=str, default=None,
-                   help="densetrack3d.pth (not ported yet: A14)")
+                   help="densetrack3d.pth for DELTA tracking of a video "
+                        "(else FLEXAM_DELTA_CKPT)")
     p.add_argument("--poses_npz", type=str, default=None,
                    help="recorded camera poses for --camera_motion: "
                         "extrinsics[T,3,4](+intrinsics), VGGT "
@@ -251,6 +260,31 @@ def _build_models(args):
                                     compute_dtype=dtype)
 
 
+def _repaint_first_frame(args, pipe, input_video, h, w, device):
+    """`--repaint true`: the first frame generated by the FlexAM model from
+    its depth (`repaint.make_flexam_repaint_fn`), [1, 3, 1, H, W]. The
+    FLUX.1-Depth backend (FLEXAM_FLUX_CKPT with FLEXAM_FLUX_AE) is not
+    ported yet."""
+    from flexam_tpu_torch.perception.depth import estimate_depth
+    from flexam_tpu_torch.repaint import (FirstFrameRepainter,
+                                          make_flexam_repaint_fn)
+    if os.environ.get("FLEXAM_FLUX_CKPT"):
+        if os.environ.get("FLEXAM_FLUX_AE"):
+            raise _not_ported("the FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT, "
+                              "FLEXAM_FLUX_AE)", "A14")
+        print("WARNING: FLEXAM_FLUX_CKPT set without FLEXAM_FLUX_AE — "
+              "falling back to the native FlexAM repaint")
+    print("NOTE: --repaint true -> native depth-conditioned single-frame "
+          "generation (the reference uses external FLUX.1-Depth here)")
+    rp = FirstFrameRepainter(
+        h, w, args.output_dir,
+        depth_fn=lambda img: estimate_depth(
+            (np.asarray(img, np.float32) / 255.0)[None], device=device)[0],
+        repaint_fn=make_flexam_repaint_fn(pipe, seed=args.seed))
+    return rp.repaint(np.asarray(input_video)[0, :, 0], args.prompt,
+                      num_inference_steps=args.num_inference_steps)
+
+
 def _load_mask_image(path, h, w):
     if path is None:
         raise SystemExit("--object_motion requires --object_mask")
@@ -289,14 +323,16 @@ def main(argv=None):
     else:
         input_video = np.zeros((1, 3, args.video_length, h, w), np.float32)
 
-    # ---- repaint (a path; the native depth-conditioned repaint is A14) ----
+    # ---- repaint (path input, or native depth-conditioned generation) ----
     repaint = None
+    repaint_native = False
     if args.repaint and args.repaint.lower() != "true":
         repaint = get_image_latent(args.repaint, (h, w))
     elif args.repaint:
-        raise _not_ported("--repaint true (native depth-conditioned repaint "
-                          "and FLUX.1-Depth, repaint.py / perception/"
-                          "depth.py)", "A14")
+        # `--repaint true`: the reference runs FLUX.1-Depth here
+        # (`pipelines.py:137-173`); natively the FlexAM model generates the
+        # frame from its own depth conditioning (after the models load)
+        repaint_native = True
 
     # ---- tracks ----
     cam = CameraMotionGenerator(args.camera_motion or "",
@@ -332,8 +368,16 @@ def main(argv=None):
         point_wise = 2      # the reference's point_wise on this path
     else:
         if args.tracking_method == "flow" and not args.tracks_npz:
-            raise _not_ported("--tracking_method flow (the optical-flow "
-                              "tracker, perception/tracking.py)", "A14")
+            if not is_video:
+                raise SystemExit("--tracking_method flow needs a video "
+                                 "--input_path")
+            from flexam_tpu_torch.perception.tracking import \
+                dispatch_tracking
+            print("NOTE: built-in optical-flow tracker on the device "
+                  "(plug DELTA via --tracks_npz for learned tracking)")
+            tracks, vis = dispatch_tracking(input_video, "flow",
+                                            density=args.density,
+                                            device=device)
         elif args.tracks_npz:
             data = np.load(args.tracks_npz)
             tracks = np.asarray(data["tracks"], np.float32)
@@ -346,12 +390,18 @@ def main(argv=None):
             tracks, vis = _synthetic_grid_tracks(args.video_length, h, w,
                                                  args.density)
         elif args.tracking_method.upper() == "DELTA" and is_video:
-            raise _not_ported("DELTA tracking of a video (perception/"
-                              "densetrack3d.py, tracking.py)", "A14")
+            # the reference's flagship path (`pipelines.py:1362-1499`):
+            # DenseTrack3D + depth backend; with no trained checkpoint the
+            # flow tracker gives better tracks than random weights
+            from flexam_tpu_torch.perception.tracking import \
+                dispatch_tracking
+            tracks, vis = dispatch_tracking(
+                input_video, "delta", density=args.density,
+                ckpt=args.delta_ckpt, device=device)
         else:
             raise SystemExit(
-                "no tracks: pass --tracks_npz, --synthetic_tracks or "
-                "--moge_npz")
+                "no tracks: pass --tracks_npz, --synthetic_tracks, a video "
+                "--input_path (DELTA/flow tracking), or --moge_npz")
         if args.camera_motion:
             if (extr is None or intr is None) and args.poses_npz:
                 from flexam_tpu_torch.perception import \
@@ -391,6 +441,10 @@ def main(argv=None):
                scheduler_type=args.scheduler,
                cfg_skip_ratio=args.cfg_skip_ratio,
                teacache_thresh=args.teacache_thresh)
+
+    if repaint_native:
+        repaint = _repaint_first_frame(args, pipe, input_video, h, w,
+                                       device)
 
     # ---- inpaint video + mask per mode (`demo.py:361-395`) ----
     if args.generate_type == "full_edit":

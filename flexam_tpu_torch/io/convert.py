@@ -13,8 +13,14 @@ layout change between the two lives here:
 Every other key crosses as it is, the Control-Camera adapter's
 `control_adapter.{conv,res_conv1,res_conv2}.{weight,bias}` included.
 
-Weights are already in torch layout in the JAX package (Linear [out, in],
-conv [O, I, *K]), so no transpose is needed. bfloat16 leaves (numpy's
+The generation models' weights are already in torch layout in the JAX
+package (Linear [out, in], conv [O, I, *K]), so no transpose is needed.
+The perception trees (DenseTrack3D: top-level `encoder`, `transformer`,
+`upsampler`, `feat_proj`; UniDepth V2: `pixel_encoder`, `pixel_decoder`)
+keep their blocks in lists already, and hold 2-D convs in XLA's HWIO
+layout: every 4-dim leaf there becomes torch's [O, I, kh, kw], except
+UniDepth's ConvTranspose kernels (`process_features`), which JAX keeps in
+torch's [cin, cout, k, k]. bfloat16 leaves (numpy's
 ml_dtypes bfloat16) arrive as torch.bfloat16, float8_e4m3fn leaves (the
 fp8 storage mode) as torch.float8_e4m3fn through a uint8 view, keyed on
 the dtype's name (`torch.from_numpy` refuses ml_dtypes arrays, and the port
@@ -67,7 +73,11 @@ def leaf(a, device, dtype=None, then=None) -> torch.Tensor:
     return t
 
 
-def _convert(node, device):
+_PERCEPTION_TREES = ({"encoder", "transformer", "upsampler", "feat_proj"},
+                     {"pixel_encoder", "pixel_decoder"})
+
+
+def _convert(node, device, hwio=False):
     if isinstance(node, dict):
         out = {}
         for k, v in node.items():
@@ -76,13 +86,17 @@ def _convert(node, device):
             elif k == "blocks" and isinstance(v, dict):
                 out[k] = _unstack(_convert(v, device))
             else:
-                out[k] = _convert(v, device)
+                out[k] = _convert(v, device,
+                                  hwio and k != "process_features")
         return out
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device) for v in node]
+        return [_convert(v, device, hwio) for v in node]
     if node is None:
         return None
-    return _tensor(node, device)
+    t = _tensor(node, device)
+    if hwio and t.dim() == 4:                     # HWIO -> [O, I, kh, kw]
+        t = t.permute(3, 2, 0, 1).contiguous()
+    return t
 
 
 def _unstack(tree):
@@ -163,5 +177,7 @@ def stack_blocks(tree: dict) -> dict:
 
 def from_jax_params(tree, device="cuda") -> dict:
     """The port's parameter tree for a JAX parameter tree of numpy arrays
-    or host tensors (DiT, umT5 or VAE), on `device`."""
-    return _convert(tree, resolve_device(device))
+    or host tensors (DiT, umT5, VAE, DenseTrack3D or UniDepth V2), on
+    `device`."""
+    hwio = isinstance(tree, dict) and set(tree) in _PERCEPTION_TREES
+    return _convert(tree, resolve_device(device), hwio)

@@ -1,8 +1,25 @@
-"""Perception: the parts the CLI runs without a model. Camera poses solved
-from 3D tracks (`pose_solver`) and the post-processing of recorded pose
-fixtures (`poses`). The perception models themselves (DELTA, MoGe, VGGT,
-Pi3, depth) are not ported yet."""
+"""Perception: the video-input stack and the parts the CLI runs without a
+model.
 
+  densetrack3d  DELTA-family dense 3D tracker (shape-mapped
+                densetrack3d.pth loader)
+  unidepth      UniDepth V2 metric depth (exact checkpoint name map)
+  flow_device   the pyramidal Lucas-Kanade flow tracker on the device
+  tracking      DELTA tracking of a video and the tracker dispatch
+  depth         the pluggable depth-backend registry
+  pose_solver   camera extrinsics from 3D tracks (robust Kabsch)
+  poses         VGGT/Pi3 pose-encoding post-processing + npz fixtures
+
+The other perception models of the JAX package (MoGe, VGGT, Pi3,
+ZoeDepth, Depth-Anything-V2, DepthCrafter, DWPose and the pose renderer)
+are not ported yet (ROADMAP A item 7): their names are absent here.
+
+Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT."""
+
+from flexam_tpu_torch.perception.depth import (  # noqa: F401
+    estimate_depth,
+    register_depth_backend,
+)
 from flexam_tpu_torch.perception.pose_solver import (  # noqa: F401
     default_intrinsics,
     solve_camera_poses,
@@ -15,3 +32,24 @@ from flexam_tpu_torch.perception.poses import (  # noqa: F401
     quat_to_rotmat,
     rotmat_to_quat,
 )
+from flexam_tpu_torch.perception.tracking import (  # noqa: F401
+    find_delta_checkpoint,
+    track_video_delta,
+    track_video_flow,
+)
+
+
+def __getattr__(name):
+    # the models load on first use, as in JAX
+    if name in ("DenseTrack3D", "DensePredictor3D", "load_densetrack3d",
+                "DenseTrack3DConfig"):
+        from flexam_tpu_torch.perception import densetrack3d as _m
+        return getattr(_m, name)
+    if name in ("UniDepthV2", "UniDepthV2Config", "load_unidepth",
+                "predict_depth_video"):
+        from flexam_tpu_torch.perception import unidepth as _m
+        return getattr(_m, name)
+    if name in ("track_video_flow_device", "dense_flow"):
+        from flexam_tpu_torch.perception import flow_device as _m
+        return getattr(_m, name)
+    raise AttributeError(name)

@@ -1,0 +1,98 @@
+"""Depth-estimation backends for video-input conditioning.
+
+Port of `flexam_tpu/perception/depth.py`, the same registry:
+
+  * `register_depth_backend(name, fn)` plugs a model in:
+    fn(video [T,H,W,3] float 0..1, **kw) -> depth [T,H,W] float;
+  * "unidepth": UniDepth V2 (`perception/unidepth.py`), weights from
+    FLEXAM_UNIDEPTH_CKPT (random weights, with a warning, without it);
+  * "luminance": a geometry-free placeholder (inverse luminance as
+    pseudo-depth), so that paths run end to end without a model;
+  * "onnx", "zoe", "dav2" / "dav" and "depthcrafter" stay registered, as
+    in JAX, but their models are not ported yet: they raise
+    NotImplementedError naming ROADMAP item 7.
+
+`estimate_depth` picks a backend as JAX's does: the argument, then
+FLEXAM_DEPTH_BACKEND, then the first model whose checkpoint exists
+(FLEXAM_UNIDEPTH_CKPT, FLEXAM_DAV2_CKPT, FLEXAM_ZOE_CKPT), then luminance.
+Keyword arguments go to the backend; the port's model backends take
+`device=` (CUDA unless the caller asks for the CPU).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Callable, Dict
+
+import numpy as np
+
+DEPTH_BACKENDS: Dict[str, Callable] = {}
+
+
+def register_depth_backend(name: str, fn: Callable) -> None:
+    DEPTH_BACKENDS[name] = fn
+
+
+def _luminance_depth(video: np.ndarray, **kw) -> np.ndarray:
+    print("WARNING: 'luminance' pseudo-depth backend (placeholder; "
+          "register a real depth model for geometric accuracy)",
+          file=sys.stderr)
+    lum = video @ np.array([0.299, 0.587, 0.114], np.float32)
+    return 1.0 / (lum + 0.5)
+
+
+def _not_ported(name: str, module: str) -> Callable:
+    def fn(video: np.ndarray, **kw) -> np.ndarray:
+        raise NotImplementedError(
+            f"depth backend {name!r} ({module}) is not ported to "
+            "flexam_tpu_torch yet (ROADMAP A item 7); the port has "
+            "'unidepth' and 'luminance', the JAX package has the rest")
+    return fn
+
+
+def _unidepth_lazy(video: np.ndarray, **kw) -> np.ndarray:
+    """UniDepth V2, the reference's depth model (`pipelines.py:1393-1405`),
+    in `perception/unidepth.py`; lazy so the registry import stays light.
+    Weights: FLEXAM_UNIDEPTH_CKPT."""
+    from flexam_tpu_torch.perception.unidepth import _unidepth_backend
+    return _unidepth_backend(video, **kw)
+
+
+register_depth_backend("luminance", _luminance_depth)
+register_depth_backend("onnx", _not_ported("onnx", "an onnxruntime session"))
+register_depth_backend("unidepth", _unidepth_lazy)
+register_depth_backend("zoe", _not_ported("zoe", "perception/zoedepth.py"))
+register_depth_backend("depthcrafter", _not_ported(
+    "depthcrafter", "perception/depthcrafter.py"))
+register_depth_backend("dav2", _not_ported(
+    "dav2", "perception/depth_anything.py"))
+register_depth_backend("dav", DEPTH_BACKENDS["dav2"])  # the reference's name
+
+
+def estimate_depth(video: np.ndarray, backend: str = None, **kw
+                   ) -> np.ndarray:
+    """video [T,H,W,3] float 0..1 (or [1,3,T,H,W]) -> depth [T,H,W]."""
+    v = np.asarray(video, np.float32)
+    if v.ndim == 5:
+        v = v[0].transpose(1, 2, 3, 0)
+    if backend is None:
+        backend = os.environ.get("FLEXAM_DEPTH_BACKEND") or None
+    if backend is None:
+        # a real model when its checkpoint is there: UniDepth (the
+        # reference pipeline's depth model) first, then DAv2, then ZoeDepth
+        uni = os.environ.get("FLEXAM_UNIDEPTH_CKPT")
+        zoe = os.environ.get("FLEXAM_ZOE_CKPT")
+        dav = os.environ.get("FLEXAM_DAV2_CKPT")
+        if uni and os.path.exists(uni):
+            backend = "unidepth"
+        elif dav and os.path.exists(dav):
+            backend = "dav2"
+        elif zoe and os.path.exists(zoe):
+            backend = "zoe"
+        else:
+            backend = "luminance"
+    if backend not in DEPTH_BACKENDS:
+        raise KeyError(f"unknown depth backend {backend!r}; "
+                       f"have {sorted(DEPTH_BACKENDS)}")
+    return np.asarray(DEPTH_BACKENDS[backend](v, **kw), np.float32)

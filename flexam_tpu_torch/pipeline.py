@@ -41,6 +41,7 @@ import torch
 from flexam_tpu_torch.conditioning.rasterize_device import DeviceRasterizer
 from flexam_tpu_torch.config import FlexAMConfig
 from flexam_tpu_torch.core.attention import attention as default_attention
+from flexam_tpu_torch.core.resize import weight_matrix
 from flexam_tpu_torch.device import resolve_device
 from flexam_tpu_torch.models.dit import (WAN22_TEACACHE_COEFFICIENTS,
                                          dit_forward, dit_forward_teacache,
@@ -59,24 +60,6 @@ from flexam_tpu_torch.sampling import (build_schedule, sampler_init_state,
 # ---------------------------------------------------------------------------
 # Image/mask utilities
 # ---------------------------------------------------------------------------
-
-def _linear_resize_matrix(in_n: int, out_n: int) -> np.ndarray:
-    """[in_n, out_n] weights of a half-pixel-centre linear resize with an
-    antialiasing (widened) kernel when downsampling: the weights
-    `jax.image.resize(method="linear")` uses, computed in fp32 as it does."""
-    inv = np.float32(1.0 / (out_n / in_n))
-    kscale = max(inv, np.float32(1.0))
-    sample = (np.arange(out_n, dtype=np.float32) + np.float32(0.5)) * inv \
-        - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(in_n, dtype=np.float32)[:, None]) \
-        / kscale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x).astype(np.float32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
-    inside = (sample >= -0.5) & (sample <= in_n - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
 
 def resize_trilinear(x: torch.Tensor, size: Tuple[int, int, int],
                      align_corners: bool = False) -> torch.Tensor:
@@ -103,7 +86,7 @@ def resize_trilinear(x: torch.Tensor, size: Tuple[int, int, int],
             y = (y.index_select(axis, lo) * (1 - w)
                  + y.index_select(axis, hi) * w)
         else:
-            m = torch.from_numpy(_linear_resize_matrix(in_n, n)).to(
+            m = torch.from_numpy(weight_matrix(in_n, n)).to(
                 device=y.device, dtype=y.dtype)
             y = torch.movedim(torch.movedim(y, axis, -1) @ m, -1, axis)
     return y

@@ -13,9 +13,9 @@ built-in web form over it.
 
 Differences from JAX's module: `health` reports the torch device
 ("backend" "cuda" or "cpu", the card's name) and has no link probe; the
-server-side tracker (`track_method`) raises NotImplementedError until the
-perception stack is ported (ROADMAP A item 7); `--platform` names the torch
-device. Pipeline work runs under `torch.no_grad()`, in whichever thread
+server-side tracker (`track_method`) runs on the pipeline's device, its
+flow method the device tracker (JAX's host Farneback needs OpenCV);
+`--platform` names the torch device. Pipeline work runs under `torch.no_grad()`, in whichever thread
 serves it (grad mode is per thread).
 """
 
@@ -231,23 +231,36 @@ class GenerationServer:
 
     def _generate_from_tracks(self, payload, kwargs, progress_cb=None):
         """Tracks cross the wire (KBs) instead of rasterized videos: the
-        device rasterizer builds the conditioning on the card. The
-        server-side tracker (`track_method` with no tracks) waits for the
-        perception stack and raises."""
+        device rasterizer builds the conditioning on the card. With
+        `track_method` ("flow"/"delta"/"auto") and no precomputed tracks,
+        the server runs the tracker on the posted video, on the pipeline's
+        device: the client ships only the clip."""
         video = kwargs.get("video")
         gen_type = payload.get("generate_type", "full_edit")
-        if "tracks" not in payload:
-            raise NotImplementedError(
-                f"track_method={payload.get('track_method')!r}: the "
-                "server-side tracker (perception.tracking.dispatch_tracking) "
-                "is not ported to flexam_tpu_torch yet (ROADMAP A item 7); "
-                "post precomputed tracks, or use the JAX server")
-        tracks = _decode_array(payload["tracks"]).astype(np.float32)
-        vis = (_decode_array(payload["visibility"]).astype(bool)
-               if "visibility" in payload else None)
+        if "tracks" in payload:
+            tracks = _decode_array(payload["tracks"]).astype(np.float32)
+            vis = (_decode_array(payload["visibility"]).astype(bool)
+                   if "visibility" in payload else None)
+        else:
+            from flexam_tpu_torch.perception.tracking import \
+                dispatch_tracking
+            if video is None:
+                raise ValueError("track_method needs a posted video")
+            tracks, vis = dispatch_tracking(
+                video, payload.get("track_method", "auto"),
+                density=int(payload.get("track_density", 10)),
+                device=self.pipe.device)
         first = (_decode_array(payload["first_frame"]).astype(np.float32)
                  if "first_frame" in payload else None)
         v_shape = video.shape if video is not None else None
+        if (first is None and video is not None
+                and gen_type == "full_edit" and "tracks" not in payload):
+            # motion transfer from a bare clip (track_method path only):
+            # anchor on the clip's own first frame, as the demo's full_edit
+            # does; payloads with precomputed tracks keep their
+            # pass-through semantics
+            first = video[:, :, :1]
+            video = None
         h = int(payload.get("height", v_shape[3] if v_shape else 512))
         w = int(payload.get("width", v_shape[4] if v_shape else 896))
         cond = self.pipe.prepare_conditioning_from_tracks(

@@ -6,16 +6,19 @@ Port of `flexam_tpu/tools/verify_ckpt.py`:
     python -m flexam_tpu_torch.tools.verify_ckpt --model dit path/transformer/
     python -m flexam_tpu_torch.tools.verify_ckpt --model vae path/Wan2.2_VAE.pth
     python -m flexam_tpu_torch.tools.verify_ckpt --model t5  path/models_t5_umt5-xxl-enc-bf16.pth
+    python -m flexam_tpu_torch.tools.verify_ckpt --model delta path/densetrack3d.pth
+    python -m flexam_tpu_torch.tools.verify_ckpt --model unidepth path/ckpt
 
-The dit, vae and t5 loaders (`io/checkpoints.py`) are name-mapped: they
-raise on any missing key, so success means every expected tensor was
-found. Exit status 0 = the checkpoint passes, 1 = it does not. The
-checkpoint loads onto the card unless `--platform cpu` asks for the CPU.
-The perception kinds (delta, moge, unidepth, pi3, vggt, zoe, dav2) and the
-FLUX / SVD kinds need loaders that are not ported yet (ROADMAP A item 7):
-they raise NotImplementedError, where the JAX tool reports, and the JAX
-tool's `--threshold` (the coverage bar of those shape-mapped loaders) comes
-with them.
+The dit, vae, t5 and unidepth loaders (`io/checkpoints.py`,
+`perception/unidepth.py`) are name-mapped: they raise on any missing key,
+so success means every expected tensor was found. The delta loader
+(`perception/densetrack3d.py`) maps by shape and prints per-module
+coverage (`io/verify_load.py`); `--threshold` is its bar. Exit status 0 =
+the checkpoint passes, 1 = it does not. The checkpoint loads onto the card
+unless `--platform cpu` asks for the CPU. The other perception kinds (moge,
+pi3, vggt, zoe, dav2) and the FLUX / SVD kinds need loaders that are not
+ported yet (ROADMAP A item 7): they raise NotImplementedError, where the
+JAX tool reports.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import sys
 KINDS = ["delta", "moge", "unidepth", "dit", "vae", "t5", "pi3", "vggt",
          "zoe", "dav2", "flux", "flux-ae", "svd-unet", "svd-vae",
          "svd-clip"]
-PORTED = ("dit", "vae", "t5")
+PORTED = ("dit", "vae", "t5", "delta", "unidepth")
 
 
 def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
@@ -45,9 +48,11 @@ def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
     return True
 
 
-def verify(kind: str, path: str, device=None) -> bool:
-    """True when the `kind` loader maps every expected tensor of `path`,
-    loaded onto `device` (CUDA unless the caller asks for the CPU)."""
+def verify(kind: str, path: str, device=None,
+           threshold: float = 0.9) -> bool:
+    """True when the `kind` loader maps every expected tensor of `path`
+    (delta: its coverage passes `threshold`), loaded onto `device` (CUDA
+    unless the caller asks for the CPU)."""
     if kind not in KINDS:
         raise SystemExit(f"unknown --model {kind}")
     if kind not in PORTED:
@@ -59,6 +64,19 @@ def verify(kind: str, path: str, device=None) -> bool:
     from flexam_tpu_torch.device import resolve_device
     from flexam_tpu_torch.io import checkpoints as ck
     device = resolve_device("cuda" if device is None else device)
+    if kind == "delta":
+        from flexam_tpu_torch.io.verify_load import check_mapping
+        from flexam_tpu_torch.perception.densetrack3d import \
+            load_densetrack3d
+        model = load_densetrack3d(path, verify=False,
+                                  coverage_threshold=threshold,
+                                  device=device)
+        return check_mapping(model.load_report, name=f"delta[{path}]",
+                             threshold=threshold)
+    if kind == "unidepth":
+        from flexam_tpu_torch.perception.unidepth import load_unidepth
+        return _report_name_mapped(
+            kind, path, lambda: load_unidepth(path, device=device))
     cfg = FlexAMConfig()
     load = {"dit": lambda: ck.load_dit_checkpoint(path, cfg.dit,
                                                   device=device),
@@ -75,11 +93,13 @@ def main(argv=None) -> int:
     ap.add_argument("--platform", default=None,
                     help="torch device to load onto: cuda (the default) "
                          "or cpu")
+    ap.add_argument("--threshold", type=float, default=0.9,
+                    help="coverage bar of the shape-mapped delta loader")
     ap.add_argument("path")
     args = ap.parse_args(argv)
     from flexam_tpu_torch.demo import _device
-    return 0 if verify(args.model, args.path,
-                       _device(args.platform)) else 1
+    return 0 if verify(args.model, args.path, _device(args.platform),
+                       args.threshold) else 1
 
 
 if __name__ == "__main__":

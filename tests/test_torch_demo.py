@@ -3,9 +3,9 @@
 full_edit (device path and host path with artifacts), foreground_edit,
 background_edit, camera + object motion, the MoGe image path and camera
 control with solved poses. Each produces its result at the right shape,
-deterministically under one seed (two runs, equal). The two cases that
-need perception models the port lacks (`--repaint true`, the flow tracker)
-raise NotImplementedError naming ROADMAP A14. The quantized modes
+deterministically under one seed (two runs, equal), the native repaint
+(`--repaint true`) and the flow tracker with camera motion included
+(`tests/test_torch_video_tracking.py` holds them to JAX). The quantized modes
 (`--quant int8|fp8`, FLEXAM_QUANT, `--prequant`) run, deterministically;
 with `--checkpoint_path` the DiT is quantized from the checkpoint's float32
 values as it loads, and equals the JAX CLI's quantized host tree exactly
@@ -162,23 +162,24 @@ def test_camera_with_solved_poses(fixtures, tmp_path, capsys):
 
 
 def test_repaint_native(fixtures, tmp_path):
-    """`--repaint true` needs the native repaint (FLUX.1-Depth or the
-    depth-conditioned FlexAM repaint): not ported yet."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        main(BASE + ["--generate_type", "full_edit",
-                     "--input_path", fixtures["video"],
-                     "--synthetic_tracks", "--repaint", "true",
-                     "--output_dir", str(tmp_path / "rp")])
+    """`--repaint true`: the first frame generated by the FlexAM model from
+    its depth (the native repaint), then full_edit; the repainted frame is
+    written beside the result."""
+    _run_twice(BASE + ["--generate_type", "full_edit",
+                       "--input_path", fixtures["video"],
+                       "--synthetic_tracks", "--repaint", "true"],
+               tmp_path, "rp")
+    assert (tmp_path / "rp_0" / "temp_repainted.npy").exists()
 
 
 def test_full_native_video_path(fixtures, tmp_path):
-    """The built-in flow tracker is a perception module: not ported yet."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        main(BASE + ["--generate_type", "full_edit",
-                     "--input_path", fixtures["video"],
-                     "--tracking_method", "flow",
-                     "--camera_motion", "trans 0.05 0 0.1",
-                     "--output_dir", str(tmp_path / "native")])
+    """The built-in flow tracker on the input video, with camera motion
+    from poses solved on its tracks."""
+    _run_twice(BASE + ["--generate_type", "full_edit",
+                       "--input_path", fixtures["video"],
+                       "--tracking_method", "flow",
+                       "--camera_motion", "trans 0.05 0 0.1"],
+               tmp_path, "native")
 
 
 @pytest.mark.parametrize("extra,env,error,match", [

@@ -6,8 +6,9 @@ videos of both servers within one uint8 level when the port's pipeline
 draws JAX's noise.
 
 The tiny pipelines carry JAX's `_tiny_pipe` weights (PRNGKey(0), fp32)
-through `from_jax_params`. The server-side tracker (`track_method`) is not
-ported (ROADMAP A item 7): its case asserts the NotImplementedError."""
+through `from_jax_params`. The server-side tracker (`track_method`) runs
+on the pipeline's device (`tests/test_torch_video_tracking.py` holds it to
+JAX's server)."""
 
 import base64
 import json
@@ -187,15 +188,19 @@ def test_serve_ui_html_served():
 
 
 def test_serve_server_side_tracking():
-    """`track_method` with a posted video: the server-side tracker waits for
-    the perception stack, and says so."""
+    """`track_method` with a posted video: the server tracks the clip (the
+    flow tracker, no checkpoint) and returns the generated video; without
+    a video it refuses, as JAX's server does."""
     srv = GenerationServer(_port_pipe())
     video = np.random.RandomState(3).rand(1, 3, 9, 32, 32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        srv.handle({"prompt": "server-side tracking",
-                    "video": _encode_array(video), "track_method": "flow",
-                    "track_density": 8, "num_inference_steps": 1,
-                    "density": 0.1})
+    out = srv.handle({"prompt": "server-side tracking",
+                      "video": _encode_array(video), "track_method": "flow",
+                      "track_density": 8, "num_inference_steps": 1,
+                      "density": 0.1})
+    assert _decode_array(out["video"]).shape == (1, 3, 9, 32, 32)
+    with pytest.raises(ValueError, match="posted video"):
+        srv.handle({"prompt": "no clip", "track_method": "flow",
+                    "num_inference_steps": 1})
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,7 @@ import flexam_tpu
 import flexam_tpu_torch
 
 # names of the JAX package whose modules are not ported yet, by ROADMAP item
-WAITING = {
-    "": {"FirstFrameRepainter"},                           # A item 7
-    ".perception": {"estimate_depth", "register_depth_backend",
-                    "find_delta_checkpoint", "track_video_delta",
-                    "track_video_flow"},                   # A item 7
-}
+WAITING = {}
 # JAX's lazy top-level API (`flexam_tpu/__init__.py` `__getattr__`)
 LAZY = ("FlexAMGenerationPipeline", "FlexAMModels", "FlexAMOrchestrator",
         "FirstFrameRepainter")
@@ -60,8 +55,10 @@ def test_top_level_is_lazy_and_versioned():
     assert flexam_tpu_torch.FlexAMGenerationPipeline is FlexAMGenerationPipeline
     assert flexam_tpu_torch.FlexAMModels is FlexAMModels
     assert flexam_tpu_torch.FlexAMOrchestrator is FlexAMOrchestrator
+    from flexam_tpu_torch.repaint import FirstFrameRepainter
+    assert flexam_tpu_torch.FirstFrameRepainter is FirstFrameRepainter
     with pytest.raises(AttributeError):
-        flexam_tpu_torch.FirstFrameRepainter
+        flexam_tpu_torch.NoSuchName
 
 
 def test_ops_names_functions_after_counters():

@@ -2,7 +2,9 @@
 (`psnr`, `ssim`, and the CLI's output and exit code on the same dumps) and
 `verify_ckpt` (junk files fail the dit, vae and t5 kinds as in JAX; files
 written from tiny random trees pass; the device defaults to CUDA; the
-perception and FLUX / SVD kinds raise, naming ROADMAP A item 7). The
+perception kinds other than delta and unidepth, and the FLUX / SVD kinds,
+raise, naming ROADMAP A item 7; `tests/test_torch_video_tracking.py` and
+`tests/test_torch_unidepth.py` hold delta and unidepth to JAX). The
 hygiene scan covers the server and both tools."""
 
 import subprocess
@@ -119,12 +121,23 @@ def test_verify_ckpt_defaults_to_cuda(junk):
         tvc.main(["--model", "vae", junk["vae"]])
 
 
-@pytest.mark.parametrize("kind", ["delta", "moge", "unidepth", "pi3",
-                                  "vggt", "zoe", "dav2", "flux", "flux-ae",
-                                  "svd-unet", "svd-vae", "svd-clip"])
+@pytest.mark.parametrize("kind", ["moge", "pi3", "vggt", "zoe", "dav2",
+                                  "flux", "flux-ae", "svd-unet", "svd-vae",
+                                  "svd-clip"])
 def test_verify_ckpt_unported_kinds_raise(junk, kind):
     with pytest.raises(NotImplementedError, match="item 7"):
         tvc.verify(kind, junk["vae"])
+
+
+@pytest.mark.parametrize("kind", ["delta", "unidepth"])
+def test_verify_ckpt_perception_kinds_on_junk_match_jax(junk, kind):
+    """A checkpoint holding one stray tensor fails both perception kinds
+    in both tools: unidepth's name map misses its keys, delta's shape map
+    covers nothing."""
+    assert jvc.verify(kind, junk["vae"]) is False
+    assert tvc.verify(kind, junk["vae"], "cpu") is False
+    assert tvc.main(["--model", kind, "--platform", "cpu",
+                     junk["vae"]]) == 1
 
 
 def test_hygiene_scans_the_server_and_tools():
