@@ -173,7 +173,37 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        serve phase's 5B pipeline is resident, one
                        `track_method: "flow"` job over HTTP on a bare 17f
                        clip, 1 step. Launch counts are reset before each run
-                       of (e) and (f) and read after it ("track_launches").
+                       of (e) and (f) and read after it ("track_launches");
+  geometry             camera and image geometry at full width, random
+                       weights from seeds, fp32: (a) MoGe-2 (ViT-L/14) on
+                       one 512x896 frame of a textured clip (518x896 in,
+                       2,368 patches), with seconds, peak, the exact
+                       branch's calls, the focal, shift and mask share; (b)
+                       VGGT through `vggt_video_poses` on a 49-frame
+                       512x896 clip (294x518 in: 782 tokens a frame, 38,318
+                       in each global layer), whose rotations must equal
+                       the identity and translations 0 within 1e-6 (the
+                       zero last layer of its camera head); (c) Pi3
+                       through `pi3_video_poses` on the same clip (25 views
+                       at stride 2, 378x672 in: 1,296 tokens a view),
+                       identity poses likewise; (d) the three models at
+                       the tiny configs of tests/test_{moge,vggt,pi3}.py on
+                       the card and on the CPU, their camera heads' last
+                       layers random (bounds below); (e) three `demo.main`
+                       runs at --random_init 5b, 49 frames, 1 step, each
+                       model read from a reference-format file of the
+                       random weights in bf16 (the loader's order, deleted
+                       after): an image with FLEXAM_MOGE_CKPT,
+                       --object_motion up and --object_mask; the clip with
+                       grid tracks, --camera_motion "rot y 10" and
+                       FLEXAM_VGGT_CKPT; the clip with --camera_motion path
+                       --pose_file path.mp4 (17 frames of it, only its .npz
+                       frame dump exists) and FLEXAM_PI3_CKPT, which runs
+                       Pi3 for the poses and again on the path video
+                       (`process_video_file`). Each run must call its
+                       model (and never the track solver), launch B1 30
+                       times and B2-B4, and prints its wall, stage seconds,
+                       calls and peak ("geometry_launches").
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -233,6 +263,14 @@ outputs 1e-3 of their largest value. The flow tracker's chained positions
 are bounded the same (1e-2 px) where both keep a track; a forward-backward
 or border test may decide a track otherwise only where its value sits at
 the threshold, so at most 1 % of the visibility entries may differ.
+
+The card against the CPU for the geometry models (geometry (d)), the same
+argument: their widest sums have K <= 1,536 terms, so outputs within 1e-3
+of their largest value. MoGe's mask is `logits > 0`: an entry may flip only
+where the CPU's logit lies within 1e-3 of its largest |logit| of 0, and a
+flip changes the points the focal/shift solver sees, so the points, depth
+and intrinsics are compared only where no entry flipped (the count is
+printed); the normals always.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -1302,10 +1340,13 @@ class StageTimer:
     synchronises the card before stopping its clock. Nested stages count
     in both (generate_from_cond's denoise and decode are their own).
     `seconds` sums each stage's calls; `last` holds its last call's seconds
-    and `calls` its number of calls."""
+    and `calls` its number of calls; `returned` its last result, unless
+    `keep_returned` is false (a result that holds a model would hold its
+    device memory through the rest of the run)."""
 
-    def __init__(self, targets):
+    def __init__(self, targets, keep_returned: bool = True):
         self.targets = targets
+        self.keep_returned = keep_returned
         self.seconds = {}
         self.last = {}
         self.calls = {}
@@ -1326,7 +1367,8 @@ class StageTimer:
                 self.seconds[_name] = self.seconds.get(_name, 0.0) + dt
                 self.last[_name] = dt
                 self.calls[_name] = self.calls.get(_name, 0) + 1
-                self.returned[_name] = out
+                if self.keep_returned:
+                    self.returned[_name] = out
                 return out
 
             setattr(owner, name, wrapped)
@@ -2743,6 +2785,343 @@ def phase_track(dev, results: dict, track: dict, total: dict) -> None:
     emit("track", t0, **track, launches_all_runs=total)
 
 
+# ---------------------------------------------------------------------------
+# Camera and image geometry: MoGe-2, VGGT, Pi3 and the demo's branches
+# ---------------------------------------------------------------------------
+
+GEOMETRY_FRAMES = 49               # the demo clip of the geometry runs
+GEOMETRY_PATH_FRAMES = 17          # the video given as the camera path
+GEOMETRY_POSE_ATOL = 1e-6          # random VGGT / Pi3: identity poses
+GEO_MOGE_TINY = dict(patch_size=14, embed_dim=32, depth=2, num_heads=2,
+                     num_register_tokens=2, output_idx=(1, 2),
+                     pretrain_img_size=28, head_dim=32, num_upsamples=1,
+                     pixels_min=28 * 28, pixels_max=70 * 70)
+GEO_VGGT_TINY = dict(patch_size=14, embed_dim=32, enc_depth=2, enc_heads=2,
+                     num_register_tokens=0, agg_dim=32, agg_depth=2,
+                     agg_heads=2, cam_iters=2, cam_heads=2,
+                     depth_taps=(0, 1), depth_features=16)
+GEO_PI3_TINY = dict(patch_size=14, embed_dim=32, enc_depth=2, enc_heads=2,
+                    num_register_tokens=0, dec_dim=32, dec_depth=1,
+                    dec_heads=2, infer_hw=(28, 42))
+
+
+def _geometry_targets():
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch.conditioning.camera import CameraMotionGenerator
+    from flexam_tpu_torch.perception import moge, pi3, pose_solver, vggt
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline as Pipe
+    return [(demo, "_build_models"), (moge, "load_moge"),
+            (moge.MoGeModel, "infer"), (vggt, "load_vggt"),
+            (vggt, "vggt_video_poses"), (pi3, "load_pi3"),
+            (pi3, "pi3_video_poses"),
+            (CameraMotionGenerator, "process_video_file"),
+            (pose_solver, "solve_camera_poses"),
+            (Pipe, "encode_prompt"),
+            (Pipe, "prepare_conditioning_from_tracks"), (Pipe, "denoise"),
+            (Pipe, "decode_u8")]
+
+
+def write_shape_mapped(params, path: Path) -> float:
+    """A model's tree as a reference-format checkpoint of random values in
+    the port's loader order (names that sort in it), in bf16 to save disk:
+    `.safetensors` by the port's writer, else torch.save. Returns MB."""
+    import torch
+    from flexam_tpu_torch.io.checkpoints import save_safetensors
+    from flexam_tpu_torch.perception.densetrack3d import _jax_leaves
+    sd = {f"tensor_{i:04d}": t.detach().to("cpu", torch.bfloat16)
+          for i, (_, t) in enumerate(_jax_leaves(params))}
+    if path.suffix == ".safetensors":
+        save_safetensors(str(path), sd)
+    else:
+        torch.save(sd, str(path))
+    return path.stat().st_size / 1e6
+
+
+def geometry_card_vs_cpu(dev) -> dict:
+    """(d): MoGe-2, VGGT and Pi3 at tiny configs, on the card and on the CPU
+    with the same weights and inputs, in fp32 (TF32 off), the camera heads'
+    zero-initialised last layers set to random values; bounds in the
+    module docstring."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.perception import moge, pi3, vggt
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    def fc2(params, n, seed):
+        g = torch.Generator().manual_seed(seed)
+        d = params["cam_fc2"]["weight"].shape[1]
+        params["cam_fc2"] = {
+            "weight": torch.randn((n, d), generator=g) * 0.05,
+            "bias": torch.randn((n,), generator=g) * 0.05}
+
+    def rel(name, got, ref):
+        return compare(torch.as_tensor(np.asarray(got)),
+                       torch.as_tensor(np.asarray(ref)), CARD_CPU_REL,
+                       f"geometry card vs cpu, {name}")["max_rel_err"]
+
+    rs = np.random.RandomState(SEED + 120)
+    out = {}
+    cfg = moge.MoGeConfig(**GEO_MOGE_TINY)
+    cpu = moge.MoGeModel(cfg, seed=SEED + 121, device="cpu")
+    card = moge.MoGeModel(cfg, params=to(cpu.params, dev), device=dev)
+    img = rs.rand(3, 44, 60).astype(np.float32)
+    ref, got = cpu.infer(img), card.infer(img)
+    logits = cpu.last_info["mask_logits"]
+    flips = got["mask"] != ref["mask"]
+    near = np.abs(logits) <= CARD_CPU_REL * np.abs(logits).max()
+    if (flips & ~near).any():
+        raise AssertionError(f"geometry card vs cpu, moge: "
+                             f"{int(flips.sum())} mask flips off 0")
+    out["moge"] = {"mask_flips": int(flips.sum()),
+                   "normal_max_rel": rel("moge normal", got["normal"],
+                                         ref["normal"])}
+    if not flips.any():     # a flip moves the solver's point set
+        out["moge"].update({f"{k}_max_rel": rel(f"moge {k}", got[k], ref[k])
+                            for k in ("points", "depth", "intrinsics")})
+    cfg = vggt.VGGTConfig(**GEO_VGGT_TINY)
+    cpu = vggt.VGGT(cfg, seed=SEED + 122, device="cpu")
+    fc2(cpu.params, 9, SEED + 123)
+    card = vggt.VGGT(cfg, device=dev)
+    card.params = to(cpu.params, dev)
+    imgs = rs.rand(1, 3, 3, 28, 42).astype(np.float32)
+    rt, _ = cpu.aggregator(imgs)
+    gt, _ = card.aggregator(imgs)
+    video = rs.rand(3, 30, 40, 3).astype(np.float32)
+    re_, ri = vggt.vggt_video_poses(video, model=cpu)
+    ge, gi = vggt.vggt_video_poses(video, model=card)
+    out["vggt"] = {
+        "tokens_max_rel": max(rel("vggt tokens", a.cpu(), b)
+                              for a, b in zip(gt, rt)),
+        "pose_encoding_max_rel": rel("vggt camera head",
+                                     card.camera_head(gt)[-1],
+                                     cpu.camera_head(rt)[-1]),
+        "extrinsics_max_rel": rel("vggt extrinsics", ge, re_),
+        "intrinsics_max_rel": rel("vggt intrinsics", gi, ri)}
+    cfg = pi3.Pi3Config(**GEO_PI3_TINY)
+    cpu = pi3.Pi3(cfg, seed=SEED + 124, device="cpu")
+    fc2(cpu.params, 7, SEED + 125)
+    card = pi3.Pi3(cfg, device=dev)
+    card.params = to(cpu.params, dev)
+    imgs = rs.rand(1, 3, 3, 28, 42).astype(np.float32)
+    ref, got = cpu(imgs), card(imgs)
+    video = rs.rand(6, 30, 44, 3).astype(np.float32)
+    out["pi3"] = {**{f"{k}_max_rel": rel(f"pi3 {k}", got[k], ref[k])
+                     for k in ref},
+                  "video_poses_max_rel": rel(
+                      "pi3 video poses",
+                      pi3.pi3_video_poses(video, model=card, chunk=1),
+                      pi3.pi3_video_poses(video, model=cpu, chunk=1))}
+    return out
+
+
+def phase_geometry(dev, results: dict) -> None:
+    """Camera and image geometry at full width (module docstring): (a)
+    MoGe-2 on one 512x896 frame, (b) VGGT and (c) Pi3 through their video
+    pose helpers on a 49-frame 512x896 clip, random weights from seeds; (d)
+    the card against the CPU at tiny configs; (e) three `demo.main` runs at
+    5B width, 49 frames, 1 step, each taking its geometry from a model
+    loaded from a reference-format file of random bf16 values. Launch
+    counts are reset before each run of (e) and read after it."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.perception import moge, pi3, vggt
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+
+    t0 = time.perf_counter()
+    root = HERE / "build" / "smoke_geometry"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    F, Hp, Wp = GEOMETRY_FRAMES, TRACKS_VIDEO[1], TRACKS_VIDEO[2]
+    clip_u8 = textured_clip(F, Hp, Wp, TRACK_SHIFT, SEED + 110, dev)
+    video = clip_u8.astype(np.float32) / 255.0             # [T, H, W, 3]
+    geo = {}
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        exact_calls["exact_attention"] = 0
+        return time.perf_counter()
+
+    def stop(t1):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1,
+                torch.cuda.max_memory_allocated() / 1e9,
+                exact_calls["exact_attention"])
+
+    # (a) MoGe-2 on the clip's first frame
+    model = moge.MoGeModel(seed=SEED + 111, device=dev)
+    t1 = start()
+    out = model.infer(video[0].transpose(2, 0, 1))
+    secs, peak, calls = stop(t1)
+    info = model.last_info
+    nh, nw = info["network_hw"]
+    if out["points"].shape != (Hp, Wp, 3) or not all(
+            np.isfinite(out[k]).all() for k in ("points", "intrinsics")):
+        raise AssertionError(f"geometry: moge {out['points'].shape}")
+    geo["moge"] = {
+        "seconds": secs, "network_input_hw": [nh, nw],
+        "patches": (nh // 14) * (nw // 14),
+        "tokens": (nh // 14) * (nw // 14) + 1
+        + model.cfg.num_register_tokens,
+        "peak_memory_allocated_gb": peak, "exact_calls": calls,
+        "focal": info["focal"], "shift": info["shift"],
+        "scale": info["scale"], "mask_share": float(out["mask"].mean())}
+    moge_file = root / "moge.pt"
+    geo["moge"]["checkpoint_mb"] = write_shape_mapped(model.params,
+                                                      moge_file)
+    del model, out
+
+    # (b) VGGT through vggt_video_poses
+    model = vggt.VGGT(seed=SEED + 112, device=dev)
+    t1 = start()
+    extr, intr = vggt.vggt_video_poses(video, model=model)
+    secs, peak, calls = stop(t1)
+    eye = np.eye(3, dtype=np.float32)
+    if extr.shape != (F, 3, 4) or intr.shape != (F, 3, 3) or not (
+            np.abs(extr[:, :, :3] - eye).max() <= GEOMETRY_POSE_ATOL
+            and np.abs(extr[:, :, 3]).max() <= GEOMETRY_POSE_ATOL):
+        raise AssertionError(f"geometry: vggt poses {extr.shape} "
+                             f"{np.abs(extr[:, :, :3] - eye).max()}")
+    new_h = round(Hp * (518 / Wp) / 14) * 14
+    per_frame = (new_h // 14) * (518 // 14) + model.cfg.n_special
+    geo["vggt"] = {
+        "seconds": secs, "network_input_hw": [new_h, 518],
+        "tokens_per_frame": per_frame, "tokens_total": per_frame * F,
+        "peak_memory_allocated_gb": peak, "exact_calls": calls,
+        "rotation_max_dev": float(np.abs(extr[:, :, :3] - eye).max()),
+        "translation_max_abs": float(np.abs(extr[:, :, 3]).max()),
+        "fx": float(intr[0, 0, 0])}
+    vggt_file = root / "vggt.safetensors"
+    geo["vggt"]["checkpoint_mb"] = write_shape_mapped(model.params,
+                                                      vggt_file)
+    del model
+
+    # (c) Pi3 through pi3_video_poses
+    model = pi3.Pi3(seed=SEED + 113, device=dev)
+    t1 = start()
+    c2w = pi3.pi3_video_poses(video, model=model)
+    secs, peak, calls = stop(t1)
+    eye4 = np.eye(4, dtype=np.float32)
+    if c2w.shape != (F, 4, 4) or not np.abs(
+            c2w - eye4).max() <= GEOMETRY_POSE_ATOL:
+        raise AssertionError(f"geometry: pi3 poses {c2w.shape}")
+    views = len(pi3.pi3_views(F))
+    ih, iw = model.cfg.infer_hw
+    geo["pi3"] = {
+        "seconds": secs, "views": views, "stride": int(
+            pi3.pi3_views(F)[1]), "network_input_hw": [ih, iw],
+        "tokens_per_view": (ih // 14) * (iw // 14),
+        "tokens_total": views * (ih // 14) * (iw // 14),
+        "peak_memory_allocated_gb": peak, "exact_calls": calls,
+        "pose_max_dev": float(np.abs(c2w - eye4).max())}
+    pi3_file = root / "pi3.pt"
+    geo["pi3"]["checkpoint_mb"] = write_shape_mapped(model.params, pi3_file)
+    del model
+
+    # (d) the card against the CPU
+    geo["card_vs_cpu"] = geometry_card_vs_cpu(dev)
+    for k in ("moge", "vggt", "pi3", "card_vs_cpu"):
+        print(json.dumps({"geometry_part": k, **geo[k]}), flush=True)
+
+    # (e) the demo's geometry branches at 5B width
+    img = root / "frame.npy"
+    np.save(img, clip_u8[0])
+    omask = np.zeros((Hp, Wp), np.uint8)
+    omask[Hp // 4: 3 * Hp // 4, Wp // 3: 2 * Wp // 3] = 255
+    np.save(root / "object_mask.npy", omask)
+    np.savez(root / "clip.npz", video=clip_u8, fps=16)
+    # the camera path's video: 17 frames (Pi3 runs on every one), only
+    # its frame dump, no .mp4
+    np.savez(root / "path.mp4.npz", video=clip_u8[:GEOMETRY_PATH_FRAMES],
+             fps=16)
+    tracks, vis = grid_tracks(F, Hp, Wp, TRACK_DENSITY, SEED + 114)
+    np.savez(root / "tracks.npz", tracks=tracks, visibility=vis)
+    del video, clip_u8
+    base = ["--prompt", DEMO_PROMPT, "--random_init", "5b", "--sample_size",
+            str(Hp), str(Wp), "--seed", str(SEED), "--video_length",
+            str(F), "--num_inference_steps", "1", "--generate_type",
+            "full_edit"]
+    video_in = ["--input_path", str(root / "clip.npz"), "--tracks_npz",
+                str(root / "tracks.npz")]
+    runs = [("moge_image_49f", {"FLEXAM_MOGE_CKPT": moge_file},
+             ["--input_path", str(img), "--object_motion", "up",
+              "--object_mask", str(root / "object_mask.npy")],
+             {"load_moge": 1, "infer": 1}),
+            ("vggt_camera_49f", {"FLEXAM_VGGT_CKPT": vggt_file},
+             video_in + ["--camera_motion", "rot y 10"],
+             {"load_vggt": 1, "vggt_video_poses": 1}),
+            ("pi3_path_49f", {"FLEXAM_PI3_CKPT": pi3_file},
+             video_in + ["--camera_motion", "path", "--pose_file",
+                         str(root / "path.mp4")],
+             {"load_pi3": 2, "pi3_video_poses": 1,
+              "process_video_file": 1})]
+    must = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
+            "ln_mod_binary")
+    envs = ("FLEXAM_MOGE_CKPT", "FLEXAM_VGGT_CKPT", "FLEXAM_PI3_CKPT",
+            "FLEXAM_MOGE_BESTEFFORT")
+    saved = {k: os.environ.pop(k, None) for k in envs}
+    total, demo_runs = {}, {}
+    try:
+        for name, env, extra, calls in runs:
+            os.environ.update({k: str(v) for k, v in env.items()})
+            t1 = start()
+            _reset_counts()
+            with StageTimer(_geometry_targets(), keep_returned=False) as st:
+                out = demo.main(base + extra + ["--output_dir",
+                                                str(root / name)])
+            wall, peak, _ = stop(t1)
+            counts = _counts()
+            for k in env:
+                del os.environ[k]
+            if out.shape != (1, 3, F, Hp, Wp) or not np.isfinite(out).all():
+                raise AssertionError(f"geometry demo {name}: {out.shape}")
+            if any(st.calls.get(k) != n for k, n in calls.items()) or \
+                    st.calls.get("solve_camera_poses"):
+                raise AssertionError(f"geometry demo {name}: the geometry "
+                                     f"did not come from the model: "
+                                     f"{st.calls}")
+            if any(counts[k] == 0 for k in must) or \
+                    counts["sparse_attention"] or \
+                    counts["int8_attention"] or \
+                    counts["flash_attention"] != 30:
+                raise AssertionError(f"geometry demo {name}: launches "
+                                     f"{counts}")
+            _add(total, counts)
+            demo_runs[name] = {"wall_seconds": wall,
+                               "stages": dict(st.seconds),
+                               "calls": dict(st.calls),
+                               "peak_memory_allocated_gb": peak,
+                               "launches": counts}
+            print(json.dumps({"geometry_demo": name, **demo_runs[name]}),
+                  flush=True)
+            del out
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    geo["demo"] = demo_runs
+    for k in results:
+        results[k]["geometry_launches"] = total.get(k, 0)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("geometry", t0, **geo, launches_all_runs=total)
+
+
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
                         "flexam_tpu/ops/flash_attention.py:34"),
@@ -2849,6 +3228,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_track(dev, results, track, track_total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_geometry(dev, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2863,6 +3245,7 @@ def main() -> int:
             "serving_launches": r["serving_launches"],
             "serve_launches": r["serve_launches"],
             "track_launches": r["track_launches"],
+            "geometry_launches": r["geometry_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

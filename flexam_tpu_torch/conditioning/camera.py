@@ -7,8 +7,9 @@ The port's own copy of `flexam_tpu/conditioning/camera.py` (numpy only):
 the reference runs per-frame python loops over numpy matrices (`s2w_vggt`
 :392-418, `w2s_moge` :512-530); here every projection is one batched einsum
 over [T, N, 3] points. All pose math stays host-side numpy (tiny).
-`process_video_file` needs the Pi3 perception model, which is not ported
-yet (ROADMAP A14), and raises.
+`process_video_file` (a video as the camera path) runs the Pi3 perception
+model (`perception/pi3.py`) on the generator's `device` and reads the
+video's `.npz` frame dump, as the port reads no `.mp4`.
 """
 
 from __future__ import annotations
@@ -146,11 +147,12 @@ class CameraMotionGenerator:
     def __init__(self, motion_type: str, frame_num: int = 49, H: int = 480,
                  W: int = 720, fx: Optional[float] = None,
                  fy: Optional[float] = None, fov: float = 55,
-                 pose_file: Optional[str] = None):
+                 pose_file: Optional[str] = None, device="cuda"):
         self.motion_type = motion_type
         self.frame_num = frame_num
         self.W, self.H = W, H
         self.pose_file = pose_file
+        self.device = device       # where a video pose source's Pi3 runs
         if not fx or not fy:
             fx = fy = (W / 2) / math.tan(math.radians(fov) / 2)
         self.intr = np.array([[fx, 0, W / 2], [0, fy, H / 2], [0, 0, 1]],
@@ -334,16 +336,33 @@ class CameraMotionGenerator:
         return cams
 
     def process_video_file(self, video_file_path: str, width: int = 672,
-                           height: int = 384, device: str = "cpu",
-                           model=None):
-        """Camera parameters from a raw video through the Pi3 perception
-        model (`pipelines.py:259-321`). Pi3 is not ported yet (ROADMAP A14),
-        so this raises."""
-        raise NotImplementedError(
-            "CameraMotionGenerator.process_video_file needs the Pi3 "
-            "perception model, which flexam_tpu_torch does not have yet "
-            "(ROADMAP A14); pass camera poses (process_pose_file, "
-            "get_default_motion) instead")
+                           height: int = 384, device=None, model=None):
+        """Camera parameters from a video through the Pi3 perception model
+        (`pipelines.py:259-321`): Pi3(imgs[None]) -> c2w poses -> w2c Camera
+        entries with a 55-degree-FoV intrinsic. The frames come from the
+        video's `.npz` frame dump (`perception.pi3.load_images_as_tensor`:
+        `<name>.mp4.npz` when only the dump exists); without `model`,
+        `Pi3.from_pretrained` on `device` (the generator's, CUDA unless it
+        was asked for the CPU). Returns List[Camera]."""
+        from flexam_tpu_torch.perception.pi3 import (Pi3,
+                                                     load_images_as_tensor)
+
+        imgs = load_images_as_tensor(video_file_path, interval=1)
+        model = model or Pi3.from_pretrained(device=device or self.device)
+        pred = model(imgs[None])
+        poses_c2w = np.asarray(pred["camera_poses"][0])      # [N, 4, 4]
+
+        fx = (width / 2) / math.tan(math.radians(55) / 2)
+        cams = []
+        for i, c2w in enumerate(poses_c2w):
+            w2c = se3_inverse(c2w)
+            entry = ([i, fx, fx, width / 2, height / 2, 0, 0]
+                     + w2c[:3, :].flatten().tolist())
+            cams.append(Camera(entry))
+        K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]],
+                     np.float32)
+        self.set_intr(K)
+        return cams
 
     def convert_cameras_to_poses(self, extrinsics: Sequence[np.ndarray]
                                  ) -> np.ndarray:

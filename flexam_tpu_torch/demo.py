@@ -43,10 +43,16 @@ flow tracker (JAX's host Farneback needs OpenCV, which the port does not
 use). `--repaint true` generates the first frame natively, depth-conditioned
 (`repaint.py`, depth from `perception/depth.py`).
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the MoGe, VGGT and Pi3 models (FLEXAM_MOGE_CKPT / FLEXAM_VGGT_CKPT /
-FLEXAM_PI3_CKPT) and the FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT with
-FLEXAM_FLUX_AE): A14.
+Geometry models (`perception/{moge,vggt,pi3}.py`), from shape-mapped
+checkpoints: an image input without `--moge_npz` runs MoGe-2 from
+FLEXAM_MOGE_CKPT on its first frame; camera control on a video without
+recorded poses takes VGGT's poses (FLEXAM_VGGT_CKPT), then Pi3's
+(FLEXAM_PI3_CKPT), each when its checkpoint maps, before the track solver;
+`--camera_motion path --pose_file clip.mp4` runs Pi3 on the clip's `.npz`
+frame dump (`conditioning/camera.py process_video_file`).
+
+Not ported yet, and raising NotImplementedError with its ROADMAP item: the
+FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT with FLEXAM_FLUX_AE): A14.
 
 `main` returns the generated video, [1, 3, T, H, W] float in [0, 1], and
 writes it to `<output_dir>/result.mp4` (`utils.media.save_video`).
@@ -285,6 +291,39 @@ def _repaint_first_frame(args, pipe, input_video, h, w, device):
                       num_inference_steps=args.num_inference_steps)
 
 
+def _moge_geometry(path, input_video, device) -> dict:
+    """MoGe's `infer` dict for the first frame of `input_video`, from the
+    checkpoint at `path` (which must map: `load_moge` raises below its
+    coverage bar unless FLEXAM_MOGE_BESTEFFORT=1). The model is dropped on
+    return, before the pipeline is built."""
+    from flexam_tpu_torch.perception.moge import load_moge
+    return load_moge(path, device=device).infer(
+        np.asarray(input_video)[0, :, 0])
+
+
+def _model_poses(kind, input_video, width, height, device):
+    """(extr [T, 3, 4], intr [T, 3, 3]) of the video from the VGGT or Pi3
+    model of FLEXAM_VGGT_CKPT / FLEXAM_PI3_CKPT, or (None, None) when its
+    checkpoint does not map (JAX's `load_ok` gate: random-weight poses are
+    the identity). The model is dropped on return."""
+    frames = np.asarray(input_video)[0].transpose(1, 0, 2, 3)  # [T,3,H,W]
+    if kind == "vggt":
+        from flexam_tpu_torch.perception.vggt import VGGT, vggt_video_poses
+        model = VGGT.from_pretrained(device=device)
+        if not model.load_ok:
+            return None, None
+        print("NOTE: camera poses from the native VGGT model")
+        return vggt_video_poses(frames, model=model)
+    from flexam_tpu_torch.perception.pi3 import Pi3, pi3_video_poses
+    from flexam_tpu_torch.perception.poses import pi3_poses_to_extri_intri
+    model = Pi3.from_pretrained(device=device)
+    if not model.load_ok:
+        return None, None
+    print("NOTE: camera poses from the native Pi3 model")
+    return pi3_poses_to_extri_intri(pi3_video_poses(frames, model=model),
+                                    width, height)
+
+
 def _load_mask_image(path, h, w):
     if path is None:
         raise SystemExit("--object_motion requires --object_mask")
@@ -337,17 +376,21 @@ def main(argv=None):
     # ---- tracks ----
     cam = CameraMotionGenerator(args.camera_motion or "",
                                 frame_num=args.video_length, H=h, W=w,
-                                pose_file=args.pose_file)
+                                pose_file=args.pose_file, device=device)
     extr = intr = None
     if args.moge_npz or (args.tracking_method == "moge" and not is_video):
         if args.moge_npz:
             moge = dict(np.load(args.moge_npz))
         elif os.environ.get("FLEXAM_MOGE_CKPT"):
-            raise _not_ported("the native MoGe model (FLEXAM_MOGE_CKPT)",
-                              "A14")
+            # the MoGe model (perception/moge.py) on the loaded first
+            # frame, like `demo.py:220-223`
+            moge = _moge_geometry(os.environ["FLEXAM_MOGE_CKPT"],
+                                  input_video, device)
         else:
             raise SystemExit(
-                "image input needs MoGe geometry: pass --moge_npz")
+                "image input needs MoGe geometry: pass --moge_npz (output "
+                "fixture) or set FLEXAM_MOGE_CKPT for the MoGe model "
+                "(flexam_tpu_torch.perception.moge)")
         points = np.asarray(moge["points"], np.float32)     # [H', W', 3]
         moge_mask = np.asarray(moge["mask"]).astype(bool)
         if "intrinsics" in moge:
@@ -407,12 +450,17 @@ def main(argv=None):
                 from flexam_tpu_torch.perception import \
                     poses_npz_to_extri_intri
                 extr, intr = poses_npz_to_extri_intri(args.poses_npz, w, h)
+            # the reference's video camera path: VGGT's poses
+            # (`demo.py:296-325`), then Pi3's (`pipelines.py:259-321`),
+            # each when its checkpoint maps
+            for kind in ("vggt", "pi3"):
+                if (extr is None or intr is None) and os.environ.get(
+                        f"FLEXAM_{kind.upper()}_CKPT"):
+                    extr, intr = _model_poses(kind, input_video, w, h,
+                                              device)
             if extr is None or intr is None:
-                for env, model in (("FLEXAM_VGGT_CKPT", "VGGT"),
-                                   ("FLEXAM_PI3_CKPT", "Pi3")):
-                    if os.environ.get(env):
-                        raise _not_ported(f"camera poses from the {model} "
-                                          f"model ({env})", "A14")
+                # no-checkpoint fallback: rigid per-frame poses solved from
+                # the 3D tracks themselves (robust Kabsch)
                 from flexam_tpu_torch.perception.pose_solver import \
                     solve_camera_poses
                 print("NOTE: solving camera poses from tracks (no "

@@ -16,11 +16,13 @@ Every other key crosses as it is, the Control-Camera adapter's
 The generation models' weights are already in torch layout in the JAX
 package (Linear [out, in], conv [O, I, *K]), so no transpose is needed.
 The perception trees (DenseTrack3D: top-level `encoder`, `transformer`,
-`upsampler`, `feat_proj`; UniDepth V2: `pixel_encoder`, `pixel_decoder`)
+`upsampler`, `feat_proj`; UniDepth V2: `pixel_encoder`, `pixel_decoder`;
+MoGe-2, VGGT and Pi3: an `encoder` holding the DINOv2 `patch_embed`)
 keep their blocks in lists already, and hold 2-D convs in XLA's HWIO
-layout: every 4-dim leaf there becomes torch's [O, I, kh, kw], except
-UniDepth's ConvTranspose kernels (`process_features`), which JAX keeps in
-torch's [cin, cout, k, k]. bfloat16 leaves (numpy's
+layout: every 4-dim `weight` leaf there becomes torch's [O, I, kh, kw],
+except UniDepth's ConvTranspose kernels (`process_features`), which JAX
+keeps in torch's [cin, cout, k, k]. Other 4-dim leaves (VGGT's camera and
+register tokens) have one layout in both. bfloat16 leaves (numpy's
 ml_dtypes bfloat16) arrive as torch.bfloat16, float8_e4m3fn leaves (the
 fp8 storage mode) as torch.float8_e4m3fn through a uint8 view, keyed on
 the dtype's name (`torch.from_numpy` refuses ml_dtypes arrays, and the port
@@ -77,7 +79,17 @@ _PERCEPTION_TREES = ({"encoder", "transformer", "upsampler", "feat_proj"},
                      {"pixel_encoder", "pixel_decoder"})
 
 
-def _convert(node, device, hwio=False):
+def _perception_tree(tree) -> bool:
+    """DenseTrack3D, UniDepth V2, or a model on the DINOv2 encoder (MoGe-2,
+    VGGT, Pi3: an `encoder` with a `patch_embed`)."""
+    if not isinstance(tree, dict):
+        return False
+    enc = tree.get("encoder")
+    return set(tree) in _PERCEPTION_TREES or (
+        isinstance(enc, dict) and "patch_embed" in enc)
+
+
+def _convert(node, device, hwio=False, key=""):
     if isinstance(node, dict):
         out = {}
         for k, v in node.items():
@@ -87,14 +99,14 @@ def _convert(node, device, hwio=False):
                 out[k] = _unstack(_convert(v, device))
             else:
                 out[k] = _convert(v, device,
-                                  hwio and k != "process_features")
+                                  hwio and k != "process_features", k)
         return out
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device, hwio) for v in node]
+        return [_convert(v, device, hwio, key) for v in node]
     if node is None:
         return None
     t = _tensor(node, device)
-    if hwio and t.dim() == 4:                     # HWIO -> [O, I, kh, kw]
+    if hwio and t.dim() == 4 and key == "weight":  # HWIO -> [O, I, kh, kw]
         t = t.permute(3, 2, 0, 1).contiguous()
     return t
 
@@ -177,7 +189,6 @@ def stack_blocks(tree: dict) -> dict:
 
 def from_jax_params(tree, device="cuda") -> dict:
     """The port's parameter tree for a JAX parameter tree of numpy arrays
-    or host tensors (DiT, umT5, VAE, DenseTrack3D or UniDepth V2), on
-    `device`."""
-    hwio = isinstance(tree, dict) and set(tree) in _PERCEPTION_TREES
-    return _convert(tree, resolve_device(device), hwio)
+    or host tensors (DiT, umT5, VAE, DenseTrack3D, UniDepth V2, MoGe-2,
+    VGGT or Pi3), on `device`."""
+    return _convert(tree, resolve_device(device), _perception_tree(tree))

@@ -4,17 +4,24 @@ model.
   densetrack3d  DELTA-family dense 3D tracker (shape-mapped
                 densetrack3d.pth loader)
   unidepth      UniDepth V2 metric depth (exact checkpoint name map)
+  moge          MoGe-2 point map / mask / intrinsics (exact focal/shift
+                camera-recovery solver; shape-mapped loader)
+  vggt          VGGT multi-view poses, the reference's video camera path
+                (shape-mapped loader)
+  pi3           Pi3 permutation-equivariant multi-view poses (shape-mapped
+                loader; `.npz` frame dumps as video input)
   flow_device   the pyramidal Lucas-Kanade flow tracker on the device
   tracking      DELTA tracking of a video and the tracker dispatch
   depth         the pluggable depth-backend registry
   pose_solver   camera extrinsics from 3D tracks (robust Kabsch)
   poses         VGGT/Pi3 pose-encoding post-processing + npz fixtures
 
-The other perception models of the JAX package (MoGe, VGGT, Pi3,
-ZoeDepth, Depth-Anything-V2, DepthCrafter, DWPose and the pose renderer)
-are not ported yet (ROADMAP A item 7): their names are absent here.
+The other perception models of the JAX package (ZoeDepth,
+Depth-Anything-V2, DepthCrafter, DWPose and the pose renderer) are not
+ported yet (ROADMAP A item 7): their names are absent here.
 
-Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT."""
+Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT,
+FLEXAM_MOGE_CKPT, FLEXAM_VGGT_CKPT, FLEXAM_PI3_CKPT."""
 
 from flexam_tpu_torch.perception.depth import (  # noqa: F401
     estimate_depth,
@@ -48,6 +55,17 @@ def __getattr__(name):
     if name in ("UniDepthV2", "UniDepthV2Config", "load_unidepth",
                 "predict_depth_video"):
         from flexam_tpu_torch.perception import unidepth as _m
+        return getattr(_m, name)
+    if name in ("MoGeModel", "MoGeConfig", "load_moge",
+                "recover_focal_shift"):
+        from flexam_tpu_torch.perception import moge as _m
+        return getattr(_m, name)
+    if name in ("Pi3", "Pi3Config", "load_pi3", "load_images_as_tensor",
+                "pi3_video_poses"):
+        from flexam_tpu_torch.perception import pi3 as _m
+        return getattr(_m, name)
+    if name in ("VGGT", "VGGTConfig", "load_vggt", "vggt_video_poses"):
+        from flexam_tpu_torch.perception import vggt as _m
         return getattr(_m, name)
     if name in ("track_video_flow_device", "dense_flow"):
         from flexam_tpu_torch.perception import flow_device as _m

@@ -40,6 +40,7 @@ and the ones that exited early.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -696,10 +697,16 @@ def _replace_leaves(tree, new: dict, path=""):
     return new[path]
 
 
-def _jax_shape(t: torch.Tensor) -> tuple:
+def _is_conv(path: str, t: torch.Tensor) -> bool:
+    """A conv kernel: a 4-dim `weight` leaf (the perception trees' other
+    4-dim leaves, VGGT's special tokens, have one layout in both)."""
+    return t.dim() == 4 and path.endswith("['weight']")
+
+
+def _jax_shape(path: str, t: torch.Tensor) -> tuple:
     """A leaf's shape in the JAX tree: conv kernels are HWIO there."""
     s = tuple(t.shape)
-    return (s[2], s[3], s[1], s[0]) if len(s) == 4 else s
+    return (s[2], s[3], s[1], s[0]) if _is_conv(path, t) else s
 
 
 class DenseTrack3D:
@@ -840,7 +847,7 @@ def map_torch_state_dict(params: dict, state_dict: dict,
     used = set()
     loaded, missed, new = [], [], {}
     for path, leaf in _jax_leaves(params):
-        want = _jax_shape(leaf)
+        want = _jax_shape(path, leaf)
         found = None
         for k, v in items:
             if k in used:
@@ -854,7 +861,7 @@ def map_torch_state_dict(params: dict, state_dict: dict,
                 used.add(k)
                 break
         if found is not None:
-            if leaf.dim() == 4:                    # HWIO -> the port's OIHW
+            if _is_conv(path, leaf):               # HWIO -> the port's OIHW
                 found = found.permute(3, 2, 0, 1)
             loaded.append(path)
             new[path] = found.to(device=leaf.device,
@@ -867,6 +874,28 @@ def map_torch_state_dict(params: dict, state_dict: dict,
     if strict and (missed or report["unused"]):
         raise ValueError(f"strict load failed: {report}")
     return _replace_leaves(params, new), report
+
+
+def read_state_dict(path: str, names: Tuple[str, ...] = ()) -> dict:
+    """The tensors of a shape-mapped checkpoint as JAX's loaders read them:
+    a directory resolves to the first of `names` it holds; `.safetensors`
+    through the port's own reader, any other file through
+    `torch.load(weights_only=True)` (tensors and plain containers only),
+    unwrapped from {"model": ...} and widened to float32."""
+    from flexam_tpu_torch.io.checkpoints import read_safetensors
+
+    if os.path.isdir(path):
+        for name in names:
+            cand = os.path.join(path, name)
+            if os.path.exists(cand):
+                path = cand
+                break
+    if path.endswith(".safetensors"):
+        return dict(read_safetensors(path).items())
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    return {k: v.float() for k, v in sd.items() if torch.is_tensor(v)}
 
 
 def load_densetrack3d(path: str, model: Optional[DenseTrack3D] = None,

@@ -8,28 +8,33 @@ Port of `flexam_tpu/tools/verify_ckpt.py`:
     python -m flexam_tpu_torch.tools.verify_ckpt --model t5  path/models_t5_umt5-xxl-enc-bf16.pth
     python -m flexam_tpu_torch.tools.verify_ckpt --model delta path/densetrack3d.pth
     python -m flexam_tpu_torch.tools.verify_ckpt --model unidepth path/ckpt
+    python -m flexam_tpu_torch.tools.verify_ckpt --model moge path/model.pt
+    python -m flexam_tpu_torch.tools.verify_ckpt --model vggt path/model.safetensors
+    python -m flexam_tpu_torch.tools.verify_ckpt --model pi3 path/model.safetensors
 
 The dit, vae, t5 and unidepth loaders (`io/checkpoints.py`,
 `perception/unidepth.py`) are name-mapped: they raise on any missing key,
-so success means every expected tensor was found. The delta loader
-(`perception/densetrack3d.py`) maps by shape and prints per-module
-coverage (`io/verify_load.py`); `--threshold` is its bar. Exit status 0 =
-the checkpoint passes, 1 = it does not. The checkpoint loads onto the card
-unless `--platform cpu` asks for the CPU. The other perception kinds (moge,
-pi3, vggt, zoe, dav2) and the FLUX / SVD kinds need loaders that are not
-ported yet (ROADMAP A item 7): they raise NotImplementedError, where the
-JAX tool reports.
+so success means every expected tensor was found. The delta, moge, vggt
+and pi3 loaders (`perception/{densetrack3d,moge,vggt,pi3}.py`) map by
+shape and print per-module coverage (`io/verify_load.py`); `--threshold`
+is their bar (moge's loader, which raises below it, reports instead, under
+FLEXAM_MOGE_BESTEFFORT=1 for the call). Exit status 0 = the checkpoint
+passes, 1 = it does not. The checkpoint loads onto the card unless
+`--platform cpu` asks for the CPU. The other perception kinds (zoe, dav2)
+and the FLUX / SVD kinds need loaders that are not ported yet (ROADMAP A
+item 7): they raise NotImplementedError, where the JAX tool reports.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 KINDS = ["delta", "moge", "unidepth", "dit", "vae", "t5", "pi3", "vggt",
          "zoe", "dav2", "flux", "flux-ae", "svd-unet", "svd-vae",
          "svd-clip"]
-PORTED = ("dit", "vae", "t5", "delta", "unidepth")
+PORTED = ("dit", "vae", "t5", "delta", "unidepth", "moge", "pi3", "vggt")
 
 
 def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
@@ -51,8 +56,8 @@ def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
 def verify(kind: str, path: str, device=None,
            threshold: float = 0.9) -> bool:
     """True when the `kind` loader maps every expected tensor of `path`
-    (delta: its coverage passes `threshold`), loaded onto `device` (CUDA
-    unless the caller asks for the CPU)."""
+    (the shape-mapped kinds: their coverage passes `threshold`), loaded
+    onto `device` (CUDA unless the caller asks for the CPU)."""
     if kind not in KINDS:
         raise SystemExit(f"unknown --model {kind}")
     if kind not in PORTED:
@@ -72,6 +77,34 @@ def verify(kind: str, path: str, device=None,
                                   coverage_threshold=threshold,
                                   device=device)
         return check_mapping(model.load_report, name=f"delta[{path}]",
+                             threshold=threshold)
+    if kind == "moge":
+        from flexam_tpu_torch.io.verify_load import check_mapping
+        from flexam_tpu_torch.perception.moge import load_moge
+        before = os.environ.get("FLEXAM_MOGE_BESTEFFORT")
+        os.environ["FLEXAM_MOGE_BESTEFFORT"] = "1"     # report, don't raise
+        try:
+            model = load_moge(path, coverage_threshold=threshold,
+                              device=device)
+        finally:
+            if before is None:
+                del os.environ["FLEXAM_MOGE_BESTEFFORT"]
+            else:
+                os.environ["FLEXAM_MOGE_BESTEFFORT"] = before
+        return check_mapping(model.load_report, name=f"moge[{path}]",
+                             threshold=threshold)
+    if kind in ("pi3", "vggt"):
+        from flexam_tpu_torch.io.verify_load import check_mapping
+        if kind == "pi3":
+            from flexam_tpu_torch.perception.pi3 import load_pi3 as loader
+        else:
+            from flexam_tpu_torch.perception.vggt import load_vggt as loader
+        try:
+            model = loader(path, coverage_threshold=threshold, device=device)
+        except Exception as e:  # malformed file, wrong format ...
+            print(f"{kind}[{path}]: FAILED — {type(e).__name__}: {e}")
+            return False
+        return check_mapping(model.load_report, name=f"{kind}[{path}]",
                              threshold=threshold)
     if kind == "unidepth":
         from flexam_tpu_torch.perception.unidepth import load_unidepth
@@ -94,7 +127,7 @@ def main(argv=None) -> int:
                     help="torch device to load onto: cuda (the default) "
                          "or cpu")
     ap.add_argument("--threshold", type=float, default=0.9,
-                    help="coverage bar of the shape-mapped delta loader")
+                    help="coverage bar of the shape-mapped loaders")
     ap.add_argument("path")
     args = ap.parse_args(argv)
     from flexam_tpu_torch.demo import _device

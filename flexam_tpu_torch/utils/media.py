@@ -35,6 +35,7 @@ in OpenCV's fixed point and scaling of L, a and b (within one level).
 from __future__ import annotations
 
 import functools
+import math
 import os
 import subprocess
 from typing import Optional, Tuple, Union
@@ -163,6 +164,118 @@ def resize_frames_linear(frames: np.ndarray, size: Tuple[int, int]
     lo, hi, fr = _linear_weights(x.shape[1], h)
     fr = fr.astype(x.dtype)[None, :, None, None]
     return x[:, lo] * (1 - fr) + x[:, hi] * fr
+
+
+def _cubic_taps(in_n: int, out_n: int):
+    """OpenCV's INTER_CUBIC taps (`interpolateCubic`, a = -0.75): half-pixel
+    centres, four taps from floor(f) - 1, indices clamped to the border
+    (replicated pixels), no antialiasing; the weights computed in float64
+    and stored as float32, as OpenCV 5 does. ([out_n, 4] indices,
+    [out_n, 4] weights)."""
+    f = (np.arange(out_n) + 0.5) * (in_n / out_n) - 0.5
+    lo = np.floor(f)
+    x = f - lo
+    a = -0.75
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    idx = np.clip(lo.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  in_n - 1)
+    return idx, np.stack([c0, c1, c2, c3], axis=1).astype(np.float32)
+
+
+def resize_frames_cubic(frames: np.ndarray, size: Tuple[int, int]
+                        ) -> np.ndarray:
+    """`cv2.resize(frame, (w, h), interpolation=cv2.INTER_CUBIC)` of float32
+    frames [T, H, W, C]: columns first, then rows, each a sum of four taps
+    in order, in float32 (OpenCV's vectorized row pass may round its sums
+    otherwise by an ulp)."""
+    h, w = size
+    x = np.asarray(frames, np.float32)
+    idx, wt = _cubic_taps(x.shape[2], w)
+    acc = x[:, :, idx[:, 0]] * wt[None, None, :, 0, None]
+    for k in range(1, 4):
+        acc = acc + x[:, :, idx[:, k]] * wt[None, None, :, k, None]
+    idx, wt = _cubic_taps(x.shape[1], h)
+    out = acc[:, idx[:, 0]] * wt[None, :, 0, None, None]
+    for k in range(1, 4):
+        out = out + acc[:, idx[:, k]] * wt[None, :, k, None, None]
+    return out
+
+
+def _area_taps(in_n: int, out_n: int):
+    """OpenCV's INTER_AREA table for a shrink (`computeResizeAreaTab`): each
+    output pixel averages the input cells it covers, the partial cells at
+    its ends weighted by their covered fraction. ([out_n, k] indices,
+    [out_n, k] float32 weights, zero-padded to the longest run)."""
+    scale = in_n / out_n
+    rows = []
+    for d in range(out_n):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, in_n - f1)
+        s2 = min(math.floor(f2), in_n - 1)
+        s1 = min(math.ceil(f1), s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(r) for r in rows)
+    idx = np.zeros((out_n, k), np.int64)
+    wt = np.zeros((out_n, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], wt[d, j] = s, a
+    return idx, wt
+
+
+def _area_grow_taps(in_n: int, out_n: int):
+    """OpenCV's INTER_AREA where a side does not shrink (`resize`'s
+    `area_mode` branch): two linear taps a pixel, from floor(d * scale)
+    with the fraction (d + 1) - (s + 1) / scale, the last input pixel
+    alone at the border."""
+    scale = in_n / out_n
+    d = np.arange(out_n)
+    s = np.floor(d * scale).astype(np.int64)
+    f = (d + 1) - (s + 1) * (out_n / in_n)
+    f = np.where(f <= 0, 0.0, f - np.floor(f)).astype(np.float32)
+    f = np.where(s >= in_n - 1, 0.0, f).astype(np.float32)
+    s = np.minimum(s, in_n - 1)
+    idx = np.stack([s, np.minimum(s + 1, in_n - 1)], axis=1)
+    return idx, np.stack([1 - f, f], axis=1).astype(np.float32)
+
+
+def resize_frames_area(frames: np.ndarray, size: Tuple[int, int]
+                       ) -> np.ndarray:
+    """`cv2.resize(frame, (w, h), interpolation=cv2.INTER_AREA)` of frames
+    [T, H, W, C] (uint8 or float32). A shrink of both sides takes OpenCV's
+    area path (factors that need not be integers): a row's weighted sum
+    over its columns, then the rows' weighted sum, both accumulated in
+    float32 in OpenCV's order, so equal to it; uint8 results are rounded
+    half to even, as `saturate_cast` does. Otherwise OpenCV interpolates
+    linearly with area-mode fractions (`_area_grow_taps`), which here runs
+    in float32 (OpenCV's uint8 version in 11-bit fixed point lands within
+    one level of it)."""
+    h, w = size
+    x = np.asarray(frames)
+    src = x.astype(np.float32)
+    shrink = h <= x.shape[1] and w <= x.shape[2]
+    taps = _area_taps if shrink else _area_grow_taps
+    idx, wt = taps(x.shape[2], w)
+    acc = np.zeros(src.shape[:2] + (w, src.shape[3]), np.float32)
+    for k in range(idx.shape[1]):
+        acc = acc + src[:, :, idx[:, k]] * wt[None, None, :, k, None]
+    idx, wt = taps(x.shape[1], h)
+    out = acc[:, idx[:, 0]] * wt[None, :, 0, None, None]
+    for k in range(1, idx.shape[1]):
+        out = out + acc[:, idx[:, k]] * wt[None, :, k, None, None]
+    if x.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
 
 
 def resize_frames_u8(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

@@ -160,10 +160,15 @@ def test_camera_pose_files_and_rays(tmp_path):
     np.testing.assert_array_equal(ours.intr, theirs.intr)
 
 
-def test_camera_from_video_needs_pi3():
-    gen = tcam.CameraMotionGenerator("trans 0 0 1", frame_num=T, H=H, W=W)
-    with pytest.raises(NotImplementedError, match="A14"):
-        gen.process_video_file("clip.mp4")
+def test_camera_from_video_needs_pi3(tmp_path):
+    """A video as the camera path runs Pi3 on the video's frames, which the
+    port reads from the `.npz` frame dump: a `.mp4` without one raises,
+    naming the decoder it would need, before any model is built (the Pi3
+    side is held to JAX in `tests/test_torch_pi3.py`)."""
+    gen = tcam.CameraMotionGenerator("trans 0 0 1", frame_num=T, H=H, W=W,
+                                     device="cpu")
+    with pytest.raises(ValueError, match="OpenCV or imageio"):
+        gen.process_video_file(str(tmp_path / "clip.mp4"))
 
 
 @pytest.mark.parametrize("names,speed", [

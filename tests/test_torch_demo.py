@@ -186,7 +186,7 @@ def test_full_native_video_path(fixtures, tmp_path):
     (["--quant", "int4"], {}, SystemExit, "2"),
     ([], {"FLEXAM_QUANT": "fp4"}, ValueError, "quant"),
     (["--camera_motion", "trans 0.1 0 0"], {"FLEXAM_VGGT_CKPT": "x"},
-     NotImplementedError, "A14"),
+     FileNotFoundError, "'x'"),
     (["--platform", "tpu"], {}, ValueError, "cuda"),
 ], ids=["quant", "env_quant", "vggt", "platform"])
 def test_refusals(fixtures, tmp_path, monkeypatch, extra, env, error, match):

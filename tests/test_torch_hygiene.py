@@ -124,6 +124,26 @@ def test_entry_points_default_to_cuda():
         init_dit_params(cfg.dit)
     with pytest.raises(RuntimeError, match="CUDA"):
         from_jax_params({})
+    # the geometry models (at tiny sizes: the default is raised before any
+    # weight is made)
+    from flexam_tpu_torch.perception.moge import MoGeConfig, MoGeModel
+    from flexam_tpu_torch.perception.pi3 import Pi3, Pi3Config
+    from flexam_tpu_torch.perception.vggt import VGGT, VGGTConfig
+    tiny = dict(embed_dim=32, num_heads=2, num_register_tokens=0,
+                pretrain_img_size=28)
+    for make in (
+            lambda **k: MoGeModel(MoGeConfig(depth=1, output_idx=(1,),
+                                             head_dim=8, **tiny), **k),
+            lambda **k: VGGT(VGGTConfig(
+                embed_dim=32, enc_depth=1, enc_heads=2, agg_dim=32,
+                agg_depth=1, agg_heads=2, cam_iters=1, cam_heads=2,
+                depth_taps=(0,), depth_features=8), **k),
+            lambda **k: Pi3(Pi3Config(
+                embed_dim=32, enc_depth=1, enc_heads=2, dec_dim=32,
+                dec_depth=1, dec_heads=2), **k)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
     # asked for explicitly, the CPU works
     params = init_dit_params(cfg.dit, device="cpu", dtype=torch.float32)
     FlexAMGenerationPipeline(FlexAMModels(cfg=cfg, dit_params=params,

@@ -19,11 +19,36 @@ import flexam_tpu_torch
 
 # names of the JAX package whose modules are not ported yet, by ROADMAP item
 WAITING = {}
+# JAX's lazy perception names whose models are not ported yet, by ROADMAP
+# item (A, item 7: ZoeDepth, DWPose and the pose renderer)
+PERCEPTION_WAITING = {
+    "ZoeDepth": "A7", "ZoeDepthConfig": "A7", "load_zoedepth": "A7",
+    "zoe_depth_video": "A7", "DWPoseDetector": "A7", "dwpose_video": "A7",
+    "render_pose_video": "A7", "draw_pose": "A7",
+    "wholebody_to_openpose": "A7"}
 # JAX's lazy top-level API (`flexam_tpu/__init__.py` `__getattr__`)
 LAZY = ("FlexAMGenerationPipeline", "FlexAMModels", "FlexAMOrchestrator",
         "FirstFrameRepainter")
 SUBPACKAGES = ["", ".ops", ".core", ".models", ".utils", ".sampling",
                ".conditioning", ".io", ".perception"]
+
+
+def _lazy_perception_names():
+    """The names JAX's `flexam_tpu/perception/__init__.py` `__getattr__`
+    resolves (its `name in (...)` tuples), read from the source."""
+    import ast
+    from pathlib import Path
+    src = Path(flexam_tpu.__file__).parent / "perception" / "__init__.py"
+    fn = next(n for n in ast.parse(src.read_text()).body
+              if isinstance(n, ast.FunctionDef) and n.name == "__getattr__")
+    return sorted(e.value for node in ast.walk(fn)
+                  if isinstance(node, ast.Compare)
+                  and isinstance(node.ops[0], ast.In)
+                  and isinstance(node.comparators[0], ast.Tuple)
+                  for e in node.comparators[0].elts)
+
+
+LAZY_PERCEPTION = _lazy_perception_names()
 
 
 def _public(mod):
@@ -97,3 +122,21 @@ def test_make_sampler_matches_jax(kind, order):
         ts, tx = tstep(ts, torch.from_numpy(v), np.int32(i))
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=2e-4,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("name", LAZY_PERCEPTION)
+def test_lazy_perception_names_match_jax(name):
+    """Every model name JAX's perception package resolves lazily resolves in
+    the port's too (MoGe, VGGT, Pi3, DenseTrack3D, UniDepth, the flow
+    tracker), to the object of the port's model module; a name of a model
+    not ported yet is absent, and listed in PERCEPTION_WAITING."""
+    import flexam_tpu.perception as jperc
+    import flexam_tpu_torch.perception as tperc
+    assert set(PERCEPTION_WAITING) <= set(LAZY_PERCEPTION)
+    if name in PERCEPTION_WAITING:
+        assert not hasattr(tperc, name)
+        return
+    obj = getattr(tperc, name)
+    assert callable(obj) and callable(getattr(jperc, name))
+    assert obj.__module__.startswith("flexam_tpu_torch.perception.")
+    assert getattr(importlib.import_module(obj.__module__), name) is obj

@@ -121,9 +121,8 @@ def test_verify_ckpt_defaults_to_cuda(junk):
         tvc.main(["--model", "vae", junk["vae"]])
 
 
-@pytest.mark.parametrize("kind", ["moge", "pi3", "vggt", "zoe", "dav2",
-                                  "flux", "flux-ae", "svd-unet", "svd-vae",
-                                  "svd-clip"])
+@pytest.mark.parametrize("kind", ["zoe", "dav2", "flux", "flux-ae",
+                                  "svd-unet", "svd-vae", "svd-clip"])
 def test_verify_ckpt_unported_kinds_raise(junk, kind):
     with pytest.raises(NotImplementedError, match="item 7"):
         tvc.verify(kind, junk["vae"])
