@@ -203,7 +203,43 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        (`process_video_file`). Each run must call its
                        model (and never the track solver), launch B1 30
                        times and B2-B4, and prints its wall, stage seconds,
-                       calls and peak ("geometry_launches").
+                       calls and peak ("geometry_launches");
+  nodes                the ComfyUI node pack (`flexam_tpu_torch.nodes`) at
+                       full width on a textured 512x896x49f clip: (a)
+                       VideoToDepth through the depth registry with
+                       FLEXAM_DAV2_CKPT (Depth-Anything-V2-Large, fp32,
+                       518x910 in: 2,406 tokens a frame), then with only
+                       FLEXAM_ZOE_CKPT (ZoeD_M12_N, fp32, 384x672 in: 1,009
+                       tokens), each model read from a reference-format
+                       file of random bf16 values, the registry's choice
+                       asserted, with seconds, frames/s, tokens, peak and
+                       the exact branch's calls; (b) VideoToTrackingPredict
+                       with no DELTA file (the device flow tracker, density
+                       10), VideoToTrackingVisualizeAll on its tracks (six
+                       host-rasterized streams) and VideoToCanny (host
+                       work, thresholds 30 / 60: the widget's 100 / 200 find
+                       no edge in this clip); (c) LoadFlexAMModel
+                       (random_init, Wan2.2-Fun-5B width, bf16) and
+                       FlexAMV2VSampler at the widgets' defaults
+                       (base_resolution 640: 480x832x49f, 5,460 tokens with
+                       the ref frame, CFG 6.0, TeaCache on with 5 skip-start
+                       steps) cut to 2 steps, fed (b)'s control, depth and
+                       cosine videos and a rank-8 LoRA file written by the
+                       smoke, through the host weight cache; the merged
+                       weights must differ from the pristine ones, and after
+                       a second run at strength 0.5 (1 step) equal the
+                       pristine weights merged at 0.5 (restored from the
+                       cache first); then one fg_generation step with a mask
+                       video and one step after FunAttention("sparse") on a
+                       512x512 crop (640x640 after the snap: B5 takes frame
+                       blocks of a multiple of 8 tokens, and 480x832 gives
+                       390, which runs dense in both packages), which must
+                       launch B5 (the backend is put back).
+                       Every run launches B2-B4 and not B6, B1 every run
+                       but the sparse step, where B5 takes the video
+                       self-attention ("nodes_launches"); (d) tiny ZoeDepth
+                       and DAv2 on the card against the CPU, and Canny of
+                       one 512x896 frame on the card equal to the host's.
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -271,6 +307,10 @@ where the CPU's logit lies within 1e-3 of its largest |logit| of 0, and a
 flip changes the points the focal/shift solver sees, so the points, depth
 and intrinsics are compared only where no entry flipped (the count is
 printed); the normals always.
+
+The card against the CPU for the node pack's depth models (nodes (d)):
+the same argument at K <= 576, outputs within 1e-3 of their largest value;
+Canny is integer work, so its edges must be equal.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -3122,6 +3162,401 @@ def phase_geometry(dev, results: dict) -> None:
     emit("geometry", t0, **geo, launches_all_runs=total)
 
 
+# ---------------------------------------------------------------------------
+# nodes: the ComfyUI node pack on the card
+# ---------------------------------------------------------------------------
+
+NODES_FRAMES = 49                  # the annotators' clip, 512x896
+NODES_BASE_RESOLUTION = 640        # the sampler widget's default: 480x832
+NODES_LORA_RANK = 8
+NODES_PROMPT = "a red fox runs through fresh snow"
+NODES_NEGATIVE = "blurry, low quality"
+# Canny thresholds for the textured clip (its gray level's std is ~17: the
+# widget's default 100 / 200 finds no edge in it)
+NODES_CANNY = (30, 60)
+
+
+def _nodes_targets():
+    from flexam_tpu_torch.nodes import FlexAMV2VSampler
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline as Pipe
+    from flexam_tpu_torch.utils import masks
+    return [(FlexAMV2VSampler, "_apply_loras"),
+            (masks, "generate_mask_fg_tracking"), (Pipe, "encode_prompt"),
+            (Pipe, "prepare_conditioning"), (Pipe, "denoise"),
+            (Pipe, "decode_u8")]
+
+
+def nodes_card_vs_cpu(dev) -> dict:
+    """(d): ZoeDepth and Depth-Anything-V2 at the tiny configs of
+    tests/test_torch_{zoedepth,depth_anything}.py on the card and on the
+    CPU, the same weights and inputs in fp32 (TF32 off), and Canny of one
+    512x896 frame on the card and on the host. The two devices sum in other
+    orders (cuBLAS, cuDNN, the GPU's reductions): a K-term fp32 sum moves
+    by at most about K x 2^-24 of its size, K <= 576 here (the 3x3 convs
+    over 64 channels, the 2x-wide MLP), 3.4e-5, typically 1e-6, so through
+    the few layers of the tiny models the depths stay within 1e-3 of their
+    largest value (CARD_CPU_REL). Canny is integer work (Sobel, the
+    fixed-point sectors, the union-find): the edges must be equal."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.perception import depth_anything as dav2
+    from flexam_tpu_torch.perception import zoedepth as zoe
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+    from flexam_tpu_torch.utils.cv import canny_u8, rgb_to_gray_cv
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    def rel(name, got, ref):
+        return compare(torch.as_tensor(np.asarray(got)),
+                       torch.as_tensor(np.asarray(ref)), CARD_CPU_REL,
+                       f"nodes card vs cpu, {name}")["max_rel_err"]
+
+    rs = np.random.RandomState(SEED + 130)
+    video = rs.rand(3, 48, 64, 3).astype(np.float32)
+    cfg = zoe.tiny_zoe_config()
+    gen = torch.Generator().manual_seed(SEED + 131)
+    cpu = zoe.ZoeDepth(cfg, params=zoe.zoedepth_init(gen, cfg, "cpu"),
+                       device="cpu")
+    card = zoe.ZoeDepth(cfg, params=to(cpu.params, dev), device=dev)
+    x = video[:1].transpose(0, 3, 1, 2)
+    out = {"zoe_video_max_rel": rel(
+        "zoe video", zoe.zoe_depth_video(video, model=card, batch=2),
+        zoe.zoe_depth_video(video, model=cpu, batch=2)),
+        "zoe_infer_pad_flip_max_rel": rel("zoe infer", card.infer(x),
+                                          cpu.infer(x))}
+    dcfg = dav2.tiny_dav2_config()
+    gen = torch.Generator().manual_seed(SEED + 132)
+    params = dav2.dav2_init(gen, dcfg, "cpu")
+    out["dav2_video_max_rel"] = rel(
+        "dav2 video", dav2.dav2_infer_video(to(params, dev), video, dcfg, 2),
+        dav2.dav2_infer_video(params, video, dcfg, 2))
+    frame = rgb_to_gray_cv(textured_clip(1, TRACKS_VIDEO[1], TRACKS_VIDEO[2],
+                                         TRACK_SHIFT, SEED + 133, dev)[0])
+    t1 = time.perf_counter()
+    host = canny_u8(frame, *NODES_CANNY)
+    host_s = time.perf_counter() - t1
+    on_card = canny_u8(frame, *NODES_CANNY, device=dev)
+    differ = int((on_card != host).sum())
+    if differ:
+        raise AssertionError(f"nodes card vs cpu: canny differs on {differ} "
+                             "pixels")
+    out.update({"canny_pixels_differing": differ,
+                "canny_edge_share": float((host > 0).mean()),
+                "canny_host_seconds_one_frame": host_s})
+    return out
+
+
+def phase_nodes(dev, results: dict) -> None:
+    """The ComfyUI node pack at full width (module docstring): (a) the
+    depth annotators (VideoToDepth through Depth-Anything-V2-Large, then
+    ZoeDepth ZoeD_M12_N, each read from a reference-format file of random
+    weights) on a textured 512x896x49f clip; (b) VideoToTrackingPredict
+    (no DELTA file: the device flow tracker), VideoToTrackingVisualizeAll
+    and VideoToCanny on it; (c) LoadFlexAMModel at Wan2.2-Fun-5B width and
+    FlexAMV2VSampler at the widgets' defaults (480x832x49f, 5,460 tokens
+    with the ref frame), 2 steps with a rank-8 LoRA through the host cache,
+    a second run at strength 0.5 (1 step), an fg_generation step with a
+    mask video and a step after FunAttention("sparse"); (d) the card
+    against the CPU. Launch counts are reset before each run of (c) and
+    read after it ("nodes_launches")."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import nodes as N
+    from flexam_tpu_torch.core.attention import _backend_choice, exact_calls
+    from flexam_tpu_torch.io.checkpoints import save_safetensors
+    from flexam_tpu_torch.perception import depth as depth_registry
+    from flexam_tpu_torch.perception import depth_anything as dav2
+    from flexam_tpu_torch.perception import zoedepth as zoe
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+
+    t0 = time.perf_counter()
+    root = HERE / "build" / "smoke_nodes"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    F, Hp, Wp = NODES_FRAMES, TRACKS_VIDEO[1], TRACKS_VIDEO[2]
+    clip_u8 = textured_clip(F, Hp, Wp, TRACK_SHIFT, SEED + 140, dev)
+    video = clip_u8.astype(np.float32) / 255.0             # [T, H, W, 3]
+    out = {}
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        return time.perf_counter()
+
+    def stop(t1):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    envs = ("FLEXAM_DEPTH_BACKEND", "FLEXAM_UNIDEPTH_CKPT",
+            "FLEXAM_DAV2_CKPT", "FLEXAM_ZOE_CKPT", "FLEXAM_DELTA_CKPT",
+            "FLEXAM_ATTENTION")
+    saved = {k: os.environ.pop(k, None) for k in envs}
+    picked = []
+    originals = {n: depth_registry.DEPTH_BACKENDS[n]
+                 for n in ("unidepth", "dav2", "zoe", "luminance")}
+    for n, fn in originals.items():
+        depth_registry.DEPTH_BACKENDS[n] = (
+            lambda v, _n=n, _f=fn, **kw: (picked.append(_n), _f(v, **kw))[1])
+    try:
+        # (a) the depth annotators from reference-format files
+        files = {}
+        t1 = time.perf_counter()
+        dcfg, zcfg = dav2.DAv2Config(), zoe.ZoeDepthConfig()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 141)
+        p_dav2 = dav2.dav2_init(gen, dcfg, dev)
+        files["dav2"] = root / "depth_anything_v2_vitl.pth"
+        torch.save({k: v.to("cpu", torch.bfloat16)
+                    for k, v in dav2.dav2_state_dict(p_dav2).items()},
+                   str(files["dav2"]))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+        p_zoe = zoe.zoedepth_init(gen, zcfg, dev)
+        files["zoe"] = root / "ZoeD_M12_N.pt"
+        torch.save({"model": {k: v.to("cpu", torch.bfloat16) for k, v in
+                              zoe.zoedepth_state_dict(p_zoe).items()}},
+                   str(files["zoe"]))
+        out["checkpoint_write_seconds"] = time.perf_counter() - t1
+        # one forward of each at the node's batch, profiled: 8 DAv2 frames
+        # at 518x910, 4 ZoeDepth frames at 384x672
+        (dh, dw), (zh, zw) = (dav2._lower_bound_size(
+            Hp, Wp, dcfg.input_size, dcfg.patch_size),
+            zoe._midas_size(Hp, Wp, zcfg))
+        x = torch.randn((8, dh, dw, 3), generator=gen, device=dev)
+        out["dav2_forward_profile"] = profile_forward(
+            lambda: dav2.dav2_forward(p_dav2, x, dcfg))
+        x = torch.rand((4, zh, zw, 3), generator=gen, device=dev)
+        out["zoe_forward_profile"] = profile_forward(
+            lambda: zoe.zoedepth_forward(p_zoe, zcfg, x))
+        del p_dav2, p_zoe, x
+        geometry = {
+            "dav2": (dav2._lower_bound_size(Hp, Wp, dcfg.input_size,
+                                            dcfg.patch_size),
+                     dcfg.patch_size),
+            "zoe": (zoe._midas_size(Hp, Wp, zcfg), zcfg.patch_size)}
+        for name, env in (("dav2", "FLEXAM_DAV2_CKPT"),
+                          ("zoe", "FLEXAM_ZOE_CKPT")):
+            for k in ("FLEXAM_DAV2_CKPT", "FLEXAM_ZOE_CKPT"):
+                os.environ.pop(k, None)
+            os.environ[env] = str(files[name])
+            if name == "zoe":       # a DAv2 file would win: only Zoe's set
+                os.environ.pop("FLEXAM_DAV2_CKPT", None)
+            picked.clear()
+            t1 = start()
+            viz, = N.VideoToDepth().process(video, video_length=F,
+                                            device=dev)
+            secs, peak = stop(t1)
+            calls = exact_calls["exact_attention"]
+            if picked != [name] or viz.shape != (1, 3, F, Hp, Wp) or not (
+                    np.isfinite(viz).all() and 0 <= viz.min()
+                    and viz.max() <= 1):
+                raise AssertionError(f"nodes: VideoToDepth {name}: picked "
+                                     f"{picked}, {viz.shape}")
+            (nh, nw), patch = geometry[name]
+            out[f"depth_{name}"] = {
+                "seconds": secs, "frames_per_second": F / secs,
+                "network_input_hw": [nh, nw],
+                "tokens_per_frame": (nh // patch) * (nw // patch) + 1,
+                "peak_memory_allocated_gb": peak, "exact_calls": calls,
+                "checkpoint_mb": files[name].stat().st_size / 1e6,
+                "video_mean": float(viz.mean())}
+            print(json.dumps({"nodes_part": f"depth_{name}",
+                              **out[f"depth_{name}"]}), flush=True)
+            del viz
+        for k in ("FLEXAM_DAV2_CKPT", "FLEXAM_ZOE_CKPT"):
+            os.environ.pop(k, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) tracking, the visualizers and Canny
+        picked.clear()
+        t1 = start()
+        tracks, vis = N.VideoToTrackingPredict().process(
+            video, density=TRACK_DENSITY, video_length=F, device=dev)
+        secs, peak = stop(t1)
+        if tracks.shape[:1] != (F,) or tracks.shape[-1] != 3 or \
+                vis.dtype != bool or not np.isfinite(tracks).all() or \
+                not vis.any():
+            raise AssertionError(f"nodes: tracking {tracks.shape}")
+        out["tracking"] = {"seconds": secs, "tracks": int(tracks.shape[1]),
+                           "visible_share_last": float(vis[-1].mean()),
+                           "depth_backend": picked,
+                           "peak_memory_allocated_gb": peak}
+        t1 = time.perf_counter()
+        streams = N.VideoToTrackingVisualizeAll().process(
+            tracks, vis, input_video=video)
+        out["visualize_all_host_seconds"] = time.perf_counter() - t1
+        if len(streams) != 6 or any(s.shape != (1, 3, F, Hp, Wp)
+                                    for s in streams):
+            raise AssertionError("nodes: visualizers "
+                                 f"{[s.shape for s in streams]}")
+        t1 = time.perf_counter()
+        canny, = N.VideoToCanny().process(video, *NODES_CANNY,
+                                          video_length=F)
+        out["canny_host_seconds"] = time.perf_counter() - t1
+        out["canny_edge_share"] = float((canny > 0).mean())
+        if canny.shape != (1, 3, F, Hp, Wp) or not canny.any():
+            raise AssertionError(f"nodes: canny {canny.shape}")
+        print(json.dumps({"nodes_part": "annotators",
+                          **{k: out[k] for k in (
+                              "tracking", "visualize_all_host_seconds",
+                              "canny_host_seconds", "canny_edge_share")}}),
+              flush=True)
+        del canny
+        tracking_video, depth_video, *cos = streams
+        del streams
+
+        # (c) the loader and the sampler at 5B width
+        t1 = start()
+        pipe, = N.LoadFlexAMModel().loadmodel(
+            "Wan2.2-Fun-5B-FLEXAM", random_init="5b", device=dev)
+        secs, peak = stop(t1)
+        out["load_model"] = {"seconds": secs,
+                             "peak_memory_allocated_gb": peak}
+        blocks = pipe.models.dit_params["blocks"]
+        gen = torch.Generator().manual_seed(SEED + 143)
+        lora = {}
+        for i in range(len(blocks)):
+            for proj in ("q", "k", "v", "o"):
+                o, n = blocks[i]["self_attn"][proj]["weight"].shape
+                stem = f"lora_unet_blocks_{i}_self_attn_{proj}"
+                lora[f"{stem}.lora_down.weight"] = torch.randn(
+                    (NODES_LORA_RANK, n), generator=gen) * 0.01
+                lora[f"{stem}.lora_up.weight"] = torch.randn(
+                    (o, NODES_LORA_RANK), generator=gen) * 0.01
+                lora[f"{stem}.alpha"] = torch.tensor(float(NODES_LORA_RANK))
+        lora_path = root / "lora_rank8.safetensors"
+        save_safetensors(str(lora_path), lora)
+        w0 = blocks[1]["self_attn"]["q"]["weight"].detach().clone()
+        stem = "lora_unet_blocks_1_self_attn_q"
+        delta = (lora[f"{stem}.lora_up.weight"].numpy()
+                 @ lora[f"{stem}.lora_down.weight"].numpy())
+        del blocks
+        widgets = dict(  # the sampler's widget defaults, steps cut to 2
+            video_length=F, base_resolution=NODES_BASE_RESOLUTION, seed=43,
+            steps=2, cfg=6.0, denoise_strength=1.0, scheduler="Flow",
+            shift=5, boundary=0.9, teacache_threshold=0.10,
+            enable_teacache=True, num_skip_start_steps=5,
+            teacache_offload=True, cfg_skip_ratio=0.0,
+            generate_type="motion_transfer", dilation_pixels=200)
+        th, tw = N.FlexAMV2VSampler().snap_resolution(
+            Hp, Wp, NODES_BASE_RESOLUTION)
+        lat = ((F - 1) // 4 + 1, th // 16, tw // 16)
+        tokens = lat[0] * (lat[1] // 2) * (lat[2] // 2) + \
+            (lat[1] // 2) * (lat[2] // 2)
+        mask = np.zeros((F, 1, Hp, Wp), np.float32)     # the demo layout
+        mask[:, :, Hp // 4: 3 * Hp // 4, Wp // 3: 2 * Wp // 3] = 1.0
+        runs = [
+            ("motion_transfer_lora", dict(
+                widgets, original_video=video, control_video=tracking_video,
+                depth_video=depth_video, cos_video0=cos[0],
+                cos_video1=cos[1], cos_video2=cos[2], cos_video3=cos[3],
+                loras=[str(lora_path)], strength_model=[1.0],
+                lora_cache=True)),
+            ("lora_half_1_step", dict(
+                widgets, steps=1, original_video=video,
+                control_video=tracking_video, loras=[str(lora_path)],
+                strength_model=[0.5], lora_cache=True)),
+            ("fg_generation_1_step", dict(
+                widgets, steps=1, generate_type="fg_generation",
+                original_video=video, control_video=tracking_video,
+                mask_video=mask)),
+            # B5 takes frame blocks of a multiple of 8 tokens (JAX's
+            # dispatch): 480x832 gives 390 a frame, which runs dense in
+            # both packages, so the sparse step takes a 512x512 crop
+            # (640x640 after the snap: 400 tokens a frame)
+            ("sparse_1_step", dict(
+                widgets, steps=1, original_video=video[:, :, :Hp],
+                control_video=tracking_video[..., :Hp]))]
+        total, sampler = {}, {}
+        for name, kw in runs:
+            if name == "sparse_1_step":
+                N.FunAttention().process("sparse", pipe)
+            t1 = start()
+            with StageTimer(_nodes_targets(), keep_returned=False) as st:
+                result, = N.FlexAMV2VSampler().process(
+                    pipe, NODES_PROMPT, negative_prompt=NODES_NEGATIVE, **kw)
+            wall, peak = stop(t1)
+            counts = _counts()
+            if name == "sparse_1_step":
+                os.environ.pop("FLEXAM_ATTENTION", None)
+                _backend_choice.cache_clear()
+            hw = (th, tw) if name != "sparse_1_step" else \
+                N.FlexAMV2VSampler().snap_resolution(Hp, Hp,
+                                                     NODES_BASE_RESOLUTION)
+            if result.shape != (1, 3, F, *hw) or \
+                    not np.isfinite(result).all():
+                raise AssertionError(f"nodes sampler {name}: {result.shape}")
+            b4 = counts["ln_mod_binary"] + counts["ln_mod_bcast"]
+            sparse = name == "sparse_1_step"
+            # B5 takes every video self-attention of the sparse step, so
+            # B1 runs there 0 times
+            must = ("single_kv_attention", "rmsnorm_rope") + (
+                () if sparse else ("flash_attention",))
+            if any(counts[k] == 0 for k in must) or b4 == 0 or \
+                    counts["int8_attention"] or counts["exact_attention"] \
+                    or bool(counts["sparse_attention"]) != sparse:
+                raise AssertionError(f"nodes sampler {name}: launches "
+                                     f"{counts}")
+            w = pipe.models.dit_params["blocks"][1]["self_attn"]["q"][
+                "weight"]
+            if name == "motion_transfer_lora" and torch.equal(w, w0):
+                raise AssertionError("nodes: the LoRA merge left the "
+                                     "weights as they were")
+            if name == "lora_half_1_step":
+                # restored from the host cache, then merged at 0.5
+                want = (w0.float() + torch.from_numpy(0.5 * delta).to(dev)
+                        ).to(w0.dtype)
+                if not torch.equal(w, want):
+                    raise AssertionError("nodes: the weights were not "
+                                         "restored before the 0.5 merge")
+            _add(total, counts)
+            sampler[name] = {
+                "wall_seconds": wall, "stages": dict(st.seconds),
+                "peak_memory_allocated_gb": peak, "launches": counts,
+                "b4_mode": ("broadcast" if not counts["ln_mod_binary"] else
+                            "binary" if not counts["ln_mod_bcast"] else
+                            "both")}
+            print(json.dumps({"nodes_sampler": name, **sampler[name]}),
+                  flush=True)
+            del result
+        out["sampler"] = {"hw": [th, tw], "frames": F, "tokens": tokens,
+                          "runs": sampler}
+        N.FlexAMV2VSampler._lora_cache.clear()
+        N.FlexAMV2VSampler._lora_before.clear()
+        del pipe, tracking_video, depth_video, cos
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the card against the CPU
+        out["card_vs_cpu"] = nodes_card_vs_cpu(dev)
+        print(json.dumps({"nodes_part": "card_vs_cpu",
+                          **out["card_vs_cpu"]}), flush=True)
+    finally:
+        depth_registry.DEPTH_BACKENDS.update(originals)
+        _backend_choice.cache_clear()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    for k in results:
+        results[k]["nodes_launches"] = total.get(k, 0)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("nodes", t0, **out, launches_all_runs=total)
+
+
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
                         "flexam_tpu/ops/flash_attention.py:34"),
@@ -3231,6 +3666,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_geometry(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_nodes(dev, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -3246,6 +3684,7 @@ def main() -> int:
             "serve_launches": r["serve_launches"],
             "track_launches": r["track_launches"],
             "geometry_launches": r["geometry_launches"],
+            "nodes_launches": r["nodes_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
                 if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

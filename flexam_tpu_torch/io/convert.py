@@ -21,12 +21,16 @@ MoGe-2, VGGT and Pi3: an `encoder` holding the DINOv2 `patch_embed`)
 keep their blocks in lists already, and hold 2-D convs in XLA's HWIO
 layout: every 4-dim `weight` leaf there becomes torch's [O, I, kh, kw],
 except UniDepth's ConvTranspose kernels (`process_features`), which JAX
-keeps in torch's [cin, cout, k, k]. Other 4-dim leaves (VGGT's camera and
-register tokens) have one layout in both. bfloat16 leaves (numpy's
-ml_dtypes bfloat16) arrive as torch.bfloat16, float8_e4m3fn leaves (the
-fp8 storage mode) as torch.float8_e4m3fn through a uint8 view, keyed on
-the dtype's name (`torch.from_numpy` refuses ml_dtypes arrays, and the port
-never imports ml_dtypes); int8 `weight_q` and float32 `w_scale` leaves of
+keeps in torch's [cin, cout, k, k], and Depth-Anything-V2's DPT head
+(`head` with `refinenet`), whose convs JAX keeps in torch's layout (only
+its DINOv2 `encoder` is HWIO). Other 4-dim leaves (VGGT's camera and
+register tokens) have one layout in both. ZoeDepth's tree (`patch_embed`,
+`blocks`, `act_postprocess`, ... at the top) is torch layout throughout,
+its ConvTranspose kernels [I, O, k, k] unflipped, and crosses as it is.
+bfloat16 leaves (numpy's ml_dtypes bfloat16) arrive as torch.bfloat16,
+float8_e4m3fn leaves (the fp8 storage mode) as torch.float8_e4m3fn
+through a uint8 view, keyed on the dtype's name (`torch.from_numpy`
+refuses ml_dtypes arrays, and the port never imports ml_dtypes); int8 `weight_q` and float32 `w_scale` leaves of
 quantized trees cross as they are. `stack_blocks` is the inverse of the
 block unstacking, for files that the JAX package reads; `deploy_dtype` is
 JAX's one rule for the dtype a quantized tree's other leaves deploy in.
@@ -89,6 +93,15 @@ def _perception_tree(tree) -> bool:
         isinstance(enc, dict) and "patch_embed" in enc)
 
 
+def _torch_layout(key: str, node) -> bool:
+    """A subtree of a perception tree whose kernels JAX keeps in torch's
+    layout: UniDepth's ConvTranspose kernels (`process_features`) and
+    Depth-Anything-V2's DPT head (the `head` holding `refinenet`, on
+    zoedepth's convs)."""
+    return key == "process_features" or (
+        key == "head" and isinstance(node, dict) and "refinenet" in node)
+
+
 def _convert(node, device, hwio=False, key=""):
     if isinstance(node, dict):
         out = {}
@@ -98,8 +111,8 @@ def _convert(node, device, hwio=False, key=""):
             elif k == "blocks" and isinstance(v, dict):
                 out[k] = _unstack(_convert(v, device))
             else:
-                out[k] = _convert(v, device,
-                                  hwio and k != "process_features", k)
+                out[k] = _convert(v, device, hwio and not _torch_layout(k, v),
+                                  k)
         return out
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, hwio, key) for v in node]
@@ -190,5 +203,5 @@ def stack_blocks(tree: dict) -> dict:
 def from_jax_params(tree, device="cuda") -> dict:
     """The port's parameter tree for a JAX parameter tree of numpy arrays
     or host tensors (DiT, umT5, VAE, DenseTrack3D, UniDepth V2, MoGe-2,
-    VGGT or Pi3), on `device`."""
+    VGGT, Pi3, ZoeDepth or Depth-Anything-V2), on `device`."""
     return _convert(tree, resolve_device(device), _perception_tree(tree))

@@ -10,18 +10,22 @@ model.
                 (shape-mapped loader)
   pi3           Pi3 permutation-equivariant multi-view poses (shape-mapped
                 loader; `.npz` frame dumps as video input)
+  zoedepth      ZoeDepth ZoeD_M12_N metric depth (exact checkpoint name map)
+  depth_anything  Depth-Anything-V2-Large relative depth (name-mapped,
+                coverage-gated loader)
   flow_device   the pyramidal Lucas-Kanade flow tracker on the device
   tracking      DELTA tracking of a video and the tracker dispatch
   depth         the pluggable depth-backend registry
   pose_solver   camera extrinsics from 3D tracks (robust Kabsch)
   poses         VGGT/Pi3 pose-encoding post-processing + npz fixtures
 
-The other perception models of the JAX package (ZoeDepth,
-Depth-Anything-V2, DepthCrafter, DWPose and the pose renderer) are not
-ported yet (ROADMAP A item 7): their names are absent here.
+The other perception models of the JAX package (DepthCrafter, DWPose and
+the pose renderer) are not ported yet (ROADMAP A item 7): their names are
+absent here.
 
 Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT,
-FLEXAM_MOGE_CKPT, FLEXAM_VGGT_CKPT, FLEXAM_PI3_CKPT."""
+FLEXAM_MOGE_CKPT, FLEXAM_VGGT_CKPT, FLEXAM_PI3_CKPT, FLEXAM_ZOE_CKPT,
+FLEXAM_DAV2_CKPT."""
 
 from flexam_tpu_torch.perception.depth import (  # noqa: F401
     estimate_depth,
@@ -66,6 +70,10 @@ def __getattr__(name):
         return getattr(_m, name)
     if name in ("VGGT", "VGGTConfig", "load_vggt", "vggt_video_poses"):
         from flexam_tpu_torch.perception import vggt as _m
+        return getattr(_m, name)
+    if name in ("ZoeDepth", "ZoeDepthConfig", "load_zoedepth",
+                "zoe_depth_video"):
+        from flexam_tpu_torch.perception import zoedepth as _m
         return getattr(_m, name)
     if name in ("track_video_flow_device", "dense_flow"):
         from flexam_tpu_torch.perception import flow_device as _m

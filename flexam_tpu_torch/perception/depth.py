@@ -8,9 +8,13 @@ Port of `flexam_tpu/perception/depth.py`, the same registry:
     FLEXAM_UNIDEPTH_CKPT (random weights, with a warning, without it);
   * "luminance": a geometry-free placeholder (inverse luminance as
     pseudo-depth), so that paths run end to end without a model;
-  * "onnx", "zoe", "dav2" / "dav" and "depthcrafter" stay registered, as
-    in JAX, but their models are not ported yet: they raise
-    NotImplementedError naming ROADMAP item 7.
+  * "dav2" / "dav": Depth-Anything-V2-Large (`perception/depth_anything.py`),
+    weights from FLEXAM_DAV2_CKPT;
+  * "zoe": ZoeDepth ZoeD_M12_N (`perception/zoedepth.py`), weights from
+    FLEXAM_ZOE_CKPT (random weights, with a warning, without it);
+  * "onnx" (an onnxruntime session, which the card's machine lacks) and
+    "depthcrafter" (on the SVD UNet and VAE) stay registered, as in JAX,
+    but raise NotImplementedError naming ROADMAP item 7.
 
 `estimate_depth` picks a backend as JAX's does: the argument, then
 FLEXAM_DEPTH_BACKEND, then the first model whose checkpoint exists
@@ -47,7 +51,8 @@ def _not_ported(name: str, module: str) -> Callable:
         raise NotImplementedError(
             f"depth backend {name!r} ({module}) is not ported to "
             "flexam_tpu_torch yet (ROADMAP A item 7); the port has "
-            "'unidepth' and 'luminance', the JAX package has the rest")
+            "'unidepth', 'dav2' / 'dav', 'zoe' and 'luminance', the JAX "
+            "package has the rest")
     return fn
 
 
@@ -59,15 +64,28 @@ def _unidepth_lazy(video: np.ndarray, **kw) -> np.ndarray:
     return _unidepth_backend(video, **kw)
 
 
+def _zoe_lazy(video: np.ndarray, **kw) -> np.ndarray:
+    """ZoeDepth (ZoeD_M12_N), the `VideoToDepth` annotator's model
+    (`annotator/nodes.py:153-233`). Weights: FLEXAM_ZOE_CKPT."""
+    from flexam_tpu_torch.perception.zoedepth import zoe_depth_video
+    return zoe_depth_video(video, **kw)
+
+
+def _dav2_lazy(video: np.ndarray, **kw) -> np.ndarray:
+    """Depth-Anything-V2-Large, the reference repaint's default depth model
+    ("dav", `pipelines.py:158-161`). Weights: FLEXAM_DAV2_CKPT."""
+    from flexam_tpu_torch.perception.depth_anything import _dav2_backend
+    return _dav2_backend(video, **kw)
+
+
 register_depth_backend("luminance", _luminance_depth)
 register_depth_backend("onnx", _not_ported("onnx", "an onnxruntime session"))
 register_depth_backend("unidepth", _unidepth_lazy)
-register_depth_backend("zoe", _not_ported("zoe", "perception/zoedepth.py"))
+register_depth_backend("zoe", _zoe_lazy)
 register_depth_backend("depthcrafter", _not_ported(
     "depthcrafter", "perception/depthcrafter.py"))
-register_depth_backend("dav2", _not_ported(
-    "dav2", "perception/depth_anything.py"))
-register_depth_backend("dav", DEPTH_BACKENDS["dav2"])  # the reference's name
+register_depth_backend("dav2", _dav2_lazy)
+register_depth_backend("dav", _dav2_lazy)      # the reference's name
 
 
 def estimate_depth(video: np.ndarray, backend: str = None, **kw

@@ -11,18 +11,22 @@ Port of `flexam_tpu/tools/verify_ckpt.py`:
     python -m flexam_tpu_torch.tools.verify_ckpt --model moge path/model.pt
     python -m flexam_tpu_torch.tools.verify_ckpt --model vggt path/model.safetensors
     python -m flexam_tpu_torch.tools.verify_ckpt --model pi3 path/model.safetensors
+    python -m flexam_tpu_torch.tools.verify_ckpt --model zoe path/ZoeD_M12_N.pt
+    python -m flexam_tpu_torch.tools.verify_ckpt --model dav2 path/depth_anything_v2_vitl.pth
 
-The dit, vae, t5 and unidepth loaders (`io/checkpoints.py`,
-`perception/unidepth.py`) are name-mapped: they raise on any missing key,
-so success means every expected tensor was found. The delta, moge, vggt
-and pi3 loaders (`perception/{densetrack3d,moge,vggt,pi3}.py`) map by
-shape and print per-module coverage (`io/verify_load.py`); `--threshold`
-is their bar (moge's loader, which raises below it, reports instead, under
+The dit, vae, t5, unidepth and zoe loaders (`io/checkpoints.py`,
+`perception/{unidepth,zoedepth}.py`) are name-mapped: they raise on any
+missing key, so success means every expected tensor was found; dav2's
+(`perception/depth_anything.py`) is name-mapped and raises below full
+coverage. The delta, moge, vggt and pi3 loaders
+(`perception/{densetrack3d,moge,vggt,pi3}.py`) map by shape and print
+per-module coverage (`io/verify_load.py`); `--threshold` is their bar
+(moge's loader, which raises below it, reports instead, under
 FLEXAM_MOGE_BESTEFFORT=1 for the call). Exit status 0 = the checkpoint
 passes, 1 = it does not. The checkpoint loads onto the card unless
-`--platform cpu` asks for the CPU. The other perception kinds (zoe, dav2)
-and the FLUX / SVD kinds need loaders that are not ported yet (ROADMAP A
-item 7): they raise NotImplementedError, where the JAX tool reports.
+`--platform cpu` asks for the CPU. The FLUX / SVD kinds need loaders that
+are not ported yet (ROADMAP A item 7): they raise NotImplementedError,
+where the JAX tool reports.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import sys
 KINDS = ["delta", "moge", "unidepth", "dit", "vae", "t5", "pi3", "vggt",
          "zoe", "dav2", "flux", "flux-ae", "svd-unet", "svd-vae",
          "svd-clip"]
-PORTED = ("dit", "vae", "t5", "delta", "unidepth", "moge", "pi3", "vggt")
+PORTED = ("dit", "vae", "t5", "delta", "unidepth", "moge", "pi3", "vggt",
+          "zoe", "dav2")
 
 
 def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
@@ -110,6 +115,14 @@ def verify(kind: str, path: str, device=None,
         from flexam_tpu_torch.perception.unidepth import load_unidepth
         return _report_name_mapped(
             kind, path, lambda: load_unidepth(path, device=device))
+    if kind == "zoe":
+        from flexam_tpu_torch.perception.zoedepth import load_zoedepth
+        return _report_name_mapped(
+            kind, path, lambda: load_zoedepth(path, device=device))
+    if kind == "dav2":
+        from flexam_tpu_torch.perception.depth_anything import load_dav2
+        return _report_name_mapped(
+            kind, path, lambda: load_dav2(path, device=device))
     cfg = FlexAMConfig()
     load = {"dit": lambda: ck.load_dit_checkpoint(path, cfg.dit,
                                                   device=device),

@@ -1,7 +1,7 @@
 """The port's package surface against the JAX package's (ROADMAP C2): each
 `__init__` of `flexam_tpu_torch` exports the public names of its
 `flexam_tpu` counterpart, except an explicit list of names whose modules
-wait for unported ROADMAP items. The top level's names are JAX's lazy
+wait for unported ROADMAP items; so does the node pack (`nodes`). The top level's names are JAX's lazy
 `__getattr__` ones plus its eager ones. `make_sampler` is driven as
 `tests/test_sampling.py:9,21` drives JAX's.
 """
@@ -20,10 +20,9 @@ import flexam_tpu_torch
 # names of the JAX package whose modules are not ported yet, by ROADMAP item
 WAITING = {}
 # JAX's lazy perception names whose models are not ported yet, by ROADMAP
-# item (A, item 7: ZoeDepth, DWPose and the pose renderer)
+# item (A, item 7: DWPose and the pose renderer)
 PERCEPTION_WAITING = {
-    "ZoeDepth": "A7", "ZoeDepthConfig": "A7", "load_zoedepth": "A7",
-    "zoe_depth_video": "A7", "DWPoseDetector": "A7", "dwpose_video": "A7",
+    "DWPoseDetector": "A7", "dwpose_video": "A7",
     "render_pose_video": "A7", "draw_pose": "A7",
     "wholebody_to_openpose": "A7"}
 # JAX's lazy top-level API (`flexam_tpu/__init__.py` `__getattr__`)
@@ -70,6 +69,23 @@ def test_init_exports_match_jax(sub):
         obj = getattr(tmod, n)
         assert not isinstance(obj, types.ModuleType), n
         assert callable(obj) or not callable(getattr(jmod, n, obj)), n
+
+
+def test_nodes_exports_match_jax():
+    """`flexam_tpu_torch.nodes` exports every public name of
+    `flexam_tpu.nodes` (the node classes, the mappings, the annotator
+    registry, the bucket helpers), less the typing names it imports."""
+    import typing
+    jmod = importlib.import_module("flexam_tpu.nodes")
+    tmod = importlib.import_module("flexam_tpu_torch.nodes")
+    want = {n for n in _public(jmod)
+            if getattr(typing, n, None) is not getattr(jmod, n)
+            and n != "annotations"}
+    missing = {n for n in want if not hasattr(tmod, n)}
+    assert not missing, f"flexam_tpu_torch.nodes lacks {sorted(missing)}"
+    for n in want:
+        assert callable(getattr(tmod, n)) == callable(getattr(jmod, n)), n
+    assert set(tmod.NODE_CLASS_MAPPINGS) == set(jmod.NODE_CLASS_MAPPINGS)
 
 
 def test_top_level_is_lazy_and_versioned():

@@ -2,9 +2,11 @@
 (`psnr`, `ssim`, and the CLI's output and exit code on the same dumps) and
 `verify_ckpt` (junk files fail the dit, vae and t5 kinds as in JAX; files
 written from tiny random trees pass; the device defaults to CUDA; the
-perception kinds other than delta and unidepth, and the FLUX / SVD kinds,
-raise, naming ROADMAP A item 7; `tests/test_torch_video_tracking.py` and
-`tests/test_torch_unidepth.py` hold delta and unidepth to JAX). The
+perception kinds delta, unidepth, zoe and dav2 fail a junk file as in JAX,
+and the FLUX / SVD kinds raise, naming ROADMAP A item 7;
+`tests/test_torch_video_tracking.py`, `tests/test_torch_unidepth.py`,
+`tests/test_torch_zoedepth.py` and `tests/test_torch_depth_anything.py`
+hold the loaders to JAX's). The
 hygiene scan covers the server and both tools."""
 
 import subprocess
@@ -121,18 +123,29 @@ def test_verify_ckpt_defaults_to_cuda(junk):
         tvc.main(["--model", "vae", junk["vae"]])
 
 
-@pytest.mark.parametrize("kind", ["zoe", "dav2", "flux", "flux-ae",
-                                  "svd-unet", "svd-vae", "svd-clip"])
+@pytest.mark.parametrize("kind", ["flux", "flux-ae", "svd-unet", "svd-vae",
+                                  "svd-clip"])
 def test_verify_ckpt_unported_kinds_raise(junk, kind):
     with pytest.raises(NotImplementedError, match="item 7"):
         tvc.verify(kind, junk["vae"])
 
 
-@pytest.mark.parametrize("kind", ["delta", "unidepth"])
-def test_verify_ckpt_perception_kinds_on_junk_match_jax(junk, kind):
-    """A checkpoint holding one stray tensor fails both perception kinds
-    in both tools: unidepth's name map misses its keys, delta's shape map
-    covers nothing."""
+@pytest.mark.parametrize("kind", ["delta", "unidepth", "zoe", "dav2"])
+def test_verify_ckpt_perception_kinds_on_junk_match_jax(junk, kind,
+                                                        monkeypatch):
+    """A checkpoint holding one stray tensor fails the perception kinds in
+    both tools: unidepth's and zoe's name maps miss their keys, delta's
+    shape map and dav2's name map cover nothing. JAX's zoe and dav2
+    loaders build a model before they map, so their default geometry is
+    swapped for the tiny one (and the port's dav2 likewise)."""
+    from flexam_tpu.perception import depth_anything as jdav
+    from flexam_tpu.perception import zoedepth as jzoe
+    from flexam_tpu_torch.perception import depth_anything as tdav
+    tiny_zoe, tiny_dav2 = jzoe.tiny_zoe_config(), tdav.tiny_dav2_config()
+    monkeypatch.setattr(jzoe, "ZoeDepthConfig", lambda: tiny_zoe)
+    monkeypatch.setattr(jdav.load_dav2, "__defaults__",
+                        (jdav.tiny_dav2_config(), True))
+    monkeypatch.setattr(tdav, "DAv2Config", lambda: tiny_dav2)
     assert jvc.verify(kind, junk["vae"]) is False
     assert tvc.verify(kind, junk["vae"], "cpu") is False
     assert tvc.main(["--model", kind, "--platform", "cpu",

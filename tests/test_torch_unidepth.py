@@ -255,7 +255,8 @@ def test_depth_registry_matches_jax(models, monkeypatch, tmp_path):
     """Backends by name and the selection order (argument, then
     FLEXAM_DEPTH_BACKEND, then the checkpoints that exist); the unidepth
     backend against JAX's on a video, its model cached per checkpoint and
-    device; the backends not ported raise naming item 7."""
+    device; zoe and dav2 / dav are live; the backends not ported (onnx,
+    depthcrafter) raise naming item 7."""
     jm, tm = models
     video = np.random.RandomState(7).rand(5, 28, 40, 3).astype(np.float32)
     for k in ("FLEXAM_DEPTH_BACKEND", "FLEXAM_UNIDEPTH_CKPT",
@@ -307,9 +308,19 @@ def test_depth_registry_matches_jax(models, monkeypatch, tmp_path):
 
     with pytest.raises(KeyError):
         tdepth.estimate_depth(video, backend="nope")
-    for name in ("onnx", "zoe", "dav2", "dav", "depthcrafter"):
+    for name in ("onnx", "depthcrafter"):
         with pytest.raises(NotImplementedError, match="item 7"):
             tdepth.estimate_depth(video, backend=name)
+    # zoe, dav2 and dav are live: zoe runs the model it is given, dav2 /
+    # dav read FLEXAM_DAV2_CKPT, which is unset here (a KeyError, as JAX's)
+    from flexam_tpu_torch.perception.zoedepth import ZoeDepth, \
+        tiny_zoe_config
+    zoe = tdepth.estimate_depth(video, backend="zoe", model=ZoeDepth(
+        tiny_zoe_config(), device="cpu"))
+    assert zoe.shape == (5, 28, 40) and np.isfinite(zoe).all()
+    for name in ("dav2", "dav"):
+        with pytest.raises(KeyError, match="FLEXAM_DAV2_CKPT"):
+            tdepth.estimate_depth(video, backend=name, device="cpu")
     assert set(tdepth.DEPTH_BACKENDS) == set(jdepth.DEPTH_BACKENDS)
 
 
