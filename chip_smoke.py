@@ -164,7 +164,9 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        `python -m flexam_tpu_torch.tools.track --method
                        delta` on the clip, then `demo.main` at --random_init
                        5b, 49 frames, 1 step, full_edit from the clip: DELTA
-                       tracking (FLEXAM_DELTA_CKPT), the flow tracker, and
+                       tracking (FLEXAM_DELTA_CKPT), the Farneback tracker
+                       (--tracking_method flow, `track_video_flow` on the
+                       card, as JAX's demo runs OpenCV's), and
                        --repaint true, each with its stage seconds, peak and
                        launches (B1-B4 required, B1 30 times a generation:
                        the repaint's frame is a second one; every run
@@ -214,11 +216,22 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        file of random bf16 values, the registry's choice
                        asserted, with seconds, frames/s, tokens, peak and
                        the exact branch's calls; (b) VideoToTrackingPredict
-                       with no DELTA file (the device flow tracker, density
-                       10), VideoToTrackingVisualizeAll on its tracks (six
-                       host-rasterized streams) and VideoToCanny (host
-                       work, thresholds 30 / 60: the widget's 100 / 200 find
-                       no edge in this clip); (c) LoadFlexAMModel
+                       with no DELTA file (the Farneback tracker on the
+                       card, density 10: JAX's node runs OpenCV's
+                       Farneback there), VideoToTrackingVisualizeAll on its
+                       tracks (six host-rasterized streams) and VideoToCanny
+                       (host work, thresholds 30 / 60: the widget's 100 /
+                       200 find no edge in this clip); then VideoToPose on
+                       a 480x832x49f crop of the clip, the native DWPose
+                       (FLEXAM_DWPOSE_DET / FLEXAM_DWPOSE_POSE naming the
+                       tiny YOLOX- and RTMPose-shaped graphs that
+                       `flexam_tpu_torch.testing` writes: no real .onnx file
+                       is in the repository) with its two graphs on the
+                       card, then again on YOLOX-L and RTMPose-l at their
+                       published widths with random weights (`write_dwpose`,
+                       two persons a frame), and the raw-keypoint branch (a
+                       fixture of seeded keypoints), each timed; (c)
+                       LoadFlexAMModel
                        (random_init, Wan2.2-Fun-5B width, bf16) and
                        FlexAMV2VSampler at the widgets' defaults
                        (base_resolution 640: 480x832x49f, 5,460 tokens with
@@ -238,8 +251,16 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        Every run launches B2-B4 and not B6, B1 every run
                        but the sparse step, where B5 takes the video
                        self-attention ("nodes_launches"); (d) tiny ZoeDepth
-                       and DAv2 on the card against the CPU, and Canny of
-                       one 512x896 frame on the card equal to the host's.
+                       and DAv2 on the card against the CPU, Canny of one
+                       512x896 frame on the card equal to the host's, the
+                       tiny DWPose graphs' outputs and features on 2 frames
+                       of the crop on the card against the CPU (bound
+                       below) with equal keypoints and rendered frames,
+                       YOLOX-L's and RTMPose-l's on 1 frame (bound below,
+                       which their weights rounded to TF32 must leave),
+                       each graph timed, and Farneback's
+                       flow between 3 frames of the crop on the card
+                       against the CPU (bound below).
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -310,7 +331,28 @@ printed); the normals always.
 
 The card against the CPU for the node pack's depth models (nodes (d)):
 the same argument at K <= 576, outputs within 1e-3 of their largest value;
-Canny is integer work, so its edges must be equal.
+Canny is integer work, so its edges must be equal. The DWPose graphs run
+with TF32 off inside the call (`perception/onnx_graph.py`). The tiny pair
+(`flexam_tpu_torch/testing.py`), with their intermediate features as
+outputs, sums at most K = 392 terms (the 7x7 conv over 8 channels): every
+output within NODES_GRAPH_REL = 1e-5 of its largest value, the bound its
+CPU test holds it to against OpenCV's dnn and which weights rounded to
+TF32 leave by 50x or more. Their keypoints then must be equal: the image
+picks each SimCC row's argmax by the sign of a function of the row's
+tokens, through a clamp that is exact away from a window of 5e-7, and the
+detector's boxes come from dyadic weights that every order of summation
+gives exactly; the rendered frames may differ only where a score sits
+within the outputs' difference of a threshold, at most
+NODES_POSE_DIFF_SHARE of the pixels. YOLOX-L and RTMPose-l at their
+published widths (random weights) sum up to K = 9216 terms (3x3 over 1024
+channels) through about 150 layers: their outputs within
+NODES_PUBLISHED_REL = 1e-5 of their largest value, and the same graphs
+with their weights rounded to TF32 must leave that bound, so the check
+tells TF32 from fp32.
+Farneback's flow is elementwise float32 work, index gathers and float64
+box sums in both places: a probe on the H100 found the card equal to the
+CPU, and the bound, NODES_FLOW_CARD_CPU_PX of end-point difference, is the
+bound its CPU test holds it to against OpenCV.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -2461,7 +2503,7 @@ def _track_targets():
             (repaint.FirstFrameRepainter, "repaint"),
             (Pipe, "encode_prompt"),
             (Pipe, "prepare_conditioning_from_tracks"), (Pipe, "denoise"),
-            (Pipe, "decode_u8")]
+            (Pipe, "decode_u8"), (tracking, "track_video_flow")]
 
 
 def _add(total: dict, counts: dict) -> None:
@@ -2608,11 +2650,13 @@ def track_card_vs_cpu(dev) -> dict:
 def phase_track(dev, results: dict, track: dict, total: dict) -> None:
     """The video-input path at full width (module docstring): (a) UniDepth
     V2 on a textured 512x896x97f clip moving by a known translation, (b)
-    the flow tracker on it, held to the translation, (c) DenseTrack3D from
-    a reference-format checkpoint file, (d) the card against the CPU at
-    tiny configs, (e) `tools.track` and three `demo.main` runs at 5B width
-    (DELTA, flow, --repaint true); (f) ran before it, on the serve phase's
-    pipeline. Launch counts are reset before each run of (e)."""
+    the device flow tracker on it, held to the translation, (c)
+    DenseTrack3D from a reference-format checkpoint file, (d) the card
+    against the CPU at tiny configs, (e) `tools.track` and three
+    `demo.main` runs at 5B width (DELTA, the Farneback tracker of
+    --tracking_method flow, --repaint true); (f) ran before it, on the
+    serve phase's pipeline. Launch counts are reset before each run of
+    (e)."""
     import gc
     import shutil
 
@@ -2775,7 +2819,7 @@ def phase_track(dev, results: dict, track: dict, total: dict) -> None:
     runs = [("delta_49f", ["--tracking_method", "DELTA"],
              "track_video_delta"),
             ("flow_49f", ["--tracking_method", "flow"],
-             "track_video_flow_device"),
+             "track_video_flow"),
             ("repaint_49f", ["--repaint", "true", "--synthetic_tracks"],
              "repaint")]
     must = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
@@ -3174,6 +3218,176 @@ NODES_NEGATIVE = "blurry, low quality"
 # Canny thresholds for the textured clip (its gray level's std is ~17: the
 # widget's default 100 / 200 finds no edge in it)
 NODES_CANNY = (30, 60)
+NODES_POSE_HW = (480, 832)         # VideoToPose's crop of the clip
+NODES_POSE_DIFF_SHARE = 1e-3       # rendered pixels card vs CPU (docstring)
+NODES_GRAPH_REL = 1e-5             # tiny DWPose graphs' outputs, card vs CPU
+NODES_PUBLISHED_REL = 1e-5         # YOLOX-L / RTMPose-l outputs, card vs CPU
+NODES_FLOW_CARD_CPU_PX = 1e-4      # Farneback end-point difference, card
+
+
+def _tf32_rounded(graph) -> None:
+    """Round a graph's fp32 weights to TF32's 10-bit mantissa in place."""
+    import torch
+    for k, v in graph.consts.items():
+        if v.dtype == torch.float32:
+            graph.consts[k] = ((v.view(torch.int32) + 0x1000)
+                               & ~0x1FFF).view(torch.float32)
+
+
+def _graph_pairs(card, cpu, frames, pose_input=(288, 384)):
+    """[(card outputs, CPU outputs)] of a detector / estimator pair of
+    `OnnxGraph`s on each frame's letterbox and on each person's crop (the
+    CPU's boxes), and the last inputs of each graph."""
+    from flexam_tpu_torch.perception import dwpose
+    pairs = []
+    for f in frames:
+        x, ratio = dwpose.letterbox(f)
+        det = [o.cpu() for o in card[0](x[None])], cpu[0](x[None])
+        pairs.append(det)
+        for box in dwpose.detect_people(det[1][0].numpy()[0], ratio):
+            crop = dwpose.crop_person(f, box, pose_input)[0].transpose(
+                2, 0, 1)[None]
+            pairs.append(([o.cpu() for o in card[1](crop)],
+                          cpu[1](crop)))
+    return pairs, x[None], crop
+
+
+def pose_flow_card_vs_cpu(dev, clip_u8, det: str, pose: str,
+                          published: tuple) -> dict:
+    """(d), DWPose and Farneback (module docstring). The tiny graphs, with
+    their features as outputs (`flexam_tpu_torch/testing.py`), on 2 frames
+    of the pose crop (the detector's outputs, then the estimator's on each
+    person's crop) on the card against the CPU within NODES_GRAPH_REL, the
+    keypoints equal, the rendered frames equal but for
+    NODES_POSE_DIFF_SHARE of the pixels. YOLOX-L and RTMPose-l
+    (`published`, random weights) the same way on 1 frame within
+    NODES_PUBLISHED_REL, and again with their weights rounded to TF32,
+    which must leave that bound. Farneback's forward and backward flows
+    between 3 frames within NODES_FLOW_CARD_CPU_PX. Each graph's call and
+    the 4 flows are timed on the card, and the flow tracker on a
+    512x896x97f clip (time and peak)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import testing
+    from flexam_tpu_torch.perception import dwpose
+    from flexam_tpu_torch.perception.farneback import farneback_pairs
+    from flexam_tpu_torch.perception.onnx_graph import OnnxGraph
+    from flexam_tpu_torch.perception.tracking import (FLOW_PAIRS,
+                                                      track_video_flow)
+    from flexam_tpu_torch.tools.flow_accuracy import textured_clip
+
+    def worst(pairs, bound, name):
+        return max(compare(g, r, bound, name)["max_rel_err"]
+                   for got, ref in pairs for g, r in zip(got, ref))
+
+    frames = clip_u8[:2]
+    tiny = [testing.tiny_yolox_onnx(SEED + 144, features=True),
+            testing.tiny_rtmpose_onnx(SEED + 144, features=True)]
+    card = [OnnxGraph(b, device=dev) for b in tiny]
+    pairs, x, crop = _graph_pairs(card, [OnnxGraph(b, device="cpu")
+                                         for b in tiny], frames)
+    out = {"dwpose_tiny_max_rel": worst(
+        pairs, NODES_GRAPH_REL, "nodes card vs cpu, tiny dwpose graphs"),
+        "dwpose_tiny_bound_rel": NODES_GRAPH_REL,
+        "dwpose_tiny_graph_calls": len(pairs)}
+    on_card = dwpose.DWPoseDetector(det, pose, device=dev)
+    on_cpu = dwpose.DWPoseDetector(det, pose, device="cpu")
+    persons, score_diff = 0, 0.0
+    for f in frames:
+        (kc, sc), (kr, sr) = on_card(f), on_cpu(f)
+        if not np.array_equal(kc, kr):
+            raise AssertionError("nodes card vs cpu: dwpose keypoints "
+                                 "differ")
+        persons += len(kc)
+        score_diff = max(score_diff, float(np.abs(sc - sr).max()))
+    video = frames.astype(np.float32) / 255.0
+    rendered = dwpose.dwpose_video(video, det, pose, device=dev)
+    want = dwpose.dwpose_video(video, det, pose, device="cpu")
+    differ = int((rendered != want).any(-1).sum())
+    if differ > NODES_POSE_DIFF_SHARE * rendered[..., 0].size:
+        raise AssertionError(f"nodes card vs cpu: dwpose renders differ on "
+                             f"{differ} pixels")
+    out.update({"dwpose_persons": persons,
+                "dwpose_score_max_abs_diff": score_diff,
+                "dwpose_render_pixels_differing": differ,
+                "dwpose_tiny_det_graph_ms": device_ms(
+                    lambda: card[0](x), launches=5, reps=3),
+                "dwpose_tiny_pose_graph_ms": device_ms(
+                    lambda: card[1](crop), launches=5, reps=3)})
+    # YOLOX-L and RTMPose-l: card vs CPU, the TF32 check, times
+    card = [OnnxGraph(p, device=dev) for p in published]
+    cpu = [OnnxGraph(p, device="cpu") for p in published]
+    pairs, x, crop = _graph_pairs(card, cpu, frames[:1])
+    out["dwpose_published_max_rel"] = worst(
+        pairs, NODES_PUBLISHED_REL, "nodes card vs cpu, YOLOX-L / RTMPose-l")
+    out["dwpose_published_bound_rel"] = NODES_PUBLISHED_REL
+    out["dwpose_published_graph_calls"] = len(pairs)
+    out["dwpose_published_det_graph_ms"] = device_ms(
+        lambda: card[0](x), launches=5, reps=3)
+    out["dwpose_published_pose_graph_ms"] = device_ms(
+        lambda: card[1](crop), launches=5, reps=3)
+    out["dwpose_published_det_graph_profile"] = profile_forward(
+        lambda: card[0](x))
+    out["dwpose_published_pose_graph_profile"] = profile_forward(
+        lambda: card[1](crop))
+    for g in card:
+        _tf32_rounded(g)
+    out["dwpose_published_tf32_weights_max_rel"] = max(
+        ((a.cpu() - b).abs().max() / b.abs().max()).item()
+        for g, inp, ref in ((card[0], x, pairs[0][1]),
+                            (card[1], crop, pairs[-1][1]))
+        for a, b in zip(g(inp), ref))
+    if not out["dwpose_published_tf32_weights_max_rel"] > \
+            NODES_PUBLISHED_REL:
+        raise AssertionError("nodes card vs cpu: TF32-rounded weights stay "
+                             "within NODES_PUBLISHED_REL, which then "
+                             "cannot tell TF32 from fp32")
+    del card, cpu
+    luma = np.array([0.299, 0.587, 0.114], np.float32)
+    gray = torch.from_numpy(np.stack([
+        (f.astype(np.float32) / 255.0 @ luma * 255).astype(np.uint8)
+        for f in clip_u8[:3]]))
+    i = np.arange(2)
+    prev, nxt = np.concatenate([i, i + 1]), np.concatenate([i + 1, i])
+    flow_card = farneback_pairs(gray.to(dev), prev, nxt).cpu()
+    out["farneback_card_ms_4_pairs"] = device_ms(
+        lambda: farneback_pairs(gray.to(dev), prev, nxt), launches=3, reps=3)
+    t1 = time.perf_counter()
+    host = farneback_pairs(gray, prev, nxt)
+    host_s = time.perf_counter() - t1
+    epe = (flow_card - host).norm(dim=-1)
+    if not epe.max().item() <= NODES_FLOW_CARD_CPU_PX:
+        raise AssertionError(f"nodes card vs cpu: farneback end-point "
+                             f"difference {epe.max().item()}")
+    out.update({"farneback_pairs": int(len(prev)),
+                "farneback_hw": list(gray.shape[1:]),
+                "farneback_end_point_diff_max_px": epe.max().item(),
+                "farneback_end_point_diff_mean_px": epe.mean().item(),
+                "farneback_bound_px": NODES_FLOW_CARD_CPU_PX,
+                "farneback_host_seconds_4_pairs": host_s,
+                "flow_mean_px": host.norm(dim=-1).mean().item()})
+    # the tracker at 97 frames, 512x896: its flows are batched FLOW_PAIRS
+    # pairs at a time, so its peak should not grow with the clip
+    long_clip = textured_clip(97, 512, 896, TRACK_SHIFT, SEED + 147, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    tracks, vis = track_video_flow(long_clip.astype(np.float32) / 255.0,
+                                   density=TRACK_DENSITY,
+                                   depth_backend="luminance", device=dev)
+    torch.cuda.synchronize()
+    if not (np.isfinite(tracks).all() and vis[-1].any()):
+        raise AssertionError("nodes: the flow tracker at 97 frames")
+    out["farneback_tracker_97f"] = {
+        "seconds": time.perf_counter() - t1, "frames": 97, "hw": [512, 896],
+        "tracks": int(tracks.shape[1]), "flow_pairs_a_batch": FLOW_PAIRS,
+        "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "visible_share_last": float(vis[-1].mean())}
+    return out
 
 
 def _nodes_targets():
@@ -3256,9 +3470,12 @@ def phase_nodes(dev, results: dict) -> None:
     depth annotators (VideoToDepth through Depth-Anything-V2-Large, then
     ZoeDepth ZoeD_M12_N, each read from a reference-format file of random
     weights) on a textured 512x896x49f clip; (b) VideoToTrackingPredict
-    (no DELTA file: the device flow tracker), VideoToTrackingVisualizeAll
-    and VideoToCanny on it; (c) LoadFlexAMModel at Wan2.2-Fun-5B width and
-    FlexAMV2VSampler at the widgets' defaults (480x832x49f, 5,460 tokens
+    (no DELTA file: the Farneback tracker), VideoToTrackingVisualizeAll
+    and VideoToCanny on it, and VideoToPose (DWPose on the tiny graphs,
+    then on YOLOX-L and RTMPose-l of random weights, then raw keypoints)
+    on a 480x832 crop; (c) LoadFlexAMModel at
+    Wan2.2-Fun-5B width and FlexAMV2VSampler at the widgets' defaults
+    (480x832x49f, 5,460 tokens
     with the ref frame), 2 steps with a rank-8 LoRA through the host cache,
     a second run at strength 0.5 (1 step), an fg_generation step with a
     mask video and a step after FunAttention("sparse"); (d) the card
@@ -3269,12 +3486,16 @@ def phase_nodes(dev, results: dict) -> None:
 
     import numpy as np
     import torch
+
+    import flexam_tpu_torch.perception as perception
     from flexam_tpu_torch import nodes as N
     from flexam_tpu_torch.core.attention import _backend_choice, exact_calls
     from flexam_tpu_torch.io.checkpoints import save_safetensors
     from flexam_tpu_torch.perception import depth as depth_registry
     from flexam_tpu_torch.perception import depth_anything as dav2
+    from flexam_tpu_torch.perception import flow_device
     from flexam_tpu_torch.perception import zoedepth as zoe
+    from flexam_tpu_torch.testing import write_dwpose, write_tiny_dwpose
     from flexam_tpu_torch.tools.flow_accuracy import textured_clip
 
     t0 = time.perf_counter()
@@ -3301,7 +3522,7 @@ def phase_nodes(dev, results: dict) -> None:
 
     envs = ("FLEXAM_DEPTH_BACKEND", "FLEXAM_UNIDEPTH_CKPT",
             "FLEXAM_DAV2_CKPT", "FLEXAM_ZOE_CKPT", "FLEXAM_DELTA_CKPT",
-            "FLEXAM_ATTENTION")
+            "FLEXAM_ATTENTION", "FLEXAM_DWPOSE_DET", "FLEXAM_DWPOSE_POSE")
     saved = {k: os.environ.pop(k, None) for k in envs}
     picked = []
     originals = {n: depth_registry.DEPTH_BACKENDS[n]
@@ -3378,20 +3599,29 @@ def phase_nodes(dev, results: dict) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b) tracking, the visualizers and Canny
+        # (b) tracking (the Farneback tracker), the visualizers, Canny
         picked.clear()
         t1 = start()
-        tracks, vis = N.VideoToTrackingPredict().process(
-            video, density=TRACK_DENSITY, video_length=F, device=dev)
+        # (the node takes the tracker from the perception package)
+        with StageTimer([(perception, "track_video_flow"),
+                         (flow_device, "track_video_flow_device")],
+                        keep_returned=False) as st:
+            tracks, vis = N.VideoToTrackingPredict().process(
+                video, density=TRACK_DENSITY, video_length=F, device=dev)
         secs, peak = stop(t1)
         if tracks.shape[:1] != (F,) or tracks.shape[-1] != 3 or \
                 vis.dtype != bool or not np.isfinite(tracks).all() or \
-                not vis.any():
-            raise AssertionError(f"nodes: tracking {tracks.shape}")
-        out["tracking"] = {"seconds": secs, "tracks": int(tracks.shape[1]),
+                not vis.any() or st.calls != {"track_video_flow": 1}:
+            raise AssertionError(f"nodes: tracking {tracks.shape} "
+                                 f"{st.calls}")
+        out["tracking"] = {"tracker": "farneback", "seconds": secs,
+                           "tracks": int(tracks.shape[1]),
+                           "hw": [Hp, Wp], "frames": F,
                            "visible_share_last": float(vis[-1].mean()),
                            "depth_backend": picked,
                            "peak_memory_allocated_gb": peak}
+        print(json.dumps({"nodes_part": "tracking", **out["tracking"]}),
+              flush=True)
         t1 = time.perf_counter()
         streams = N.VideoToTrackingVisualizeAll().process(
             tracks, vis, input_video=video)
@@ -3415,6 +3645,71 @@ def phase_nodes(dev, results: dict) -> None:
         del canny
         tracking_video, depth_video, *cos = streams
         del streams
+
+        # (b) VideoToPose: the native DWPose on the tiny graphs, then the
+        # raw-keypoint branch, on a 480x832 crop
+        ph, pw = NODES_POSE_HW
+        pose_video = video[:, :ph, :pw]
+        det, pose = write_tiny_dwpose(str(root), seed=SEED + 144)
+        os.environ["FLEXAM_DWPOSE_DET"] = det
+        os.environ["FLEXAM_DWPOSE_POSE"] = pose
+        t1 = start()
+        rendered, = N.VideoToPose().process(pose_video, video_length=F,
+                                            device=dev)
+        secs, peak = stop(t1)
+        os.environ.pop("FLEXAM_DWPOSE_DET")
+        os.environ.pop("FLEXAM_DWPOSE_POSE")
+        if rendered.shape != (1, 3, F, ph, pw) or not (
+                np.isfinite(rendered).all() and rendered.min() >= 0
+                and 0 < rendered.max() <= 1):
+            raise AssertionError(f"nodes: VideoToPose {rendered.shape}")
+        out["pose_dwpose"] = {"seconds": secs, "frames": F, "hw": [ph, pw],
+                              "frames_per_second": F / secs,
+                              "peak_memory_allocated_gb": peak,
+                              "drawn_share": float((rendered > 0).any(1)
+                                                   .mean())}
+        # the same at YOLOX-L and RTMPose-l width (random weights, two
+        # persons a frame): the real path's work
+        t1 = time.perf_counter()
+        published = write_dwpose(str(root), seed=SEED + 146)
+        write_s = time.perf_counter() - t1
+        os.environ["FLEXAM_DWPOSE_DET"], os.environ["FLEXAM_DWPOSE_POSE"] = \
+            published
+        t1 = start()
+        rendered, = N.VideoToPose().process(pose_video, video_length=F,
+                                            device=dev)
+        secs, peak = stop(t1)
+        os.environ.pop("FLEXAM_DWPOSE_DET")
+        os.environ.pop("FLEXAM_DWPOSE_POSE")
+        if rendered.shape != (1, 3, F, ph, pw) or not (
+                np.isfinite(rendered).all() and rendered.min() >= 0
+                and 0 < rendered.max() <= 1):
+            raise AssertionError(f"nodes: VideoToPose (YOLOX-L, RTMPose-l) "
+                                 f"{rendered.shape}")
+        out["pose_dwpose_published"] = {
+            "seconds": secs, "frames": F, "hw": [ph, pw],
+            "frames_per_second": F / secs, "peak_memory_allocated_gb": peak,
+            "graphs_mb": [os.path.getsize(p) / 1e6 for p in published],
+            "write_seconds": write_s,
+            "drawn_share": float((rendered > 0).any(1).mean())}
+        rs = np.random.RandomState(SEED + 145)
+        fixture = root / "keypoints.npz"
+        np.savez(fixture, keypoints=rs.uniform(0.05, 0.95, (F, 2, 133, 2)),
+                 scores=rs.uniform(0.0, 1.0, (F, 2, 133)))
+        t1 = time.perf_counter()
+        drawn, = N.VideoToPose().process(pose_video, video_length=F,
+                                         fixture=str(fixture), device=dev)
+        kp_s = time.perf_counter() - t1
+        if drawn.shape != (1, 3, F, ph, pw) or not drawn.any():
+            raise AssertionError(f"nodes: VideoToPose keypoints "
+                                 f"{drawn.shape}")
+        out["pose_keypoints"] = {"host_seconds": kp_s, "persons": 2,
+                                 "drawn_share": float((drawn > 0).any(1)
+                                                      .mean())}
+        print(json.dumps({"nodes_part": "pose", **{
+            k: out[k] for k in ("pose_dwpose", "pose_dwpose_published",
+                                "pose_keypoints")}}), flush=True)
+        del rendered, drawn
 
         # (c) the loader and the sampler at 5B width
         t1 = start()
@@ -3540,6 +3835,8 @@ def phase_nodes(dev, results: dict) -> None:
 
         # (d) the card against the CPU
         out["card_vs_cpu"] = nodes_card_vs_cpu(dev)
+        out["card_vs_cpu"].update(pose_flow_card_vs_cpu(
+            dev, clip_u8[:, :ph, :pw], det, pose, published))
         print(json.dumps({"nodes_part": "card_vs_cpu",
                           **out["card_vs_cpu"]}), flush=True)
     finally:

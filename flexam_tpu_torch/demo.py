@@ -38,10 +38,12 @@ checkpoint's or the random DiT.
 A video without tracks is tracked on the device (`perception/
 tracking.py dispatch_tracking`): `--tracking_method DELTA` (the default)
 runs DenseTrack3D from `--delta_ckpt` / FLEXAM_DELTA_CKPT, or the flow
-tracker when no checkpoint maps; `--tracking_method flow` runs the device
-flow tracker (JAX's host Farneback needs OpenCV, which the port does not
-use). `--repaint true` generates the first frame natively, depth-conditioned
-(`repaint.py`, depth from `perception/depth.py`).
+tracker when no checkpoint maps; `--tracking_method flow` runs JAX's
+baseline, the Farneback tracker (`perception/tracking.py
+track_video_flow`, OpenCV's Farneback rebuilt in `perception/
+farneback.py`), on the demo's device. `--repaint true` generates the
+first frame natively, depth-conditioned (`repaint.py`, depth from
+`perception/depth.py`).
 
 Geometry models (`perception/{moge,vggt,pi3}.py`), from shape-mapped
 checkpoints: an image input without `--moge_npz` runs MoGe-2 from
@@ -415,12 +417,12 @@ def main(argv=None):
                 raise SystemExit("--tracking_method flow needs a video "
                                  "--input_path")
             from flexam_tpu_torch.perception.tracking import \
-                dispatch_tracking
-            print("NOTE: built-in optical-flow tracker on the device "
+                track_video_flow
+            print("NOTE: built-in optical-flow baseline tracker "
                   "(plug DELTA via --tracks_npz for learned tracking)")
-            tracks, vis = dispatch_tracking(input_video, "flow",
-                                            density=args.density,
-                                            device=device)
+            tracks, vis = track_video_flow(input_video,
+                                           density=args.density,
+                                           device=device)
         elif args.tracks_npz:
             data = np.load(args.tracks_npz)
             tracks = np.asarray(data["tracks"], np.float32)

@@ -17,19 +17,13 @@ and every method is a plain function over numpy arrays that runs
 standalone. The models run on CUDA: `LoadFlexAMModel.loadmodel` and the
 model annotators take a `device` keyword (not a widget), "cuda" unless the
 caller passes "cpu"; the sampler runs on its pipeline's device. OpenCV's
-steps (`VideoToCanny`, the KJNodes heatmap) are `utils/cv.py`'s numpy and
-torch rebuilds, host work as OpenCV's is.
+steps (`VideoToCanny`, the KJNodes heatmap, the pose drawing and
+DWPose's crops, the flow tracker's Farneback) are the port's own rebuilds
+(`utils/cv.py`, `perception/farneback.py`), equal to OpenCV's or within a
+bound that their tests state; DWPose's two ONNX graphs run through
+`perception/onnx_graph.py` on the annotator's `device`.
 
 Deliberate divergences from JAX's nodes:
-  * `VideoToTrackingPredict` without a DELTA checkpoint runs the device
-    flow tracker (`perception/flow_device.py`); JAX's node runs OpenCV's
-    Farneback on the host, which the port does not have;
-  * `VideoToPose`'s keypoint branch (`pose_render`) and its
-    FLEXAM_DWPOSE_* branch (DWPose through `cv2.dnn`) raise
-    NotImplementedError (ROADMAP A item 7); its backend and fixture
-    branch with a rendered `pose` video runs;
-  * the KJNodes heatmap's INTER_LINEAR resize is `media.resize_frames_u8`,
-    within one level of OpenCV's 11-bit fixed point;
   * `LoadFlexAMModel(random_init=...)` draws every model in the DiT's
     dtype (JAX draws the VAE and umT5 in float32), as the demo does; the
     offload modes are kept as strings only (ROADMAP A15);
@@ -808,32 +802,32 @@ class VideoToDepth(_ExternalAnnotator):
 
 class VideoToPose(_ExternalAnnotator):
     """`VideoToPose` (`annotator/nodes.py:234-295`): the DWPose skeleton
-    render, from a backend or fixture giving a rendered 'pose' video
-    [T,H,W,3] 0..1. Raw RTMPose keypoints ('keypoints' + 'scores', drawn
-    by `pose_render`) and the native DWPose (FLEXAM_DWPOSE_DET /
-    FLEXAM_DWPOSE_POSE, through `cv2.dnn` in JAX) are not ported yet: they
-    raise NotImplementedError (ROADMAP A item 7)."""
+    render. Takes (a) a backend or fixture with a rendered 'pose' video
+    [T,H,W,3] 0..1, or (b) raw RTMPose keypoints ('keypoints' [T,P,133,2]
+    + 'scores' [T,P,133]) drawn by `perception/pose_render.py`, or, with
+    neither and FLEXAM_DWPOSE_DET / FLEXAM_DWPOSE_POSE set, (c) the native
+    DWPose (`perception/dwpose.py`), its two ONNX graphs on `device`."""
     BACKEND = "pose"
 
-    def process(self, input_video, video_length=81, fixture=None):
+    def process(self, input_video, video_length=81, fixture=None,
+                device="cuda"):
         fixture = fixture or None          # ComfyUI passes "" when unset
         v = self._video(input_video, video_length)
         if (self.BACKEND not in ANNOTATOR_BACKENDS and fixture is None
                 and os.environ.get("FLEXAM_DWPOSE_DET")
                 and os.environ.get("FLEXAM_DWPOSE_POSE")):
-            raise NotImplementedError(
-                "VideoToPose: the native DWPose (YOLOX + RTMPose through "
-                "cv2.dnn in the JAX package, perception/dwpose.py) is not "
-                "ported to flexam_tpu_torch yet (ROADMAP A item 7); "
-                "register a 'pose' backend or pass a fixture with a "
-                "rendered 'pose' video")
+            # the full native DWPose: YOLOX + RTMPose
+            from flexam_tpu_torch.perception.dwpose import dwpose_video
+            p = dwpose_video(v, device=device)
+            return (p.transpose(3, 0, 1, 2)[None],)
         out = self._run(v, fixture)
         if isinstance(out, dict) and "keypoints" in out:
-            raise NotImplementedError(
-                "VideoToPose: rendering raw keypoints (perception/"
-                "pose_render.py, OpenCV drawing) is not ported to "
-                "flexam_tpu_torch yet (ROADMAP A item 7); give a rendered "
-                "'pose' video instead")
+            from flexam_tpu_torch.perception.pose_render import \
+                render_pose_video
+            t, h, w = v.shape[:3]
+            p = render_pose_video(np.asarray(out["keypoints"]),
+                                  np.asarray(out["scores"]), h, w)[:t]
+            return (p.transpose(3, 0, 1, 2)[None],)
         p = np.asarray(out["pose"] if isinstance(out, dict) else out,
                        np.float32)
         return (p.transpose(3, 0, 1, 2)[None],)
@@ -843,9 +837,9 @@ class VideoToTrackingPredict(_ExternalAnnotator):
     """`VideoToTrackingPredict` (`annotator/nodes.py:296-434`): DELTA
     DenseTrack3D + depth dense 3D tracks when `find_delta_checkpoint()`
     finds a file, a backend or fixture (keys 'tracks' [T,N,3] +
-    'visibility' [T,N]), else the device flow tracker
-    (`perception/flow_device.py`; JAX's node runs OpenCV's Farneback on
-    the host there). The models run on `device`."""
+    'visibility' [T,N]), else JAX's baseline, the Farneback flow tracker
+    (`perception/tracking.py track_video_flow`). The models and the
+    tracker run on `device`."""
     BACKEND = "tracking"
     RETURN_TYPES = ("TRACKING_DATA", "TRACKING_DATA")
     RETURN_NAMES = ("pred_tracks", "pred_visibility")
@@ -868,18 +862,18 @@ class VideoToTrackingPredict(_ExternalAnnotator):
         v = self._video(input_video, video_length)
         if self.BACKEND not in ANNOTATOR_BACKENDS and fixture is None:
             from flexam_tpu_torch.perception import (find_delta_checkpoint,
-                                                     track_video_delta)
-            from flexam_tpu_torch.perception.flow_device import \
-                track_video_flow_device
+                                                     track_video_delta,
+                                                     track_video_flow)
             ckpt = find_delta_checkpoint()
             if ckpt:      # the learned path, as `annotator/nodes.py:325-362`
                 return track_video_delta(v, density=density, ckpt=ckpt,
                                          device=device)
-            print("VideoToTrackingPredict: the device optical-flow tracker "
+            print("VideoToTrackingPredict: built-in optical-flow baseline "
                   "(drop densetrack3d.pth in ./checkpoints or register a "
                   "backend for learned tracking)")
-            return track_video_flow_device(v, density=density,
+            tracks, vis = track_video_flow(v, density=density,
                                            device=device)
+            return tracks, vis
         out = self._run(v, fixture, density=density)
         return (np.asarray(out["tracks"], np.float32),
                 np.asarray(out["visibility"]).astype(bool))

@@ -14,18 +14,21 @@ model.
   depth_anything  Depth-Anything-V2-Large relative depth (name-mapped,
                 coverage-gated loader)
   flow_device   the pyramidal Lucas-Kanade flow tracker on the device
-  tracking      DELTA tracking of a video and the tracker dispatch
+  farneback     OpenCV's Farneback dense flow, in torch
+  tracking      DELTA tracking, the Farneback tracker and the dispatch
   depth         the pluggable depth-backend registry
   pose_solver   camera extrinsics from 3D tracks (robust Kabsch)
   poses         VGGT/Pi3 pose-encoding post-processing + npz fixtures
+  dwpose        DWPose: YOLOX + RTMPose ONNX graphs (onnx_graph) on the
+                device, numpy pre- and post-processing
+  pose_render   the OpenPose skeleton drawing of raw wholebody keypoints
 
-The other perception models of the JAX package (DepthCrafter, DWPose and
-the pose renderer) are not ported yet (ROADMAP A item 7): their names are
-absent here.
+DepthCrafter (ROADMAP A item 7) is not ported yet: its names are absent
+here.
 
 Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT,
 FLEXAM_MOGE_CKPT, FLEXAM_VGGT_CKPT, FLEXAM_PI3_CKPT, FLEXAM_ZOE_CKPT,
-FLEXAM_DAV2_CKPT."""
+FLEXAM_DAV2_CKPT, FLEXAM_DWPOSE_DET + FLEXAM_DWPOSE_POSE."""
 
 from flexam_tpu_torch.perception.depth import (  # noqa: F401
     estimate_depth,
@@ -74,6 +77,12 @@ def __getattr__(name):
     if name in ("ZoeDepth", "ZoeDepthConfig", "load_zoedepth",
                 "zoe_depth_video"):
         from flexam_tpu_torch.perception import zoedepth as _m
+        return getattr(_m, name)
+    if name in ("DWPoseDetector", "dwpose_video"):
+        from flexam_tpu_torch.perception import dwpose as _m
+        return getattr(_m, name)
+    if name in ("render_pose_video", "draw_pose", "wholebody_to_openpose"):
+        from flexam_tpu_torch.perception import pose_render as _m
         return getattr(_m, name)
     if name in ("track_video_flow_device", "dense_flow"):
         from flexam_tpu_torch.perception import flow_device as _m

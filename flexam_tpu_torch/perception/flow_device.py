@@ -13,10 +13,10 @@ ops on the caller's device (CUDA unless the caller asks for the CPU):
     sampled forward flow, kill tracks on forward<->backward inconsistency
     and out-of-bounds.
 
-Only tracks [T, N, 3] and visibility cross back to the host. The JAX
-package keeps OpenCV's Farneback (`tracking.track_video_flow`) as its host
-baseline; the port has no OpenCV, so this tracker is the flow method on
-every device (`tracking.dispatch_tracking`).
+Only tracks [T, N, 3] and visibility cross back to the host. As in JAX,
+`tracking.dispatch_tracking` takes this tracker on the accelerator (or
+under FLEXAM_FLOW=device) and OpenCV's Farneback (`tracking.
+track_video_flow`) on the CPU.
 """
 
 from __future__ import annotations

@@ -4,14 +4,11 @@ Port of `flexam_tpu/perception/tracking.py`. The reference's tracks come
 from DELTA DenseTrack3D + UniDepth (`pipelines.py:1362-1499`);
 `track_video_delta` runs the port's DenseTrack3D on a depth from the
 registry (`perception/depth.py`) and subsamples its dense grid by
-`density`. `dispatch_tracking` is the demo's and the server's choice
-between it and the flow tracker.
-
-Deliberate divergence: the JAX package's host flow tracker
-(`track_video_flow`) is OpenCV's Farneback, and the port has no OpenCV.
-Here `track_video_flow` keeps JAX's signature and raises, and the flow
-method is the device tracker (`perception/flow_device.py`, JAX's
-`flow_jax.py`) on every device; FLEXAM_FLOW=host raises.
+`density`. `track_video_flow` is JAX's baseline: OpenCV's Farneback flow
+(`perception/farneback.py`, here on `device`) chained over a stride-
+`density` grid with a forward-backward check. `dispatch_tracking` is the
+demo's and the server's choice between them and the device LK tracker
+(`perception/flow_device.py`), by JAX's rule.
 """
 
 from __future__ import annotations
@@ -20,6 +17,7 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def find_delta_checkpoint() -> Optional[str]:
@@ -38,14 +36,6 @@ def find_delta_checkpoint() -> Optional[str]:
     return None
 
 
-def _opencv_flow():
-    return NotImplementedError(
-        "the host flow tracker is OpenCV's Farneback, which the PyTorch "
-        "port does not use; the flow method runs the device tracker "
-        "(perception.flow_device.track_video_flow_device; unset "
-        "FLEXAM_FLOW=host)")
-
-
 def dispatch_tracking(video, method: str = "auto", density: int = 10,
                       ckpt: Optional[str] = None,
                       depth_backend: Optional[str] = None,
@@ -54,7 +44,10 @@ def dispatch_tracking(video, method: str = "auto", density: int = 10,
     learned tracker when a checkpoint exists and falls back to the flow
     tracker otherwise (random-weight DELTA gives noise tracks; never serve
     those silently); 'auto' picks delta iff a checkpoint is found; 'flow'
-    forces the flow tracker. Runs on `device`."""
+    forces the flow tracker. Runs on `device`; the flow method is the
+    device LK tracker there unless `device` is the CPU or FLEXAM_FLOW=host,
+    which run the Farneback tracker on the CPU (FLEXAM_FLOW=device forces
+    the LK tracker)."""
     method = (method or "auto").lower()
     ckpt = ckpt or find_delta_checkpoint()
     if method in ("delta", "auto") and ckpt:
@@ -75,13 +68,19 @@ def dispatch_tracking(video, method: str = "auto", density: int = 10,
     elif method == "delta":
         print("NOTE: no densetrack3d.pth found — using the optical-flow "
               "baseline tracker instead of random weights")
-    if os.environ.get("FLEXAM_FLOW", "auto") == "host":
-        raise _opencv_flow()
-    from flexam_tpu_torch.perception.flow_device import \
-        track_video_flow_device
-    return track_video_flow_device(video, density=density,
-                                   depth_backend=depth_backend,
-                                   device=device)
+    # the flow method, JAX's rule: the device LK tracker on the accelerator
+    # (CUDA here, the TPU in JAX) or under FLEXAM_FLOW=device, Farneback on
+    # the CPU; FLEXAM_FLOW=host runs Farneback on the CPU
+    choice = os.environ.get("FLEXAM_FLOW", "auto")
+    if choice != "host":
+        if choice == "device" or torch.device(device).type != "cpu":
+            from flexam_tpu_torch.perception.flow_device import \
+                track_video_flow_device
+            return track_video_flow_device(video, density=density,
+                                           depth_backend=depth_backend,
+                                           device=device)
+    return track_video_flow(video, density=density,
+                            depth_backend=depth_backend, device="cpu")
 
 
 def track_video_delta(
@@ -135,13 +134,95 @@ def _to_thwc(video) -> np.ndarray:
     return v
 
 
+def _sample_bilinear(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """img [H, W(, C)], xy [N, 2] -> [N(, C)] float64 with border clamp:
+    JAX's numpy `_sample_bilinear` in its dtypes (a float32 `xy` is
+    clipped at float32 bounds; the fractions, and so the sums, are
+    float64)."""
+    h, w = img.shape[:2]
+    hi_x, hi_y = w - 1.001, h - 1.001
+    if xy.dtype == torch.float32:
+        hi_x, hi_y = float(np.float32(hi_x)), float(np.float32(hi_y))
+    x = xy[:, 0].clamp(0, hi_x)
+    y = xy[:, 1].clamp(0, hi_y)
+    x0 = x.to(torch.int32).long()
+    y0 = y.to(torch.int32).long()
+    fx = x.double() - x0.double()
+    fy = y.double() - y0.double()
+    if img.dim() == 3:
+        fx, fy = fx[:, None], fy[:, None]
+    a = img[y0, x0]
+    b = img[y0, x0 + 1]
+    c = img[y0 + 1, x0]
+    d = img[y0 + 1, x0 + 1]
+    return (a * (1 - fx) * (1 - fy) + b * fx * (1 - fy)
+            + c * (1 - fx) * fy + d * fx * fy)
+
+
+FLOW_PAIRS = 8          # frame pairs whose flows track_video_flow batches
+
+
 def track_video_flow(
     video: np.ndarray,                 # [1,3,T,H,W] or [T,H,W,3] in [0,1]
     density: int = 10,
     depth_backend: Optional[str] = None,
     fb_thresh: float = 1.5,
+    device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """JAX's host baseline, OpenCV's Farneback: not in the port, which has
-    no OpenCV (the module docstring). `dispatch_tracking(video, "flow")`
-    runs the device tracker instead."""
-    raise _opencv_flow()
+    """JAX's host baseline tracker on `device`: OpenCV's Farneback flow
+    (pyr_scale 0.5, 3 levels, winsize 15, 3 iterations, poly_n 5,
+    poly_sigma 1.2) forward and backward between consecutive frames,
+    FLOW_PAIRS pairs a batch (the memory stays that of FLOW_PAIRS pairs
+    whatever the clip's length), chained over a stride-`density` grid of
+    frame 0;
+    a track dies out of bounds or when its forward-backward error reaches
+    `fb_thresh`. Returns (tracks [T, N, 3] with (u, v, depth), visibility
+    [T, N]) in the DELTA format the rasterizers take."""
+    from flexam_tpu_torch.device import resolve_device
+    from flexam_tpu_torch.perception.depth import estimate_depth
+    from flexam_tpu_torch.perception.farneback import farneback_pairs
+
+    dev = resolve_device(device)
+    v = _to_thwc(video)
+    t, h, w, _ = v.shape
+    # JAX's gray frames, the same numpy expression on the host
+    gray = np.stack([(f @ np.array([0.299, 0.587, 0.114], np.float32) * 255
+                      ).astype(np.uint8) for f in v])
+
+    ys = np.arange(density // 2, h, density, dtype=np.float32)
+    xs = np.arange(density // 2, w, density, dtype=np.float32)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    pts = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1)   # [N, 2]
+    n = len(pts)
+
+    depth = estimate_depth(v, backend=depth_backend, device=dev)  # [T,H,W]
+    depth = torch.from_numpy(np.asarray(depth, np.float32)).to(dev)
+    frames = torch.from_numpy(gray).to(dev)
+
+    tracks = torch.zeros((t, n, 3), dtype=torch.float32, device=dev)
+    vis = torch.zeros((t, n), dtype=torch.bool, device=dev)
+    cur = torch.from_numpy(pts).to(dev)     # float64 from the first step
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    for i in range(t):
+        inb = ((cur[:, 0] >= 0) & (cur[:, 0] < w)
+               & (cur[:, 1] >= 0) & (cur[:, 1] < h))
+        alive &= inb
+        tracks[i, :, :2] = cur
+        tracks[i, :, 2] = _sample_bilinear(depth[i], cur)
+        vis[i] = alive
+        if i == t - 1:
+            break
+        if i % FLOW_PAIRS == 0:       # the next pairs' flows, both ways
+            p = np.arange(i, min(i + FLOW_PAIRS, t - 1))
+            flows = farneback_pairs(frames, np.concatenate([p, p + 1]),
+                                    np.concatenate([p + 1, p]))
+            fwd, bwd = flows[:len(p)], flows[len(p):]
+        step = _sample_bilinear(fwd[i % FLOW_PAIRS], cur)      # [N, 2]
+        nxt = cur + step
+        # forward-backward consistency: a point that lands somewhere the
+        # backward flow does not return from is occluded / lost
+        back = _sample_bilinear(bwd[i % FLOW_PAIRS], nxt)
+        err = torch.sqrt(((step + back) ** 2).sum(dim=1))
+        alive &= err < fb_thresh
+        cur = nxt
+    return tracks.cpu().numpy(), vis.cpu().numpy()

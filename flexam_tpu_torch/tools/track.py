@@ -13,8 +13,8 @@ camera-pose solver:
 
 The input is what `utils/media.py` reads without a decoder: an `.npz`
 frame dump (`video` uint8 [T, H, W, 3]) or a 4-dim `.npy`. `--method flow`
-runs the device flow tracker (`perception/flow_device.py`): JAX's host
-Farneback needs OpenCV, which the port does not use.
+runs JAX's baseline, the Farneback tracker (`perception/tracking.py
+track_video_flow`), on the chosen device.
 """
 
 from __future__ import annotations
@@ -44,10 +44,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from flexam_tpu_torch.demo import _device
-    from flexam_tpu_torch.perception.flow_device import \
-        track_video_flow_device
     from flexam_tpu_torch.perception.tracking import (find_delta_checkpoint,
-                                                      track_video_delta)
+                                                      track_video_delta,
+                                                      track_video_flow)
     from flexam_tpu_torch.utils.media import get_video_input
 
     device = _device(args.platform)
@@ -72,10 +71,10 @@ def main(argv=None):
                                         depth_backend=args.depth_backend,
                                         device=device)
     else:
-        print("tracking: optical-flow tracker (device LK)")
-        tracks, vis = track_video_flow_device(
-            video, density=args.density, depth_backend=args.depth_backend,
-            device=device)
+        print("tracking: optical-flow baseline")
+        tracks, vis = track_video_flow(video, density=args.density,
+                                       depth_backend=args.depth_backend,
+                                       device=device)
 
     out = {"tracks": tracks.astype(np.float32),
            "visibility": vis.astype(bool)}

@@ -20,7 +20,8 @@ Any other file raises, naming the decoder it would need. Resizing, where a
 file is not at `sample_size` already, is the port's own: images follow
 PIL's `resize` (bicubic, antialiased when shrinking) in PIL's own 22-bit
 fixed point, so equal to it; video frames follow OpenCV's `INTER_LINEAR`
-in floating point, within one uint8 level of it. At `sample_size` both
+in its own 11-bit fixed point (`utils.cv.resize_u8_linear`), so equal to
+it. At `sample_size` both
 return the frames unchanged, as PIL and OpenCV do.
 
 `save_video` writes through `imageio` when it imports, else the `.npz`
@@ -138,30 +139,19 @@ def resize_image_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return out
 
 
-def _linear_weights(in_n: int, out_n: int):
-    """OpenCV's INTER_LINEAR taps: half-pixel centres, clamped at the
-    borders, no antialiasing."""
-    f = (np.arange(out_n) + 0.5) * (in_n / out_n) - 0.5
-    lo = np.floor(f).astype(np.int64)
-    frac = f - lo
-    frac = np.where(lo < 0, 0.0, frac)
-    lo = np.clip(lo, 0, in_n - 1)
-    frac = np.where(lo >= in_n - 1, 0.0, frac)
-    hi = np.minimum(lo + 1, in_n - 1)
-    return lo, hi, frac
-
-
 def resize_frames_linear(frames: np.ndarray, size: Tuple[int, int]
                          ) -> np.ndarray:
     """`cv2.resize(frame, (w, h))` (INTER_LINEAR) of float frames
-    [T, H, W, C], in the frames' dtype: OpenCV's taps (half-pixel centres,
-    clamped borders, no antialiasing), rows after columns."""
+    [T, H, W, C], in the frames' dtype: OpenCV's taps (`utils.cv.linear_taps`
+    at float64 positions: half-pixel centres, clamped borders, no
+    antialiasing), rows after columns."""
+    from flexam_tpu_torch.utils.cv import linear_taps
     h, w = size
     x = np.asarray(frames)
-    lo, hi, fr = _linear_weights(x.shape[2], w)
+    lo, hi, fr = linear_taps(x.shape[2], w, dtype=np.float64)
     fr = fr.astype(x.dtype)[None, None, :, None]
     x = x[:, :, lo] * (1 - fr) + x[:, :, hi] * fr
-    lo, hi, fr = _linear_weights(x.shape[1], h)
+    lo, hi, fr = linear_taps(x.shape[1], h, dtype=np.float64)
     fr = fr.astype(x.dtype)[None, :, None, None]
     return x[:, lo] * (1 - fr) + x[:, hi] * fr
 
@@ -280,12 +270,10 @@ def resize_frames_area(frames: np.ndarray, size: Tuple[int, int]
 
 def resize_frames_u8(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """OpenCV's `cv2.resize(frame, (w, h))` (INTER_LINEAR) of uint8 frames
-    [T, H, W, C], in float64 (OpenCV's 11-bit fixed point differs by at
-    most one level)."""
-    if frames.shape[1:3] == tuple(size):
-        return frames.copy()
-    x = resize_frames_linear(frames.astype(np.float64), size)
-    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+    [T, H, W, C], equal to it: `utils.cv.resize_u8_linear`, OpenCV's 11-bit
+    fixed point."""
+    from flexam_tpu_torch.utils.cv import resize_u8_linear
+    return resize_u8_linear(frames, tuple(size))
 
 
 def to_gray_u8(img: np.ndarray) -> np.ndarray:

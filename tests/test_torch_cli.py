@@ -45,6 +45,18 @@ from flexam_tpu_torch.utils import masks as tmasks
 from flexam_tpu_torch.utils import media as tmedia
 from flexam_tpu_torch.utils import timing as ttiming
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: beside the other test workers, torch's
+    intra-op threads would oversubscribe the cores and stall at every op's
+    barrier (tests/test_torch_video_tracking.py), so one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T, H, W = 9, 32, 32
 U8 = dict(rtol=0, atol=1.01 / 255)       # one uint8 step of the decode
 

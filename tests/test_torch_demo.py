@@ -25,6 +25,18 @@ import torch
 from flexam_tpu_torch.demo import main
 from flexam_tpu_torch.utils.media import read_video_frames
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: beside the other test workers, torch's
+    intra-op threads would oversubscribe the cores and stall at every op's
+    barrier (tests/test_torch_video_tracking.py), so one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T, H, W = 9, 32, 32
 BASE = ["--prompt", "a test scene", "--platform", "cpu",
         "--random_init", "tiny", "--sample_size", str(H), str(W),

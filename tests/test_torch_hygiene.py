@@ -49,21 +49,25 @@ def test_no_jax_import_in_source(path):
 
 
 # host libraries the card's machine does not have (or may lack)
-HOST_ONLY = ("matplotlib", "cv2", "PIL", "safetensors", "ml_dtypes")
+# (`google.protobuf`, not `google`: a namespace-package .pth may load the
+# bare `google` at interpreter start)
+HOST_ONLY = ("matplotlib", "cv2", "PIL", "safetensors", "ml_dtypes",
+             "google.protobuf", "onnx", "onnxruntime")
 
 
 def _host_only(name: str) -> bool:
-    return name.split(".")[0] in HOST_ONLY
+    return any(name == h or name.startswith(h + ".") for h in HOST_ONLY)
 
 
 @pytest.mark.parametrize("path", [p for p, _ in _modules()]
                          + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
 def test_no_host_only_library_import(path):
-    """AST scan: no `import matplotlib`, `cv2`, `PIL`, `safetensors` or
-    `ml_dtypes` anywhere in the port or the smoke (the conditioning modules
-    keep their own Spectral table and numpy painter, the masks and media
-    readers their own OpenCV / PIL steps, the checkpoint loaders their own
-    safetensors reader)."""
+    """AST scan: no `import matplotlib`, `cv2`, `PIL`, `safetensors`,
+    `ml_dtypes`, `google.protobuf`, `onnx` or `onnxruntime` anywhere in the
+    port or the smoke (the conditioning modules keep their own Spectral
+    table and numpy painter, the masks and media readers their own OpenCV /
+    PIL steps, the checkpoint loaders their own safetensors reader, DWPose
+    its own ONNX reader and runner)."""
     bad = [n for n in _imported_roots(path) if _host_only(n)]
     assert not bad, f"{path}: imports {bad}"
 
@@ -80,8 +84,8 @@ def test_importing_the_port_loads_no_host_only_library():
               "DeviceRasterizer\n"
               "tr = np.random.RandomState(0).rand(3, 5, 3).astype('f4') * 8\n"
               "DeviceRasterizer(tr, None, 8, 8, device='cpu').depth_video()\n"
-              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-              f"{HOST_ONLY!r})\n"
+              f"bad = sorted(m for m in sys.modules if any(m == h or "
+              f"m.startswith(h + '.') for h in {HOST_ONLY!r}))\n"
               "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -6,13 +6,16 @@ package's (`flexam_tpu/nodes.py`), on the CPU, mirroring
     RETURN_NAMES / FUNCTION / CATEGORY, and the ComfyUI call protocol;
   * the resolution snap, the visualizers (bit for bit), ImageMaximumNode
     after a resize (1e-6), ImageCollectNode, the camera preset nodes,
-    the KJNodes trajectory (within 1/255: the uint8 INTER_LINEAR resize is
-    within one level of OpenCV's), VideoToCanny (equal), LoadConfig on
+    the KJNodes trajectory (within 1/255, and equal: the uint8
+    INTER_LINEAR resize is OpenCV's fixed point), VideoToCanny (equal),
+    LoadConfig on
     each bundled YAML (and the bundled bytes equal to JAX's);
   * the annotators: the registry and fixture paths, VideoToPose's pose
-    branch and its two raising branches, VideoToDepth through UniDepth,
-    Depth-Anything-V2 and ZoeDepth on tiny random trees, and
-    VideoToTrackingPredict without DELTA against JAX's device flow tracker;
+    branch, its keypoint branch and its DWPose branch (the tiny ONNX
+    graphs of `flexam_tpu_torch/testing.py`, `cv2.dnn` in JAX),
+    VideoToDepth through UniDepth, Depth-Anything-V2 and ZoeDepth on tiny
+    random trees, and VideoToTrackingPredict without DELTA against JAX's
+    node (OpenCV's Farneback);
   * the sampler: the arguments each package's node passes to `generate`
     (captured; arrays within 1e-6) for motion_transfer, fg and bg masks,
     start / end images, RIFLEx, camera conditions and the refusal without
@@ -270,6 +273,20 @@ def test_kjnodes_trajectory_within_a_level_of_jax():
                                   J.CreateTrajectoryBasedOnKJNodes._heatmap())
 
 
+def test_kjnodes_trajectory_equals_jax():
+    """The trajectory's heatmap resize is OpenCV's INTER_LINEAR fixed point
+    (`utils.cv.resize_u8_linear`), so the node equals JAX's exactly."""
+    masks = np.zeros((2, 96, 160), np.float32)
+    for coords in (str([{"x": 10, "y": 12}, {"x": 80, "y": 50}]),
+                   [str([{"x": 30, "y": 40}, {"x": 150, "y": 90}]),
+                    str([{"x": 5, "y": 90}, {"x": 100, "y": 2}])]):
+        got, = N.CreateTrajectoryBasedOnKJNodes().createtrajectory(coords,
+                                                                   masks)
+        want, = J.CreateTrajectoryBasedOnKJNodes().createtrajectory(coords,
+                                                                    masks)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_canny_node_equals_jax():
     from tests.test_torch_cv import _textured
     rs = np.random.RandomState(0)
@@ -337,16 +354,50 @@ def test_annotator_registry_and_fixtures(tmp_path, monkeypatch):
 
 
 def test_pose_model_branches_raise(tmp_path, monkeypatch):
+    """VideoToPose raises where JAX's node does: with no backend, fixture
+    or DWPose files it needs an external model (RuntimeError in both), and
+    with FLEXAM_DWPOSE_DET / FLEXAM_DWPOSE_POSE naming a file that is no
+    ONNX model the reader refuses it (ValueError; JAX: cv2.error)."""
+    import cv2
     rs = np.random.RandomState(1)
     video = rs.rand(3, 16, 16, 3).astype(np.float32)
     kp = str(tmp_path / "kp.npz")
     np.savez(kp, keypoints=rs.rand(3, 1, 133, 2), scores=rs.rand(3, 1, 133))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        N.VideoToPose().process(video, 3, fixture=kp)
-    monkeypatch.setenv("FLEXAM_DWPOSE_DET", str(kp))
-    monkeypatch.setenv("FLEXAM_DWPOSE_POSE", str(kp))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        N.VideoToPose().process(video, 3)
+    monkeypatch.delenv("FLEXAM_DWPOSE_DET", raising=False)
+    monkeypatch.delenv("FLEXAM_DWPOSE_POSE", raising=False)
+    for node in (N.VideoToPose(), J.VideoToPose()):
+        with pytest.raises(RuntimeError, match="needs an external model"):
+            node.process(video, 3)
+    monkeypatch.setenv("FLEXAM_DWPOSE_DET", kp)
+    monkeypatch.setenv("FLEXAM_DWPOSE_POSE", kp)
+    with pytest.raises(ValueError, match="onnx: wire type"):
+        N.VideoToPose().process(video, 3, device="cpu")
+    with pytest.raises(cv2.error):
+        J.VideoToPose().process(video, 3)
+
+
+def test_pose_model_branches_match_jax(tmp_path, monkeypatch):
+    """Both model branches of VideoToPose equal JAX's node pixel for
+    pixel: raw keypoints from a fixture (drawn by `pose_render`), and the
+    native DWPose through FLEXAM_DWPOSE_DET / FLEXAM_DWPOSE_POSE on the tiny
+    YOLOX and RTMPose graphs (the port's ONNX runner on the CPU, `cv2.dnn`
+    in JAX)."""
+    from flexam_tpu_torch.testing import write_tiny_dwpose
+    rs = np.random.RandomState(1)
+    video = rs.rand(3, 16, 16, 3).astype(np.float32)
+    kp = str(tmp_path / "kp.npz")
+    np.savez(kp, keypoints=rs.rand(3, 1, 133, 2), scores=rs.rand(3, 1, 133))
+    got, = N.VideoToPose().process(video, 3, fixture=kp)
+    want, = J.VideoToPose().process(video, 3, fixture=kp)
+    assert got.shape == (1, 3, 3, 16, 16) and got.max() > 0
+    np.testing.assert_array_equal(got, want)
+    det, pose = write_tiny_dwpose(str(tmp_path))
+    monkeypatch.setenv("FLEXAM_DWPOSE_DET", det)
+    monkeypatch.setenv("FLEXAM_DWPOSE_POSE", pose)
+    got, = N.VideoToPose().process(video, 3, device="cpu")
+    want, = J.VideoToPose().process(video, 3)
+    assert got.shape == (1, 3, 3, 16, 16) and got.max() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def _depth_envs(monkeypatch):
@@ -409,24 +460,49 @@ def test_video_to_depth_through_unidepth(models, monkeypatch, tmp_path):
     _same_visualization(got, want, 2e-3)
 
 
+def _no_delta_env(monkeypatch, tmp_path):
+    for k in ("FLEXAM_DELTA_CKPT", "FLEXAM_DEPTH_BACKEND",
+              "FLEXAM_UNIDEPTH_CKPT", "FLEXAM_DAV2_CKPT", "FLEXAM_ZOE_CKPT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.chdir(tmp_path)                # no ./checkpoints here
+
+
 def test_tracking_predict_without_delta_is_the_device_flow_tracker(
         monkeypatch, tmp_path):
-    """No DELTA file: the port's node runs the device flow tracker, held to
-    JAX's device tracker (`flow_jax`) on the same clip as
-    tests/test_torch_flow_device.py holds it: 1e-3 px, visibility equal.
-    JAX's node would run OpenCV's Farneback here."""
-    from flexam_tpu.perception import flow_jax
+    """No DELTA file: the node runs the flow tracker (`track_video_flow`)
+    once, on the node's device, at the node's density, and returns its
+    tracks and visibility."""
+    import flexam_tpu_torch.perception as perception
     from tests.test_torch_flow_device import _translating
-    monkeypatch.delenv("FLEXAM_DELTA_CKPT", raising=False)
-    monkeypatch.delenv("FLEXAM_DEPTH_BACKEND", raising=False)
-    monkeypatch.delenv("FLEXAM_UNIDEPTH_CKPT", raising=False)
-    monkeypatch.delenv("FLEXAM_DAV2_CKPT", raising=False)
-    monkeypatch.delenv("FLEXAM_ZOE_CKPT", raising=False)
-    monkeypatch.chdir(tmp_path)                # no ./checkpoints here
+    _no_delta_env(monkeypatch, tmp_path)
+    calls = []
+    orig = perception.track_video_flow
+
+    def spy(video, **kw):
+        calls.append(kw)
+        return orig(video, **kw)
+
+    monkeypatch.setattr(perception, "track_video_flow", spy)
+    video = _translating(48, 64, 6, 2, seed=7)
+    tracks, vis = N.VideoToTrackingPredict().process(
+        video.transpose(3, 0, 1, 2)[None], density=8, device="cpu")
+    assert len(calls) == 1
+    assert calls[0]["device"] == "cpu" and calls[0]["density"] == 8
+    assert tracks.shape[0] == 6 and vis.shape == tracks.shape[:2]
+
+
+def test_tracking_predict_without_delta_matches_jax(monkeypatch, tmp_path):
+    """No DELTA file: the port's node runs JAX's baseline, the Farneback
+    tracker (on the CPU here), held to JAX's node, which runs OpenCV's
+    Farneback, on the clip of tests/test_torch_flow_device.py: 1e-3 px,
+    visibility equal."""
+    from tests.test_torch_flow_device import _translating
+    _no_delta_env(monkeypatch, tmp_path)
     video = _translating(48, 64, 6, 2, seed=7)
     got_t, got_v = N.VideoToTrackingPredict().process(
         video.transpose(3, 0, 1, 2)[None], density=8, device="cpu")
-    want_t, want_v = flow_jax.track_video_flow_device(video, density=8)
+    want_t, want_v = J.VideoToTrackingPredict().process(
+        video.transpose(3, 0, 1, 2)[None], density=8)
     np.testing.assert_allclose(got_t, want_t, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(got_v, want_v)
 

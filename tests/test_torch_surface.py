@@ -20,11 +20,8 @@ import flexam_tpu_torch
 # names of the JAX package whose modules are not ported yet, by ROADMAP item
 WAITING = {}
 # JAX's lazy perception names whose models are not ported yet, by ROADMAP
-# item (A, item 7: DWPose and the pose renderer)
-PERCEPTION_WAITING = {
-    "DWPoseDetector": "A7", "dwpose_video": "A7",
-    "render_pose_video": "A7", "draw_pose": "A7",
-    "wholebody_to_openpose": "A7"}
+# item (none since DWPose and the pose renderer)
+PERCEPTION_WAITING = {}
 # JAX's lazy top-level API (`flexam_tpu/__init__.py` `__getattr__`)
 LAZY = ("FlexAMGenerationPipeline", "FlexAMModels", "FlexAMOrchestrator",
         "FirstFrameRepainter")
@@ -144,7 +141,7 @@ def test_make_sampler_matches_jax(kind, order):
 def test_lazy_perception_names_match_jax(name):
     """Every model name JAX's perception package resolves lazily resolves in
     the port's too (MoGe, VGGT, Pi3, DenseTrack3D, UniDepth, the flow
-    tracker), to the object of the port's model module; a name of a model
+    tracker, DWPose and the pose renderer), to the object of the port's model module; a name of a model
     not ported yet is absent, and listed in PERCEPTION_WAITING."""
     import flexam_tpu.perception as jperc
     import flexam_tpu_torch.perception as tperc

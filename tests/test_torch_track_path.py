@@ -25,6 +25,18 @@ from flexam_tpu_torch.conditioning import (cosine_positional_encoding,
                                            rasterize_tracking_video)
 from flexam_tpu_torch.io.convert import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: beside the other test workers, torch's
+    intra-op threads would oversubscribe the cores and stall at every op's
+    barrier (tests/test_torch_video_tracking.py), so one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-4, atol=1e-5)
 T, H, W = 9, 32, 32
 KEYS = ("control_latents", "mask_latents", "masked_video_latents",

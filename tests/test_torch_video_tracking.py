@@ -8,10 +8,11 @@ Both packages run one set of weights: the port's tiny inits crossed to
 JAX's layout (the tiny pipeline of `tests/test_torch_serve.py`'s shapes,
 DenseTrack3D at `tests/test_densetrack3d.py`'s TINY, UniDepth at
 `tests/test_unidepth.py`'s). A DELTA checkpoint is loaded by both loaders
-with their default config swapped for the tiny one. The port's flow method
-is its device tracker; JAX's side runs its own (FLEXAM_FLOW=device), as
-the JAX demo's flow branch calls OpenCV's Farneback, which the port does
-not have (a recorded divergence).
+with their default config swapped for the tiny one. The dispatch's flow
+method runs each package's device tracker (FLEXAM_FLOW=device); the
+demo's flow branch, `tools/track --method flow`, `track_video_flow` and
+FLEXAM_FLOW=host run the Farneback tracker, OpenCV's in JAX and
+`perception/farneback.py` in the port.
 
 Tracks agree to 1e-3 px with equal visibility; videos within one uint8
 step of the decode (`tests/test_torch_cli.py`'s U8)."""
@@ -182,17 +183,21 @@ def test_dispatch_tracking_routes_match_jax(clip, tiny_loaders, monkeypatch,
 
 
 def test_flow_divergences_and_checkpoint_search(clip, monkeypatch, tmp_path):
-    """The host Farneback tracker needs OpenCV: `track_video_flow` keeps
-    JAX's signature and raises, and so does FLEXAM_FLOW=host; the
-    checkpoint search follows JAX's order."""
+    """The Farneback tracker: `track_video_flow` and FLEXAM_FLOW=host give
+    JAX's tracks (OpenCV's Farneback there); the checkpoint search follows
+    JAX's order."""
     _, video, _ = clip
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        ttrack.track_video_flow(video, density=DENSITY)
+    monkeypatch.delenv("FLEXAM_DEPTH_BACKEND", raising=False)
+    monkeypatch.delenv("FLEXAM_UNIDEPTH_CKPT", raising=False)
+    _same_tracks(ttrack.track_video_flow(video, density=DENSITY,
+                                         device="cpu"),
+                 jtrack.track_video_flow(video, density=DENSITY))
     monkeypatch.setenv("FLEXAM_FLOW", "host")
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        ttrack.dispatch_tracking(video, "flow", device="cpu")
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("FLEXAM_DELTA_CKPT", raising=False)
+    _same_tracks(ttrack.dispatch_tracking(video, "flow", density=DENSITY,
+                                          device="cpu"),
+                 jtrack.dispatch_tracking(video, "flow", density=DENSITY))
     assert ttrack.find_delta_checkpoint() is None
     (tmp_path / "checkpoints" / "DELTA").mkdir(parents=True)
     (tmp_path / "checkpoints" / "DELTA" / "densetrack3d.pth").write_bytes(b"")
@@ -206,8 +211,8 @@ def test_flow_divergences_and_checkpoint_search(clip, monkeypatch, tmp_path):
 def test_tools_track_matches_jax(clip, tiny_loaders, tmp_path, method):
     """`python -m flexam_tpu_torch.tools.track` on the .npz clip writes the
     tracks JAX's trackers give on the same frames (JAX's own CLI decodes
-    with OpenCV), and solved poses with --solve_poses."""
-    from flexam_tpu.perception.flow_jax import track_video_flow_device
+    with OpenCV; its flow method is the Farneback tracker), and solved
+    poses with --solve_poses."""
     from flexam_tpu_torch.tools import track
     path, video, _ = clip
     out = str(tmp_path / "tracks.npz")
@@ -220,7 +225,7 @@ def test_tools_track_matches_jax(clip, tiny_loaders, tmp_path, method):
         want = jtrack.track_video_delta(video, density=DENSITY,
                                         ckpt=tiny_loaders)
     else:
-        want = track_video_flow_device(video, density=DENSITY)
+        want = jtrack.track_video_flow(video, density=DENSITY)
     _same_tracks((data["tracks"], data["visibility"]), want)
     assert data["extrinsics"].shape == (T, 3, 4)
     assert data["intrinsics"].shape == (T, 3, 3)
@@ -251,12 +256,18 @@ def test_demo_video_runs_match_jax(pipes, clip, tiny_loaders, monkeypatch,
     path, video, _ = clip
     monkeypatch.setattr(tdemo, "_build_models", lambda args: tp)
     seen = {}
-    orig = ttrack.dispatch_tracking
 
-    def spy(*a, **k):
-        seen["tracks"] = orig(*a, **k)
-        return seen["tracks"]
-    monkeypatch.setattr(ttrack, "dispatch_tracking", spy)
+    def spy(orig):
+        def run(*a, **k):
+            seen["tracks"] = orig(*a, **k)
+            return seen["tracks"]
+        return run
+    # the DELTA branch dispatches; the flow branch runs the Farneback
+    # tracker, as JAX's demo does
+    monkeypatch.setattr(ttrack, "dispatch_tracking",
+                        spy(ttrack.dispatch_tracking))
+    monkeypatch.setattr(ttrack, "track_video_flow",
+                        spy(ttrack.track_video_flow))
     argv = ["--prompt", "a test scene", "--platform", "cpu",
             "--random_init", "tiny", "--sample_size", str(H), str(W),
             "--video_length", str(T), "--num_inference_steps", "2",
@@ -282,8 +293,9 @@ def test_demo_video_runs_match_jax(pipes, clip, tiny_loaders, monkeypatch,
         assert np.load(tmp_path / "port" / "temp_repainted.npy").shape == (
             H, W, 3)
     else:
-        tracks = jtrack.dispatch_tracking(video, mode.lower(),
-                                          density=DENSITY)
+        tracks = (jtrack.track_video_flow(video, density=DENSITY)
+                  if mode == "flow" else
+                  jtrack.dispatch_tracking(video, "delta", density=DENSITY))
         _same_tracks(seen["tracks"], tracks)
     want = _jax_apply_tracks(jp, *tracks, first, tmp_path)
     assert got.shape == (1, 3, T, H, W)

@@ -145,11 +145,19 @@ def test_fusion_block_matches_jax(trees):
 
 
 @pytest.fixture(scope="module")
-def forwards(trees):
+def jax_forward():
+    """JAX's forward jitted once for the module (eagerly, JAX compiles it
+    op by op, about half a minute here); the models of `_models` share
+    it."""
+    return jax.jit(lambda p, x: J.zoedepth_forward(p, TINY_J, x))
+
+
+@pytest.fixture(scope="module")
+def forwards(trees, jax_forward):
     jparams, port = trees
     x = np.random.RandomState(5).rand(2, 64, 96, 3).astype(np.float32)
     got = T.zoedepth_forward(port, TINY, torch.from_numpy(x))
-    want = J.zoedepth_forward(jparams, TINY_J, jnp.asarray(x))
+    want = jax_forward(jparams, jnp.asarray(x))
     return got, want
 
 
@@ -169,17 +177,17 @@ def test_forward_matches_jax(forwards):
         close(got[k], want[k], err_msg=k)
 
 
-def _models(trees):
+def _models(trees, jax_forward):
     jparams, port = trees
     jm = J.ZoeDepth.__new__(J.ZoeDepth)
     jm.cfg, jm.params = TINY_J, jparams
-    jm._jit = jax.jit(lambda p, x: J.zoedepth_forward(p, TINY_J, x))
+    jm._jit = jax_forward
     return jm, T.ZoeDepth(TINY, params=port, device="cpu")
 
 
 @pytest.mark.parametrize("pad,flip", [(False, False), (True, True)])
-def test_infer_matches_jax(trees, pad, flip):
-    jm, tm = _models(trees)
+def test_infer_matches_jax(trees, jax_forward, pad, flip):
+    jm, tm = _models(trees, jax_forward)
     x = np.random.RandomState(6).rand(1, 3, 40, 56).astype(np.float32)
     got = tm.infer(x, pad_input=pad, with_flip_aug=flip)
     want = jm.infer(x, pad_input=pad, with_flip_aug=flip)
@@ -187,8 +195,8 @@ def test_infer_matches_jax(trees, pad, flip):
     close(got, want)
 
 
-def test_zoe_depth_video_matches_jax(trees):
-    jm, tm = _models(trees)
+def test_zoe_depth_video_matches_jax(trees, jax_forward):
+    jm, tm = _models(trees, jax_forward)
     video = np.random.RandomState(7).rand(3, 48, 64, 3).astype(np.float32)
     got = T.zoe_depth_video(video, model=tm, batch=2)
     close(got, J.zoe_depth_video(video, model=jm, batch=2))
