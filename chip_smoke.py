@@ -260,7 +260,54 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        which their weights rounded to TF32 must leave),
                        each graph timed, and Farneback's
                        flow between 3 frames of the crop on the card
-                       against the CPU (bound below).
+                       against the CPU (bound below);
+  repaint_flux         the FLUX.1-Depth repaint (`repaint_flux.py`): (a)
+                       FLUX.1-Depth-dev at its published widths (hidden
+                       3072, 24 heads, 19 double + 38 single blocks,
+                       in_channels 128: 11.9 B parameters), T5 v1.1 XXL
+                       (4.76 B), CLIP-L text and the FLUX VAE, random bf16
+                       weights drawn on the card; one 512x896 repaint of
+                       FLUX_STEPS steps (2,304 tokens: 1,792 image + 512
+                       T5), with the seconds of the text encode, the VAE
+                       encode, each step and the decode, and the peak; B1
+                       must launch 57 times a step and nothing else
+                       (exact_calls 0); (b) the transformer and VAE written
+                       as flux1-depth-dev.safetensors / ae.safetensors in
+                       the BFL / ae names (23.8 + 0.17 GB; the free disk
+                       printed first, the files deleted after), then
+                       `demo.main` at --random_init 5b, --repaint true with
+                       FLEXAM_FLUX_CKPT / FLEXAM_FLUX_AE, 17 frames,
+                       FLUX_DEMO_STEPS (30) steps: the write and read GB/s,
+                       the repaint's seconds and launches (B1 57 x 30 =
+                       1,710), the demo's wall and peak; `verify_ckpt
+                       --model flux` and `--model flux-ae` on the files;
+                       (c) the tiny repainter on the card against the CPU
+                       (bound below). The kernels phase holds B1 at
+                       FLUX's shape, [1, 2304, 24, 128], and at a ragged
+                       2,072 tokens (480x832), timed beside SDPA
+                       ("flux_shapes"; "repaint_launches");
+  depthcrafter         DepthCrafter (`perception/depthcrafter{,_model}.py`):
+                       (a) `estimate_depth` with FLEXAM_DEPTH_BACKEND=
+                       depthcrafter on a textured 512x896x32f clip, 2
+                       steps, fp32 (JAX's dtype), from files at the
+                       published widths (random bf16 values): the SVD UNet
+                       (320/640/1280/1280, 1.52 B), the SD VAE with the
+                       temporal decoder, the CLIP ViT-H/14 image tower;
+                       the seconds of the load, the encode, the CLIP
+                       embedding, a UNet pass and the decode, the peak (it
+                       must stay under 80 GB), the exact branch's calls
+                       and the kernels' launches (all 0: every head is 64
+                       wide or 80 or 512), and the largest exact call's
+                       fp32 logits unchunked (33 GB at 32 frames x 5 heads
+                       x 7,168 tokens) and as `attention_plain` chunks them
+                       (1 GiB); (b) the exact branch chunked by rows and by
+                       batch elements against one whole chunk on the card
+                       (bound below), timed; (c) `verify_ckpt` on the
+                       svd-unet, svd-vae and svd-clip files, the `onnx`
+                       depth hook on a tiny graph (card against CPU, the
+                       bound of the tiny DWPose graphs), and the tiny
+                       denoiser on the card against the CPU (bound below)
+                       ("depthcrafter_launches").
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -354,6 +401,24 @@ box sums in both places: a probe on the H100 found the card equal to the
 CPU, and the bound, NODES_FLOW_CARD_CPU_PX of end-point difference, is the
 bound its CPU test holds it to against OpenCV.
 
+The card against the CPU for FLUX (repaint_flux (c)), the tiny
+repainter in fp32 on both: its transformer's velocity within
+FLUX_CARD_CPU_REL = 1e-4 of its largest value. Its sums have at most
+K = 256 terms (2^-24 K = 1.5e-5 of their size), and the timestep
+embedding scales t by 1000 before cos / sin, so a one-ulp difference in a
+frequency moves an argument by up to 6e-5 rad (the CPU tests measure
+5e-5 of the output between XLA and torch for this cause). The repainted
+uint8 image within one level: the float image is truncated to uint8 on
+both sides, so a value at a level's edge may land on either side.
+DepthCrafter's tiny denoiser (depthcrafter (c)), fp32 on both with the same
+latents and pixel noise: within DC_CARD_CPU_ABS = 1e-4 of its [0, 1]
+output. The latents start at sigma 700 times N(0, 1), so the UNet's input
+and the Euler update carry values of size 1e3 whose fp32 rounding (6e-5
+absolute) the last step's x0 prediction passes to the decode. The exact
+branch chunked against one whole chunk (depthcrafter (b)): cuBLAS sums a
+smaller product in another order, a few fp32 ulps of each value: within
+EXACT_CHUNK_REL = 1e-5 of the largest.
+
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
 bf16 models). The two paths feed the bf16 VAE encoder the same normalized
@@ -387,6 +452,15 @@ TRACKS_VIDEO = (97, 512, 896)      # the track path: 11,648 tokens
 TRACK_DENSITY = 10                 # grid spacing in pixels: 4,680 points
 LONG_VIDEO = (201, 512, 896)       # the long-clip path: 51 latent frames
 LONG_TOKENS = 52 * 448             # with the ref block: 23,296
+FLUX_HW = (512, 896)               # the FLUX repaint's image
+FLUX_TOKENS = 64 * 112 // 4 + 512  # 1,792 image + 512 T5 tokens
+FLUX_STEPS = 4                     # the full-width repaint (a)
+FLUX_DEMO_STEPS = 30               # the demo's repaint (b), the reference's
+FLUX_CARD_CPU_REL = 1e-4           # tiny FLUX forward, card vs CPU
+DC_VIDEO = (32, 512, 896)          # DepthCrafter's clip (a)
+DC_STEPS = 2
+DC_CARD_CPU_ABS = 1e-4             # tiny denoiser, card vs CPU ([0, 1])
+EXACT_CHUNK_REL = 1e-5             # the exact branch chunked vs whole
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -617,8 +691,42 @@ def phase_kernels(dev, results: dict) -> None:
                 lambda: fused.ln_modulation(x, sh, sc_c, mask=m))
     del x
     lines.update(long_kernels(dev, gen))
+    lines["flash_attention"]["flux_shapes"] = flux_b1_shapes(dev, gen)
     results.update(lines)
     emit("kernels", t0, kernels=sorted(lines), **lines)
+
+
+def flux_b1_shapes(dev, gen) -> dict:
+    """B1 at FLUX.1-Depth's joint-attention shape: batch 1, 24 heads of 128,
+    2,304 tokens (512x896: 1,792 image + 512 T5 tokens) and a ragged 2,072
+    (480x832: 1,560 + 512), each held to the plain version over every row,
+    timed beside it and beside SDPA (the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.testing import check_attention
+    out = {}
+    for name, L in (("flux_2304", FLUX_TOKENS), ("flux_ragged_2072", 2072)):
+        q, k, v = (torch.randn((1, L, 24, 128), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        got = fa.flash_attention(q, k, v)
+        ref = fa.attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = check_attention(got, ref, f"flash_attention {name}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = 4.0 * 24 * L * L * 128
+        bms, by = bound_ms(flops, 2.0 * 4 * q.numel())
+        ms = device_ms(lambda: fa.flash_attention(q, k, v))
+        out[name] = dict(
+            err, shape=f"q/k/v [1,{L},24,128] bf16", ms=ms,
+            tflops=flops / ms / 1e9, bound_ms=bms, bound_by=by,
+            bound_share=bms / ms,
+            plain_ms=device_ms(lambda: fa.attention_plain(q, k, v)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)),
+            ctas=-(-L // 128) * 24)
+        del q, k, v, qt, kt, vt, got, ref
+    return out
 
 
 def long_kernels(dev, gen) -> dict:
@@ -1421,8 +1529,8 @@ class StageTimer:
     (`demo.main`): wraps each (owner, attribute) callable while active and
     synchronises the card before stopping its clock. Nested stages count
     in both (generate_from_cond's denoise and decode are their own).
-    `seconds` sums each stage's calls; `last` holds its last call's seconds
-    and `calls` its number of calls; `returned` its last result, unless
+    `seconds` sums each stage's calls; `each` lists them, `last` holds its
+    last call's seconds and `calls` its number of calls; `returned` its last result, unless
     `keep_returned` is false (a result that holds a model would hold its
     device memory through the rest of the run)."""
 
@@ -1430,6 +1538,7 @@ class StageTimer:
         self.targets = targets
         self.keep_returned = keep_returned
         self.seconds = {}
+        self.each = {}
         self.last = {}
         self.calls = {}
         self.returned = {}
@@ -1448,6 +1557,7 @@ class StageTimer:
                 dt = time.perf_counter() - t
                 self.seconds[_name] = self.seconds.get(_name, 0.0) + dt
                 self.last[_name] = dt
+                self.each.setdefault(_name, []).append(dt)
                 self.calls[_name] = self.calls.get(_name, 0) + 1
                 if self.keep_returned:
                     self.returned[_name] = out
@@ -3854,6 +3964,479 @@ def phase_nodes(dev, results: dict) -> None:
     emit("nodes", t0, **out, launches_all_runs=total)
 
 
+# ---------------------------------------------------------------------------
+# The FLUX.1-Depth repaint and DepthCrafter
+# ---------------------------------------------------------------------------
+
+def _depth_map(h: int, w: int):
+    """A smooth depth map with structure at several scales."""
+    import numpy as np
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    return (1.0 + 0.5 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+            + yy / h + 0.1 * np.sin(xx / 5.0))
+
+
+def _textured_clip(frames: int, h: int, w: int, seed: int):
+    """uint8 [T, H, W, 3]: a textured plane sliding 2 px a frame with a
+    square moving the other way (motion and edges for the models)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    base = rs.rand(h + 4 * frames, w + 4 * frames, 3).astype(np.float32)
+    k = np.ones(9, np.float32) / 9
+    for ax in (0, 1):
+        base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), ax,
+                                   base)
+    out = np.empty((frames, h, w, 3), np.uint8)
+    for t in range(frames):
+        f = base[2 * t:2 * t + h, 2 * t:2 * t + w]
+        f = (f - f.min()) / (f.max() - f.min())
+        y, x = h // 3, (w // 2 + 3 * t) % (w - 64)
+        f[y:y + 64, x:x + 64] = 1.0 - f[y:y + 64, x:x + 64]
+        out[t] = (f * 255).astype(np.uint8)
+    return out
+
+
+def _counts_delta(before: dict) -> dict:
+    now = _counts()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def flux_card_vs_cpu(dev) -> dict:
+    """(c) the tiny repainter in fp32 (TF32 off) on the card and on the CPU
+    from the same trees and latents: the transformer's velocity within
+    FLUX_CARD_CPU_REL of its largest value, and the uint8 image within one
+    level (module docstring)."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import repaint_flux as rf
+    from flexam_tpu_torch.models.flux import flux_forward, make_img_ids
+    cpu = rf.make_tiny_repainter(seed=SEED, device="cpu")
+    card = rf.FluxDepthRepainter(_to(cpu.params, dev), _to(cpu.vae_params,
+                                                            dev),
+                                 cfg=cpu.cfg, vae_cfg=cpu.vae_cfg,
+                                 dtype=torch.float32, device=dev)
+    g = torch.Generator().manual_seed(SEED + 40)
+    h, w = 32, 48
+    lat = torch.randn((1, 4, h // 2, w // 2), generator=g).numpy()
+    img = torch.randn((2, 96, 32), generator=g)
+    txt = torch.randn((2, 7, 32), generator=g)
+    ids = torch.from_numpy(make_img_ids(16, 24))
+    y = torch.randn((2, 24), generator=g)
+    t = torch.tensor([0.9, 0.3])
+    gd = torch.tensor([7.5, 3.0])
+    tid = torch.zeros((7, 3), dtype=torch.int32)
+    with torch.no_grad():
+        ref = flux_forward(cpu.params, cpu.cfg, img, ids, txt, tid, t, y, gd)
+        got = flux_forward(card.params, card.cfg, img.to(dev), ids.to(dev),
+                           txt.to(dev), tid.to(dev), t.to(dev), y.to(dev),
+                           gd.to(dev))
+    out = {"forward": compare(got.cpu(), ref, FLUX_CARD_CPU_REL,
+                              "tiny FLUX forward card vs CPU")}
+    a = cpu("a red house", _depth_map(40, 56), h, w, 4, latents=lat)
+    b = card("a red house", _depth_map(40, 56), h, w, 4, latents=lat)
+    diff = np.abs(a.astype(int) - b.astype(int))
+    if diff.max() > 1:
+        raise AssertionError(f"tiny repaint card vs CPU: {diff.max()} levels")
+    out["repaint_levels_max"] = int(diff.max())
+    out["repaint_pixels_differing"] = int((diff > 0).sum())
+    return out
+
+
+def flux_full_repainter(dev):
+    """FLUX.1-Depth-dev, its VAE, T5 v1.1 XXL and CLIP-L at their published
+    widths, random bf16 weights drawn on the card (no file)."""
+    import torch
+    from flexam_tpu_torch import repaint_flux as rf
+    from flexam_tpu_torch.models.clip_text import (CLIPTextConfig,
+                                                   init_clip_text_params)
+    from flexam_tpu_torch.models.flux import FluxConfig, init_flux_params
+    from flexam_tpu_torch.models.flux_vae import (FluxVAEConfig,
+                                                  init_flux_vae_params)
+    from flexam_tpu_torch.models.t5 import init_t5_params
+    bf = torch.bfloat16
+    return rf.FluxDepthRepainter(
+        init_flux_params(FluxConfig(), seed=SEED, dtype=bf, device=dev),
+        init_flux_vae_params(FluxVAEConfig(), seed=SEED + 1, dtype=bf,
+                             device=dev),
+        init_t5_params(rf.FLUX_T5_CONFIG, seed=SEED + 2, dtype=bf,
+                       device=dev),
+        init_clip_text_params(CLIPTextConfig(), seed=SEED + 3, dtype=bf,
+                              device=dev), dtype=bf, device=dev)
+
+
+def phase_repaint_flux(dev, results: dict) -> None:
+    """FLUX.1-Depth (module docstring): (a) the full-width repaint with
+    random weights, (b) the demo's `--repaint true` from files at full
+    size, then verify_ckpt on them, (c) the tiny repainter card vs CPU."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import demo
+    from flexam_tpu_torch import repaint_flux as rf
+    from flexam_tpu_torch.testing import write_flux_files
+    from flexam_tpu_torch.tools import verify_ckpt
+
+    t0 = time.perf_counter()
+    H, W = FLUX_HW
+    out = {}
+    # (a) the full-width repaint: FLUX.1-Depth-dev, T5 v1.1 XXL, CLIP-L and
+    # the VAE drawn on the card in bf16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    rp = flux_full_repainter(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    n_params = {name: sum(t.numel() for t in _tree_leaves_t(tree))
+                for name, tree in (("flux", rp.params), ("t5", rp.t5_params),
+                                   ("clip", rp.clip_params),
+                                   ("vae", rp.vae_params))}
+    resident = torch.cuda.memory_allocated() / 1e9
+    depth = _depth_map(H, W)
+    _reset_counts()
+    stages = [(rf.FluxDepthRepainter, "encode_text"),
+              (rf.FluxDepthRepainter, "control_tokens"),
+              (rf, "flux_forward"), (rf, "flux_vae_decode")]
+    with StageTimer(stages, keep_returned=False) as st:
+        t1 = time.perf_counter()
+        img = rp("a lighthouse on a cliff at dusk", depth, H, W,
+                 num_inference_steps=FLUX_STEPS, seed=SEED)
+        wall = time.perf_counter() - t1
+    counts = _counts()
+    if img.shape != (H, W, 3) or img.dtype != np.uint8:
+        raise AssertionError(f"repaint_flux (a): image {img.shape}")
+    blocks = rp.cfg.depth_double + rp.cfg.depth_single       # 19 + 38
+    others = {k: n for k, n in counts.items() if k != "flash_attention"}
+    if counts["flash_attention"] != blocks * FLUX_STEPS or any(
+            others.values()):
+        raise AssertionError(f"repaint_flux (a): launches {counts}, want "
+                             f"flash_attention = {blocks} x {FLUX_STEPS} "
+                             "only")
+    out["full_width"] = {
+        "image": [H, W], "tokens": FLUX_TOKENS, "steps": FLUX_STEPS,
+        "params": n_params, "init_seconds": init_s,
+        "resident_gb": resident, "wall_seconds": wall,
+        "text_seconds": st.seconds["encode_text"],
+        "vae_encode_seconds": st.seconds["control_tokens"],
+        "step_seconds": st.each["flux_forward"],
+        "vae_decode_seconds": st.seconds["flux_vae_decode"],
+        "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "exact_calls": counts["exact_attention"],
+        "image_mean": float(img.mean()), "image_std": float(img.std())}
+    results["flash_attention"]["repaint_launches"] = counts[
+        "flash_attention"]
+
+    # (b) the demo from files at full size (BFL / ae names)
+    root = HERE / "build" / "smoke_flux"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(json.dumps({"repaint_flux_part": "disk", "free_gb": free_gb}),
+          flush=True)
+    rp.t5_params = rp.clip_params = None          # the demo's files: 2
+    t1 = time.perf_counter()
+    paths = write_flux_files(str(root), rp)
+    write_s = time.perf_counter() - t1
+    sizes = {k: os.path.getsize(v) / 1e9 for k, v in paths.items()}
+    del rp
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["FLEXAM_FLUX_CKPT"] = paths["ckpt"]
+    os.environ["FLEXAM_FLUX_AE"] = paths["ae"]
+    vid = _textured_clip(17, H, W, SEED + 41)
+    np.savez(root / "input.npz", video=vid, fps=16)
+    argv = ["--prompt", DEMO_PROMPT, "--random_init", "5b", "--sample_size",
+            str(H), str(W), "--seed", str(SEED), "--generate_type",
+            "full_edit", "--synthetic_tracks", "--repaint", "true",
+            "--video_length", "17", "--num_inference_steps",
+            str(FLUX_DEMO_STEPS), "--input_path", str(root / "input.npz"),
+            "--output_dir", str(root / "out")]
+    seen = {}
+    orig_call = rf.FluxDepthRepainter.__call__
+
+    def counted(self, *a, **kw):
+        before = _counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig_call(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["repaint_seconds"] = time.perf_counter() - t
+        seen["launches"] = _counts_delta(before)
+        seen["blocks"] = self.cfg.depth_double + self.cfg.depth_single
+        return r
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rf.FluxDepthRepainter.__call__ = counted
+    try:
+        with StageTimer([(rf, "load_flux_repainter")],
+                        keep_returned=False) as st:
+            t1 = time.perf_counter()
+            video = demo.main(argv)
+            torch.cuda.synchronize()
+            demo_wall = time.perf_counter() - t1
+    finally:
+        rf.FluxDepthRepainter.__call__ = orig_call
+        del os.environ["FLEXAM_FLUX_CKPT"], os.environ["FLEXAM_FLUX_AE"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rl = seen["launches"]
+    if rl["flash_attention"] != seen["blocks"] * FLUX_DEMO_STEPS or \
+            rl["exact_attention"]:
+        raise AssertionError(f"repaint_flux (b): the repaint's launches {rl}")
+    frame = np.load(root / "out" / "temp_repainted.npy")
+    if video.shape != (1, 3, 17, H, W) or frame.shape != (H, W, 3) or \
+            not np.isfinite(video).all():
+        raise AssertionError(f"repaint_flux (b): {video.shape}, "
+                             f"{frame.shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ver = {}
+    for kind, key in (("flux", "ckpt"), ("flux-ae", "ae")):
+        t1 = time.perf_counter()
+        rc = verify_ckpt.main(["--model", kind, paths[key]])
+        ver[kind] = {"rc": rc, "seconds": time.perf_counter() - t1}
+        if rc != 0:
+            raise AssertionError(f"verify_ckpt --model {kind}: rc {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["demo"] = {
+        "free_disk_gb": free_gb, "file_gb": sizes,
+        "write_seconds": write_s,
+        "write_gbps": sum(sizes.values()) / write_s,
+        "load_seconds": st.seconds["load_flux_repainter"],
+        "read_gbps": sum(sizes.values()) / st.seconds["load_flux_repainter"],
+        "repaint_steps": FLUX_DEMO_STEPS,
+        "repaint_seconds": seen["repaint_seconds"],
+        "repaint_launches": rl, "demo_wall_seconds": demo_wall,
+        "peak_memory_allocated_gb": peak, "verify_ckpt": ver,
+        "launches_all": _counts()}
+    results["flash_attention"]["repaint_launches"] += rl["flash_attention"]
+    shutil.rmtree(root, ignore_errors=True)
+    del video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the tiny repainter, card vs CPU
+    out["card_vs_cpu"] = flux_card_vs_cpu(dev)
+    for k in results:
+        results[k].setdefault("repaint_launches", 0)
+    emit("repaint_flux", t0, **out)
+
+
+def _tree_leaves_t(tree):
+    from flexam_tpu_torch.io.convert import tree_leaves
+    return tree_leaves(tree)
+
+
+def depthcrafter_card_vs_cpu(dev) -> dict:
+    """(c) the tiny denoiser in fp32 (TF32 off) on the card and on the CPU
+    from the same trees, latents and pixel noise: within DC_CARD_CPU_ABS
+    of the [0, 1] output (module docstring)."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.perception import depthcrafter_model as tm
+    cpu = tm.make_tiny_denoiser(seed=SEED, device="cpu")
+    card = tm.DepthCrafterDenoiser(_to(cpu.params, dev),
+                                   _to(cpu.vae_params, dev), cfg=cpu.cfg,
+                                   vae_cfg=cpu.vae_cfg, dtype=torch.float32,
+                                   device=dev)
+    g = torch.Generator().manual_seed(SEED + 50)
+    f = torch.rand((4, 32, 48, 3), generator=g).numpy()
+    lat = torch.randn((1, 4, 4, 16, 24), generator=g)
+    aug = torch.randn((4, 3, 32, 48), generator=g)
+    a = cpu(f, num_inference_steps=2, latents=lat, aug_noise=aug)
+    b = card(f, num_inference_steps=2, latents=lat, aug_noise=aug)
+    err = float(np.abs(a - b).max())
+    if not err <= DC_CARD_CPU_ABS:
+        raise AssertionError(f"tiny denoiser card vs CPU: {err}")
+    return {"max_abs_err": err, "bound": DC_CARD_CPU_ABS}
+
+
+def phase_depthcrafter(dev, results: dict) -> None:
+    """DepthCrafter (module docstring): (a) `estimate_depth` through the
+    registry at published widths on a 512x896x32f clip, fp32, 2 steps; (b)
+    the exact branch chunked against one whole chunk on the card; (c)
+    verify_ckpt's svd kinds, the onnx hook and the tiny denoiser."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.core import attention as core_att
+    from flexam_tpu_torch.models import svd_vae as ts
+    from flexam_tpu_torch.models.clip import CLIPVisionConfig, init_vit_params
+    from flexam_tpu_torch.models.flux_vae import init_flux_vae_params
+    from flexam_tpu_torch.models.svd_unet import (SVDUNetConfig,
+                                                  init_svd_unet_params)
+    from flexam_tpu_torch.perception import depthcrafter_model as tm
+    from flexam_tpu_torch.perception.depth import estimate_depth
+    from flexam_tpu_torch.testing import (tiny_depth_onnx,
+                                          write_depthcrafter_files)
+    from flexam_tpu_torch.tools import verify_ckpt
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    T, H, W = DC_VIDEO
+    root = HERE / "build" / "smoke_depthcrafter"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+    # (a) files at the published widths (random weights, bf16 storage)
+    t1 = time.perf_counter()
+    bf = torch.bfloat16
+    unet = init_svd_unet_params(SVDUNetConfig(), seed=SEED, dtype=bf,
+                                device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    vae = {"encoder": init_flux_vae_params(tm.SD_VAE_CONFIG, seed=SEED + 52,
+                                           dtype=bf, device=dev)["encoder"],
+           "quant_conv": {"w": (torch.randn((8, 8, 1, 1), generator=g,
+                                            device=dev) / 8 ** 0.5).to(bf),
+                          "b": torch.zeros(8, dtype=bf, device=dev)},
+           "decoder": ts.init_temporal_decoder_params(
+               tm.temporal_decoder_config(tm.SD_VAE_CONFIG), seed=SEED + 53,
+               dtype=bf, device=dev)}
+    clip = init_vit_params(CLIPVisionConfig(), seed=SEED + 54, dtype=bf,
+                           device=dev,
+                           proj_dim=SVDUNetConfig().cross_attention_dim)
+    paths = write_depthcrafter_files(str(root), unet, vae, clip)
+    write_s = time.perf_counter() - t1
+    sizes = {k: os.path.getsize(v) / 1e9 for k, v in paths.items()}
+    n_params = {name: sum(t.numel() for t in _tree_leaves_t(tree))
+                for name, tree in (("unet", unet), ("vae", vae),
+                                   ("clip", clip))}
+    del unet, vae, clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_u8 = _textured_clip(T, H, W, SEED + 55)
+    video = clip_u8.astype(np.float32) / 255.0
+    env = {"FLEXAM_DEPTH_BACKEND": "depthcrafter",
+           "FLEXAM_DEPTHCRAFTER_CKPT": paths["unet"],
+           "FLEXAM_SVD_VAE": paths["vae"], "FLEXAM_SVD_CLIP": paths["clip"]}
+    os.environ.update(env)
+    shapes = []
+    orig_exact = core_att.exact_attention
+
+    def exact(q, k, v, *a, **kw):
+        shapes.append((q.shape[0], q.shape[2], q.shape[1], k.shape[1]))
+        return orig_exact(q, k, v, *a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    targets = [(tm, "load_depthcrafter_denoiser"),
+               (tm.DepthCrafterDenoiser, "_encode_frames"),
+               (tm.DepthCrafterDenoiser, "_embed_frames"),
+               (tm, "svd_unet_forward"), (ts, "temporal_decode")]
+    core_att.exact_attention = exact
+    try:
+        with StageTimer(targets, keep_returned=False) as st:
+            t1 = time.perf_counter()
+            depth = estimate_depth(video, device=dev, dtype=torch.float32,
+                                   num_inference_steps=DC_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    finally:
+        core_att.exact_attention = orig_exact
+        for k in env:
+            del os.environ[k]
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if depth.shape != (T, H, W) or not np.isfinite(depth).all() or \
+            depth.min() < 0 or depth.max() > 1:
+        raise AssertionError(f"depthcrafter (a): depth {depth.shape}")
+    kernels = {k: n for k, n in counts.items() if k != "exact_attention"}
+    if any(kernels.values()) or not counts["exact_attention"] or peak > 80:
+        raise AssertionError(f"depthcrafter (a): launches {counts}, peak "
+                             f"{peak} GB")
+    if st.calls.get("svd_unet_forward") != 2 * DC_STEPS:
+        raise AssertionError(f"depthcrafter (a): UNet passes {st.calls}")
+    big = max(shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
+    b_, h_, lq_, lk_ = big
+    row = 4 * h_ * lk_
+    nb = b_ if fa.LOGITS_BUDGET >= b_ * row else fa.LOGITS_BUDGET // row
+    rows = max(1, min(2048, lq_, fa.LOGITS_BUDGET // (nb * row)))
+    out["full_width"] = {
+        "video": list(DC_VIDEO), "steps": DC_STEPS, "dtype": "float32",
+        "params": n_params, "file_gb": sizes, "write_seconds": write_s,
+        "wall_seconds": wall, "load_seconds":
+        st.seconds["load_depthcrafter_denoiser"],
+        "encode_seconds": st.seconds["_encode_frames"],
+        "clip_embed_seconds": st.seconds["_embed_frames"],
+        "unet_pass_seconds": st.seconds["svd_unet_forward"]
+        / st.calls["svd_unet_forward"],
+        "decode_seconds": st.seconds["temporal_decode"],
+        "peak_memory_allocated_gb": peak, "launches": counts,
+        "exact_calls": counts["exact_attention"],
+        "largest_exact_call": {"batch": b_, "heads": h_, "q": lq_, "k": lk_,
+                               "unchunked_logits_gb": b_ * h_ * lq_ * lk_
+                               * 4 / 1e9,
+                               "row_chunk_2048_logits_gb": b_ * h_
+                               * min(2048, lq_) * lk_ * 4 / 1e9,
+                               "chunk": {"batch": nb, "rows": rows,
+                                         "logits_gb": nb * h_ * rows * lk_
+                                         * 4 / 1e9}},
+        "depth_std": float(depth.std())}
+    for k in results:
+        results[k]["depthcrafter_launches"] = counts.get(k, 0)
+    del depth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the exact branch on the card: chunked by bytes against one chunk
+    gq = torch.Generator(device=dev).manual_seed(SEED + 56)
+    q, k, v = (torch.randn((8, 2048, 5, 64), generator=gq, device=dev)
+               for _ in range(3))
+    whole = fa.attention_plain(q, k, v, budget=1 << 40)
+    row = 4 * 5 * 2048                  # the fp32 logits of one row
+    small = 12 * 8 * row                # 12 rows of all 8 elements
+    chunked = fa.attention_plain(q, k, v, budget=small)
+    out["exact_chunked"] = dict(
+        compare(chunked, whole, EXACT_CHUNK_REL, "exact branch chunked"),
+        batch_split=compare(fa.attention_plain(q, k, v, budget=3 * row),
+                            whole, EXACT_CHUNK_REL,
+                            "exact branch, 3 elements a chunk"),
+        shape="q/k/v [8, 2048, 5, 64] fp32", budget_bytes=small,
+        whole_ms=device_ms(lambda: fa.attention_plain(q, k, v,
+                                                      budget=1 << 40),
+                           launches=1, reps=3, warmup=1),
+        chunked_ms=device_ms(lambda: fa.attention_plain(q, k, v,
+                                                        budget=small),
+                             launches=1, reps=3, warmup=1))
+    del q, k, v, whole, chunked
+
+    # (c) verify_ckpt's svd kinds, the onnx hook, the tiny denoiser
+    ver = {}
+    for kind, key in (("svd-unet", "unet"), ("svd-vae", "vae"),
+                      ("svd-clip", "clip")):
+        t1 = time.perf_counter()
+        rc = verify_ckpt.main(["--model", kind, paths[key]])
+        ver[kind] = {"rc": rc, "seconds": time.perf_counter() - t1}
+        if rc != 0:
+            raise AssertionError(f"verify_ckpt --model {kind}: rc {rc}")
+    out["verify_ckpt"] = ver
+    onnx_path = root / "depth.onnx"
+    onnx_path.write_bytes(tiny_depth_onnx(seed=SEED, size=64))
+    os.environ["FLEXAM_DEPTH_ONNX"] = str(onnx_path)
+    try:
+        small_clip = video[:4, :120, :200]
+        d_card = estimate_depth(small_clip, backend="onnx", size=64,
+                                device=dev)
+        d_cpu = estimate_depth(small_clip, backend="onnx", size=64,
+                               device="cpu")
+    finally:
+        del os.environ["FLEXAM_DEPTH_ONNX"]
+    out["onnx"] = compare(torch.from_numpy(d_card), torch.from_numpy(d_cpu),
+                          NODES_GRAPH_REL, "onnx depth hook card vs CPU")
+    out["tiny_card_vs_cpu"] = depthcrafter_card_vs_cpu(dev)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("depthcrafter", t0, **out)
+
+
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
                         "flexam_tpu/ops/flash_attention.py:34"),
@@ -3966,6 +4549,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_nodes(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_repaint_flux(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_depthcrafter(dev, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -3982,8 +4571,10 @@ def main() -> int:
             "track_launches": r["track_launches"],
             "geometry_launches": r["geometry_launches"],
             "nodes_launches": r["nodes_launches"],
-            **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms")
-                if k in r})})
+            "repaint_launches": r["repaint_launches"],
+            "depthcrafter_launches": r["depthcrafter_launches"],
+            **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
+                                  "flux_shapes") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,3 +118,29 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
     if bias:
         p["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
     return p
+
+
+class ParamDraw:
+    """Random parameters for an init, drawn on `device` from a
+    `torch.Generator` seeded with `seed`: `normal(shape, std)` (float32
+    normal times std, cast to `dtype`, as JAX's inits draw), `full(shape,
+    value)`. With `seed` None every leaf is zero (the zero tree JAX's
+    loaders fill); on the "meta" device nothing is stored (the shapes
+    of a tree)."""
+
+    def __init__(self, seed, dtype=torch.float32, device="cpu"):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = (None if seed is None or self.device.type == "meta" else
+                    torch.Generator(device=self.device).manual_seed(seed))
+
+    def normal(self, shape, std: float) -> torch.Tensor:
+        if self.gen is None:
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return (torch.randn(shape, generator=self.gen, device=self.device)
+                * std).to(self.dtype)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        if self.gen is None:
+            value = 0.0
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)

@@ -43,7 +43,9 @@ baseline, the Farneback tracker (`perception/tracking.py
 track_video_flow`, OpenCV's Farneback rebuilt in `perception/
 farneback.py`), on the demo's device. `--repaint true` generates the
 first frame natively, depth-conditioned (`repaint.py`, depth from
-`perception/depth.py`).
+`perception/depth.py`), or through FLUX.1-Depth (`repaint_flux.py`) when
+FLEXAM_FLUX_CKPT and FLEXAM_FLUX_AE name its files (FLEXAM_FLUX_T5 /
+FLEXAM_FLUX_CLIP its text towers).
 
 Geometry models (`perception/{moge,vggt,pi3}.py`), from shape-mapped
 checkpoints: an image input without `--moge_npz` runs MoGe-2 from
@@ -52,9 +54,6 @@ recorded poses takes VGGT's poses (FLEXAM_VGGT_CKPT), then Pi3's
 (FLEXAM_PI3_CKPT), each when its checkpoint maps, before the track solver;
 `--camera_motion path --pose_file clip.mp4` runs Pi3 on the clip's `.npz`
 frame dump (`conditioning/camera.py process_video_file`).
-
-Not ported yet, and raising NotImplementedError with its ROADMAP item: the
-FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT with FLEXAM_FLUX_AE): A14.
 
 `main` returns the generated video, [1, 3, T, H, W] float in [0, 1], and
 writes it to `<output_dir>/result.mp4` (`utils.media.save_video`).
@@ -142,12 +141,6 @@ def _device(platform):
         return "cpu"
     raise ValueError(f"--platform {platform!r}: the PyTorch port runs on "
                      "'cuda' (the default) or 'cpu'")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to flexam_tpu_torch yet (ROADMAP {item}); "
-        "the JAX CLI (python -m flexam_tpu.demo) has it")
 
 
 def _synthetic_grid_tracks(video_length, height, width, density):
@@ -269,26 +262,35 @@ def _build_models(args):
 
 
 def _repaint_first_frame(args, pipe, input_video, h, w, device):
-    """`--repaint true`: the first frame generated by the FlexAM model from
-    its depth (`repaint.make_flexam_repaint_fn`), [1, 3, 1, H, W]. The
-    FLUX.1-Depth backend (FLEXAM_FLUX_CKPT with FLEXAM_FLUX_AE) is not
-    ported yet."""
+    """`--repaint true`: the first frame, [1, 3, 1, H, W], regenerated from
+    its depth by FLUX.1-Depth (`repaint_flux.load_flux_repainter`) when
+    FLEXAM_FLUX_CKPT and FLEXAM_FLUX_AE are set (the reference's backend,
+    `pipelines.py:137-173`), else by the FlexAM model itself
+    (`repaint.make_flexam_repaint_fn`)."""
     from flexam_tpu_torch.perception.depth import estimate_depth
     from flexam_tpu_torch.repaint import (FirstFrameRepainter,
                                           make_flexam_repaint_fn)
-    if os.environ.get("FLEXAM_FLUX_CKPT"):
-        if os.environ.get("FLEXAM_FLUX_AE"):
-            raise _not_ported("the FLUX.1-Depth repaint (FLEXAM_FLUX_CKPT, "
-                              "FLEXAM_FLUX_AE)", "A14")
-        print("WARNING: FLEXAM_FLUX_CKPT set without FLEXAM_FLUX_AE — "
-              "falling back to the native FlexAM repaint")
-    print("NOTE: --repaint true -> native depth-conditioned single-frame "
-          "generation (the reference uses external FLUX.1-Depth here)")
+    if (os.environ.get("FLEXAM_FLUX_CKPT")
+            and os.environ.get("FLEXAM_FLUX_AE")):
+        from flexam_tpu_torch.repaint_flux import load_flux_repainter
+        print("NOTE: --repaint true -> native FLUX.1-Depth port "
+              "(FLEXAM_FLUX_CKPT)")
+        repaint_fn = load_flux_repainter(device=device).as_repaint_fn(
+            args.seed)
+    else:
+        if os.environ.get("FLEXAM_FLUX_CKPT"):
+            print("WARNING: FLEXAM_FLUX_CKPT set without FLEXAM_FLUX_AE — "
+                  "falling back to the native FlexAM repaint")
+        print("NOTE: --repaint true -> native depth-conditioned single-frame "
+              "generation (the reference uses external FLUX.1-Depth here; "
+              "set FLEXAM_FLUX_CKPT/FLEXAM_FLUX_AE to run the native FLUX "
+              "port instead)")
+        repaint_fn = make_flexam_repaint_fn(pipe, seed=args.seed)
     rp = FirstFrameRepainter(
         h, w, args.output_dir,
         depth_fn=lambda img: estimate_depth(
             (np.asarray(img, np.float32) / 255.0)[None], device=device)[0],
-        repaint_fn=make_flexam_repaint_fn(pipe, seed=args.seed))
+        repaint_fn=repaint_fn)
     return rp.repaint(np.asarray(input_video)[0, :, 0], args.prompt,
                       num_inference_steps=args.num_inference_steps)
 

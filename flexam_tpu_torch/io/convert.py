@@ -15,6 +15,12 @@ Every other key crosses as it is, the Control-Camera adapter's
 
 The generation models' weights are already in torch layout in the JAX
 package (Linear [out, in], conv [O, I, *K]), so no transpose is needed.
+FLUX stacks its blocks in `double_blocks` / `single_blocks`, CLIP's text
+and vision towers in `blocks`: the port keeps lists of them too. The
+FLUX / SD VAE (`{"encoder", "decoder"}`, kernels under `w`), the SVD UNet
+and the temporal decoder (a top-level `conv_in`, kernels under `weight`)
+run NHWC in JAX: their 4-dim kernels become [O, I, kh, kw] and their
+5-dim (3, 1, 1) temporal kernels [O, I, 3, 1, 1], for the port's NCHW.
 The perception trees (DenseTrack3D: top-level `encoder`, `transformer`,
 `upsampler`, `feat_proj`; UniDepth V2: `pixel_encoder`, `pixel_decoder`;
 MoGe-2, VGGT and Pi3: an `encoder` holding the DINOv2 `patch_embed`)
@@ -102,25 +108,42 @@ def _torch_layout(key: str, node) -> bool:
         key == "head" and isinstance(node, dict) and "refinenet" in node)
 
 
-def _convert(node, device, hwio=False, key=""):
+def _conv_tree(tree) -> bool:
+    """The FLUX / SD VAE (an `encoder` holding `conv_in`), the SVD UNet and
+    the temporal decoder (`conv_in` at the top): NHWC models in JAX, whose
+    every 4-dim kernel is HWIO and 5-dim kernel DHWIO."""
+    if not isinstance(tree, dict):
+        return False
+    enc = tree.get("encoder")
+    return "conv_in" in tree or (isinstance(enc, dict) and "conv_in" in enc)
+
+
+_STACKED = ("blocks", "double_blocks", "single_blocks")
+_CONV_KEYS = {"weight": ("weight",), "conv": ("weight", "w")}
+
+
+def _convert(node, device, hwio=False, key="", conv=False):
     if isinstance(node, dict):
         out = {}
         for k, v in node.items():
             if k == "compute_dtype":
                 out[k] = _DTYPES[np.dtype(v).name]
-            elif k == "blocks" and isinstance(v, dict):
+            elif k in _STACKED and isinstance(v, dict):
                 out[k] = _unstack(_convert(v, device))
             else:
                 out[k] = _convert(v, device, hwio and not _torch_layout(k, v),
-                                  k)
+                                  k, conv)
         return out
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device, hwio, key) for v in node]
+        return [_convert(v, device, hwio, key, conv) for v in node]
     if node is None:
         return None
     t = _tensor(node, device)
-    if hwio and t.dim() == 4 and key == "weight":  # HWIO -> [O, I, kh, kw]
-        t = t.permute(3, 2, 0, 1).contiguous()
+    if hwio and key in _CONV_KEYS["conv" if conv else "weight"]:
+        if t.dim() == 4:                            # HWIO -> [O, I, kh, kw]
+            t = t.permute(3, 2, 0, 1).contiguous()
+        elif t.dim() == 5 and conv:                 # DHWIO -> [O, I, kd, ...]
+            t = t.permute(4, 3, 0, 1, 2).contiguous()
     return t
 
 
@@ -168,6 +191,12 @@ def map_leaves(tree, fn):
     return visit("", tree, False)
 
 
+def cast_floats(tree, dtype):
+    """A new tree with every floating-point leaf cast to `dtype`."""
+    return map_leaves(tree, lambda key, t, in_block: (
+        t.to(dtype) if t.is_floating_point() else t))
+
+
 def deploy_dtype(t, key: str, in_block: bool, wide=torch.bfloat16):
     """JAX's deploy cast of a quantized DiT tree (`_put_quantized`,
     `prequant_ckpt._cast_wide_to_bf16`): `wide` for a float32 leaf of two
@@ -203,5 +232,8 @@ def stack_blocks(tree: dict) -> dict:
 def from_jax_params(tree, device="cuda") -> dict:
     """The port's parameter tree for a JAX parameter tree of numpy arrays
     or host tensors (DiT, umT5, VAE, DenseTrack3D, UniDepth V2, MoGe-2,
-    VGGT, Pi3, ZoeDepth or Depth-Anything-V2), on `device`."""
-    return _convert(tree, resolve_device(device), _perception_tree(tree))
+    VGGT, Pi3, ZoeDepth, Depth-Anything-V2, FLUX, the FLUX / SD VAE, CLIP
+    text and ViT, the SVD UNet or the temporal decoder), on `device`."""
+    conv = _conv_tree(tree)
+    return _convert(tree, resolve_device(device),
+                    conv or _perception_tree(tree), conv=conv)

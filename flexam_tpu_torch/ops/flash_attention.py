@@ -31,6 +31,10 @@ from flexam_tpu_torch.ops import build
 LOG2E = 1.4426950408889634
 MASK_VALUE = -1e30
 SINGLE_KV_MAX_KEYS = 512
+# bytes of fp32 logits one chunk of `attention_plain` may hold: the SVD
+# UNet's first-level spatial attention at 512x896 (32 frames x 5 heads x
+# 7,168 keys) would hold 33 GB unchunked
+LOGITS_BUDGET = 1 << 30
 
 # kernel launches on CUDA tensors, by kernel
 launches = {"flash_attention": 0, "single_kv_attention": 0}
@@ -40,17 +44,25 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
                     q_chunk: int = 2048,
-                    keep_rows: Optional[Callable] = None) -> torch.Tensor:
+                    keep_rows: Optional[Callable] = None,
+                    budget: int = LOGITS_BUDGET) -> torch.Tensor:
     """softmax(q k^T * scale) v in fp32 with probabilities cast to q.dtype
-    before P.V; keys at or past k_len[b] get the logit -1e30. Runs over query
-    chunks of `q_chunk` rows so the fp32 logits stay bounded in memory (the
-    result does not depend on the chunking). `keep_rows(a, b)`, if given,
-    returns a bool mask of the keys each of query rows a..b-1 may see,
-    broadcastable to [B, H, b - a, Lk]; the rest get the logit -1e30 too."""
+    before P.V; keys at or past k_len[b] get the logit -1e30. Runs over
+    chunks of at most `q_chunk` query rows and of batch elements, so that the
+    fp32 logits of one chunk (b' x H x rows x Lk x 4 bytes) stay within
+    `budget` bytes; the batch is split only where one row of every batch
+    element is over it (the result does not depend on the chunking, up to
+    the order in which the matmuls sum their fp32 products).
+    `keep_rows(a, b)`, if given, returns a bool mask of the keys each of
+    query rows a..b-1 may see, broadcastable to [B, H, b - a, Lk]; the rest
+    get the logit -1e30 too."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    b, lq = q.shape[:2]
+    b, lq, h = q.shape[:3]
     lk = k.shape[1]
+    row = 4 * h * lk                       # fp32 logits of one query row
+    nb = b if budget >= b * row else max(1, budget // row)
+    rows = max(1, min(q_chunk, lq, budget // (nb * row)))
     kf = k.float().permute(0, 2, 3, 1)                  # [B, H, D, Lk]
     vf = v.float().transpose(1, 2)                      # [B, H, Lk, D]
     keep = None
@@ -58,17 +70,23 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keep = (torch.arange(lk, device=q.device)[None, :]
                 < k_len.to(q.device)[:, None])[:, None, None, :]
     out = torch.empty_like(q)
-    for a in range(0, lq, q_chunk):
-        qf = q[:, a:a + q_chunk].float().transpose(1, 2)   # [B, H, c, D]
-        logits = torch.matmul(qf, kf) * scale
-        if keep is not None:
-            logits = logits.masked_fill(~keep, MASK_VALUE)
-        if keep_rows is not None:
-            logits = logits.masked_fill(
-                ~keep_rows(a, min(a + q_chunk, lq)), MASK_VALUE)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        o = torch.matmul(probs.float(), vf)
-        out[:, a:a + q_chunk] = o.transpose(1, 2).to(q.dtype)
+    for b0 in range(0, b, nb):
+        b1 = min(b0 + nb, b)
+        for a in range(0, lq, rows):
+            e = min(a + rows, lq)
+            qf = q[b0:b1, a:e].float().transpose(1, 2)  # [b', H, c, D]
+            logits = torch.matmul(qf, kf[b0:b1]).mul_(scale)
+            if keep is not None:
+                logits.masked_fill_(~keep[b0:b1], MASK_VALUE)
+            if keep_rows is not None:
+                m = keep_rows(a, e)
+                if m.dim() == 4 and m.shape[0] > 1:
+                    m = m[b0:b1]
+                logits.masked_fill_(~m, MASK_VALUE)
+            probs = torch.softmax(logits, dim=-1).to(q.dtype)
+            del logits
+            o = torch.matmul(probs.float(), vf[b0:b1])
+            out[b0:b1, a:e] = o.transpose(1, 2).to(q.dtype)
     return out
 
 

@@ -483,7 +483,8 @@ def convex_upsample(field: torch.Tensor, weights: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def densetrack3d_init(gen, cfg: DenseTrack3DConfig, device="cpu") -> dict:
+def densetrack3d_init(gen, cfg: DenseTrack3DConfig, device="cuda") -> dict:
+    device = resolve_device(device)
     cfg.validate()
     return {"encoder": encoder_init(gen, cfg, device),
             "transformer": transformer_init(gen, cfg, device),

@@ -12,9 +12,13 @@ Port of `flexam_tpu/perception/depth.py`, the same registry:
     weights from FLEXAM_DAV2_CKPT;
   * "zoe": ZoeDepth ZoeD_M12_N (`perception/zoedepth.py`), weights from
     FLEXAM_ZOE_CKPT (random weights, with a warning, without it);
-  * "onnx" (an onnxruntime session, which the card's machine lacks) and
-    "depthcrafter" (on the SVD UNet and VAE) stay registered, as in JAX,
-    but raise NotImplementedError naming ROADMAP item 7.
+  * "onnx": a user's ONNX depth model (FLEXAM_DEPTH_ONNX, e.g. a MiDaS /
+    Depth-Anything export). JAX runs it through onnxruntime on the host;
+    the port through its own reader and graph runner (`io/onnx.py`,
+    `perception/onnx_graph.py`) on the caller's device;
+  * "depthcrafter": the DepthCrafter surface (`perception/depthcrafter.py`)
+    around the SVD UNet (FLEXAM_DEPTHCRAFTER_CKPT + FLEXAM_SVD_VAE), or
+    JAX's substitute denoiser without them.
 
 `estimate_depth` picks a backend as JAX's does: the argument, then
 FLEXAM_DEPTH_BACKEND, then the first model whose checkpoint exists
@@ -46,14 +50,26 @@ def _luminance_depth(video: np.ndarray, **kw) -> np.ndarray:
     return 1.0 / (lum + 0.5)
 
 
-def _not_ported(name: str, module: str) -> Callable:
-    def fn(video: np.ndarray, **kw) -> np.ndarray:
-        raise NotImplementedError(
-            f"depth backend {name!r} ({module}) is not ported to "
-            "flexam_tpu_torch yet (ROADMAP A item 7); the port has "
-            "'unidepth', 'dav2' / 'dav', 'zoe' and 'luminance', the JAX "
-            "package has the rest")
-    return fn
+def _onnx_depth(video: np.ndarray, size: int = 384, device="cuda",
+                **kw) -> np.ndarray:
+    """The ONNX hook: each frame resized to `size` x `size` (OpenCV's
+    INTER_LINEAR, `utils/media.resize_frames_linear`, as JAX's
+    `cv2.resize`), run through the graph as [1, 3, size, size] float32,
+    its output squeezed and resized back to the frame's size."""
+    from flexam_tpu_torch.perception.onnx_graph import OnnxGraph
+    from flexam_tpu_torch.utils.media import resize_frames_linear
+    path = os.environ.get("FLEXAM_DEPTH_ONNX")
+    if not path:
+        raise RuntimeError("set FLEXAM_DEPTH_ONNX=<model.onnx>")
+    graph = OnnxGraph(path, device=device)
+    t, h, w, _ = video.shape
+    out = np.zeros((t, h, w), np.float32)
+    for i, frame in enumerate(video):
+        x = resize_frames_linear(frame[None], (size, size))[0]
+        x = x.transpose(2, 0, 1)[None].astype(np.float32)
+        d = np.squeeze(graph(x)[0][0].float().cpu().numpy())
+        out[i] = resize_frames_linear(d[None, :, :, None], (h, w))[0, ..., 0]
+    return out
 
 
 def _unidepth_lazy(video: np.ndarray, **kw) -> np.ndarray:
@@ -71,6 +87,15 @@ def _zoe_lazy(video: np.ndarray, **kw) -> np.ndarray:
     return zoe_depth_video(video, **kw)
 
 
+def _depthcrafter_lazy(video: np.ndarray, **kw) -> np.ndarray:
+    """The DepthCrafter surface (`pipelines.py:1307-1360`, a disabled
+    branch there) around the SVD UNet denoiser. Weights:
+    FLEXAM_DEPTHCRAFTER_CKPT + FLEXAM_SVD_VAE (+ FLEXAM_SVD_CLIP)."""
+    from flexam_tpu_torch.perception.depthcrafter import \
+        _depthcrafter_backend
+    return _depthcrafter_backend(video, **kw)
+
+
 def _dav2_lazy(video: np.ndarray, **kw) -> np.ndarray:
     """Depth-Anything-V2-Large, the reference repaint's default depth model
     ("dav", `pipelines.py:158-161`). Weights: FLEXAM_DAV2_CKPT."""
@@ -79,11 +104,10 @@ def _dav2_lazy(video: np.ndarray, **kw) -> np.ndarray:
 
 
 register_depth_backend("luminance", _luminance_depth)
-register_depth_backend("onnx", _not_ported("onnx", "an onnxruntime session"))
+register_depth_backend("onnx", _onnx_depth)
 register_depth_backend("unidepth", _unidepth_lazy)
 register_depth_backend("zoe", _zoe_lazy)
-register_depth_backend("depthcrafter", _not_ported(
-    "depthcrafter", "perception/depthcrafter.py"))
+register_depth_backend("depthcrafter", _depthcrafter_lazy)
 register_depth_backend("dav2", _dav2_lazy)
 register_depth_backend("dav", _dav2_lazy)      # the reference's name
 

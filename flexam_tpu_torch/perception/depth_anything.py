@@ -79,8 +79,9 @@ def tiny_dav2_config() -> DAv2Config:
                       out_channels=(8, 16, 32, 32), input_size=42)
 
 
-def dav2_init(gen: torch.Generator, cfg: DAv2Config, device="cpu") -> dict:
+def dav2_init(gen: torch.Generator, cfg: DAv2Config, device="cuda") -> dict:
     """A random tree with JAX's structure and shapes, on `device`."""
+    device = resolve_device(device)
     enc = encoder_init(gen, cfg.encoder_cfg(), device)
     f, oc = cfg.features, cfg.out_channels
 

@@ -125,7 +125,8 @@ def run_head(p: dict, feats, clss, out_hw, cfg: MoGeConfig):
     return pts, mask_logits, normal, log_scale
 
 
-def moge_init(gen, cfg: MoGeConfig, device="cpu") -> dict:
+def moge_init(gen, cfg: MoGeConfig, device="cuda") -> dict:
+    device = resolve_device(device)
     return {"encoder": encoder_init(gen, cfg.encoder_cfg(), device),
             "head": head_init(gen, cfg, device)}
 

@@ -81,7 +81,8 @@ class Pi3Config:
         return torch.bfloat16 if self.compute == "bfloat16" else torch.float32
 
 
-def pi3_init(gen, cfg: Pi3Config, device="cpu") -> dict:
+def pi3_init(gen, cfg: Pi3Config, device="cuda") -> dict:
+    device = resolve_device(device)
     d = cfg.dec_dim
 
     def block():

@@ -591,7 +591,8 @@ def decode(p, feats, clss, image_hw, cfg: UniDepthV2Config,
 # ---------------------------------------------------------------------------
 
 
-def unidepth_init(gen, cfg: UniDepthV2Config, device="cpu"):
+def unidepth_init(gen, cfg: UniDepthV2Config, device="cuda"):
+    device = resolve_device(device)
     return {"pixel_encoder": encoder_init(gen, cfg, device),
             "pixel_decoder": decoder_init(gen, cfg, device)}
 

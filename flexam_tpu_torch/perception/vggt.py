@@ -86,7 +86,8 @@ class VGGTConfig:
         return torch.bfloat16 if self.compute == "bfloat16" else torch.float32
 
 
-def vggt_init(gen, cfg: VGGTConfig, device="cpu") -> dict:
+def vggt_init(gen, cfg: VGGTConfig, device="cuda") -> dict:
+    device = resolve_device(device)
     d = cfg.agg_dim
 
     def tokens(n):

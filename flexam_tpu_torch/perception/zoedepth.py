@@ -148,9 +148,10 @@ def _mlp2conv_init(gen, cin, mid, cout, device):
 
 
 def zoedepth_init(gen: torch.Generator, cfg: ZoeDepthConfig,
-                  device="cpu") -> dict:
+                  device="cuda") -> dict:
     """A random tree with JAX's structure, shapes and scales, drawn on
     `device`."""
+    device = resolve_device(device)
     d, f = cfg.embed_dim, cfg.features
     p: Dict = {
         "cls_token": torch.zeros((1, 1, d), device=device),

@@ -724,3 +724,76 @@ def write_tiny_dwpose(directory: str, seed: int = 0,
     with open(pose, "wb") as f:
         f.write(tiny_rtmpose_onnx(seed))
     return det, pose
+
+
+def tiny_depth_onnx(seed: int = 0, size: int = 384) -> bytes:
+    """A MiDaS-shaped depth export for the registry's `onnx` hook: "image"
+    [1, 3, size, size] -> a stride-2 SiLU conv, a SiLU conv, nearest
+    upsampling, a 1-channel conv -> "depth" [1, 1, size, size]."""
+    wr = OnnxWriter(seed)
+    c = wr.conv(wr.conv("image", 3, 8, 3, 2), 8, 8, 3)
+    d = wr.conv(wr.upsample(c), 8, 1, 3, silu=False, scale=0.5)
+    wr.nodes.append(("Identity", [d], ["depth"], {}))
+    return wr.to_bytes([("image", (1, 3, size, size))],
+                       [("depth", (1, 1, size, size))])
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint files in the published names (random weights)
+# ---------------------------------------------------------------------------
+
+def write_flux_files(directory: str, repainter) -> dict:
+    """A `repaint_flux.FluxDepthRepainter`'s transformer and VAE written as
+    `flux1-depth-dev.safetensors` (BFL names) and `ae.safetensors`:
+    {"ckpt", "ae"} -> path, the values of FLEXAM_FLUX_CKPT /
+    FLEXAM_FLUX_AE."""
+    from flexam_tpu_torch.io.checkpoints import save_safetensors
+    from flexam_tpu_torch.models.flux import flux_state_dict
+    from flexam_tpu_torch.models.flux_vae import flux_vae_state_dict
+    paths = {"ckpt": os.path.join(directory, "flux1-depth-dev.safetensors"),
+             "ae": os.path.join(directory, "ae.safetensors")}
+    save_safetensors(paths["ckpt"], flux_state_dict(repainter.params,
+                                                    repainter.cfg))
+    save_safetensors(paths["ae"], flux_vae_state_dict(repainter.vae_params,
+                                                      repainter.vae_cfg))
+    return paths
+
+
+def write_depthcrafter_files(directory: str, unet: dict, vae: dict,
+                             clip: Optional[dict] = None,
+                             clip_heads: int = 16,
+                             clip_act: str = "gelu") -> dict:
+    """DepthCrafter's files: the SVD UNet (`unet.safetensors`, the published
+    names), the video VAE (`vae.safetensors`: a {"encoder", "decoder",
+    "quant_conv"} tree in JAX's CompVis naming with the temporal decoder,
+    or a FLUX-VAE tree at SD geometry), and the CLIP vision tower
+    (`image_encoder/model.safetensors`, HF names, with the config.json that
+    gives its heads and activation). {"unet", "vae"[, "clip"]} -> path,
+    the values of FLEXAM_DEPTHCRAFTER_CKPT / FLEXAM_SVD_VAE /
+    FLEXAM_SVD_CLIP."""
+    import json
+
+    from flexam_tpu_torch.io.checkpoints import save_safetensors
+    from flexam_tpu_torch.models.clip import clip_vision_state_dict
+    from flexam_tpu_torch.models.svd_unet import svd_unet_state_dict
+    from flexam_tpu_torch.models.svd_vae import svd_vae_state_dict
+    paths = {"unet": os.path.join(directory, "unet.safetensors"),
+             "vae": os.path.join(directory, "vae.safetensors")}
+    save_safetensors(paths["unet"], svd_unet_state_dict(unet))
+    if "conv_in" in vae.get("decoder", {}) and "time_conv_out" in vae[
+            "decoder"]:
+        save_safetensors(paths["vae"], svd_vae_state_dict(vae))
+    else:
+        from flexam_tpu_torch.models.flux_vae import flux_vae_state_dict
+        from flexam_tpu_torch.models.svd_vae import _encoder_cfg
+        save_safetensors(paths["vae"], flux_vae_state_dict(
+            vae, _encoder_cfg(vae["encoder"])))
+    if clip is not None:
+        d = os.path.join(directory, "image_encoder")
+        os.makedirs(d, exist_ok=True)
+        paths["clip"] = os.path.join(d, "model.safetensors")
+        save_safetensors(paths["clip"], clip_vision_state_dict(clip))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"num_attention_heads": clip_heads,
+                       "hidden_act": clip_act}, f)
+    return paths

@@ -13,6 +13,9 @@ Port of `flexam_tpu/tools/verify_ckpt.py`:
     python -m flexam_tpu_torch.tools.verify_ckpt --model pi3 path/model.safetensors
     python -m flexam_tpu_torch.tools.verify_ckpt --model zoe path/ZoeD_M12_N.pt
     python -m flexam_tpu_torch.tools.verify_ckpt --model dav2 path/depth_anything_v2_vitl.pth
+    python -m flexam_tpu_torch.tools.verify_ckpt --model flux flux1-depth-dev.safetensors
+    python -m flexam_tpu_torch.tools.verify_ckpt --model svd-vae vae.safetensors
+    # flux / flux-ae / svd-unet / svd-vae / svd-clip
 
 The dit, vae, t5, unidepth and zoe loaders (`io/checkpoints.py`,
 `perception/{unidepth,zoedepth}.py`) are name-mapped: they raise on any
@@ -22,11 +25,11 @@ coverage. The delta, moge, vggt and pi3 loaders
 (`perception/{densetrack3d,moge,vggt,pi3}.py`) map by shape and print
 per-module coverage (`io/verify_load.py`); `--threshold` is their bar
 (moge's loader, which raises below it, reports instead, under
-FLEXAM_MOGE_BESTEFFORT=1 for the call). Exit status 0 = the checkpoint
+FLEXAM_MOGE_BESTEFFORT=1 for the call). The FLUX / SVD kinds run their
+single-file maps (`models/{flux,flux_vae,svd_unet,svd_vae,clip}.py`) and
+print the coverage report, as JAX's. Exit status 0 = the checkpoint
 passes, 1 = it does not. The checkpoint loads onto the card unless
-`--platform cpu` asks for the CPU. The FLUX / SVD kinds need loaders that
-are not ported yet (ROADMAP A item 7): they raise NotImplementedError,
-where the JAX tool reports.
+`--platform cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -38,8 +41,6 @@ import sys
 KINDS = ["delta", "moge", "unidepth", "dit", "vae", "t5", "pi3", "vggt",
          "zoe", "dav2", "flux", "flux-ae", "svd-unet", "svd-vae",
          "svd-clip"]
-PORTED = ("dit", "vae", "t5", "delta", "unidepth", "moge", "pi3", "vggt",
-          "zoe", "dav2")
 
 
 def _report_name_mapped(kind: str, path: str, load_fn) -> bool:
@@ -65,11 +66,6 @@ def verify(kind: str, path: str, device=None,
     onto `device` (CUDA unless the caller asks for the CPU)."""
     if kind not in KINDS:
         raise SystemExit(f"unknown --model {kind}")
-    if kind not in PORTED:
-        raise NotImplementedError(
-            f"verify_ckpt --model {kind}: its loader is not ported to "
-            "flexam_tpu_torch yet (ROADMAP A item 7); the JAX tool "
-            "(python -m flexam_tpu.tools.verify_ckpt) has it")
     from flexam_tpu_torch.config import FlexAMConfig
     from flexam_tpu_torch.device import resolve_device
     from flexam_tpu_torch.io import checkpoints as ck
@@ -123,6 +119,11 @@ def verify(kind: str, path: str, device=None,
         from flexam_tpu_torch.perception.depth_anything import load_dav2
         return _report_name_mapped(
             kind, path, lambda: load_dav2(path, device=device))
+    if kind in ("flux", "flux-ae", "svd-unet", "svd-vae", "svd-clip"):
+        from flexam_tpu_torch.io.verify_load import check_mapping
+        return check_mapping(_single_file_report(kind, ck._load_one(path),
+                                                 device),
+                             name=f"{kind}[{path}]", threshold=threshold)
     cfg = FlexAMConfig()
     load = {"dit": lambda: ck.load_dit_checkpoint(path, cfg.dit,
                                                   device=device),
@@ -131,6 +132,44 @@ def verify(kind: str, path: str, device=None,
             "t5": lambda: ck.load_t5_checkpoint(path, cfg.t5,
                                                 device=device)}[kind]
     return _report_name_mapped(kind, path, load)
+
+
+def _single_file_report(kind: str, sd, device) -> dict:
+    """The coverage report of a FLUX / SVD kind's map over `sd` (the
+    tensors mapped onto `device`, as the loaders do; FLUX's 12 B in
+    bfloat16, the repainter's dtype)."""
+    import torch
+    if kind == "flux":
+        from flexam_tpu_torch.models.flux import (FluxConfig,
+                                                  flux_params_from_state_dict)
+        return flux_params_from_state_dict(sd, FluxConfig(),
+                                           dtype=torch.bfloat16,
+                                           device=device)[1]
+    if kind == "flux-ae":
+        from flexam_tpu_torch.models.flux_vae import (
+            FluxVAEConfig, flux_vae_params_from_state_dict)
+        return flux_vae_params_from_state_dict(sd, FluxVAEConfig(),
+                                               device=device)[1]
+    if kind == "svd-unet":
+        from flexam_tpu_torch.models.svd_unet import (
+            SVDUNetConfig, svd_unet_params_from_state_dict)
+        return svd_unet_params_from_state_dict(sd, SVDUNetConfig(),
+                                               device=device)[1]
+    if kind == "svd-vae":
+        from flexam_tpu_torch.perception.depthcrafter_model import (
+            SD_VAE_CONFIG, temporal_decoder_config)
+        if "decoder.time_conv_out.weight" in sd:
+            from flexam_tpu_torch.models.svd_vae import \
+                svd_vae_params_from_state_dict
+            return svd_vae_params_from_state_dict(
+                sd, SD_VAE_CONFIG, temporal_decoder_config(SD_VAE_CONFIG),
+                device=device)[1]
+        from flexam_tpu_torch.models.flux_vae import \
+            flux_vae_params_from_state_dict
+        return flux_vae_params_from_state_dict(sd, SD_VAE_CONFIG,
+                                               device=device)[1]
+    from flexam_tpu_torch.models.clip import clip_vision_params_from_hf
+    return clip_vision_params_from_hf(sd, device=device)[2]
 
 
 def main(argv=None) -> int:

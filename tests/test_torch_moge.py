@@ -227,10 +227,10 @@ def test_load_moge_matches_jax(models, tmp_path, monkeypatch, fmt):
     jm, tm = models
     monkeypatch.setattr(J, "MoGeConfig", lambda: TINY)
     monkeypatch.setattr(J, "moge_init", lambda key, cfg: jax_tree(
-        T.moge_init(torch.Generator().manual_seed(9), TINY_T)))
+        T.moge_init(torch.Generator().manual_seed(9), TINY_T, "cpu")))
     if fmt == "dir":
         write_checkpoint(tm.params, tmp_path / "model.pt", "pt")
-        decoy = T.moge_init(torch.Generator().manual_seed(8), TINY_T)
+        decoy = T.moge_init(torch.Generator().manual_seed(8), TINY_T, "cpu")
         write_checkpoint(decoy, tmp_path / "model.safetensors",
                          "safetensors")
         path = str(tmp_path)
@@ -273,7 +273,7 @@ def test_verify_ckpt_moge_matches_jax(models, tmp_path, monkeypatch):
     monkeypatch.setattr(J, "MoGeConfig", lambda: TINY)
     monkeypatch.setattr(T, "MoGeConfig", lambda: TINY_T)
     monkeypatch.setattr(J, "moge_init", lambda key, cfg: jax_tree(
-        T.moge_init(torch.Generator().manual_seed(9), TINY_T)))
+        T.moge_init(torch.Generator().manual_seed(9), TINY_T, "cpu")))
     monkeypatch.setenv("FLEXAM_MOGE_BESTEFFORT", "0")   # JAX's tool sets it
     good = write_checkpoint(tm.params, tmp_path / "moge.pt", "pt")
     junk = str(tmp_path / "junk.pt")

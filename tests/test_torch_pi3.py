@@ -54,7 +54,7 @@ def jax_model(params):
 
 
 def tiny_tree(seed, cam_fc2=True):
-    params = T.pi3_init(torch.Generator().manual_seed(seed), TINY_T)
+    params = T.pi3_init(torch.Generator().manual_seed(seed), TINY_T, "cpu")
     if cam_fc2:
         g = torch.Generator().manual_seed(seed + 100)
         params["cam_fc2"] = {

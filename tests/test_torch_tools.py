@@ -3,7 +3,8 @@
 `verify_ckpt` (junk files fail the dit, vae and t5 kinds as in JAX; files
 written from tiny random trees pass; the device defaults to CUDA; the
 perception kinds delta, unidepth, zoe and dav2 fail a junk file as in JAX,
-and the FLUX / SVD kinds raise, naming ROADMAP A item 7;
+and the FLUX / SVD kinds pass files written from JAX's trees and fail a
+junk file, as in JAX;
 `tests/test_torch_video_tracking.py`, `tests/test_torch_unidepth.py`,
 `tests/test_torch_zoedepth.py` and `tests/test_torch_depth_anything.py`
 hold the loaders to JAX's). The
@@ -123,11 +124,108 @@ def test_verify_ckpt_defaults_to_cuda(junk):
         tvc.main(["--model", "vae", junk["vae"]])
 
 
-@pytest.mark.parametrize("kind", ["flux", "flux-ae", "svd-unet", "svd-vae",
-                                  "svd-clip"])
-def test_verify_ckpt_unported_kinds_raise(junk, kind):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tvc.verify(kind, junk["vae"])
+FLUX_SVD_KINDS = ["flux", "flux-ae", "svd-unet", "svd-vae", "svd-clip"]
+
+
+@pytest.fixture(scope="module")
+def flux_svd_files(tmp_path_factory):
+    """One file a FLUX / SVD kind, written by JAX's writers from JAX trees
+    at the tiny geometries (the port's random inits crossed to JAX), plus
+    the tiny configs each tool is given."""
+    from safetensors.numpy import save_file
+
+    from flexam_tpu.models import flux as jf
+    from flexam_tpu.models import flux_vae as jv
+    from flexam_tpu.models import svd_unet as ju
+    from flexam_tpu.models.svd_vae import TemporalDecoderConfig
+    from flexam_tpu_torch.models import clip as tcl_
+    from flexam_tpu_torch.models import flux as tf_
+    from flexam_tpu_torch.models import flux_vae as tv_
+    from flexam_tpu_torch.models import svd_unet as tu_
+    from flexam_tpu_torch.models import svd_vae as ts_
+    from tests.test_torch_flux import to_jax
+    d = tmp_path_factory.mktemp("flux_svd_files")
+    sd_cfg = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=4,
+                  scale_factor=0.18215, shift_factor=0.0)
+    jsd_vae = jv.FluxVAEConfig(**sd_cfg)
+    enc = to_jax(tv_.init_flux_vae_params(tv_.FluxVAEConfig(**sd_cfg),
+                                          device="cpu"), conv=True)
+    dec = to_jax(ts_.init_temporal_decoder_params(
+        ts_.TemporalDecoderConfig.tiny(), device="cpu"), conv=True)
+    svd_vae = {k: v for k, v in jv.flux_vae_params_to_state_dict(
+        enc, jsd_vae).items() if k.startswith("encoder.")}
+    for ours, val in ju._flatten(dec).items():
+        v = np.asarray(val)
+        v = (v.transpose(3, 2, 0, 1) if v.ndim == 4 else
+             v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v)
+        svd_vae[f"decoder.{ours}"] = v
+    vit = tcl_.init_vit_params(tcl_.CLIPVisionConfig(
+        image_size=28, patch_size=14, dim=32, num_heads=2, num_layers=2),
+        device="cpu", proj_dim=16)
+    sds = {
+        "flux": jf.flux_params_to_state_dict(to_jax(tf_.init_flux_params(
+            tf_.FluxConfig.tiny(), dtype=torch.float32, device="cpu")),
+            jf.FluxConfig.tiny()),
+        "flux-ae": jv.flux_vae_params_to_state_dict(to_jax(
+            tv_.init_flux_vae_params(tv_.FluxVAEConfig.tiny(),
+                                     device="cpu"), conv=True),
+            jv.FluxVAEConfig.tiny()),
+        "svd-unet": ju.svd_unet_params_to_state_dict(to_jax(
+            tu_.init_svd_unet_params(tu_.SVDUNetConfig.tiny(),
+                                     device="cpu"), conv=True)),
+        "svd-vae": svd_vae,
+        "svd-clip": {k: v.numpy() for k, v in
+                     tcl_.clip_vision_state_dict(vit).items()},
+    }
+    paths = {}
+    for kind, sd in sds.items():
+        paths[kind] = str(d / f"{kind}.safetensors")
+        save_file({k: np.ascontiguousarray(np.asarray(v, np.float32))
+                   for k, v in sd.items()}, paths[kind])
+    paths["junk"] = str(d / "junk.safetensors")
+    save_file({"junk": np.zeros((2, 2), np.float32)}, paths["junk"])
+    assert TemporalDecoderConfig.tiny().block_out_channels == (32, 64)
+    return paths, jsd_vae, sd_cfg
+
+
+def _tiny_flux_svd_configs(monkeypatch, jsd_vae, sd_cfg):
+    """Both tools' default geometries swapped for the tiny ones."""
+    from flexam_tpu.models import flux as jf
+    from flexam_tpu.models import flux_vae as jv
+    from flexam_tpu.models import svd_unet as ju
+    from flexam_tpu.perception import depthcrafter_model as jm
+    from flexam_tpu_torch.models import flux as tf_
+    from flexam_tpu_torch.models import flux_vae as tv_
+    from flexam_tpu_torch.models import svd_unet as tu_
+    from flexam_tpu_torch.perception import depthcrafter_model as tm
+    monkeypatch.setattr(jm, "SD_VAE_CONFIG", jsd_vae)
+    monkeypatch.setattr(tm, "SD_VAE_CONFIG", tv_.FluxVAEConfig(**sd_cfg))
+    for mod, name, tiny in (
+            (jf, "FluxConfig", jf.FluxConfig.tiny()),
+            (tf_, "FluxConfig", tf_.FluxConfig.tiny()),
+            (jv, "FluxVAEConfig", jv.FluxVAEConfig.tiny()),
+            (tv_, "FluxVAEConfig", tv_.FluxVAEConfig.tiny()),
+            (ju, "SVDUNetConfig", ju.SVDUNetConfig.tiny()),
+            (tu_, "SVDUNetConfig", tu_.SVDUNetConfig.tiny())):
+        monkeypatch.setattr(mod, name, lambda tiny=tiny: tiny)
+
+
+@pytest.mark.parametrize("file", ["good", "junk"])
+@pytest.mark.parametrize("kind", FLUX_SVD_KINDS)
+def test_verify_ckpt_flux_svd_kinds_match_jax(flux_svd_files, kind, file,
+                                              monkeypatch, capsys):
+    """Each FLUX / SVD kind on a file JAX's writers made (the tools'
+    geometry swapped for the tiny one): both tools pass it, and both fail
+    a file holding one stray tensor; the CLI's exit code follows."""
+    paths, jsd_vae, sd_cfg = flux_svd_files
+    _tiny_flux_svd_configs(monkeypatch, jsd_vae, sd_cfg)
+    path = paths[kind if file == "good" else "junk"]
+    want = file == "good"
+    assert jvc.verify(kind, path) is want
+    assert tvc.verify(kind, path, "cpu") is want
+    assert tvc.main(["--model", kind, "--platform", "cpu", path]) == (
+        0 if want else 1)
+    assert f"{kind}[{path}]" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("kind", ["delta", "unidepth", "zoe", "dav2"])

@@ -255,8 +255,10 @@ def test_depth_registry_matches_jax(models, monkeypatch, tmp_path):
     """Backends by name and the selection order (argument, then
     FLEXAM_DEPTH_BACKEND, then the checkpoints that exist); the unidepth
     backend against JAX's on a video, its model cached per checkpoint and
-    device; zoe and dav2 / dav are live; the backends not ported (onnx,
-    depthcrafter) raise naming item 7."""
+    device; zoe and dav2 / dav are live; onnx raises JAX's RuntimeError
+    without FLEXAM_DEPTH_ONNX, and depthcrafter is live: it refuses this
+    28-row clip (rounded to 0 rows) as JAX's does
+    (`tests/test_torch_depthcrafter.py` holds both to JAX)."""
     jm, tm = models
     video = np.random.RandomState(7).rand(5, 28, 40, 3).astype(np.float32)
     for k in ("FLEXAM_DEPTH_BACKEND", "FLEXAM_UNIDEPTH_CKPT",
@@ -308,9 +310,14 @@ def test_depth_registry_matches_jax(models, monkeypatch, tmp_path):
 
     with pytest.raises(KeyError):
         tdepth.estimate_depth(video, backend="nope")
-    for name in ("onnx", "depthcrafter"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tdepth.estimate_depth(video, backend=name)
+    monkeypatch.delenv("FLEXAM_DEPTH_ONNX", raising=False)
+    with pytest.raises(RuntimeError, match="FLEXAM_DEPTH_ONNX"):
+        tdepth.estimate_depth(video, backend="onnx", device="cpu")
+    monkeypatch.delenv("FLEXAM_DEPTHCRAFTER_CKPT", raising=False)
+    with pytest.raises(ValueError, match="Invalid dimensions: 64x0"):
+        tdepth.estimate_depth(video, backend="depthcrafter")  # 28 rows
+    with pytest.raises(ValueError, match="Invalid dimensions: 64x0"):
+        jdepth.estimate_depth(video, backend="depthcrafter")
     # zoe, dav2 and dav are live: zoe runs the model it is given, dav2 /
     # dav read FLEXAM_DAV2_CKPT, which is unset here (a KeyError, as JAX's)
     from flexam_tpu_torch.perception.zoedepth import ZoeDepth, \

@@ -56,7 +56,7 @@ def jax_model(params):
 def tiny_tree(seed, cam_fc2=True):
     """The port's tiny init, its camera head's last layer random when
     `cam_fc2`."""
-    params = T.vggt_init(torch.Generator().manual_seed(seed), TINY_T)
+    params = T.vggt_init(torch.Generator().manual_seed(seed), TINY_T, "cpu")
     if cam_fc2:
         g = torch.Generator().manual_seed(seed + 100)
         params["cam_fc2"] = {

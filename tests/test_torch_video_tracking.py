@@ -304,10 +304,10 @@ def test_demo_video_runs_match_jax(pipes, clip, tiny_loaders, monkeypatch,
 
 def test_demo_still_raises_for_unported_models(pipes, clip, tiny_loaders,
                                                monkeypatch, tmp_path):
-    """FLUX keeps raising, naming item 7 (A14). MoGe, VGGT and Pi3 run
-    (`tests/test_torch_{moge,vggt,pi3}.py` hold them to JAX): a checkpoint
-    variable naming no file raises FileNotFoundError from their loaders
-    instead."""
+    """FLUX, MoGe, VGGT and Pi3 run (`tests/test_torch_repaint_flux.py`
+    and `tests/test_torch_{moge,vggt,pi3}.py` hold them to JAX): a
+    checkpoint variable naming no file raises FileNotFoundError from their
+    loaders, as JAX's."""
     path, _, _ = clip
     monkeypatch.setattr(tdemo, "_build_models", lambda args: pipes[1])
     base = ["--prompt", "x", "--platform", "cpu", "--random_init", "tiny",
@@ -316,7 +316,7 @@ def test_demo_still_raises_for_unported_models(pipes, clip, tiny_loaders,
             "--input_path", path, "--output_dir", str(tmp_path)]
     monkeypatch.setenv("FLEXAM_FLUX_CKPT", "flux.safetensors")
     monkeypatch.setenv("FLEXAM_FLUX_AE", "ae.safetensors")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(FileNotFoundError, match="flux.safetensors"):
         tdemo.main(base + ["--repaint", "true", "--synthetic_tracks"])
     monkeypatch.delenv("FLEXAM_FLUX_AE")
     monkeypatch.delenv("FLEXAM_FLUX_CKPT")
