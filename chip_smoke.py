@@ -307,7 +307,55 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        depth hook on a tiny graph (card against CPU, the
                        bound of the tiny DWPose graphs), and the tiny
                        denoiser on the card against the CPU (bound below)
-                       ("depthcrafter_launches").
+                       ("depthcrafter_launches");
+  train                training on the card (`flexam_tpu_torch/train.py`,
+                       run last, the earlier pipelines freed): (a) each of
+                       B1-B6 given an input that requires grad under grad
+                       mode raises NotImplementedError and launches
+                       nothing, and the same call under no_grad launches;
+                       (b) rank-16 LoRA on Wan2.2-Fun-5B at full width and
+                       depth (30 blocks, dim 3072, 24 x 128 heads), random
+                       bf16 weights made on the card, FLEXAM_FUSED=0
+                       FLEXAM_ATTENTION=xla, batch 1, the conditioning
+                       inputs at 512x896x17f (2,688 tokens with the ref
+                       block; 9f, 1,792 tokens, if 17f runs out of
+                       memory, and the phase fails if 9f does too: the
+                       line says which ran): 3 `lora_train_step`s with
+                       seconds a step, the peak, the exact branch's calls
+                       (> 0) and the kernels' launches (0); the loss
+                       finite, the base bit-identical (against a host
+                       copy), the factors moved; then the kohya export
+                       merged by `merge_lora`, equal to `apply_lora` block
+                       by block in fp32 within JAX's 1e-5, and one no-grad
+                       forward of the merged weights with the default
+                       backends, which must launch B1-B4 and count 0 exact
+                       calls ("train_launches"); (c) a full-parameter
+                       `train_step` (AdamW over bf16 weights, gradients and
+                       moments) at 5B width and 17 frames, the depth cut to
+                       the first of 16 / 12 / 8 blocks that fits, 2 steps,
+                       seconds and peak; (d) one fp32 `train_step` of a
+                       small head-dim-128 DiT on the card and on the CPU
+                       (the training env on both, explicit sigma / eps),
+                       and the tiny Wan2.1 VAE and XLM-RoBERTa (bounds
+                       below); (e) `train_to_smooth` at JAX's test config
+                       (30 steps), the calibration along a 10-step
+                       trajectory, and the TeaCache denoise in fp32 (steps
+                       must skip, within JAX's relative error 0.5 of the
+                       uncached run) and in bf16 (its decisions beside
+                       fp32's); (f) `train_control_stack` at JAX's recipe
+                       (CACHE_VERSION) and `evaluate_adherence` on the
+                       held-out cases, held to JAX's thresholds
+                       (`tests/test_control_following.py`: VAE loss < 0.03
+                       and its reconstruction's centroid within 4 px, the
+                       DiT's last-100 mean under 0.3 x its first-100,
+                       centroid error < 12 px and > 1.6x off the other
+                       track, tracker error < 35 px and < 0.7x off the
+                       other track), with each stage's seconds; (g) the
+                       Wan2.1 VAE (dim 96, z 16) encoding and decoding at
+                       480x832 the first of 81 / 49 / 17 frames that fits,
+                       and XLM-RoBERTa-large on a [2, 514] batch (512 and
+                       300 tokens, the rest padding), random bf16 weights,
+                       seconds and peaks.
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -419,6 +467,19 @@ branch chunked against one whole chunk (depthcrafter (b)): cuBLAS sums a
 smaller product in another order, a few fp32 ulps of each value: within
 EXACT_CHUNK_REL = 1e-5 of the largest.
 
+Training, the card against the CPU (train (d)), fp32 with TF32 off on
+both: the loss within 2e-4 of its size; AdamW's first moments (0.1 g)
+within 2e-4 of each value and 1e-5 of the leaf's largest; each weight
+within 2e-4 of itself plus lr / 100 where the gradient's sign is
+determined (|g| at least 1e-4 of the leaf's largest), and within 2 lr + lr
+/ 100 elsewhere: Adam's first step moves an element by lr g / (|g| + eps),
+about lr sign(g), so an element whose gradient lies within the summation
+noise of zero may step the other way (the bounds the CPU tests hold the
+port to against JAX). The tiny Wan2.1 VAE and XLM-RoBERTa within
+TRAIN_CARD_CPU_REL = 1e-4 of their largest output: their longest sums
+(3x3x3 convolutions over 32 channels, K = 864; XLM-R's 256-wide FFN) carry
+2^-24 K = 5e-5 of their size at worst.
+
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
 bf16 models). The two paths feed the bf16 VAE encoder the same normalized
@@ -461,6 +522,18 @@ DC_VIDEO = (32, 512, 896)          # DepthCrafter's clip (a)
 DC_STEPS = 2
 DC_CARD_CPU_ABS = 1e-4             # tiny denoiser, card vs CPU ([0, 1])
 EXACT_CHUNK_REL = 1e-5             # the exact branch chunked vs whole
+TRAIN_HW = (512, 896)              # the conditioning inputs of phase train
+TRAIN_LORA_FRAMES = (17, 9)        # 2,688 / 1,792 tokens
+TRAIN_LORA_RANK = 16
+TRAIN_LORA_STEPS = 3
+TRAIN_FULL_DEPTHS = (16, 12, 8)    # blocks tried for the full train_step
+TRAIN_FULL_STEPS = 2
+TRAIN_CARD_CPU_REL = 1e-4          # tiny VAE21 / XLM-R, card vs CPU, fp32
+TEACACHE_STEPS = 10
+VAE21_HW = (480, 832)
+VAE21_FRAMES = (81, 49, 17)        # frame counts tried at 480x832
+XLMR_SHAPE = (2, 514)
+
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -4437,6 +4510,659 @@ def phase_depthcrafter(dev, results: dict) -> None:
     emit("depthcrafter", t0, **out)
 
 
+def _train_env(on: bool) -> None:
+    """FLEXAM_FUSED=0 FLEXAM_ATTENTION=xla (JAX's training path) or the
+    default backends."""
+    from flexam_tpu_torch.core import attention as core_att
+    for k, v in (("FLEXAM_FUSED", "0"), ("FLEXAM_ATTENTION", "xla")):
+        if on:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    core_att._default_backend.cache_clear()
+
+
+def _train_batch(cfg, frames: int, dev, gen, dtype):
+    """The conditioning inputs of the 5B DiT at 512x896 x `frames`: latents,
+    y (control, mask, masked video), the CNN's additional control, the ref
+    latent, density and a text context, N(0, 1) from `gen`."""
+    import torch
+    lt = (frames - 1) // 4 + 1
+    h, w = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    c = cfg.out_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return {"latents": rnd(1, c, lt, h, w),
+            "y": rnd(1, cfg.in_dim - c, lt, h, w),
+            "additional_control": rnd(1, cfg.in_dim_cnn_block - c, lt, h, w),
+            "full_ref": rnd(1, c, h, w),
+            "density": torch.full((1,), 0.1, device=dev),
+            "context": rnd(1, cfg.text_len, cfg.text_dim)}
+
+
+def _refusal_calls(dev):
+    """(launch key, call) of B1-B6 at small shapes each takes; `call(t)`
+    passes `t` as the first tensor."""
+    import torch
+    from flexam_tpu_torch.ops import fused
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import sparse_attention as sp
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    q = torch.randn((1, 256, 2, 128), generator=g, device=dev).bfloat16()
+    kv = q[:, :64].contiguous()
+    gamma = torch.ones(3072, device=dev, dtype=torch.bfloat16)
+    cos, sin = torch.ones(64, 64, device=dev), torch.zeros(64, 64, device=dev)
+    terms = torch.zeros(1, 3072, device=dev)
+    pair = torch.zeros(1, 2, 3072, device=dev)
+    mask = torch.ones(1, 64, device=dev)
+    return [("flash_attention", lambda t: fa.flash_attention(t, q, q)),
+            ("single_kv_attention",
+             lambda t: fa.single_kv_attention(t, kv, kv)),
+            ("rmsnorm_rope",
+             lambda t: fused.rmsnorm_rope(t, gamma, cos, sin, 24)),
+            ("ln_mod_bcast", lambda t: fused.ln_modulation(t, terms, terms)),
+            ("ln_mod_binary",
+             lambda t: fused.ln_modulation(t, pair, pair, mask=mask)),
+            ("sparse_attention",
+             lambda t: sp.sparse_flash_attention(t, q, q, [[0, 1], [0, 1]],
+                                                 128)),
+            ("int8_attention", lambda t: i8.int8_attention(t, q, q))]
+
+
+def train_refusals(dev) -> dict:
+    """(a): each of B1-B6 raises NotImplementedError for an input that
+    requires grad under grad mode, launching nothing; the same call under
+    no_grad launches."""
+    import torch
+    from flexam_tpu_torch.ops import launch_counts
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 71)
+    for key, call in _refusal_calls(dev):
+        shape = ((1, 64, 3072) if key in ("rmsnorm_rope", "ln_mod_bcast",
+                                          "ln_mod_binary")
+                 else (1, 256, 2, 128))
+        t = torch.randn(shape, generator=g, device=dev).bfloat16()
+        t.requires_grad_(True)
+        before = launch_counts()[key]
+        try:
+            call(t)
+        except NotImplementedError as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"train (a): {key} launched under autograd")
+        if launch_counts()[key] != before or "FLEXAM_FUSED=0" not in message:
+            raise AssertionError(f"train (a): {key}: {message}")
+        with torch.no_grad():
+            res = call(t)
+        torch.cuda.synchronize()
+        if launch_counts()[key] != before + 1 or res.grad_fn is not None:
+            raise AssertionError(f"train (a): {key} under no_grad")
+        out[key] = {"refused": True, "no_grad_launches": 1}
+    return out
+
+
+def _host_copy(tree) -> list:
+    from flexam_tpu_torch.io.convert import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def lora_merge_check(base, lora, sd) -> tuple:
+    """`merge_lora` of the kohya export against `apply_lora`, block by block
+    in fp32 (the base weight widened): within JAX's 1e-5 (rtol, atol 1e-6).
+    Returns (the check's numbers, the merged tree in the base's dtype: the
+    fp32 merge cast back, which is what `merge_lora` of the base gives)."""
+    import torch
+    from flexam_tpu_torch.utils.lora import apply_lora, merge_lora
+    worst = 0.0
+    n = 0
+    blocks = []
+    for i, lb in enumerate(lora["blocks"]):
+        pre = f"lora_unet_blocks_{i}_"
+        sub = {"lora_unet_blocks_0_" + k[len(pre):]: v
+               for k, v in sd.items() if k.startswith(pre)}
+        blk = {mod: {proj: {"weight": base["blocks"][i][mod][proj]
+                            ["weight"].float()} for proj in projs}
+               for mod, projs in lb.items()}
+        with torch.no_grad():
+            merged = merge_lora({"blocks": [blk]}, sub)["blocks"][0]
+            direct = apply_lora({"blocks": [blk]}, {
+                "blocks": [lb], "rank": lora["rank"],
+                "alpha": lora["alpha"]})["blocks"][0]
+        for mod, projs in lb.items():
+            for proj in projs:
+                m, d = merged[mod][proj]["weight"], direct[mod][proj]["weight"]
+                excess = ((m - d).abs() - 1e-5 * d.abs() - 1e-6).max().item()
+                worst = max(worst, (m - d).abs().max().item())
+                n += 1
+                if excess > 0:
+                    raise AssertionError(f"train (b): merge of blocks[{i}]."
+                                         f"{mod}.{proj} off apply_lora")
+        bp = dict(base["blocks"][i])
+        for mod, projs in lb.items():
+            bp[mod] = {**bp[mod], **{proj: {
+                **bp[mod][proj], "weight": merged[mod][proj]["weight"].to(
+                    bp[mod][proj]["weight"].dtype)} for proj in projs}}
+        blocks.append(bp)
+    return ({"projections": n, "max_abs_diff_fp32": worst,
+             "bound": "rtol 1e-5, atol 1e-6"}, {**base, "blocks": blocks})
+
+
+def train_lora(dev, cfg, results: dict) -> dict:
+    """(b): rank-16 LoRA training of the 5B DiT at full width and depth."""
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.io.convert import tree_leaves
+    from flexam_tpu_torch.models.dit import dit_forward, init_dit_params
+    from flexam_tpu_torch.train import adamw, lora_train_step, trainable
+    from flexam_tpu_torch.utils.lora import (init_lora_params,
+                                             lora_to_state_dict)
+
+    out = {}
+    t1 = time.perf_counter()
+    base = init_dit_params(cfg, seed=SEED + 72, dtype=torch.bfloat16,
+                           device=dev)
+    torch.cuda.synchronize()
+    out["init_seconds"] = time.perf_counter() - t1
+    out["base_gb"] = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(base)) / 1e9
+    before = _host_copy(base)
+    _train_env(True)
+    _reset_counts()
+    tried = []
+    for frames in TRAIN_LORA_FRAMES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+        batch = _train_batch(cfg, frames, dev, gen, torch.bfloat16)
+        lora = init_lora_params(gen, base, rank=TRAIN_LORA_RANK)
+        factors = _host_copy(lora["blocks"])
+        opt = adamw(trainable(lora["blocks"]), 1e-4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = [], []
+        try:
+            for _ in range(TRAIN_LORA_STEPS):
+                t1 = time.perf_counter()
+                lora, loss = lora_train_step(base, lora, opt, cfg, batch,
+                                             generator=gen)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t1)
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append({"frames": frames, "out_of_memory": str(e)[:160]})
+            del batch, lora, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise AssertionError(f"train (b): no frame count fits: {tried}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = _counts()
+    kernels = {k: n for k, n in counts.items() if k != "exact_attention"}
+    if not np.isfinite(losses).all() or any(kernels.values()) or \
+            not counts["exact_attention"]:
+        raise AssertionError(f"train (b): losses {losses}, counts {counts}")
+    same = all(torch.equal(a, b) for a, b in zip(before,
+                                                _host_copy(base)))
+    moved = max((a.float() - b.float()).abs().max().item() for a, b in
+                zip(factors, _host_copy(lora["blocks"])))
+    if not same or moved == 0 or any(t.requires_grad
+                                     for t in tree_leaves(base)):
+        raise AssertionError(f"train (b): base unchanged {same}, factors "
+                             f"moved {moved}")
+    lt = (frames - 1) // 4 + 1
+    out.update(
+        frames=frames, tried=tried, tokens=(lt + 1) * TRAIN_HW[0] // 32
+        * TRAIN_HW[1] // 32, rank=TRAIN_LORA_RANK, losses=losses,
+        step_seconds=steps, seconds_per_step=float(np.mean(steps[1:])),
+        peak_memory_allocated_gb=peak, exact_calls=counts["exact_attention"],
+        kernel_launches=sum(kernels.values()), base_bit_identical=same,
+        factors_max_change=moved)
+    del before, factors, opt
+    gc.collect()
+
+    # export (kohya), merge, and a no-grad forward with the default backends
+    t1 = time.perf_counter()
+    sd = lora_to_state_dict(lora, "kohya")
+    out["merge_check"], merged = lora_merge_check(base, lora, sd)
+    out["merge_seconds"] = time.perf_counter() - t1
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_env(False)
+    before = _counts()
+    b = batch
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        v = dit_forward(merged, cfg, b["latents"], torch.full(
+            (1,), 500.0, device=dev), b["context"], density=b["density"],
+            y=b["y"], additional_control=b["additional_control"],
+            full_ref=b["full_ref"])
+        torch.cuda.synchronize()
+    fwd = _counts_delta(before)
+    if not torch.isfinite(v).all() or fwd["exact_attention"] or any(
+            fwd[k] == 0 for k in ("flash_attention", "single_kv_attention",
+                                  "rmsnorm_rope")) or \
+            fwd["ln_mod_bcast"] + fwd["ln_mod_binary"] == 0:
+        raise AssertionError(f"train (b): merged forward {fwd}")
+    out["merged_forward"] = {"seconds": time.perf_counter() - t1,
+                             "launches": fwd}
+    counts = _counts()
+    for k in results:
+        results[k]["train_launches"] = counts.get(k, 0)
+    del merged, lora, batch, b, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(dev, cfg) -> dict:
+    """(c): full-parameter `train_step` at 5B width, 17 frames, the depth
+    cut to what fits (bf16 weights, gradients and both AdamW moments)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.train import make_train_state, train_step
+
+    _train_env(True)
+    tried = []
+    for depth in TRAIN_FULL_DEPTHS:
+        c = dataclasses.replace(cfg, num_layers=depth)
+        params = init_dit_params(c, seed=SEED + 74, dtype=torch.bfloat16,
+                                 device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 75)
+        batch = _train_batch(c, TRAIN_LORA_FRAMES[0], dev, gen,
+                             torch.bfloat16)
+        opt = make_train_state(params, learning_rate=1e-5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = [], []
+        try:
+            for _ in range(TRAIN_FULL_STEPS):
+                t1 = time.perf_counter()
+                params, loss = train_step(params, opt, c, batch,
+                                          generator=gen)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t1)
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append({"blocks": depth, "out_of_memory": str(e)[:160]})
+            del params, batch, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise AssertionError(f"train (c): no depth fits: {tried}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train (c): losses {losses}")
+    n = sum(p.numel() for p in opt.params)
+    del params, batch, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_env(False)
+    return {"blocks": depth, "tried": tried, "frames": TRAIN_LORA_FRAMES[0],
+            "params": n, "losses": losses, "step_seconds": steps,
+            "peak_memory_allocated_gb": peak}
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """(d): one fp32 `train_step` of a small head-dim-128 DiT on the card
+    (the training env) and on the CPU from one tree and explicit noise; the
+    tiny Wan2.1 VAE and XLM-RoBERTa likewise (bounds in the docstring)."""
+    import dataclasses
+
+    import torch
+    from flexam_tpu_torch.config import tiny_test_config
+    from flexam_tpu_torch.io.convert import map_leaves, tree_leaves
+    from flexam_tpu_torch.models import clip as tc
+    from flexam_tpu_torch.models import vae21 as tv
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.train import batch_to, make_train_state, train_step
+
+    cfg = dataclasses.replace(tiny_test_config().dit, dim=256, num_heads=2,
+                              ffn_dim=512)
+    gen = torch.Generator().manual_seed(SEED + 76)
+    c = cfg.out_dim
+    batch = {"latents": torch.randn((2, c, 2, 4, 4), generator=gen),
+             "context": 0.1 * torch.randn((2, cfg.text_len, cfg.text_dim),
+                                          generator=gen),
+             "density": torch.tensor([0.1, 0.1]),
+             "y": torch.randn((2, 2 * c + 4, 2, 4, 4), generator=gen),
+             "additional_control": torch.randn((2, 5 * c, 2, 4, 4),
+                                               generator=gen),
+             "full_ref": torch.randn((2, c, 4, 4), generator=gen)}
+    sigma = torch.tensor([0.3, 0.8])
+    eps = torch.randn(batch["latents"].shape, generator=gen)
+    lr = 1e-3
+    runs = {}
+    _train_env(True)
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        params = init_dit_params(cfg, seed=SEED + 77, dtype=torch.float32,
+                                 device="cpu")
+        params = map_leaves(params, lambda k, t, b: t.to(d))
+        opt = make_train_state(params, learning_rate=lr)
+        before = _counts()
+        params, loss = train_step(params, opt, cfg, batch_to(batch, d),
+                                  sigma=sigma.to(d), eps=eps.to(d))
+        moments = [opt.opt.state[p]["exp_avg"].cpu()
+                   for p in tree_leaves(params)]
+        runs[name] = (float(loss), [t.detach().cpu()
+                                    for t in tree_leaves(params)], moments,
+                      _counts_delta(before))
+    _train_env(False)
+    (lc, pc, mc, cnt), (lh, ph, mh, _) = runs["cuda"], runs["cpu"]
+    if any(v for k, v in cnt.items() if k != "exact_attention"):
+        raise AssertionError(f"train (d): the card's step launched {cnt}")
+    out = {"loss": {"card": lc, "cpu": lh,
+                    "rel_diff": abs(lc - lh) / abs(lh)}}
+    if abs(lc - lh) > 2e-4 * abs(lh):
+        raise AssertionError(f"train (d): loss {lc} vs {lh}")
+    worst_m = worst_p = 0.0
+    for a, b, ma, mb in zip(pc, ph, mc, mh):
+        scale = mb.abs().max().item() or 1e-30
+        dm = (ma - mb).abs()
+        if (dm > 2e-4 * mb.abs() + 1e-5 * scale).any():
+            raise AssertionError("train (d): first moments card vs CPU")
+        worst_m = max(worst_m, dm.max().item() / scale)
+        sure = mb.abs() >= 1e-4 * scale
+        dp = (a - b).abs()
+        if (dp[sure] > 2e-4 * b.abs()[sure] + lr / 100).any() or \
+                (dp > 2 * lr + lr / 100).any():
+            raise AssertionError("train (d): parameters card vs CPU")
+        worst_p = max(worst_p, dp[sure].max().item() if sure.any() else 0.0)
+    out["moments_max_rel_of_leaf_max"] = worst_m
+    out["params_max_abs_diff_sign_determined"] = worst_p
+
+    vcfg = tv.VAE21Config(dim=8, num_res_blocks=1)
+    vp = tv.init_vae21_params(vcfg, seed=SEED + 78, dtype=torch.float32,
+                              device="cpu")
+    x = torch.rand((1, 3, 5, 32, 48), generator=gen) * 2 - 1
+    z = torch.randn((1, 16, 2, 4, 6), generator=gen)
+    vpc = map_leaves(vp, lambda k, t, b: t.to(dev))
+    with torch.no_grad():
+        out["vae21_encode"] = compare(
+            tv.vae21_encode(vpc, vcfg, x.to(dev))[0].cpu(),
+            tv.vae21_encode(vp, vcfg, x)[0], TRAIN_CARD_CPU_REL,
+            "vae21 encode card vs CPU")
+        out["vae21_decode"] = compare(
+            tv.vae21_decode(vpc, vcfg, z.to(dev)).cpu(),
+            tv.vae21_decode(vp, vcfg, z), TRAIN_CARD_CPU_REL,
+            "vae21 decode card vs CPU")
+        xcfg = tc.XLMRobertaConfig(vocab_size=100, max_seq_len=40, dim=64,
+                                   num_heads=4, num_layers=2)
+        xp = tc.init_xlm_roberta_params(xcfg, seed=SEED + 79, device="cpu")
+        ids = torch.randint(2, 100, (2, 24), generator=gen)
+        ids[1, 15:] = xcfg.pad_id
+        out["xlm_roberta"] = compare(
+            tc.xlm_roberta_forward(map_leaves(xp, lambda k, t, b: t.to(dev)),
+                                   xcfg, ids.to(dev)).cpu(),
+            tc.xlm_roberta_forward(xp, xcfg, ids), TRAIN_CARD_CPU_REL,
+            "xlm-roberta card vs CPU")
+    return out
+
+
+def train_teacache(dev) -> dict:
+    """(e): `train_to_smooth` at JAX's test config (30 steps), calibration
+    along a 10-step trajectory, then the TeaCache denoise in fp32 and in
+    bf16 against the uncached fp32 one."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.config import DiTConfig
+    from flexam_tpu_torch.io.convert import cast_floats
+    from flexam_tpu_torch.models.dit import (dit_forward,
+                                             dit_forward_teacache,
+                                             init_teacache_state)
+    from flexam_tpu_torch.sampling import (build_schedule,
+                                           sampler_init_state, sampler_step,
+                                           schedule_arrays)
+    from flexam_tpu_torch.tools import teacache_calibrate as tcal
+
+    cfg = DiTConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=2,
+                    in_dim=4, out_dim=4, text_dim=16, text_len=4,
+                    freq_dim=16, add_ref_conv=False, add_cnn_block=False)
+    t1 = time.perf_counter()
+    trained = tcal.train_to_smooth(cfg, num_steps=30, latent_shape=(2, 4, 4),
+                                   lr=3e-4, device=dev)
+    train_s = time.perf_counter() - t1
+    losses = trained["losses"]
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train (e): losses {losses}")
+    params, ctx = trained["params"], trained["context"]
+    shape = (1, cfg.in_dim, 2, 4, 4)
+    rels, outs = tcal.collect_signals_trajectory(params, cfg, shape, ctx,
+                                                 num_steps=TEACACHE_STEPS)
+    coeffs = tcal.fit_coefficients(rels, outs)
+    est = np.polyval(np.asarray(coeffs), rels)
+    thresh = float(np.median(np.abs(est)) * 2.0 + 1e-6)
+    n = TEACACHE_STEPS
+    tables = build_schedule("euler", n, shift=5.0)
+    sched = schedule_arrays(tables, dev)
+    x = torch.randn(shape, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED + 80), device=dev)
+
+    @torch.no_grad()
+    def run(p, context, dtype, use_tea):
+        state = sampler_init_state(x, tables.order)
+        tea = init_teacache_state(1, 8, cfg.dim, dtype, dev)
+        computed = []
+        for i in range(n):
+            t = torch.full((1,), float(tables.timesteps[i]), device=dev)
+            xi = state[0].to(dtype)
+            if use_tea:
+                before = float(tea["computed"])
+                v, tea = dit_forward_teacache(
+                    p, cfg, xi, t, context, tea, i, coefficients=coeffs,
+                    rel_l1_thresh=thresh, num_skip_start_steps=2)
+                computed.append(float(tea["computed"]) > before)
+            else:
+                v = dit_forward(p, cfg, xi, t, context)
+            state, _ = sampler_step(sched, tables.convert, state, v.float(),
+                                    i)
+        return state[0].cpu().numpy(), computed
+
+    ref, _ = run(params, ctx, torch.float32, False)
+    out = {"train_seconds": train_s, "losses_first5": losses[:5],
+           "losses_last5": losses[-5:], "coefficients": list(coeffs),
+           "threshold": thresh, "rel_l1": rels.tolist()}
+    p16 = cast_floats(params, torch.bfloat16)
+    for name, p, context, dtype in (
+            ("fp32", params, ctx, torch.float32),
+            ("bf16", p16, ctx.to(torch.bfloat16), torch.bfloat16)):
+        got, computed = run(p, context, dtype, True)
+        rel = float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) + 1e-9))
+        out[name] = {"computed_steps": [i for i, c in enumerate(computed)
+                                        if c],
+                     "skipped": n - sum(computed), "rel_err_vs_fp32": rel}
+        if not np.isfinite(got).all():
+            raise AssertionError(f"train (e): {name} not finite")
+    f = out["fp32"]
+    if f["skipped"] < 1 or n - f["skipped"] < 2 or \
+            not f["rel_err_vs_fp32"] < 0.5:
+        raise AssertionError(f"train (e): {out}")
+    out["bf16_decisions_equal_fp32"] = (out["bf16"]["computed_steps"]
+                                        == f["computed_steps"])
+    return out
+
+
+def train_follow(dev) -> dict:
+    """(f): `train_control_stack` at JAX's recipe, then
+    `evaluate_adherence` on the held-out cases, held to JAX's thresholds
+    (`tests/test_control_following.py`)."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.models.vae import vae_decode, vae_encode_mode
+    from flexam_tpu_torch.tools import control_follow as cf
+
+    _train_env(True)
+    t1 = time.perf_counter()
+    stack = cf.train_control_stack(device=dev)
+    train_s = time.perf_counter() - t1
+    _train_env(False)
+    vl, dl = stack["vae_losses"], stack["dit_losses"]
+    vid, centers = cf.make_blob_clip([16, 16], [48, 48])
+    with torch.no_grad():
+        z = vae_encode_mode(stack["vae_params"], stack["cfg"].vae,
+                            torch.from_numpy(vid[None] * 2 - 1).to(dev))
+        rec = vae_decode(stack["vae_params"], stack["cfg"].vae, z)
+    rec = rec[0].float().cpu().numpy() * 0.5 + 0.5
+    recon_err = float(np.linalg.norm(cf.centroid_trajectory(rec) - centers,
+                                     axis=1).mean())
+    t1 = time.perf_counter()
+    res = cf.evaluate_adherence(stack, cf.default_holdout_cases(),
+                                num_inference_steps=20, device=dev)
+    eval_s = time.perf_counter() - t1
+    cases = [{k: r.get(k) for k in ("centroid_err", "centroid_err_alt",
+                                    "tracker_err", "tracker_err_alt")}
+             for r in res]
+    out = {"stage_seconds": {**stack["seconds"], "evaluate": eval_s},
+           "train_seconds": train_s, "vae_final_loss": vl[-1],
+           "vae_recon_centroid_err": recon_err,
+           "dit_first100_mean": float(np.mean(dl[:100])),
+           "dit_last100_mean": float(np.mean(dl[-100:])), "cases": cases,
+           "recipe": cf.CACHE_VERSION}
+    fails = []
+    if not vl[-1] < 0.03:
+        fails.append("VAE loss")
+    if not recon_err < 4.0:
+        fails.append("VAE recon centroid")
+    if not out["dit_last100_mean"] < 0.3 * out["dit_first100_mean"]:
+        fails.append("DiT convergence")
+    for r in res:
+        if not (r["centroid_err"] < 12.0
+                and r["centroid_err_alt"] > 1.6 * r["centroid_err"]):
+            fails.append(f"case {r['case']} centroid")
+        if r["tracker_disp"] is None or not (
+                r["tracker_err"] < 35.0
+                and r["tracker_err"] < 0.7 * r["tracker_err_alt"]):
+            fails.append(f"case {r['case']} tracker")
+    if fails:
+        raise AssertionError(f"train (f): {fails}: {out}")
+    return out
+
+
+def train_published_widths(dev) -> dict:
+    """(g): the Wan2.1 VAE (dim 96, z 16) at 480x832 and XLM-RoBERTa-large
+    on a [2, 514] batch, random bf16 weights, no grad."""
+    import gc
+
+    import torch
+    from flexam_tpu_torch.models import clip as tc
+    from flexam_tpu_torch.models import vae21 as tv
+
+    out = {}
+    cfg = tv.VAE21Config()
+    params = tv.init_vae21_params(cfg, seed=SEED + 81, device=dev)
+    tried = []
+    h, w = VAE21_HW
+    for frames in VAE21_FRAMES:
+        x = torch.rand((1, 3, frames, h, w), device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(SEED + 82)).to(torch.bfloat16) * 2 - 1
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                t1 = time.perf_counter()
+                mu, _ = tv.vae21_encode(params, cfg, x)
+                torch.cuda.synchronize()
+                enc = time.perf_counter() - t1
+                enc_peak = torch.cuda.max_memory_allocated() / 1e9
+                del x
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                rec = tv.vae21_decode(params, cfg, mu)
+                torch.cuda.synchronize()
+                dec = time.perf_counter() - t1
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append({"frames": frames, "out_of_memory": str(e)[:160]})
+            x = mu = rec = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise AssertionError(f"train (g): no frame count fits: {tried}")
+    if tuple(rec.shape) != (1, 3, frames, h, w) or \
+            not torch.isfinite(rec).all():
+        raise AssertionError(f"train (g): vae21 decode {tuple(rec.shape)}")
+    out["vae21"] = {"frames": frames, "hw": list(VAE21_HW), "tried": tried,
+                    "latent": list(mu.shape), "encode_seconds": enc,
+                    "encode_peak_gb": enc_peak, "decode_seconds": dec,
+                    "decode_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, mu, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xcfg = tc.XLMRobertaConfig()
+    xp = tc.init_xlm_roberta_params(xcfg, seed=SEED + 83,
+                                    dtype=torch.bfloat16, device=dev)
+    b, length = XLMR_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 84)
+    ids = torch.randint(3, xcfg.vocab_size, (b, length), generator=g,
+                        device=dev)
+    # RoBERTa's positions reach pad_id + tokens: at most 512 tokens a row
+    ids[0, 512:] = xcfg.pad_id
+    ids[1, 300:] = xcfg.pad_id
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        tc.xlm_roberta_forward(xp, xcfg, ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = tc.xlm_roberta_forward(xp, xcfg, ids)
+        torch.cuda.synchronize()
+    if tuple(y.shape) != (b, length, xcfg.dim) or not torch.isfinite(y).all():
+        raise AssertionError(f"train (g): xlm-roberta {tuple(y.shape)}")
+    out["xlm_roberta_large"] = {
+        "batch": list(XLMR_SHAPE), "tokens": [512, 300],
+        "seconds": time.perf_counter() - t1,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del xp, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, cfg, results: dict) -> None:
+    """Training on the card (module docstring): (a) the kernels' refusal
+    of autograd, (b) LoRA at full 5B width and depth, (c) a full
+    train_step at 5B width, (d) card against CPU, (e) TeaCache with
+    trained weights, (f) train-to-follow, (g) the published widths of the
+    Wan2.1 VAE and XLM-RoBERTa-large."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    for key, fn in (("refusals", lambda: train_refusals(dev)),
+                    ("lora", lambda: train_lora(dev, cfg.dit, results)),
+                    ("full_train_step", lambda: train_full(dev, cfg.dit)),
+                    ("card_vs_cpu", lambda: train_card_vs_cpu(dev)),
+                    ("teacache", lambda: train_teacache(dev)),
+                    ("follow", lambda: train_follow(dev)),
+                    ("published_widths",
+                     lambda: train_published_widths(dev))):
+        t1 = time.perf_counter()
+        try:
+            out[key] = fn()
+        finally:
+            _train_env(False)
+        out[key]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train", t0, **out)
+
+
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
                         "flexam_tpu/ops/flash_attention.py:34"),
@@ -4555,6 +5281,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_depthcrafter(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev, WAN22_5B_FLEXAM, results)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -4573,6 +5302,7 @@ def main() -> int:
             "nodes_launches": r["nodes_launches"],
             "repaint_launches": r["repaint_launches"],
             "depthcrafter_launches": r["depthcrafter_launches"],
+            "train_launches": r["train_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
                                   "flux_shapes") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

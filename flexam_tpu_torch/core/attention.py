@@ -11,9 +11,11 @@ package's names, so that `FLEXAM_ATTENTION` means the same in both:
                cross-attention included; the auto default takes it only for
                self-attention (lq == lk) of at least INT8_AUTO_MIN_TOKENS
                tokens, unless FLEXAM_INT8_AUTO=0;
-  xla          the compiler's fused attention (`xla`, `torch_sdpa`). The
-               port has no such thing: on a CPU tensor it is the plain
-               exact version, on a CUDA tensor it raises;
+  xla          (`xla`, `torch_sdpa`) JAX's `xla_attention`, a plain softmax
+               attention that XLA compiles: here `exact_attention`, the same
+               math as torch ops (not SDPA), on both devices. It is
+               differentiable, so training selects it (with FLEXAM_FUSED=0),
+               as JAX trains off its Pallas kernels;
   sparse       (`sparse`, `pallas_sparse`) B5 for video self-attention,
                resolved by the pipeline, which knows the latent geometry;
                generic calls take the auto default.
@@ -123,13 +125,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention over [B, L, H, D] tensors."""
     backend = resolve_backend(q.shape[1], k.shape[1], backend)
     if backend == "xla":
-        if q.is_cuda:
-            raise NotImplementedError(
-                "attention backend 'xla' (FLEXAM_ATTENTION=xla/torch_sdpa) "
-                "names the compiler's fused attention, which the port does "
-                "not have: on CUDA it runs its own kernels (pallas, "
-                "pallas_int8, sparse)")
-        return attention_plain(q, k, v, k_len=k_len, scale=scale)
+        return exact_attention(q, k, v, k_len=k_len, scale=scale)
     # the kernels take head dims that are a multiple of 128; the JAX
     # package sends the others to exact attention
     if q.shape[-1] % 128 != 0:

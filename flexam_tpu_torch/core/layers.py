@@ -9,6 +9,7 @@ torch layout (Linear weight [out, in]); a linear holding {"weight_q",
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -76,15 +77,21 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     The fp64 frequencies are split into hi + lo fp32 terms so the angle
     keeps near-fp32-ulp accuracy at large positions (as in the JAX port)."""
     assert dim % 2 == 0
-    half = dim // 2
     pos = position.float()[..., None]
+    hi, lo = _sinusoid_freqs(dim // 2, pos.device)
+    sinusoid = pos * hi + pos * lo
+    return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_freqs(half: int, device: torch.device):
+    """The hi / lo fp32 terms of 10000^(-i / half), on `device` once (no
+    host copy a call, so a step can be captured in a CUDA graph)."""
     freqs64 = np.power(10000.0, -np.arange(half, dtype=np.float64) / half)
     f_hi = freqs64.astype(np.float32)
     f_lo = (freqs64 - f_hi.astype(np.float64)).astype(np.float32)
-    hi = torch.from_numpy(f_hi).to(pos.device)
-    lo = torch.from_numpy(f_lo).to(pos.device)
-    sinusoid = pos * hi + pos * lo
-    return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=-1)
+    return (torch.from_numpy(f_hi).to(device),
+            torch.from_numpy(f_lo).to(device))
 
 
 def linear(x: torch.Tensor, params: dict) -> torch.Tensor:

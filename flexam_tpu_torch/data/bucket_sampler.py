@@ -1,15 +1,17 @@
-"""Aspect-ratio buckets.
+"""Aspect-ratio bucketed batching.
 
-Port of the part of `flexam_tpu/data/bucket_sampler.py` that the sampler
-node uses (`nodes.py`'s resolution snap): the 512-base table
-`ASPECT_RATIO_512` (reference `FlexAM/data/bucket_sampler.py:12-23`) and
-`get_closest_ratio` (`:40-43`). The batch sampler belongs to training
-(ROADMAP A item 6).
+Port of `flexam_tpu/data/bucket_sampler.py`: the 512-base table
+`ASPECT_RATIO_512` (reference `FlexAM/data/bucket_sampler.py:12-23`),
+`get_closest_ratio` (`:40-43`, also the sampler node's resolution snap)
+and `AspectRatioBucketSampler` (`AspectRatioBatchImageVideoSampler`,
+`:270-378`): index batches of one (kind, bucket) group each.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
+
+import numpy as np
 
 
 def _build_512_table() -> Dict[str, Tuple[float, float]]:
@@ -44,3 +46,36 @@ def get_closest_ratio(height: float, width: float,
     ar = height / width
     key = min(ratios.keys(), key=lambda r: abs(float(r) - ar))
     return ratios[key], float(key)
+
+
+class AspectRatioBucketSampler:
+    """Yields lists of dataset indices; each batch is one (kind, bucket)
+    group, kind in {image, video}, in the order of a seeded permutation."""
+
+    def __init__(self, sizes: Sequence[Tuple[int, int]],
+                 is_video: Sequence[bool], batch_size: int,
+                 drop_last: bool = True, seed: int = 0,
+                 ratios: Dict = None):
+        assert len(sizes) == len(is_video)
+        self.sizes = sizes
+        self.is_video = is_video
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.seed = seed
+        self.ratios = ratios or ASPECT_RATIO_512
+
+    def __iter__(self) -> Iterator[List[int]]:
+        rng = np.random.RandomState(self.seed)
+        buckets: Dict[Tuple, List[int]] = {}
+        for idx in rng.permutation(len(self.sizes)):
+            _, ratio = get_closest_ratio(*self.sizes[idx], self.ratios)
+            key = ("video" if self.is_video[idx] else "image", ratio)
+            bucket = buckets.setdefault(key, [])
+            bucket.append(int(idx))
+            if len(bucket) == self.batch_size:
+                yield list(bucket)
+                bucket.clear()
+        if not self.drop_last:
+            for bucket in buckets.values():
+                if bucket:
+                    yield list(bucket)

@@ -14,8 +14,14 @@ The attention calls JAX's `xla_attention` directly, which is
 `core.attention.exact_attention` here (ViT-H's heads are 80 wide). The 224
 resize is `jax.image.resize(..., "bicubic")` (antialiased Keys cubic):
 `core.resize.resize`. Blocks are one dict each in `blocks` (JAX stacks
-them; `io/convert.py` crosses). The XLM-RoBERTa text half has no caller in
-either package and is not ported yet (ROADMAP Q4).
+them; `io/convert.py` crosses).
+
+The XLM-RoBERTa text half (`xlm_roberta_forward`, reference
+`wan_xlm_roberta.py` `XLMRoberta`, :76-130) has no caller in either
+package (the Wan2.1 i2v configs list it). Its 64-wide heads take the exact
+branch with JAX's `k_len` key mask, here -1e30 where JAX puts -inf: every
+id row holds a token that is not padding, so no row is fully masked and
+the two agree.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from flexam_tpu_torch.core.attention import exact_attention
-from flexam_tpu_torch.core.layers import ParamDraw, gelu_tanh, linear
+from flexam_tpu_torch.core.layers import (ParamDraw, gelu_tanh, linear,
+                                          linear_init)
 from flexam_tpu_torch.device import resolve_device
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -46,6 +53,18 @@ class CLIPVisionConfig:
     activation: str = "gelu"     # 'gelu' | 'quick_gelu'
     pre_norm: bool = True
     norm_eps: float = 1e-5
+
+
+@dataclass(frozen=True)
+class XLMRobertaConfig:
+    vocab_size: int = 250002
+    max_seq_len: int = 514
+    pad_id: int = 1
+    dim: int = 1024
+    num_heads: int = 16
+    num_layers: int = 24
+    post_norm: bool = True
+    eps: float = 1e-5
 
 
 def _layer_norm(x, w, b, eps):
@@ -127,6 +146,41 @@ def clip_image_embed(params, cfg: CLIPVisionConfig,
 
 
 # ---------------------------------------------------------------------------
+def _xlmr_block(bp, h, cfg: XLMRobertaConfig, k_len):
+    b, s, c = h.shape
+    n = cfg.num_heads
+    q, k, v = (linear(h, bp[name]).reshape(b, s, n, c // n)
+               for name in ("q", "k", "v"))
+    attn_out = linear(exact_attention(q, k, v, k_len=k_len).reshape(b, s, c),
+                      bp["o"])
+    if cfg.post_norm:
+        h = _layer_norm(h + attn_out, bp["norm1_w"], bp["norm1_b"], cfg.eps)
+        ff = linear(F.gelu(linear(h, bp["fc1"])), bp["fc2"])
+        return _layer_norm(h + ff, bp["norm2_w"], bp["norm2_b"], cfg.eps)
+    h = h + attn_out
+    return h + linear(F.gelu(linear(
+        _layer_norm(h, bp["norm2_w"], bp["norm2_b"], cfg.eps), bp["fc1"])),
+        bp["fc2"])
+
+
+def xlm_roberta_forward(params, cfg: XLMRobertaConfig,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """`XLMRoberta.forward` (`wan_xlm_roberta.py:118-130`): ids [B, L] ->
+    [B, L, dim]; RoBERTa position ids from the cumulative sum of the
+    padding mask, post-norm blocks, padded keys masked by their count."""
+    mask = (ids != cfg.pad_id).long()
+    pos = cfg.pad_id + torch.cumsum(mask, dim=1) * mask
+    emb = params["token_embedding"]
+    x = (emb[ids] + params["type_embedding"][torch.zeros_like(ids)]
+         + params["pos_embedding"][pos]).to(emb.dtype)
+    if cfg.post_norm:
+        x = _layer_norm(x, params["norm_w"], params["norm_b"], cfg.eps)
+    k_len = mask.sum(dim=1)
+    for bp in params["blocks"]:
+        x = _xlmr_block(bp, x, cfg, k_len)
+    return x
+
+
 # Params
 # ---------------------------------------------------------------------------
 
@@ -174,6 +228,35 @@ def init_vit_params(cfg: CLIPVisionConfig, seed: int = 0,
         p["post_norm_b"] = draw.full((dim,), 0.0)
         p["visual_projection"] = lin(dim, proj_dim, bias=False)
     return p
+
+
+def init_xlm_roberta_params(cfg: XLMRobertaConfig, seed: int = 0,
+                            dtype=torch.float32, device="cuda") -> dict:
+    """Random parameters with the JAX init's distributions (N(0, 0.02)
+    embeddings, xavier-uniform linears with zero biases, unit / zero
+    norms), drawn on the device."""
+    dev = resolve_device(device)
+    draw = ParamDraw(seed, dtype, dev)
+    dim = cfg.dim
+    kw = dict(dtype=dtype, device=dev)
+
+    def block():
+        lin = {n: linear_init(draw.gen, dim, dim, **kw)
+               for n in ("q", "k", "v", "o")}
+        return {**lin,
+                "norm1_w": draw.full((dim,), 1.0),
+                "norm1_b": draw.full((dim,), 0.0),
+                "fc1": linear_init(draw.gen, dim, dim * 4, **kw),
+                "fc2": linear_init(draw.gen, dim * 4, dim, **kw),
+                "norm2_w": draw.full((dim,), 1.0),
+                "norm2_b": draw.full((dim,), 0.0)}
+
+    return {"token_embedding": draw.normal((cfg.vocab_size, dim), 0.02),
+            "type_embedding": draw.normal((1, dim), 0.02),
+            "pos_embedding": draw.normal((cfg.max_seq_len, dim), 0.02),
+            "norm_w": draw.full((dim,), 1.0),
+            "norm_b": draw.full((dim,), 0.0),
+            "blocks": [block() for _ in range(cfg.num_layers)]}
 
 
 def clip_vision_params_from_hf(sd: Mapping, num_heads: int = 16,

@@ -25,7 +25,9 @@ random one on the device).
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -44,7 +46,13 @@ from flexam_tpu_torch.ops.fused import ln_modulation, rmsnorm_rope
 
 def use_kernels(head_dim: int) -> bool:
     """The fused kernels B3/B4 serve head dims that are a multiple of 128
-    (the production width); other head dims take the unfused composition."""
+    (the production width); other head dims take the unfused composition.
+    FLEXAM_FUSED, as JAX's `fused_enabled` reads it, turns them off when set
+    to anything but 1 / interpret (FLEXAM_FUSED=0: the differentiable
+    composition that training takes)."""
+    env = os.environ.get("FLEXAM_FUSED")
+    if env is not None and env not in ("1", "interpret"):
+        return False
     return head_dim % 128 == 0
 
 
@@ -353,6 +361,14 @@ def _f32(lin: dict) -> dict:
 # Full forward
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rope_tables(head_dim: int, max_seq: int,
+                 device: torch.device) -> torch.Tensor:
+    """The default RoPE angle table on `device`, made once (no host copy a
+    forward, so a training step can be captured in a CUDA graph)."""
+    return torch.from_numpy(make_rope_tables(head_dim, max_seq)).to(device)
+
+
 def _dit_prepare(params, cfg: DiTConfig, x, t, context, density, y,
                  additional_control, full_ref, rope_tables, y_camera,
                  binary_t_mask):
@@ -391,8 +407,7 @@ def _dit_prepare(params, cfg: DiTConfig, x, t, context, density, y,
     seq_len = tokens.shape[1]
 
     if rope_tables is None:
-        rope_tables = torch.from_numpy(
-            make_rope_tables(cfg.head_dim, cfg.rope_max_seq)).to(x.device)
+        rope_tables = _rope_tables(cfg.head_dim, cfg.rope_max_seq, x.device)
     cos, sin = build_video_rope(rope_tables, grid, cfg.head_dim)
 
     def time_mlp(pos):

@@ -266,46 +266,62 @@ def vae_decode(params: dict, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
 # Random parameters, made on the device
 # ---------------------------------------------------------------------------
 
+class ConvInit:
+    """The JAX VAE init's draws (`_cconv_init`, `_res_init`, `_attn_init`,
+    `_resample_init`): torch's conv default U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) for weights and biases, a zero attention projection,
+    drawn on `device` from `gen` in call order."""
+
+    def __init__(self, gen: torch.Generator, dtype, device):
+        self.gen = gen
+        self.kw = dict(dtype=dtype, device=device)
+
+    def ones(self, c):
+        return torch.ones((c,), **self.kw)
+
+    def uni(self, shape, limit):
+        return torch.empty(shape, **self.kw).uniform_(-limit, limit,
+                                                      generator=self.gen)
+
+    def cconv(self, out_c, in_c, k):
+        limit = math.sqrt(1.0 / (in_c * math.prod(k)))
+        return {"weight": self.uni((out_c, in_c, *k), limit),
+                "bias": self.uni((out_c,), limit)}
+
+    def res(self, in_c, out_c):
+        p = {"norm1": self.ones(in_c),
+             "conv1": self.cconv(out_c, in_c, (3, 3, 3)),
+             "norm2": self.ones(out_c),
+             "conv2": self.cconv(out_c, out_c, (3, 3, 3))}
+        if in_c != out_c:
+            p["shortcut"] = self.cconv(out_c, in_c, (1, 1, 1))
+        return p
+
+    def attn(self, c):
+        return {"norm": self.ones(c),
+                "to_qkv": {"weight": self.cconv(3 * c, c, (1, 1))["weight"],
+                           "bias": torch.zeros((3 * c,), **self.kw)},
+                "proj": {"weight": torch.zeros((c, c, 1, 1), **self.kw),
+                         "bias": torch.zeros((c,), **self.kw)}}
+
+    def resamp(self, dim, mode):
+        p = {"resample_conv": self.cconv(dim, dim, (3, 3))}
+        if mode == "upsample3d":
+            p["time_conv"] = self.cconv(dim * 2, dim, (3, 1, 1))
+        if mode == "downsample3d":
+            p["time_conv"] = self.cconv(dim, dim, (3, 1, 1))
+        return p
+
+
 def init_vae_params(cfg: VAEConfig, seed: int = 0, dtype=torch.bfloat16,
                     device="cuda") -> dict:
     """Random parameters with the JAX init's distributions (torch's conv
     default U(-1/sqrt(fan_in), 1/sqrt(fan_in)); zero attention projection),
     drawn on the device from a `torch.Generator` seeded with `seed`."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    kw = dict(dtype=dtype, device=dev)
-
-    def uni(shape, limit):
-        return torch.empty(shape, **kw).uniform_(-limit, limit, generator=gen)
-
-    def cconv(out_c, in_c, k):
-        limit = math.sqrt(1.0 / (in_c * math.prod(k)))
-        return {"weight": uni((out_c, in_c, *k), limit),
-                "bias": uni((out_c,), limit)}
-
-    def res(in_c, out_c):
-        p = {"norm1": torch.ones((in_c,), **kw),
-             "conv1": cconv(out_c, in_c, (3, 3, 3)),
-             "norm2": torch.ones((out_c,), **kw),
-             "conv2": cconv(out_c, out_c, (3, 3, 3))}
-        if in_c != out_c:
-            p["shortcut"] = cconv(out_c, in_c, (1, 1, 1))
-        return p
-
-    def attn(c):
-        return {"norm": torch.ones((c,), **kw),
-                "to_qkv": {"weight": cconv(3 * c, c, (1, 1))["weight"],
-                           "bias": torch.zeros((3 * c,), **kw)},
-                "proj": {"weight": torch.zeros((c, c, 1, 1), **kw),
-                         "bias": torch.zeros((c,), **kw)}}
-
-    def resamp(dim, mode):
-        p = {"resample_conv": cconv(dim, dim, (3, 3))}
-        if mode == "upsample3d":
-            p["time_conv"] = cconv(dim * 2, dim, (3, 1, 1))
-        if mode == "downsample3d":
-            p["time_conv"] = cconv(dim, dim, (3, 1, 1))
-        return p
+    d = ConvInit(torch.Generator(device=dev).manual_seed(seed), dtype, dev)
+    cconv, res, attn, resamp = d.cconv, d.res, d.attn, d.resamp
+    kw = d.kw
 
     z = cfg.latent_channels
     dim_mult = tuple(cfg.dim_mult)

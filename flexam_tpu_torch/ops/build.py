@@ -158,6 +158,23 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise NotImplementedError if autograd would record a kernel launch:
+    grad mode on and any tensor argument requiring grad. The kernels write
+    their outputs through raw pointers, so an output would carry no
+    `grad_fn` and `backward()` would drop every gradient through it without
+    an error. JAX's Pallas kernels have no gradient either; training takes
+    the differentiable torch ops that JAX's training takes."""
+    if not torch.is_grad_enabled():
+        return
+    if any(torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward (nor has JAX's Pallas "
+            "kernel); to train, run with FLEXAM_FUSED=0 "
+            "FLEXAM_ATTENTION=xla (the differentiable torch ops), or call "
+            "it under torch.no_grad() / torch.inference_mode()")
+
+
 def stream_handle(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream

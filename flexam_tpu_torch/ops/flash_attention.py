@@ -120,6 +120,7 @@ def check_inputs(q, k, v, k_len, name):
 
 
 def _launch(entry, name, q, k, v, k_len, scale):
+    build.refuse_autograd(name, q, k, v)
     k_len = check_inputs(q, k, v, k_len, name)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -134,6 +134,7 @@ def rmsnorm_rope(x: torch.Tensor, gamma: torch.Tensor, cos: torch.Tensor,
     cos/sin are the [L_rot, dh/2] half tables; returns [B, S, H, dh]."""
     if not x.is_cuda:
         return rmsnorm_rope_plain(x, gamma, cos, sin, num_heads, eps)
+    build.refuse_autograd("rmsnorm_rope", x, gamma, cos, sin)
     g, c, sn, dh = rmsnorm_rope_args(x, gamma, cos, sin, num_heads)
     b, s, d = x.shape
     out = torch.empty_like(x)
@@ -175,6 +176,7 @@ def ln_modulation(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     if not x.is_cuda:
         return ln_modulation_plain(x, shift, scale, mask, eps)
     name = "ln_mod_binary" if mask is not None else "ln_mod_bcast"
+    build.refuse_autograd(name, x, shift, scale, mask)
     sh, sh_b, sh_r, sc, sc_b, sc_r, m = ln_modulation_args(x, shift, scale,
                                                            mask)
     b, s, d = x.shape

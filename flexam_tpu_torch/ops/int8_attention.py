@@ -129,6 +129,7 @@ def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B6: attention over [B, L, H, D] with int8 Q K^T; any key count."""
     if not q.is_cuda:
         return int8_attention_plain(q, k, v, k_len=k_len, scale=scale)
+    build.refuse_autograd("int8_attention", q, k, v)
     k_len = check_inputs(q, k, v, k_len, "int8_attention")
     b, lq, h, d = q.shape
     q8, qs, k8, ks = quantize_qk(q, k)

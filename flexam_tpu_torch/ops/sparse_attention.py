@@ -178,6 +178,7 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given)."""
     if not q.is_cuda:
         return masked_dense_attention(q, k, v, rows, blk, scale=scale)
+    build.refuse_autograd("sparse_attention", q, k, v)
     _check_geometry(q, k, rows, blk)
     check_inputs(q, k, v, None, "sparse_attention")
     if min(len(r) for r in rows) < 1:

@@ -23,8 +23,8 @@ model.
                 device, numpy pre- and post-processing
   pose_render   the OpenPose skeleton drawing of raw wholebody keypoints
 
-DepthCrafter (ROADMAP A item 7) is not ported yet: its names are absent
-here.
+DepthCrafter (`depthcrafter`, `depthcrafter_model`) runs behind the depth
+registry's `depthcrafter` backend.
 
 Checkpoint env vars: FLEXAM_DELTA_CKPT, FLEXAM_UNIDEPTH_CKPT,
 FLEXAM_MOGE_CKPT, FLEXAM_VGGT_CKPT, FLEXAM_PI3_CKPT, FLEXAM_ZOE_CKPT,

@@ -31,6 +31,7 @@ False); `zoedepth_state_dict` writes a tree under those names.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import sys
@@ -298,6 +299,16 @@ def _gen_relative_position_index(wh: int, ww: int) -> np.ndarray:
     return idx
 
 
+@functools.lru_cache(maxsize=None)
+def _rel_pos_index(wh: int, ww: int, device) -> torch.Tensor:
+    """`_gen_relative_position_index(wh, ww)` flattened on `device`, built
+    once per (wh, ww) and device: every block of a forward, and every
+    forward at one size, gathers with the same index (JAX's is a constant
+    of its jitted forward)."""
+    return torch.from_numpy(
+        _gen_relative_position_index(wh, ww)).to(device).reshape(-1)
+
+
 def _rel_pos_bias(table: torch.Tensor, cfg: ZoeDepthConfig,
                   window: Tuple[int, int]) -> torch.Tensor:
     """The trained window's bias table resized to the runtime window
@@ -314,10 +325,9 @@ def _rel_pos_bias(table: torch.Tensor, cfg: ZoeDepthConfig,
         grid = resize(grid, (nh, nw, grid.shape[-1]), "bilinear")
         sub = grid.reshape(nh * nw, -1).to(table.dtype)
     full = torch.cat([sub, table[oh * ow:]], dim=0)
-    idx = torch.from_numpy(_gen_relative_position_index(wh, ww)).to(
-        table.device)
+    idx = _rel_pos_index(wh, ww, table.device)
     n = wh * ww + 1
-    return full[idx.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
+    return full[idx].reshape(n, n, -1).permute(2, 0, 1)
 
 
 def _beit_block(p, x, bias, num_heads):

@@ -5,8 +5,7 @@ Port of `flexam_tpu/repaint.py`. The reference (`pipelines.py:108-193`,
 regenerate the first frame under a new prompt. Both stages plug in as
 callables here; `make_flexam_repaint_fn` is the native repaint backend,
 depth-conditioned single-frame generation with the FlexAM model itself.
-The FLUX backend is not ported yet (ROADMAP A item 7: the demo raises for
-FLEXAM_FLUX_*).
+The FLUX.1-Depth backend is `repaint_flux.py` (the demo's FLEXAM_FLUX_*).
 
 Deliberate divergences, for want of PIL: a precomputed depth map
 (`depth_path`) is read by `utils/media.py` (`.npy` / `.npz` images,

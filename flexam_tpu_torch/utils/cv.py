@@ -46,6 +46,16 @@ arithmetic and equals it (`tests/test_torch_pose_render.py`):
   * `warp_affine_u8`: `cv2.warpAffine` INTER_LINEAR with a constant border
     of 0 on uint8, OpenCV 5's float32 kernel (source coordinates and
     interpolation in float32, rounded half to even).
+
+The training data's colour jitter (`data/augment.py`) rotates hue through
+HSV: `rgb_to_hsv_u8` / `hsv_to_rgb_u8` are `cv2.cvtColor` COLOR_RGB2HSV /
+COLOR_HSV2RGB of uint8 images (H in 0..179), equal to OpenCV 5 on all 256^3
+inputs (`tests/test_torch_cv.py`). RGB2HSV is OpenCV's 12-bit fixed point
+with its rounded division tables. HSV2RGB is float32 arithmetic in which
+OpenCV's build fuses `1 - s*h` into one FMA; its vectorized loop takes each
+row's first multiple of 32 pixels (4 vectors of 8 floats, the AVX2 build
+OpenCV dispatches) and truncates there, while its scalar tail rounds half
+to even: the port keeps both, by column.
 """
 
 from __future__ import annotations
@@ -647,3 +657,71 @@ def warp_affine_u8(img: np.ndarray, mat: np.ndarray,
     bot = _fma32(ax, p11 - p10, p10)
     out = np.clip(np.rint(_fma32(ay, bot - top, top)), 0, 255)
     return out.astype(np.uint8).reshape((h, w) + src.shape[2:])
+
+
+# ---------------------------------------------------------------------------
+# RGB <-> HSV (uint8, H in 0..179)
+# ---------------------------------------------------------------------------
+
+_HSV_SHIFT = 12
+# pixels a row of OpenCV's vectorized HSV2RGB loop takes at a time
+HSV_SIMD_COLUMNS = 32
+
+
+def _hsv_tables():
+    """OpenCV's `sdiv_table` and `hdiv_table180`: saturate_cast<int> of
+    (255 << 12) / i and (180 << 12) / (6 i), rounded half to even."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * i))
+    return sdiv, hdiv
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(img, cv2.COLOR_RGB2HSV)` of uint8 [..., 3]."""
+    x = np.asarray(img).astype(np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    sdiv, hdiv = _hsv_tables()
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h = h + np.where(h < 0, 180, 0)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def _fnma1(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 fma(-a, b, 1): one rounding (the float32 product is exact
+    in float64)."""
+    return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(
+        np.float32)
+
+
+# (b, g, r) picks from (v, p, q, t) by sector (OpenCV's `sector_data`)
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                         [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb_u8(img: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(img, cv2.COLOR_HSV2RGB)` of uint8 [..., W, 3] (H
+    scaled by 6 / 180; any byte is taken, as OpenCV takes it)."""
+    x = np.asarray(img)
+    f32 = np.float32
+    h = x[..., 0].astype(f32) * f32(6.0 / 180)
+    s = x[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = x[..., 2].astype(f32) * f32(1.0 / 255.0)
+    sector = np.floor(h)
+    frac = (h - sector).astype(f32)
+    tab = np.stack([v, v * (f32(1) - s), v * _fnma1(s, frac),
+                    v * _fnma1(s, f32(1) - frac)], -1)
+    bgr = np.take_along_axis(
+        tab, _HSV_SECTORS[sector.astype(np.int64) % 6], -1) * f32(255)
+    w = x.shape[-2]
+    simd = np.arange(w) < w - w % HSV_SIMD_COLUMNS
+    out = np.where(simd[:, None], np.trunc(bgr), np.rint(bgr))
+    return np.clip(out, 0, 255).astype(np.uint8)[..., ::-1]

@@ -42,6 +42,7 @@ import subprocess
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".flv",
                     ".wmv")
@@ -139,21 +140,48 @@ def resize_image_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return out
 
 
+# output pixels a band matrix of `_apply_taps` covers
+_TAP_BAND = 128
+
+
+def _apply_taps(x: torch.Tensor, idx: np.ndarray, wt: np.ndarray,
+                axis: int) -> torch.Tensor:
+    """Resample a float64 host tensor along `axis` by a tap table (output
+    pixel o is sum_k wt[o, k] * x[idx[o, k]]) as float64 matrix products:
+    the output runs in bands of `_TAP_BAND` pixels, each one GEMM over the
+    contiguous input span its taps read, so the work grows with the taps
+    and not with the width squared. A clamped index that repeats adds its
+    weights."""
+    x = x.movedim(axis, -1).contiguous()
+    out_n = idx.shape[0]
+    out = x.new_empty(x.shape[:-1] + (out_n,))
+    for a in range(0, out_n, _TAP_BAND):
+        e = min(a + _TAP_BAND, out_n)
+        lo, hi = int(idx[a:e].min()), int(idx[a:e].max()) + 1
+        m = np.zeros((e - a, hi - lo), np.float64)
+        np.add.at(m, (np.arange(e - a)[:, None], idx[a:e] - lo),
+                  wt[a:e].astype(np.float64))
+        out[..., a:e] = torch.matmul(x[..., lo:hi], torch.from_numpy(m).T)
+    return out.movedim(-1, axis)
+
+
 def resize_frames_linear(frames: np.ndarray, size: Tuple[int, int]
                          ) -> np.ndarray:
     """`cv2.resize(frame, (w, h))` (INTER_LINEAR) of float frames
-    [T, H, W, C], in the frames' dtype: OpenCV's taps (`utils.cv.linear_taps`
-    at float64 positions: half-pixel centres, clamped borders, no
-    antialiasing), rows after columns."""
+    [T, H, W, C], returned in the frames' dtype: OpenCV's taps
+    (`utils.cv.linear_taps` at float64 positions: half-pixel centres,
+    clamped borders, no antialiasing), their weights in the frames' dtype,
+    applied columns first, then rows, as float64 matrix products."""
     from flexam_tpu_torch.utils.cv import linear_taps
     h, w = size
     x = np.asarray(frames)
-    lo, hi, fr = linear_taps(x.shape[2], w, dtype=np.float64)
-    fr = fr.astype(x.dtype)[None, None, :, None]
-    x = x[:, :, lo] * (1 - fr) + x[:, :, hi] * fr
-    lo, hi, fr = linear_taps(x.shape[1], h, dtype=np.float64)
-    fr = fr.astype(x.dtype)[None, :, None, None]
-    return x[:, lo] * (1 - fr) + x[:, hi] * fr
+    out = torch.from_numpy(x).double()
+    for axis, n in ((2, w), (1, h)):
+        lo, hi, fr = linear_taps(x.shape[axis], n, dtype=np.float64)
+        fr = fr.astype(x.dtype)
+        out = _apply_taps(out, np.stack([lo, hi], 1),
+                          np.stack([1 - fr, fr], 1), axis)
+    return out.numpy().astype(x.dtype)
 
 
 def _cubic_taps(in_n: int, out_n: int):
@@ -178,20 +206,15 @@ def _cubic_taps(in_n: int, out_n: int):
 def resize_frames_cubic(frames: np.ndarray, size: Tuple[int, int]
                         ) -> np.ndarray:
     """`cv2.resize(frame, (w, h), interpolation=cv2.INTER_CUBIC)` of float32
-    frames [T, H, W, C]: columns first, then rows, each a sum of four taps
-    in order, in float32 (OpenCV's vectorized row pass may round its sums
-    otherwise by an ulp)."""
+    frames [T, H, W, C]: OpenCV's float32 tap weights applied columns
+    first, then rows, as float64 matrix products, rounded to float32 once
+    (OpenCV sums in float32, and its vectorized row pass may round its sums
+    otherwise: a few float32 ulps apart)."""
     h, w = size
-    x = np.asarray(frames, np.float32)
-    idx, wt = _cubic_taps(x.shape[2], w)
-    acc = x[:, :, idx[:, 0]] * wt[None, None, :, 0, None]
-    for k in range(1, 4):
-        acc = acc + x[:, :, idx[:, k]] * wt[None, None, :, k, None]
-    idx, wt = _cubic_taps(x.shape[1], h)
-    out = acc[:, idx[:, 0]] * wt[None, :, 0, None, None]
-    for k in range(1, 4):
-        out = out + acc[:, idx[:, k]] * wt[None, :, k, None, None]
-    return out
+    out = torch.from_numpy(np.asarray(frames, np.float32)).double()
+    for axis, n in ((2, w), (1, h)):
+        out = _apply_taps(out, *_cubic_taps(out.shape[axis], n), axis)
+    return out.float().numpy()
 
 
 def _area_taps(in_n: int, out_n: int):

@@ -447,8 +447,11 @@ def test_long_kernels_reject_unsupported(dev):
         sp.sparse_flash_attention(q, q, q, rows, blk,
                                   kidx=torch.zeros((2, 2), device=dev),
                                   nnz=torch.full((2,), 2, device=dev))
-    with pytest.raises(NotImplementedError):
-        attn.attention(q, q, q, backend="xla")
+    # `xla` is JAX's plain softmax attention, the exact branch on the card
+    calls = attn.exact_calls["exact_attention"]
+    out = attn.attention(q, q, q, backend="xla")
+    assert attn.exact_calls["exact_attention"] == calls + 1
+    check_attention(out, fa.attention_plain(q, q, q), "xla")
 
 
 @pytest.mark.parametrize("frames,window,spatial,b,h", [
@@ -615,3 +618,146 @@ def test_head_dim_128_launches_kernels_not_the_branch(dev):
     assert fa.launches["flash_attention"] == b1 + 1
     assert fa.launches["single_kv_attention"] == b2 + 1
     assert attn.exact_calls["exact_attention"] == calls
+
+
+def _refusal_cases(dev):
+    """(name, launch key, call) of each kernel wrapper at a shape it
+    takes; `call(t)` launches with `t` as its first tensor argument."""
+    q = _rand(dev, 1, 256, 2, 128, seed=40)
+    kv = _rand(dev, 1, 64, 2, 128, seed=41)
+    gamma = torch.ones(3072, device=dev, dtype=torch.bfloat16)
+    cos = torch.ones(64, 64, device=dev)
+    sin = torch.zeros(64, 64, device=dev)
+    terms = torch.zeros(1, 3072, device=dev)
+    pair = torch.zeros(1, 2, 3072, device=dev)
+    mask = torch.ones(1, 64, device=dev)
+    rows = [[0, 1], [0, 1]]
+    return [
+        ("flash_attention", fa.launches, "flash_attention",
+         lambda t: fa.flash_attention(t, q, q)),
+        ("single_kv_attention", fa.launches, "single_kv_attention",
+         lambda t: fa.single_kv_attention(t, kv, kv)),
+        ("rmsnorm_rope", fused.launches, "rmsnorm_rope",
+         lambda t: fused.rmsnorm_rope(t, gamma, cos, sin, 24)),
+        ("ln_mod_bcast", fused.launches, "ln_mod_bcast",
+         lambda t: fused.ln_modulation(t, terms, terms)),
+        ("ln_mod_binary", fused.launches, "ln_mod_binary",
+         lambda t: fused.ln_modulation(t, pair, pair, mask=mask)),
+        ("sparse_attention", sp.launches, "sparse_attention",
+         lambda t: sp.sparse_flash_attention(t, q, q, rows, 128)),
+        ("int8_attention", i8.launches, "int8_attention",
+         lambda t: i8.int8_attention(t, q, q)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7), ids=[
+    "B1", "B2", "B3", "B4prime", "B4", "B5", "B6"])
+def test_kernels_refuse_autograd(dev, case):
+    """Each of B1-B6 raises NotImplementedError for an input that requires
+    grad under grad mode (its output would carry no grad_fn), before any
+    launch; under no_grad the same call launches."""
+    name, counts, key, call = _refusal_cases(dev)[case]
+    attn_like = name not in ("rmsnorm_rope", "ln_mod_bcast", "ln_mod_binary")
+    t = (_rand(dev, 1, 256, 2, 128, seed=43) if attn_like
+         else _rand(dev, 1, 64, 3072, seed=43)).requires_grad_(True)
+    before = counts[key]
+    with pytest.raises(NotImplementedError, match="FLEXAM_FUSED=0"):
+        call(t)
+    assert counts[key] == before
+    with torch.no_grad():
+        out = call(t)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1 and out.grad_fn is None
+
+
+def test_dit_trains_on_the_card_through_torch_ops(dev, monkeypatch):
+    """At head dim 128 the default backends refuse a backward; with
+    FLEXAM_FUSED=0 FLEXAM_ATTENTION=xla the DiT's gradients reach the q/k
+    norms and launch no kernel."""
+    import dataclasses
+    from flexam_tpu_torch.config import tiny_test_config
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.ops import launch_counts
+    from flexam_tpu_torch.train import flow_match_loss, trainable
+    cfg = dataclasses.replace(tiny_test_config().dit, dim=256, num_heads=2,
+                              ffn_dim=512)
+    params = init_dit_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    trainable(params)
+    g = torch.Generator(device=dev).manual_seed(1)
+    c = cfg.out_dim
+    batch = {"latents": torch.randn((1, c, 2, 4, 4), generator=g,
+                                    device=dev),
+             "context": torch.randn((1, cfg.text_len, cfg.text_dim),
+                                    generator=g, device=dev).bfloat16(),
+             "y": torch.randn((1, 2 * c + 4, 2, 4, 4), generator=g,
+                              device=dev),
+             "additional_control": torch.randn((1, 5 * c, 2, 4, 4),
+                                               generator=g, device=dev),
+             "full_ref": torch.randn((1, c, 4, 4), generator=g, device=dev)}
+    sigma = torch.full((1,), 0.5, device=dev)
+    eps = torch.randn_like(batch["latents"])
+    with pytest.raises(NotImplementedError):
+        flow_match_loss(params, cfg, batch, sigma, eps)
+    monkeypatch.setenv("FLEXAM_FUSED", "0")
+    monkeypatch.setenv("FLEXAM_ATTENTION", "xla")
+    attn._default_backend.cache_clear()
+    try:
+        kernels = launch_counts()
+        flow_match_loss(params, cfg, batch, sigma, eps).backward()
+        torch.cuda.synchronize()
+        assert launch_counts() == kernels
+        norm_q = params["blocks"][0]["self_attn"]["norm_q"].grad
+        assert norm_q is not None and torch.isfinite(norm_q).all()
+        assert norm_q.abs().max() > 0
+    finally:
+        monkeypatch.delenv("FLEXAM_ATTENTION")
+        attn._default_backend.cache_clear()
+
+
+def test_run_steps_graph_replay_equals_eager_steps(dev):
+    """`train.run_steps` replays a captured step as a CUDA graph after its
+    warmup steps; the result equals running every step eagerly (the same
+    kernels on the same inputs)."""
+    import dataclasses
+    from flexam_tpu_torch.config import tiny_test_config
+    from flexam_tpu_torch.io.convert import tree_leaves
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.train import (adamw, cosine_decay_schedule,
+                                        draw_noise, flow_match_loss,
+                                        run_steps, trainable)
+    cfg = dataclasses.replace(tiny_test_config().dit)
+    c = cfg.out_dim
+    g = torch.Generator(device=dev).manual_seed(2)
+    data = {"latents": torch.randn((6, c, 2, 4, 4), generator=g, device=dev),
+            "y": torch.randn((6, 2 * c + 4, 2, 4, 4), generator=g,
+                             device=dev),
+            "additional_control": torch.randn((6, 5 * c, 2, 4, 4),
+                                              generator=g, device=dev),
+            "full_ref": torch.randn((6, c, 4, 4), generator=g, device=dev),
+            "context": torch.randn((6, cfg.text_len, cfg.text_dim),
+                                   generator=g, device=dev)}
+    sigma, eps = draw_noise(data["latents"], g)
+    runs = []
+    for warmup in (3, 8):                       # graph replay / all eager
+        params = init_dit_params(cfg, seed=0, dtype=torch.float32,
+                                 device=dev)
+        opt = adamw(trainable(params), cosine_decay_schedule(1e-3, 8, 0.1))
+        b = {k: v[:2].clone() for k, v in data.items()}
+        s, e = sigma[:2].clone(), eps[:2].clone()
+
+        def load(i):
+            j = torch.tensor([i % 6, (i + 1) % 6], device=dev)
+            for k, v in data.items():
+                torch.index_select(v, 0, j, out=b[k])
+            torch.index_select(sigma, 0, j, out=s)
+            torch.index_select(eps, 0, j, out=e)
+
+        losses = run_steps(opt, 8, load, lambda: flow_match_loss(
+            params, cfg, b, s, e), warmup=warmup)
+        runs.append((losses, [t.detach().clone() for t in
+                              tree_leaves(params)]))
+    (lg, pg), (le, pe) = runs
+    torch.testing.assert_close(torch.tensor(lg), torch.tensor(le),
+                               rtol=1e-5, atol=0)
+    for a, b in zip(pg, pe):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

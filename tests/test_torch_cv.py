@@ -3,14 +3,19 @@
 `rgb_to_gray_cv` against `cv2.cvtColor(RGB2GRAY)` on every colour,
 `canny_u8` against `cv2.Canny` on random, textured and flat frames with
 several threshold pairs (`low > high` among them, and fractional ones),
-and `fill_circle` against `cv2.circle(..., -1)` for radii 1-99 on the
-KJNodes heatmap's 200x200 canvas and on canvases the circle leaves."""
+`fill_circle` against `cv2.circle(..., -1)` for radii 1-99 on the
+KJNodes heatmap's 200x200 canvas and on canvases the circle leaves, and
+`rgb_to_hsv_u8` / `hsv_to_rgb_u8` against `cv2.cvtColor` RGB2HSV /
+HSV2RGB on all 256^3 inputs (HSV2RGB in rows that OpenCV takes in its
+vector loop and in rows that it takes in its scalar tail)."""
 
 import cv2
 import numpy as np
 import pytest
 
-from flexam_tpu_torch.utils.cv import canny_u8, fill_circle, rgb_to_gray_cv
+from flexam_tpu_torch.utils.cv import (HSV_SIMD_COLUMNS, canny_u8,
+                                       fill_circle, hsv_to_rgb_u8,
+                                       rgb_to_gray_cv, rgb_to_hsv_u8)
 
 THRESHOLDS = [(100, 200), (50, 150), (200, 100), (0, 0), (30.7, 90.2),
               (10, 255), (255, 255)]
@@ -80,3 +85,33 @@ def test_fill_circle_equals_opencv():
     np.testing.assert_array_equal(
         fill_circle(np.zeros((200, 200), np.uint8), (100, 100), 99, 255),
         cv2.circle(np.zeros((200, 200), np.uint8), (100, 100), 99, 255, -1))
+
+
+def _cube():
+    c = np.arange(256, dtype=np.uint8)
+    return np.stack(np.meshgrid(c, c, c, indexing="ij"), -1).reshape(-1, 3)
+
+
+def test_rgb_to_hsv_equals_opencv_on_every_colour():
+    rgb = _cube().reshape(4096, 4096, 3)
+    np.testing.assert_array_equal(rgb_to_hsv_u8(rgb),
+                                  cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
+
+
+@pytest.mark.parametrize("width", [4096, HSV_SIMD_COLUMNS // 2],
+                         ids=["vector_loop", "scalar_tail"])
+def test_hsv_to_rgb_equals_opencv_on_every_triple(width):
+    """Every (h, s, v) byte triple, h past 179 too: rows of 4096 run
+    OpenCV's vector loop (truncating), rows of 16 its scalar tail
+    (rounding)."""
+    hsv = _cube().reshape(-1, width, 3)
+    np.testing.assert_array_equal(hsv_to_rgb_u8(hsv),
+                                  cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB))
+
+
+def test_hsv_row_split_equals_opencv():
+    """Rows whose width is not a multiple of the vector loop's 32 pixels:
+    the loop's columns truncate, the tail's round."""
+    hsv = np.random.RandomState(3).randint(0, 256, (40, 77, 3), np.uint8)
+    np.testing.assert_array_equal(hsv_to_rgb_u8(hsv),
+                                  cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB))

@@ -37,13 +37,15 @@ def _imported_roots(path: Path):
 
 def _forbidden(name: str) -> bool:
     return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+            or name == "optax" or name.startswith("optax.")
             or name == "flexam_tpu" or name.startswith("flexam_tpu."))
 
 
 @pytest.mark.parametrize("path", [p for p, _ in _modules()]
                          + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
 def test_no_jax_import_in_source(path):
-    """AST scan: no `import jax*` and no `flexam_tpu.*` import."""
+    """AST scan: no `import jax*`, no `optax` (training runs on
+    torch.optim) and no `flexam_tpu.*` import."""
     bad = [n for n in _imported_roots(path) if _forbidden(n)]
     assert not bad, f"{path}: imports {bad}"
 

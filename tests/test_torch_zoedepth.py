@@ -105,6 +105,36 @@ def test_beit_block_with_bias_on_a_nonsquare_window(trees):
         J._gen_relative_position_index(3, 5))
 
 
+def test_rel_pos_index_is_built_once_per_window(trees, monkeypatch):
+    """The index is cached on the device by (wh, ww): the bias equals the
+    one built from a fresh index, and a second window builds once more."""
+    _, port = trees
+    table = port["blocks"][0]["rel_pos_table"]
+    builds = []
+    gen = T._gen_relative_position_index
+    T._rel_pos_index.cache_clear()
+    monkeypatch.setattr(T, "_gen_relative_position_index",
+                        lambda *a: builds.append(a) or gen(*a))
+    first = T._rel_pos_bias(table, TINY, (3, 5))
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            T._rel_pos_bias(table, TINY, (3, 5)).numpy(), first.numpy())
+    assert builds == [(3, 5)]
+    T._rel_pos_bias(table, TINY, (4, 4))
+    assert builds == [(3, 5), (4, 4)]
+    T._rel_pos_index.cache_clear()
+    n = 3 * 5 + 1
+    idx = torch.from_numpy(gen(3, 5)).reshape(-1)
+    owh, oww = TINY.train_window
+    sub = table[: (2 * owh - 1) * (2 * oww - 1)].reshape(
+        2 * oww - 1, 2 * owh - 1, -1)
+    sub = T.resize(sub.float(), (5, 9, sub.shape[-1]), "bilinear")
+    full = torch.cat([sub.reshape(45, -1).to(table.dtype),
+                      table[(2 * owh - 1) * (2 * oww - 1):]], 0)
+    np.testing.assert_array_equal(
+        first.numpy(), full[idx].reshape(n, n, -1).permute(2, 0, 1).numpy())
+
+
 @pytest.mark.parametrize("k", [2, 4])
 def test_conv_transpose_matches_jax(k):
     rs = np.random.RandomState(k)
