@@ -355,7 +355,38 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        480x832 the first of 81 / 49 / 17 frames that fits,
                        and XLM-RoBERTa-large on a [2, 514] batch (512 and
                        300 tokens, the rest padding), random bf16 weights,
-                       seconds and peaks.
+                       seconds and peaks;
+  parallel             (run right after reference_check, while this process
+                       holds next to nothing on the card)
+                       `flexam_tpu_torch/parallel/` on ranks that share the
+                       card (`parallel.launch.run`, gloo: NCCL refuses two
+                       ranks on one device, so every collective goes
+                       through the host, and the seconds measure
+                       correctness and memory, not multi-GPU speed). A
+                       group of 4 ranks: (a) attention at the flagship
+                       shape [2, 11648, 24, 128] bf16: Ulysses at sp 4 (B1
+                       on 6 heads a rank, B2 for cross-attention against
+                       512 keys, B5 as its inner at the flagship geometry),
+                       the ring at sp 2, USP ring 2 x Ulysses 2 dense and
+                       with the sparse policy (group 1, which tiles the
+                       ring), and Ulysses at sp 2 at [2, 23296, 24, 128],
+                       where B6 is chosen; (d) `vae_decode_sharded` at sp 2
+                       at 512x896, 17 frames against the single-rank decode
+                       and 97 frames alone (each rank's peak); (c) tp 2 x
+                       sp 2 at full width, PAR_TP_DEPTH blocks, bf16 and
+                       int8 linears; (b) one CFG denoise step of the
+                       pipeline at full width and depth (30 blocks),
+                       512x896x97f, dp 2 x sp 2 under activation_sharding.
+                       A group of 8: (e) one train_step at dp 2 x sp 2 x
+                       tp 2, full width, PAR_TRAIN_DEPTH blocks, fp32,
+                       against the single-rank step (loss, first moments,
+                       every leaf as (d) of train holds a step). Each case
+                       is held to the same function on one rank of the card
+                       (rank 0, after the mesh run) within the bound below,
+                       and prints its error, seconds and, for every rank,
+                       max_memory_allocated and the B1-B6 launches of the
+                       mesh run (the kernels line's "parallel_launches":
+                       their sum; every kernel must have launched).
 
 The flagship phase also runs one more forward under torch.profiler, and a
 "dit_forward_profile" line gives its device time by kernel group.
@@ -479,6 +510,20 @@ port to against JAX). The tiny Wan2.1 VAE and XLM-RoBERTa within
 TRAIN_CARD_CPU_REL = 1e-4 of their largest output: their longest sums
 (3x3x3 convolutions over 32 channels, K = 864; XLM-R's 256-wide FFN) carry
 2^-24 K = 5e-5 of their size at worst.
+
+The parallel phase's bounds, of the single-rank result's largest value.
+A kernel on a rank's share of the heads against the same kernel on all
+of them (Ulysses' B1, B2, B5 and B6): each (batch, head) is the same
+work, within PAR_SAME_KERNEL_REL = 1e-2 (a bf16 ulp is 2^-8 = 3.9e-3 of
+a value's size; the launch's other grid may order nothing differently, so
+the error is expected at 0). The ring's and USP's float32 online softmax
+against B1 / B5, which round the probabilities to bf16 before P.V: within
+PAR_RING_REL = 1e-2. Whole models (the VAE decode, the tp forward, the
+denoise step): PAR_MODEL_REL = 5e-2, the bound reference_check uses for
+bf16 models; a row-split linear's bf16 partial products are each rounded
+before their sum, where one card rounds once, and cuBLAS picks other
+kernels for other row counts. The training step as train (d) holds the
+card against the CPU.
 
 The track path against the host path (generate_from_tracks): each latent of
 the cond within 5e-2 of its max |ref| (the bound reference_check uses for
@@ -5163,6 +5208,463 @@ def phase_train(dev, cfg, results: dict) -> None:
     emit("train", t0, **out)
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: the mesh on ranks that share the card
+# ---------------------------------------------------------------------------
+
+PAR_ATTN = (2, 11648, 24, 128)     # the flagship's q / k / v
+PAR_LONG = (2, 23296, 24, 128)     # the long clip's: B6 under the auto rule
+PAR_TEXT = 512                     # the text keys of cross-attention
+PAR_GEOMETRY = (25, 448)           # flagship frames and tokens a frame
+PAR_VAE_FRAMES = (17, 97)          # compared whole / peak alone
+PAR_TP_DEPTH = 2                   # blocks of case (c)
+PAR_TRAIN_DEPTH = 2                # blocks of case (e)
+PAR_TRAIN_FRAMES = 1               # latent frames of case (e): 896 tokens
+PAR_SAME_KERNEL_REL = 1e-2         # a kernel on a rank's heads vs all heads
+PAR_RING_REL = 1e-2                # fp32 online softmax vs B1 / B5 in bf16
+PAR_MODEL_REL = 5e-2               # bf16 models (reference_check's bound)
+PAR_RUN_TIMEOUT = 600              # seconds a group of ranks may take
+
+
+def _par_case(name, mesh_fn, single_fn, bound_rel, member=True,
+              extra=None):
+    """One case on every rank of the group: `mesh_fn()` on the ranks that
+    are members (it returns the whole result), then `single_fn()` on rank 0
+    alone, held to it within bound_rel of its largest value. Launches,
+    seconds and peak memory are read per rank around `mesh_fn` only (the
+    single-rank launches are not counted). `extra` (filled by then) joins
+    the record. Rank 0 prints and returns the record."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = mesh_fn() if member else None
+    torch.cuda.synchronize()
+    mine = {"rank": rank, "seconds": time.perf_counter() - t0,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "launches": {k: v for k, v in _counts().items() if v},
+            "member": bool(member)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    rec = None
+    if rank == 0:
+        rec = {"case": name, "ranks": every}
+        if single_fn is not None:
+            t1 = time.perf_counter()
+            ref = single_fn()
+            torch.cuda.synchronize()
+            rec["single_seconds"] = time.perf_counter() - t1
+            rec.update(compare(got, ref, bound_rel, name))
+            del ref
+        elif not bool(got.float().isfinite().all()):
+            raise AssertionError(f"{name}: not finite")
+        rec.update(extra or {})
+        # printed as it ends, so that a failing later case leaves it
+        print(json.dumps({"parallel_case": name, **rec}), flush=True)
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _par_whole(mesh, fn, q, k, v, token_axes=("sp",)):
+    """fn on this rank's share of q (and of k, v when as long), gathered."""
+    from flexam_tpu_torch.parallel import token_layout
+    lay = token_layout(mesh, q.shape[0], q.shape[1], token_axes)
+    self_attn = q.shape[1] == k.shape[1]
+    ql = lay.shard(q, 0, 1).contiguous()
+    kl, vl = (lay.shard(t, 0, 1 if self_attn else None).contiguous()
+              for t in (k, v))
+    return lay.gather(fn(ql, kl, vl), 0, 1)
+
+
+def _par_attention(dev, records):
+    """(a): Ulysses, ring and USP at the flagship shape, Ulysses with B5 as
+    its inner, and Ulysses at the long shape, where B6 is chosen."""
+    import torch
+    from flexam_tpu_torch.core.attention import attention
+    from flexam_tpu_torch.ops.sparse_attention import (make_sparse_attn_fn,
+                                                       sparse_flash_attention,
+                                                       video_sparse_policy)
+    from flexam_tpu_torch.parallel import make_mesh
+    from flexam_tpu_torch.parallel.ring import make_ring_attention
+    from flexam_tpu_torch.parallel.ulysses import make_ulysses_attention
+    from flexam_tpu_torch.parallel.usp import make_usp_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(*PAR_ATTN, s=0.3), rnd(*PAR_ATTN, s=0.3), rnd(*PAR_ATTN)
+    b, _, h, d = PAR_ATTN
+    kt, vt = rnd(b, PAR_TEXT, h, d, s=0.3), rnd(b, PAR_TEXT, h, d)
+    sp4 = make_mesh({"sp": 4}, device=dev)
+    dpsp = make_mesh({"dp": 2, "sp": 2}, device=dev)
+    usp_mesh = make_mesh({"ring": 2, "sp": 2}, device=dev)
+    uly = make_ulysses_attention(sp4)
+    records.append(_par_case(
+        "a_ulysses_sp4", lambda: _par_whole(sp4, uly, q, k, v),
+        lambda: attention(q, k, v), PAR_SAME_KERNEL_REL))
+    records.append(_par_case(
+        "a_ulysses_sp4_cross", lambda: _par_whole(sp4, uly, q, kt, vt),
+        lambda: attention(q, kt, vt), PAR_SAME_KERNEL_REL))
+    records.append(_par_case(
+        "a_ring_sp2", lambda: _par_whole(dpsp, make_ring_attention(dpsp),
+                                         q, k, v),
+        lambda: attention(q, k, v), PAR_RING_REL))
+    records.append(_par_case(
+        "a_usp_ring2_ulysses2",
+        lambda: _par_whole(usp_mesh, make_usp_attention(usp_mesh), q, k, v,
+                           ("ring", "sp")),
+        lambda: attention(q, k, v), PAR_RING_REL))
+    frames, spatial = PAR_GEOMETRY
+    pol = video_sparse_policy(frames, spatial, ref_tokens=spatial, window=2,
+                              group=1)
+    records.append(_par_case(
+        "a_usp_sparse",
+        lambda: _par_whole(usp_mesh, make_usp_attention(usp_mesh,
+                                                        sparse=pol),
+                           q, k, v, ("ring", "sp")),
+        lambda: sparse_flash_attention(q, k, v, pol["rows"], pol["blk"]),
+        PAR_RING_REL))
+    inner = make_sparse_attn_fn(frames, spatial, ref_tokens=spatial,
+                                window=2)
+    records.append(_par_case(
+        "a_ulysses_sp4_sparse_inner",
+        lambda: _par_whole(sp4, make_ulysses_attention(sp4, inner=inner),
+                           q, k, v),
+        lambda: inner(q, k, v), PAR_SAME_KERNEL_REL))
+    del q, k, v, kt, vt
+    ql, kl, vl = rnd(*PAR_LONG, s=0.3), rnd(*PAR_LONG, s=0.3), rnd(*PAR_LONG)
+    records.append(_par_case(
+        "a_ulysses_sp2_long_b6",
+        lambda: _par_whole(dpsp, make_ulysses_attention(dpsp), ql, kl, vl),
+        lambda: attention(ql, kl, vl), PAR_SAME_KERNEL_REL))
+    for name, kernel in (("a_ulysses_sp4", "flash_attention"),
+                         ("a_ulysses_sp4_cross", "single_kv_attention"),
+                         ("a_ulysses_sp4_sparse_inner", "sparse_attention"),
+                         ("a_ulysses_sp2_long_b6", "int8_attention")):
+        rec = next((r for r in records if r and r["case"] == name), None)
+        if rec and any(r["launches"].get(kernel, 0) == 0
+                       for r in rec["ranks"]):
+            raise AssertionError(f"parallel {name}: {kernel} was not "
+                                 f"launched on every rank: {rec['ranks']}")
+
+
+def _par_vae(dev, cfg, records):
+    """(d): the width-split whole-clip decode at sp = 2 against the
+    single-rank decode at 17 frames, and alone at 97 frames."""
+    import torch
+    from flexam_tpu_torch.models.vae import init_vae_params, vae_decode
+    from flexam_tpu_torch.parallel import make_mesh
+    from flexam_tpu_torch.parallel.vae_parallel import vae_decode_sharded
+
+    mesh = make_mesh({"dp": 2, "sp": 2}, device=dev)
+    member = mesh.index("dp") == 0          # one pair of ranks decodes
+    vp = (init_vae_params(cfg.vae, seed=SEED + 41, dtype=torch.bfloat16,
+                          device=dev) if member else None)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    h, w = FLAGSHIP_LATENT[1:]
+    for frames in PAR_VAE_FRAMES:
+        lt = (frames - 1) // 4 + 1
+        z = torch.randn((1, cfg.vae.latent_channels, lt, h, w),
+                        generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            rec = _par_case(
+                f"d_vae_decode_sp2_{frames}f",
+                lambda: vae_decode_sharded(vp, cfg.vae, z, mesh),
+                (lambda: vae_decode(vp, cfg.vae, z)) if frames == 17
+                else None, PAR_MODEL_REL, member=member)
+        records.append(rec)
+        del z
+    del vp
+
+
+def _par_dit_inputs(dcfg, dev, gen, batch=2, binary=True):
+    import torch
+    bf = torch.bfloat16
+    lt, lh, lw = FLAGSHIP_LATENT
+    c = dcfg.out_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    kw = {"y": rnd(batch, dcfg.in_dim - c, lt, lh, lw),
+          "additional_control": rnd(batch, dcfg.in_dim_cnn_block - c, lt,
+                                    lh, lw),
+          "full_ref": rnd(batch, c, lh, lw),
+          "density": torch.full((batch,), 0.5, device=dev)}
+    if binary:
+        mask = torch.ones((batch, lt * (lh // 2) * (lw // 2)), device=dev)
+        mask[:, :(lh // 2) * (lw // 2)] = 0.0
+        kw["binary_t_mask"] = mask
+    return (rnd(batch, c, lt, lh, lw), torch.full((batch,), 900.0,
+                                                   device=dev),
+            rnd(batch, dcfg.text_len, dcfg.text_dim), kw)
+
+
+def _par_tp(dev, cfg, records):
+    """(c): tp 2 x sp 2 at full width, PAR_TP_DEPTH blocks, bf16 and int8
+    linears, the per-batch timestep (B4's broadcast mode)."""
+    import dataclasses
+
+    import torch
+    from flexam_tpu_torch.models.dit import dit_forward, init_dit_params
+    from flexam_tpu_torch.ops.qlinear import convert_dit_to_int8
+    from flexam_tpu_torch.parallel import (activation_sharding,
+                                           dit_param_shardings, make_mesh,
+                                           shard_pytree)
+
+    mesh = make_mesh({"sp": 2, "tp": 2}, device=dev)
+    dcfg = dataclasses.replace(cfg.dit, num_layers=PAR_TP_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    x, t, ctx, kw = _par_dit_inputs(dcfg, dev, gen, binary=False)
+    for mode in ("bf16", "int8"):
+        whole = init_dit_params(dcfg, seed=SEED + 44, dtype=torch.bfloat16,
+                                device=dev)
+        if mode == "int8":
+            whole = convert_dit_to_int8(whole)
+        local = shard_pytree(whole, dit_param_shardings(mesh, whole), mesh)
+
+        def sharded():
+            with torch.no_grad(), activation_sharding(mesh):
+                return dit_forward(local, dcfg, x, t, ctx, **kw)
+
+        def single():
+            with torch.no_grad():
+                return dit_forward(whole, dcfg, x, t, ctx, **kw)
+
+        records.append(_par_case(f"c_tp2_sp2_{mode}", sharded, single,
+                                 PAR_MODEL_REL))
+        del whole, local
+    for r in (records[-1] or {}).get("ranks", []):
+        if not all(r["launches"].get(kname, 0) for kname in (
+                "flash_attention", "single_kv_attention", "rmsnorm_rope",
+                "ln_mod_bcast")):
+            raise AssertionError(f"parallel (c): kernels missing on rank "
+                                 f"{r['rank']}: {r['launches']}")
+
+
+def _par_denoise(dev, cfg, records):
+    """(b): one CFG denoise step of the pipeline at full width and depth,
+    dp 2 x sp 2 under activation_sharding, against the single-rank step."""
+    import torch
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.parallel import activation_sharding, make_mesh
+    from flexam_tpu_torch.pipeline import (FlexAMGenerationPipeline,
+                                           FlexAMModels)
+
+    mesh = make_mesh({"dp": 2, "sp": 2}, device=dev)
+    dcfg = cfg.dit
+    params = init_dit_params(dcfg, seed=SEED + 45, dtype=torch.bfloat16,
+                             device=dev)
+    pipe = FlexAMGenerationPipeline(FlexAMModels(cfg, params, None),
+                                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    lt, lh, lw = FLAGSHIP_LATENT
+    c = cfg.vae.latent_channels
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    mask_ti2v = torch.ones((1, 1, lt, lh, lw), device=dev)
+    mask_ti2v[:, :, 0] = 0.0
+    cond = {"per_token_t": True, "control_latents": rnd(1, c, lt, lh, lw),
+            "mask_latents": rnd(1, 4, lt, lh, lw),
+            "masked_video_latents": rnd(1, c, lt, lh, lw),
+            "additional_control": rnd(1, dcfg.in_dim_cnn_block - c, lt, lh,
+                                      lw),
+            "ref_latents": rnd(1, c, lh, lw), "mask_ti2v": mask_ti2v,
+            "first_frame_known": True, "latent_shape": (c, lt, lh, lw)}
+    context = rnd(2, dcfg.text_len, dcfg.text_dim)
+    noise = torch.randn((1, c, lt, lh, lw), generator=gen, device=dev)
+    kw = dict(num_inference_steps=1, guidance_scale=6.0, latents=noise,
+              density=0.5)
+
+    def sharded():
+        with activation_sharding(mesh):
+            return pipe.denoise(cond, context, **kw)
+
+    rec = _par_case("b_denoise_dp2_sp2", sharded,
+                    lambda: pipe.denoise(cond, context, **kw), PAR_MODEL_REL,
+                    extra={"depth": dcfg.num_layers})
+    records.append(rec)
+    for r in (rec or {}).get("ranks", []):
+        n = r["launches"]
+        if (n.get("flash_attention", 0) != dcfg.num_layers
+                or n.get("rmsnorm_rope", 0) != 2 * dcfg.num_layers
+                or not n.get("ln_mod_binary")):
+            raise AssertionError(f"parallel (b): rank {r['rank']} launched "
+                                 f"{n}")
+
+
+def _rank_allocator() -> None:
+    """Expandable segments for the ranks' caching allocators, set before
+    their first CUDA call: four processes share the card, and two 97f
+    decodes of 28.7 GB each, beside each other's cached and fragmented
+    blocks, ran out of the H100's 80 GB without them."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+
+def parallel_ranks4(cfg_name: str) -> list:
+    """The 4-rank group of phase parallel: cases (a)-(d)."""
+    _rank_allocator()
+    import torch
+    from flexam_tpu_torch import config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = getattr(config, cfg_name)
+    records = []
+    _par_attention(dev, records)
+    _par_vae(dev, cfg, records)
+    _par_tp(dev, cfg, records)
+    _par_denoise(dev, cfg, records)
+    return [r for r in records if r]
+
+
+def parallel_ranks8(cfg_name: str) -> list:
+    """The 8-rank group of phase parallel: case (e), one train_step at
+    dp 2 x sp 2 x tp 2, full width, PAR_TRAIN_DEPTH blocks, fp32, against
+    the single-rank step: the loss, AdamW's first moments and every
+    updated leaf as phase train (d) holds a step."""
+    _rank_allocator()
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from flexam_tpu_torch import config
+    from flexam_tpu_torch import train as T
+    from flexam_tpu_torch.io.convert import map_leaves, tree_leaves
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.parallel import (activation_sharding,
+                                           dit_param_shardings, make_mesh,
+                                           shard_pytree)
+    from flexam_tpu_torch.parallel.sharding import gather_pytree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _train_env(True)
+    dev = torch.device("cuda", 0)
+    cfg = getattr(config, cfg_name)
+    dcfg = dataclasses.replace(cfg.dit, num_layers=PAR_TRAIN_DEPTH)
+    mesh = make_mesh({"dp": 2, "sp": 2, "tp": 2}, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    frames = 4 * (PAR_TRAIN_FRAMES - 1) + 1
+    one = _train_batch(dcfg, frames, dev, gen, torch.float32)
+    batch = {k: torch.cat([v, v.flip(0) * 0.5 + 0.1]) if k != "density"
+             else torch.cat([v, v + 0.2]) for k, v in one.items()}
+    sigma, eps = T.draw_noise(batch["latents"], gen)
+    lr = 1e-5
+
+    def params():
+        return init_dit_params(dcfg, seed=SEED + 48, dtype=torch.float32,
+                               device=dev)
+
+    whole = params()
+    shard = dit_param_shardings(mesh, whole)
+    local = shard_pytree(whole, shard, mesh)
+    del whole
+    opt = T.make_train_state(local, learning_rate=lr, param_shardings=shard)
+    out = {}
+
+    def sharded():
+        with activation_sharding(mesh):
+            _, loss = T.train_step(local, opt, dcfg, batch, sigma=sigma,
+                                   eps=eps)
+        out["loss"] = float(loss)
+        mu = map_leaves(local, lambda k, t, b: opt.opt.state[t]["exp_avg"])
+        out["params"] = gather_pytree(local, shard, mesh)
+        out["mu"] = gather_pytree(mu, shard, mesh)
+        return torch.tensor([out["loss"]])
+
+    # filled by single() before the record is printed
+    stats = {"depth": PAR_TRAIN_DEPTH, "lr": lr, "tokens": 2 * (
+        TRAIN_HW[0] // 32) * (TRAIN_HW[1] // 32) * PAR_TRAIN_FRAMES}
+
+    def single():
+        ref = params()
+        ropt = T.make_train_state(ref, learning_rate=lr)
+        _, loss = T.train_step(ref, ropt, dcfg, batch, sigma=sigma, eps=eps)
+        mu = map_leaves(ref, lambda k, t, b: ropt.opt.state[t]["exp_avg"])
+        n_sure = n_all = 0
+        worst = 0.0
+        for g, w, a, m in zip(tree_leaves(out["params"]), tree_leaves(ref),
+                              tree_leaves(out["mu"]), tree_leaves(mu)):
+            g, w, a, m = (x.detach().float() for x in (g, w, a, m))
+            mmax = float(m.abs().max())
+            if not torch.allclose(a, m, rtol=2e-4, atol=1e-5 * mmax):
+                raise AssertionError("parallel (e): first moments differ "
+                                     f"by {float((a - m).abs().max())}")
+            sure = m.abs() >= 1e-4 * mmax
+            diff = (g - w).abs()
+            if not bool((diff[sure] <= 2e-4 * w.abs()[sure]
+                         + lr / 100).all()):
+                raise AssertionError("parallel (e): a sign-determined "
+                                     "element moved otherwise")
+            if not bool((diff <= 2 * lr + lr / 100).all()):
+                raise AssertionError("parallel (e): an element moved by "
+                                     "more than 2 lr otherwise")
+            n_sure += int(sure.sum())
+            n_all += sure.numel()
+            worst = max(worst, float(diff.max()))
+        stats.update(loss=out["loss"], single_loss=float(loss),
+                     leaf_elements=n_all, sign_determined_elements=n_sure,
+                     max_leaf_diff=worst)
+        return torch.tensor([float(loss)])
+
+    rec = _par_case("e_train_dp2_sp2_tp2", sharded, single, 2e-4,
+                    extra=stats)
+    _train_env(False)
+    return [rec]
+
+
+def phase_parallel(dev, cfg_name: str, results: dict) -> None:
+    """Cases (a)-(e) (see the module docstring): ranks that share the card
+    over gloo, through `flexam_tpu_torch.parallel.launch`."""
+    import torch
+    from flexam_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    held = {"free_gb": free / 1e9, "total_gb": total / 1e9,
+            "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    records = []
+    for fn, world in (("chip_smoke:parallel_ranks4", 4),
+                      ("chip_smoke:parallel_ranks8", 8)):
+        t1 = time.perf_counter()
+        got = launch.run(fn, world, cfg_name, run_timeout=PAR_RUN_TIMEOUT)
+        records += got
+        emit(f"parallel_group_{world}", t1, cases=len(got))
+    total = {k: 0 for k in KERNELS}
+    for rec in records:
+        for r in rec["ranks"]:
+            for k in KERNELS:
+                total[k] += r["launches"].get(k, 0)
+    missing = [k for k, n in total.items() if n == 0]
+    if missing:
+        raise AssertionError(f"parallel: {missing} never launched under "
+                             f"the mesh")
+    for k in KERNELS:
+        results[k]["parallel_launches"] = total[k]
+    torch.cuda.empty_cache()
+    emit("parallel", t0, backend="gloo (ranks share cuda:0; collectives "
+         "through the host)", card_at_start=held,
+         cases=[r["case"] for r in records], launches=total)
+
+
 KERNELS = {
     "flash_attention": ("flexam_tpu_torch/csrc/flash_attention.cu",
                         "flexam_tpu/ops/flash_attention.py:34"),
@@ -5240,6 +5742,10 @@ def main() -> int:
     phase_kernels(dev, results)
     torch.cuda.empty_cache()
     phase_reference_check(dev)
+    # early, while this process holds next to nothing on the card: the
+    # ranks' shares (two 97f decodes of 28.7 GB each, four 5B DiTs) need it
+    torch.cuda.empty_cache()
+    phase_parallel(dev, "WAN22_5B_FLEXAM", results)
     dit_params = phase_dit_flagship(dev, WAN22_5B_FLEXAM)
     torch.cuda.empty_cache()
     pipe, context = phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
@@ -5303,6 +5809,7 @@ def main() -> int:
             "repaint_launches": r["repaint_launches"],
             "depthcrafter_launches": r["depthcrafter_launches"],
             "train_launches": r["train_launches"],
+            "parallel_launches": r["parallel_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
                                   "flux_shapes") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,6 +21,18 @@ RoPE tables (`make_rope_tables_for(..., riflex=)`).
 Parameters are the JAX tree with `blocks` as a list of per-block dicts
 (`io.convert.from_jax_params` maps a JAX tree, `init_dit_params` makes a
 random one on the device).
+
+Under `parallel.activation_sharding(mesh)` (JAX's token constraint at
+`_dit_prepare`'s end, `models/dit.py:546`) every rank runs `_dit_prepare`
+on the whole inputs, keeps its [B/dp, L/sp] share of the tokens and of
+the per-token terms (e0, the binary-timestep mask, the RoPE tables at its
+global token offset), runs the blocks on it with a mesh attention
+(`parallel.ulysses.mesh_attention`: the given attn_fn becomes Ulysses'
+inner unless it is a mesh attention already), runs the head, and gathers.
+Block weights split by `parallel.dit_param_shardings` run as column- and
+row-split linears over tp; q and k are gathered over tp before their
+RMSNorm (over the whole hidden dim, B3's) and each rank keeps its heads.
+Every rank returns the whole velocity.
 """
 
 from __future__ import annotations
@@ -42,6 +54,10 @@ from flexam_tpu_torch.core.rope import (apply_rope, build_video_rope,
                                         make_rope_tables)
 from flexam_tpu_torch.device import resolve_device
 from flexam_tpu_torch.ops.fused import ln_modulation, rmsnorm_rope
+from flexam_tpu_torch.parallel import comm
+from flexam_tpu_torch.parallel.sharding import (active_mesh, tp_heads,
+                                                tp_row, token_layout)
+from flexam_tpu_torch.parallel.ulysses import mesh_attention
 
 
 def use_kernels(head_dim: int) -> bool:
@@ -235,45 +251,69 @@ def _cnn_fusion(cnn: dict, x: torch.Tensor, groups: Tuple[int, int]):
     return _conv3d(x4, cnn["conv5"], 0)
 
 
-def _self_attention(p, x, cos, sin, num_heads, eps, attn_fn):
+def _qk_norm(y, gamma, num_heads, eps, tp, rope=None):
+    """RMSNorm over the whole hidden dim, and the 3D RoPE when `rope` =
+    (cos, sin) is given (B3 on the kernel path): [B, S, H, dh]. Under tp
+    (`tp` the mesh) y holds this rank's columns: it is gathered over tp
+    first and this rank's heads are kept after."""
+    if tp is not None:
+        y = comm.gather(y, tp, "tp", -1)
+    b, s, dim = y.shape
+    d = dim // num_heads
+    if rope is not None and use_kernels(d):
+        out = rmsnorm_rope(y.contiguous(), gamma, rope[0], rope[1],
+                           num_heads, eps)
+    else:
+        out = rms_norm(y, gamma, eps).reshape(b, s, num_heads, d)
+        if rope is not None:
+            out = apply_rope(out, rope[0], rope[1])
+    if tp is not None:
+        out = tp_heads(out, tp)
+    return out
+
+
+def _row(x, p, tp):
+    """The output linear of a split: a row-split linear under tp."""
+    return linear(x, p) if tp is None else tp_row(x, p, tp)
+
+
+def _self_attention(p, x, cos, sin, num_heads, eps, attn_fn, tp=None):
     """q/k RMSNorm over the full dim, 3D RoPE, attention, output proj."""
     b, s, _ = x.shape
     d = x.shape[-1] // num_heads
-    if use_kernels(d):
-        q = rmsnorm_rope(linear(x, p["q"]).contiguous(), p["norm_q"], cos,
-                         sin, num_heads, eps)
-        k = rmsnorm_rope(linear(x, p["k"]).contiguous(), p["norm_k"], cos,
-                         sin, num_heads, eps)
-    else:
-        q = apply_rope(rms_norm(linear(x, p["q"]), p["norm_q"], eps)
-                       .reshape(b, s, num_heads, d), cos, sin)
-        k = apply_rope(rms_norm(linear(x, p["k"]), p["norm_k"], eps)
-                       .reshape(b, s, num_heads, d), cos, sin)
-    v = linear(x, p["v"]).reshape(b, s, num_heads, d)
+    x = comm.copy_to(x, tp, "tp")
+    q = _qk_norm(linear(x, p["q"]), p["norm_q"], num_heads, eps, tp,
+                 (cos, sin))
+    k = _qk_norm(linear(x, p["k"]), p["norm_k"], num_heads, eps, tp,
+                 (cos, sin))
+    v = linear(x, p["v"]).reshape(b, s, -1, d)
     out = attn_fn(q, k, v, k_len=None)
-    return linear(out.reshape(b, s, -1), p["o"])
+    return _row(out.reshape(b, s, -1), p["o"], tp)
 
 
-def _cross_attention(p, x, context, num_heads, eps, attn_fn):
+def _cross_attention(p, x, context, num_heads, eps, attn_fn, tp=None):
     """Text cross-attention; all (zero-embedded pad) text tokens take part."""
     b, s, _ = x.shape
     d = x.shape[-1] // num_heads
     lk = context.shape[1]
-    q = rms_norm(linear(x, p["q"]), p["norm_q"], eps).reshape(b, s, num_heads, d)
-    k = rms_norm(linear(context, p["k"]), p["norm_k"], eps) \
-        .reshape(b, lk, num_heads, d)
-    v = linear(context, p["v"]).reshape(b, lk, num_heads, d)
+    x = comm.copy_to(x, tp, "tp")
+    context = comm.copy_to(context, tp, "tp")
+    q = _qk_norm(linear(x, p["q"]), p["norm_q"], num_heads, eps, tp)
+    k = _qk_norm(linear(context, p["k"]), p["norm_k"], num_heads, eps, tp)
+    v = linear(context, p["v"]).reshape(b, lk, -1, d)
     out = attn_fn(q, k, v, k_len=None)
-    return linear(out.reshape(b, s, -1), p["o"])
+    return _row(out.reshape(b, s, -1), p["o"], tp)
 
 
 def _block_forward(bp, x, e0, de0, cos, sin, context, cfg: DiTConfig,
-                   attn_fn):
+                   attn_fn, cross_fn=None, tp=None):
     """One attention block.
 
     e0:  [B, Lm, 6, dim] fp32 (Lm in {1, L}) or the binary-timestep tuple
          ("binary", e0_pair [B, 2, 6, dim], mask [B, L])
     de0: [B, 1, 2, dim] fp32 density terms
+    cross_fn: the cross-attention's attention (default attn_fn); tp: the
+    mesh when the block's linears are split over tp
     """
     dtype = x.dtype
     mod = bp["modulation"].float()[None]                      # [1,1,6,dim]
@@ -314,14 +354,14 @@ def _block_forward(bp, x, e0, de0, cos, sin, context, cfg: DiTConfig,
         return ln_modulation(x.contiguous(), sh, e[:, 0, i_scale])
 
     y = _self_attention(bp["self_attn"], prologue(0, 1, 0), cos, sin,
-                        cfg.num_heads, cfg.eps, attn_fn)
+                        cfg.num_heads, cfg.eps, attn_fn, tp)
     x = x + y * term(2)
     xn = (layer_norm(x, bp["norm3"]["weight"], bp["norm3"]["bias"], eps=1e-6)
           if cfg.cross_attn_norm else x)
     x = x + _cross_attention(bp["cross_attn"], xn, context, cfg.num_heads,
-                             cfg.eps, attn_fn)
-    tmp = prologue(3, 4, 1)
-    y = linear(gelu_tanh(linear(tmp, bp["ffn"]["fc1"])), bp["ffn"]["fc2"])
+                             cfg.eps, cross_fn or attn_fn, tp)
+    tmp = comm.copy_to(prologue(3, 4, 1), tp, "tp")
+    y = _row(gelu_tanh(linear(tmp, bp["ffn"]["fc1"])), bp["ffn"]["fc2"], tp)
     return x + y * term(5)
 
 
@@ -477,28 +517,100 @@ def dit_forward(
     binary_t_mask: Optional[torch.Tensor] = None,        # [B, L_video]
 ) -> torch.Tensor:
     """Velocity prediction [B, out_dim, F, H, W]."""
-    tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
-        _dit_prepare(params, cfg, x, t, context, density, y,
-                     additional_control, full_ref, rope_tables, y_camera,
-                     binary_t_mask)
-    tokens = _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn)
-    return _dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref)
+    prep = _dit_prepare(params, cfg, x, t, context, density, y,
+                        additional_control, full_ref, rope_tables, y_camera,
+                        binary_t_mask)
+    run = _Run(params, cfg, attn_fn, prep)
+    return run.finish(run.blocks(run.tokens))
 
 
-def _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn):
+class _Run:
+    """One forward's token stream: on one device as it is, under an active
+    mesh each rank's share (see the module docstring)."""
+
+    def __init__(self, params, cfg: DiTConfig, attn_fn, prep):
+        (tokens, e0, de0, e_head, de_head, cos, sin, ctx, self.grid,
+         self.l_ref) = prep
+        self.params, self.cfg = params, cfg
+        self.layout, self.tp = None, None
+        self.self_fn = self.cross_fn = attn_fn
+        mesh = active_mesh()
+        if mesh is not None:
+            attn = mesh_attention(mesh, attn_fn)
+            b, seq = tokens.shape[:2]
+            lay = token_layout(mesh, b, seq, attn.token_axes)
+            self.layout = lay
+            self.self_fn = attn if lay.token_axes else attn.inner
+            self.cross_fn = attn.inner
+            self.tp = mesh if _tp_split(params, cfg, mesh) else None
+            tokens = lay.shard(tokens, 0, 1)
+            if isinstance(e0, tuple):
+                e0 = (e0[0], lay.shard(e0[1], 0), lay.shard(e0[2], 0, 1))
+            else:
+                e0 = lay.shard(e0, 0, 1 if e0.shape[1] > 1 else None)
+            de0, de_head, ctx = (lay.shard(a, 0) for a in (de0, de_head, ctx))
+            e_head = lay.shard(e_head, 0, 1 if e_head.dim() == 3 else None)
+            if lay.token_axes:
+                start, n = lay.token_range(seq)
+                cos = _rope_rows(cos, start, n, 1.0)
+                sin = _rope_rows(sin, start, n, 0.0)
+        self.tokens, self.e0, self.de0, self.ctx = tokens, e0, de0, ctx
+        self.e_head, self.de_head, self.cos, self.sin = e_head, de_head, cos, sin
+
+    def blocks(self, tokens):
+        return _dit_blocks(self.params, self.cfg, tokens, self.e0, self.de0,
+                           self.cos, self.sin, self.ctx, self.self_fn,
+                           self.cross_fn, self.tp)
+
+    def finish(self, tokens):
+        """Head (on this rank's share), the gather, the ref tokens
+        stripped, unpatchify."""
+        tokens = _head_forward(self.params["head"], tokens, self.e_head,
+                               self.de_head)
+        if self.layout is not None:
+            tokens = self.layout.gather(tokens, 0, 1)
+        grid = self.grid
+        if self.l_ref:
+            tokens = tokens[:, self.l_ref:]
+            grid = (grid[0] - 1, grid[1], grid[2])
+        return _unpatchify(tokens, grid, self.cfg.patch_size, self.cfg.out_dim)
+
+
+def _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx, attn_fn,
+                cross_fn=None, tp=None):
     for bp in params["blocks"]:
         tokens = _block_forward(bp, tokens, e0, de0, cos, sin, ctx, cfg,
-                                attn_fn)
+                                attn_fn, cross_fn, tp)
     return tokens
 
 
-def _dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref):
-    """Head, the ref tokens stripped, unpatchify."""
-    tokens = _head_forward(params["head"], tokens, e_head, de_head)
-    if l_ref:
-        tokens = tokens[:, l_ref:]
-        grid = (grid[0] - 1, grid[1], grid[2])
-    return _unpatchify(tokens, grid, cfg.patch_size, cfg.out_dim)
+def _rope_rows(table: torch.Tensor, start: int, n: int,
+               identity: float) -> torch.Tensor:
+    """The RoPE table's rows of the tokens [start, start + n): positions
+    past the table pass unrotated, as in the whole stream (where none of
+    them is in the table, one row of the identity rotation: cos 1, sin 0)."""
+    rows = table[start:start + n]
+    if rows.shape[0] == 0:
+        rows = table.new_full((1, table.shape[1]), identity)
+    return rows
+
+
+def _out_rows(lin: dict) -> int:
+    w = lin.get("weight_q", lin.get("weight"))
+    return w.shape[0]
+
+
+def _tp_split(params, cfg: DiTConfig, mesh) -> bool:
+    """Whether the block linears hold this rank's tp slice (a tree through
+    `dit_param_shardings` + `shard_pytree`) rather than the whole weight."""
+    tp = mesh.shape.get("tp", 1)
+    if tp == 1 or not params["blocks"]:
+        return False
+    if _out_rows(params["blocks"][0]["self_attn"]["q"]) == cfg.dim:
+        return False
+    if cfg.num_heads % tp:
+        raise ValueError(f"{cfg.num_heads} heads do not split over tp={tp}")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -586,31 +698,40 @@ def dit_forward_teacache(
     `lax.cond` on the device; here the decision is one scalar read on the
     host a step (one sync), so that a skipped step launches no block.
 
-    Returns (velocity, new_tea_state)."""
-    tokens, e0, de0, e_head, de_head, cos, sin, ctx, grid, l_ref = \
-        _dit_prepare(params, cfg, x, t, context, density, y,
-                     additional_control, full_ref, rope_tables, None,
-                     binary_t_mask)
+    Under a mesh every rank decides alike with no collective: each rank
+    runs `_dit_prepare` on the whole inputs, so it holds the whole e0 and
+    reads the same scalar as one device (ranks that decided differently
+    would wait on each other's collectives for ever). The cached residual
+    is this rank's token share.
 
+    Returns (velocity, new_tea_state)."""
+    prep = _dit_prepare(params, cfg, x, t, context, density, y,
+                        additional_control, full_ref, rope_tables, None,
+                        binary_t_mask)
+    e0 = prep[1]
     # the modulated input: e0 (scalar t) or the last token's (per-token t);
     # the last token is always a t-valued one, so in binary mode it is the
     # pair's t branch
     mod = (e0[1][:, 0] if isinstance(e0, tuple) else e0[:, -1]).float()
     prev_mod = tea_state["prev_mod"]
+    run = _Run(params, cfg, attn_fn, prep)
+    lay = run.layout
     rel = (mod - prev_mod).abs().mean() / (prev_mod.abs().mean() + 1e-12)
     coeffs = torch.as_tensor(coefficients, dtype=torch.float32,
                              device=rel.device)
     accum = tea_state["accum"] + _polyval(coeffs, rel)
     should_calc = (step_index < num_skip_start_steps
                    or bool((accum >= rel_l1_thresh).item()))
+    tokens = run.tokens
     if should_calc:
         accum = torch.zeros_like(accum)
-        out = _dit_blocks(params, cfg, tokens, e0, de0, cos, sin, ctx,
-                          attn_fn)
+        out = run.blocks(tokens)
         residual = out - tokens
         tokens = out
     else:
         residual = tea_state["residual"]
+        if lay is not None and residual.shape != tokens.shape:
+            residual = lay.shard(residual, 0, 1)
         tokens = tokens + residual.to(tokens.dtype)
     new_state = {
         "prev_mod": mod,
@@ -618,8 +739,7 @@ def dit_forward_teacache(
         "residual": residual.to(tea_state["residual"].dtype),
         "computed": tea_state["computed"] + float(should_calc),
     }
-    return (_dit_finish(params, cfg, tokens, e_head, de_head, grid, l_ref),
-            new_state)
+    return run.finish(tokens), new_state
 
 
 def make_rope_tables_for(cfg: DiTConfig, device="cpu",

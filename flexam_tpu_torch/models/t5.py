@@ -9,6 +9,13 @@ its own: the matmuls and the softmax are PyTorch ops.
 Parameters are the JAX tree with `blocks` as a list of per-block dicts. The
 encoder computes in fp32 unless the tree holds a "compute_dtype" entry, as
 the JAX version does.
+
+Under `parallel.activation_sharding(mesh)` with a tree split by
+`parallel.t5_param_shardings` (tp over the heads and the ffn, the token
+embedding over vocabulary rows), each tp rank runs its heads and ffn
+columns and sums the output projections over tp; the embedding looks up
+the ids in its rows (zeros for the others) and sums over tp. Every rank
+returns the whole hidden states.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from flexam_tpu_torch.config import T5Config
 from flexam_tpu_torch.core.layers import gelu_tanh
 from flexam_tpu_torch.device import resolve_device
+from flexam_tpu_torch.parallel import comm
 
 
 def t5_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -62,8 +70,11 @@ def _pos_bias(embedding: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
 
 
 def _t5_attention(p: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
-                  pos_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+                  pos_bias: torch.Tensor, num_heads: int,
+                  tp=None) -> torch.Tensor:
+    """num_heads: the heads this rank holds (all of them off tp)."""
     b, l, _ = x.shape
+    x = comm.copy_to(x, tp, "tp")
     d = p["q"].shape[0] // num_heads
     q = torch.matmul(x, p["q"].to(x.dtype).t()).reshape(b, l, num_heads, d)
     k = torch.matmul(x, p["k"].to(x.dtype).t()).reshape(b, l, num_heads, d)
@@ -75,32 +86,59 @@ def _t5_attention(p: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
         logits = logits.masked_fill(mask[:, None, None, :] == 0, neg)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bnij,bjnc->binc", probs.float(), v.float()).to(x.dtype)
-    return torch.matmul(out.reshape(b, l, -1), p["o"].to(x.dtype).t())
+    out = torch.matmul(out.reshape(b, l, -1), p["o"].to(x.dtype).t())
+    return comm.reduce_from(out, tp, "tp")
 
 
-def _t5_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _t5_ffn(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    x = comm.copy_to(x, tp, "tp")
     gate = gelu_tanh(torch.matmul(x, p["gate"].to(x.dtype).t()))
     h = torch.matmul(x, p["fc1"].to(x.dtype).t()) * gate
-    return torch.matmul(h, p["fc2"].to(x.dtype).t())
+    return comm.reduce_from(torch.matmul(h, p["fc2"].to(x.dtype).t()),
+                            tp, "tp")
+
+
+def _embed(table: torch.Tensor, ids: torch.Tensor, cfg: T5Config, tp):
+    """Token embedding; under tp `table` holds this rank's vocabulary rows:
+    the ids outside them look up zeros, and the ranks' rows are summed."""
+    if tp is None or table.shape[0] == cfg.vocab:
+        return table[ids]
+    first = tp.index("tp") * table.shape[0]
+    local = ids - first
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    return comm.reduce_from(rows * inside[..., None].to(rows.dtype), tp, "tp")
 
 
 def t5_encode(params: dict, cfg: T5Config, input_ids: torch.Tensor,
               attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """input_ids [B, L] int; attention_mask [B, L] (1 token, 0 pad).
     Returns the last hidden states [B, L, dim]."""
+    from flexam_tpu_torch.parallel.sharding import active_mesh
     l = input_ids.shape[1]
     dtype = params.get("compute_dtype", torch.float32)
-    x = params["token_embedding"][input_ids.long()].to(dtype)
+    mesh = active_mesh()
+    tp = mesh if mesh is not None and mesh.shape.get("tp", 1) > 1 else None
+    x = _embed(params["token_embedding"], input_ids.long(), cfg, tp).to(dtype)
+    heads, h0 = cfg.num_heads, 0
+    if tp is not None and params["blocks"] and (
+            params["blocks"][0]["attn"]["q"].shape[0] < cfg.dim_attn):
+        heads = cfg.num_heads // tp.shape["tp"]
+        h0 = tp.index("tp") * heads
     buckets = torch.from_numpy(relative_position_buckets(
         l, l, cfg.num_buckets, max_dist=cfg.max_distance)).long().to(x.device)
-    shared = (_pos_bias(params["shared_pos_embedding"], buckets)
+
+    def bias_of(table):
+        return _pos_bias(table, buckets)[:, h0:h0 + heads]
+
+    shared = (bias_of(params["shared_pos_embedding"])
               if cfg.shared_pos else None)
+    tp_blocks = tp if heads != cfg.num_heads else None
     for bp in params["blocks"]:
-        bias = shared if shared is not None else _pos_bias(bp["pos_embedding"],
-                                                           buckets)
+        bias = shared if shared is not None else bias_of(bp["pos_embedding"])
         x = x + _t5_attention(bp["attn"], t5_layer_norm(x, bp["norm1"]),
-                              attention_mask, bias, cfg.num_heads)
-        x = x + _t5_ffn(bp["ffn"], t5_layer_norm(x, bp["norm2"]))
+                              attention_mask, bias, heads, tp_blocks)
+        x = x + _t5_ffn(bp["ffn"], t5_layer_norm(x, bp["norm2"]), tp_blocks)
     return t5_layer_norm(x, params["norm"])
 
 

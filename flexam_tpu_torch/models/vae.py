@@ -6,7 +6,12 @@ time padding, the frame-0 bypass of the temporal resamplers, AvgDown3D and
 DupUp3D). The JAX version computes channels-last; this port keeps torch's
 channels-first [B, C, T, H, W] throughout, which is also the public layout,
 and sends every convolution to cuDNN through `F.conv3d`. It runs no kernel
-of its own. Group streaming (`models/vae_stream.py`) is not ported yet.
+of its own. Group streaming lives in `models/vae_stream.py`.
+
+Under `parallel/vae_parallel.py` each rank holds a slice of the width:
+`_width_split` is then set, the convolutions of width > 1 take their halo
+columns from the neighbouring ranks (zeros only at the clip's edges), and
+the mid-block spatial attention sees the whole width.
 """
 
 from __future__ import annotations
@@ -26,6 +31,10 @@ from flexam_tpu_torch.device import resolve_device
 # Primitive ops (channels-first)
 # ---------------------------------------------------------------------------
 
+# the width split of `parallel/vae_parallel.py` (None: the whole width);
+# an object with `halo(x, left, right)` and `whole(x)` / `local(x)`
+_width_split = None
+
 def causal_conv3d(x: torch.Tensor, p: dict,
                   stride: Tuple[int, int, int] = (1, 1, 1),
                   time_pad: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -37,14 +46,20 @@ def causal_conv3d(x: torch.Tensor, p: dict,
         time_pad = (2 * (kt // 2), 0)
     if time_pad != (0, 0):
         x = F.pad(x, (0, 0, 0, 0) + tuple(time_pad))
+    pad_w = kw // 2
+    if _width_split is not None and pad_w:
+        x, pad_w = _width_split.halo(x, pad_w, pad_w), 0
     return F.conv3d(x, w, p["bias"].to(x.dtype), stride=stride,
-                    padding=(0, kh // 2, kw // 2))
+                    padding=(0, kh // 2, pad_w))
 
 
 def conv2d(x: torch.Tensor, p: dict, stride: int = 1,
            padding=((1, 1), (1, 1))) -> torch.Tensor:
     """Per-frame 2D conv on [B, C, T, H, W]; weight [O, I, kh, kw]."""
     (pt, pb), (pl, pr) = padding
+    if _width_split is not None and (pl or pr):
+        # the neighbours' columns; zeros (the padding) at the clip's edges
+        x, pl, pr = _width_split.halo(x, pl, pr), 0, 0
     x = F.pad(x, (pl, pr, pt, pb))
     return F.conv3d(x, p["weight"].to(x.dtype)[:, :, None],
                     p["bias"].to(x.dtype), stride=(1, stride, stride))
@@ -70,7 +85,15 @@ def residual_block(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def attention_block(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Per-frame single-head spatial self-attention; qkv/proj 1x1 convs."""
+    """Per-frame single-head spatial self-attention; qkv/proj 1x1 convs.
+    Under a width split it runs on the whole width and keeps this rank's
+    columns."""
+    if _width_split is not None:
+        return _width_split.local(_attention_block(_width_split.whole(x), p))
+    return _attention_block(x, p)
+
+
+def _attention_block(x: torch.Tensor, p: dict) -> torch.Tensor:
     b, c, t, h, w = x.shape
     xn = channel_rms_norm(x, p["norm"])
     tokens = xn.permute(0, 2, 3, 4, 1).reshape(b * t, h * w, c)

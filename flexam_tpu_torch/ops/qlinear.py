@@ -28,6 +28,8 @@ so a block's `w_scale` is JAX's `w_scale[l]` of its stacked [L, out] scale.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -105,20 +107,29 @@ def int_mm(q: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(q, weight_q.t())
 
 
+def qlinear_partial(x: torch.Tensor, p: dict,
+                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ W_q^T * (s_x * s_w) in float32, no bias: the per-token scale s_x
+    from `amax` [tokens, 1] when given (a row-split linear passes the amax
+    over the whole input width, of which x holds a slice), else from x."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    s_x = _div(torch.clamp_min(amax, 1e-8), 127.0)
+    q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+    acc = int_mm(q, p["weight_q"])
+    return (acc.float() * s_x * p["w_scale"].float()).reshape(*lead, -1)
+
+
 def qlinear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """y = x @ W_q^T * (s_x * s_w) + b: dynamic per-token activation
     quantization, int32 accumulation. Takes the place of
     `core.layers.linear` when the params hold {"weight_q", "w_scale"}."""
-    lead = x.shape[:-1]
-    xf = x.reshape(-1, x.shape[-1]).float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    s_x = _div(torch.clamp_min(amax, 1e-8), 127.0)
-    q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
-    acc = int_mm(q, p["weight_q"])
-    y = acc.float() * s_x * p["w_scale"].float()
+    y = qlinear_partial(x, p)
     if p.get("bias") is not None:
         y = y + p["bias"].float()
-    return y.to(x.dtype).reshape(*lead, -1)
+    return y.to(x.dtype)
 
 
 def _quantize_block_tree(blocks) -> None:

@@ -98,6 +98,17 @@ def rows_to_arrays(rows: Sequence[Sequence[int]]) -> Tuple[np.ndarray,
     return kidx, nnz
 
 
+def rows_to_block_mask(rows: Sequence[Sequence[int]]) -> np.ndarray:
+    """Dense [nb, nb] bool block mask from per-row active key lists: the
+    form `parallel.ring.ring_accumulate` takes for the block-sparse ring
+    hops of USP."""
+    nb = len(rows)
+    mask = np.zeros((nb, nb), bool)
+    for i, r in enumerate(rows):
+        mask[i, list(r)] = True
+    return mask
+
+
 def pick_group(n_blocks: int, spatial_tokens: int,
                max_blk: int = 1456, max_group: int = 2) -> int:
     """Largest divisor of n_blocks with merged blocks of at most `max_blk`
@@ -152,11 +163,7 @@ def masked_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     function with none of its constraints, over query chunks of `q_chunk`
     rows (the full L x L mask never exists)."""
     _check_geometry(q, k, rows, blk)
-    nb = len(rows)
-    mask = np.zeros((nb, nb), bool)
-    for i, r in enumerate(rows):
-        mask[i, list(r)] = True
-    mask = torch.from_numpy(mask).to(q.device)
+    mask = torch.from_numpy(rows_to_block_mask(rows)).to(q.device)
     tok_blk = torch.arange(q.shape[1], device=q.device) // blk
 
     def keep_rows(a, b):

@@ -25,8 +25,13 @@ and resumes the solver state. `quant="int8"` (int8 block linears,
 `ops/qlinear.py`) or `quant="fp8"` (float8 weight storage, `utils/fp8.py`),
 or FLEXAM_QUANT, quantizes both DiT experts when the pipeline is built.
 `generate(camera_video=)` drives the DiT's Control-Camera adapter (the
-folded camera video rides in the cond as "y_camera"). Not ported yet: the
-multi-device attention wrappers.
+folded camera video rides in the cond as "y_camera").
+
+On several ranks: under `parallel.activation_sharding(mesh)` the denoise
+runs every DiT forward split over the mesh (Ulysses over sp, the sparse
+closure as its inner under FLEXAM_ATTENTION=sparse; each rank holds the
+whole result, so the solver steps alike everywhere), and a `vae_mesh` set
+on the pipeline splits the VAE's width over its sp axis.
 """
 
 from __future__ import annotations
@@ -217,6 +222,10 @@ class FlexAMGenerationPipeline:
                         getattr(models, name), quant, self.device))
         self.attn_fn = attn_fn or default_attention
         self._sparse_attn_cache = {}
+        # a mesh (`parallel.make_mesh`) set here splits the VAE's width over
+        # its sp axis: whole-clip encode and decode, never streamed (JAX's
+        # `vae_mesh`)
+        self.vae_mesh = None
         self.rope_tables = make_rope_tables_for(models.cfg.dit, self.device)
 
     def enable_riflex(self, k: int, L_test: int,
@@ -308,6 +317,12 @@ class FlexAMGenerationPipeline:
     def _encode(self, clip: torch.Tensor) -> torch.Tensor:
         """One clip [1, 3, T, H, W] in [-1, 1] -> latent mode."""
         _, _, t, h, w = clip.shape
+        if self.vae_mesh is not None:
+            from flexam_tpu_torch.parallel.vae_parallel import \
+                vae_encode_sharded
+            return vae_encode_sharded(self.models.vae_params, self.cfg.vae,
+                                      clip.to(self.compute_dtype),
+                                      self.vae_mesh)
         encode = (vae_encode_mode_streamed if self._use_streaming(1, t, h, w)
                   else vae_encode_mode)
         return encode(self.models.vae_params, self.cfg.vae,
@@ -429,8 +444,9 @@ class FlexAMGenerationPipeline:
     def _encode_frames(self, frame_fn, t: int, h: int, w: int) -> torch.Tensor:
         """Latent mode of the clip that `frame_fn(start, count)` produces:
         streamed group by group above the threshold, else whole, built from
-        groups of 9 frames and then 8 (the producer's own groups)."""
-        if self._use_streaming(1, t, h, w):
+        groups of 9 frames and then 8 (the producer's own groups); whole
+        and width-split under `vae_mesh`."""
+        if self.vae_mesh is None and self._use_streaming(1, t, h, w):
             return vae_encode_stream_fn(self.models.vae_params, self.cfg.vae,
                                         frame_fn, t)[0]
         groups = [frame_fn(0, min(9, t))]
@@ -578,7 +594,9 @@ class FlexAMGenerationPipeline:
         """The attention of this denoise: under FLEXAM_ATTENTION=sparse (or
         pallas_sparse) the block-sparse closure for this latent geometry
         (B5 for video self-attention), cached per (geometry, window);
-        otherwise, or when an attn_fn was given, `self.attn_fn`."""
+        otherwise, or when an attn_fn was given, `self.attn_fn`. Under
+        `parallel.activation_sharding`, `dit_forward` runs whichever it is
+        as Ulysses' inner over sp (`parallel.ulysses.mesh_attention`)."""
         env = os.environ.get("FLEXAM_ATTENTION", "").lower()
         if (self.attn_fn is not default_attention
                 or env not in ("sparse", "pallas_sparse")):
@@ -852,11 +870,18 @@ class FlexAMGenerationPipeline:
         streaming threshold the decode runs in groups of 2 latent frames
         (the JAX pipeline's size with the DiT resident)."""
         n, _, lt, lh, lw = latents.shape
-        if self._use_streaming(n, 4 * (lt - 1) + 1, lh * 16, lw * 16):
+        if self.vae_mesh is not None:
+            from flexam_tpu_torch.parallel.vae_parallel import \
+                vae_decode_sharded
+            out = vae_decode_sharded(self.models.vae_params, self.cfg.vae,
+                                     latents.to(self.compute_dtype),
+                                     self.vae_mesh)
+        elif self._use_streaming(n, 4 * (lt - 1) + 1, lh * 16, lw * 16):
             return vae_decode_streamed_u8(
                 self.models.vae_params, self.cfg.vae,
                 latents.to(self.compute_dtype), group_size=2)
-        out = vae_decode(self.models.vae_params, self.cfg.vae,
-                         latents.to(self.compute_dtype))
+        else:
+            out = vae_decode(self.models.vae_params, self.cfg.vae,
+                             latents.to(self.compute_dtype))
         u8 = torch.round((out.float() + 1.0) * (255.0 / 2.0)).clamp(0, 255)
         return u8.to(torch.uint8).cpu()

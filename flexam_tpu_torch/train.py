@@ -24,8 +24,16 @@ On the card the DiT's kernels (B1-B6) have no backward, as JAX's Pallas
 kernels have none, and refuse autograd (`ops.build.refuse_autograd`):
 train with FLEXAM_FUSED=0 FLEXAM_ATTENTION=xla, JAX's own training path
 (its unfused composition and `xla_attention`), here torch ops that are
-differentiable. Sharded optimizer state (`param_shardings`) is the
-multi-GPU slice's work (ROADMAP A11 / item 8, Q7).
+differentiable.
+
+Under `parallel.activation_sharding(mesh)` the steps run each rank's share
+(`dit_forward` under a mesh; its collectives are differentiable), then sum
+the gradients over the data axes (dp, sp: each rank's gradient covers its
+own tokens) and, for the leaves applied per tp share, over tp, before the
+update: the step equals the one-device step. `make_train_state(
+param_shardings=...)` takes this rank's shards (`parallel.shard_pytree`),
+so AdamW's moments are shaped like them, ZeRO-style, as JAX places its
+moments with the parameters' shardings.
 """
 
 from __future__ import annotations
@@ -63,10 +71,25 @@ class Optimizer:
     capturable, its learning rate a device tensor, so that `run_steps`
     can replay a step as a CUDA graph."""
 
-    def __init__(self, opt: torch.optim.Optimizer, lr: LearningRate):
+    def __init__(self, opt: torch.optim.Optimizer, lr: LearningRate,
+                 shardings: Optional[list] = None):
         self.opt = opt
         self.lr = lr
         self.count = 0
+        # [(leaf, parallel.Shard)] of a sharded state (None: replicated)
+        self.shardings = shardings
+
+    def sync_grads(self, tp_partial=()) -> None:
+        """Under an active mesh, sum the gradients over the mesh (see the
+        module docstring; `tp_partial`: leaves whose gradient is a partial
+        sum over tp); nothing on one device."""
+        from flexam_tpu_torch.parallel.sharding import (REPLICATED,
+                                                        active_mesh,
+                                                        sync_grads)
+        mesh = active_mesh()
+        if mesh is not None:
+            pairs = self.shardings or [(t, REPLICATED) for t in self.params]
+            sync_grads(pairs, mesh, tp_partial=tp_partial)
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -198,13 +221,17 @@ def make_train_state(params, learning_rate: LearningRate = 1e-5,
                      weight_decay: float = 1e-2,
                      param_shardings=None) -> Optimizer:
     """AdamW over every floating-point leaf of `params` (set to require
-    grad), JAX's `make_train_state` defaults."""
+    grad), JAX's `make_train_state` defaults. With `param_shardings` (the
+    tree of `parallel.Shard`s `params` was cut by) `params` are this rank's
+    shards: the moments take their shapes, and the steps sum each
+    gradient over the mesh by its leaf's sharding."""
+    opt = adamw(trainable(params), learning_rate, weight_decay)
     if param_shardings is not None:
-        raise NotImplementedError(
-            "make_train_state(param_shardings=...): optimizer state sharded "
-            "like the parameters is the multi-GPU slice's work (ROADMAP "
-            "A11 / item 8, Q7); on one GPU leave param_shardings None")
-    return adamw(trainable(params), learning_rate, weight_decay)
+        from flexam_tpu_torch.parallel.sharding import spec_leaves
+        opt.shardings = [(t, sp) for t, sp in
+                         spec_leaves(params, param_shardings)
+                         if t.is_floating_point()]
+    return opt
 
 
 def draw_noise(latents: torch.Tensor,
@@ -238,6 +265,7 @@ def train_step(params, opt: Optimizer, cfg: DiTConfig, batch: Dict,
     sigma, eps = _noise(batch, sigma, eps, generator)
     loss = flow_match_loss(params, cfg, batch, sigma, eps, rope_tables)
     loss.backward()
+    opt.sync_grads()
     opt.step()
     return params, loss.detach()
 
@@ -254,13 +282,16 @@ def lora_train_step(base_params, lora_params, opt: Optimizer,
     `LoRANetwork`, reference `lora_utils.py:158-370`). Build `opt` over
     the factors: `adamw(trainable(lora_params["blocks"]), lr)`. Returns
     (lora_params, loss)."""
-    from flexam_tpu_torch.utils.lora import apply_lora
+    from flexam_tpu_torch.utils.lora import apply_lora, tp_split_factors
 
     sigma, eps = _noise(batch, sigma, eps, generator)
     p = apply_lora(base_params, lora_params, multiplier=multiplier)
     loss = flow_match_loss(p, cfg, batch, sigma, eps, rope_tables)
     del p
     loss.backward()
+    # where the base weight is split, each tp rank applies its slice of the
+    # factors' product: those factors' gradients are summed over tp too
+    opt.sync_grads(tp_partial=tp_split_factors(base_params, lora_params))
     opt.step()
     return lora_params, loss.detach()
 

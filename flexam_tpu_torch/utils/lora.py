@@ -154,7 +154,10 @@ def init_lora_params(gen: torch.Generator, dit_params: dict, rank: int = 16,
 def apply_lora(dit_params: dict, lora: dict, multiplier: float = 1.0
                ) -> dict:
     """Effective weights W + m * (alpha / r) * (B @ A) per block, computed
-    in float32 and cast back; differentiable through the factors."""
+    in float32 and cast back; differentiable through the factors. A base
+    weight split over tp (`parallel.dit_param_shardings`) takes its own
+    slice of the product."""
+    from flexam_tpu_torch.parallel.sharding import active_mesh, tp_slice_like
     scale = multiplier * lora["alpha"] / lora["rank"]
     blocks = []
     for bp, lb in zip(dit_params["blocks"], lora["blocks"]):
@@ -163,12 +166,27 @@ def apply_lora(dit_params: dict, lora: dict, multiplier: float = 1.0
             newmod = dict(bp[mod])
             for proj, ab in projs.items():
                 w = newmod[proj]["weight"]
-                delta = (ab["b"].float() @ ab["a"].float()) * scale
+                delta = tp_slice_like((ab["b"].float() @ ab["a"].float())
+                                      * scale, w, active_mesh())
                 newmod[proj] = {**newmod[proj],
                                 "weight": (w.float() + delta).to(w.dtype)}
             bp[mod] = newmod
         blocks.append(bp)
     return {**dit_params, "blocks": blocks}
+
+
+def tp_split_factors(dit_params: dict, lora: dict) -> list:
+    """The factors whose base weight holds a tp slice: `apply_lora` adds
+    that slice of B@A on each tp rank, so their gradients are partial sums
+    over tp."""
+    out = []
+    for bp, lb in zip(dit_params["blocks"], lora["blocks"]):
+        for mod, projs in lb.items():
+            for proj, ab in projs.items():
+                if bp[mod][proj]["weight"].shape != (ab["b"].shape[0],
+                                                     ab["a"].shape[1]):
+                    out += [ab["a"], ab["b"]]
+    return out
 
 
 def lora_to_state_dict(lora: dict, layout: str = "kohya"

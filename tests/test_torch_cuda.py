@@ -761,3 +761,19 @@ def test_run_steps_graph_replay_equals_eager_steps(dev):
                                rtol=1e-5, atol=0)
     for a, b in zip(pg, pe):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_ulysses_two_ranks_on_one_card(dev):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device): Ulysses over sp = 2 runs B1 on each rank's 4 of 8 heads over
+    the whole sequence, equal to one rank's B1 on all heads (the same
+    per-head work) within a bf16 ulp of the output's size."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from flexam_tpu_torch.parallel import launch
+    r = launch.run("torch_parallel_ranks:ulysses_on_card", 2, (2, 1024, 8, 128),
+                   run_timeout=300)
+    assert r["launches"] == 1
+    scale = float(r["ref"].abs().max())
+    assert float((r["out"] - r["ref"]).abs().max()) <= 2 ** -8 * scale

@@ -17,8 +17,9 @@ gradients and the step are held so for batches of 1 (an image), 2 and 3
 latent frames. AdamW's decay against optax's at a decay of 10, where it
 outweighs that bound (at 1e-2 it does not). Also: five steps lower the
 loss, the LoRA step (against JAX, base bit-identical, loss falling), the
-LoRA export / merge in both layouts, `param_shardings`
-raising, the kernels' refusal of autograd (`ops.build.refuse_autograd`),
+LoRA export / merge in both layouts, `param_shardings` (the moments
+shaped like the leaves given; the multi-rank steps are
+`tests/test_torch_parallel.py`'s), the kernels' refusal of autograd (`ops.build.refuse_autograd`),
 FLEXAM_FUSED as JAX reads it, and FLEXAM_ATTENTION=xla as the exact
 branch.
 """
@@ -350,10 +351,29 @@ def test_lora_export_merge_equivalence(setup, layout):
                     rtol=1e-5, atol=1e-6, err_msg=f"{layout} {mod}.{proj}")
 
 
-def test_param_shardings_raises(setup):
-    port = _port_tree(setup[0])
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.make_train_state(port, param_shardings={})
+def test_make_train_state_param_shardings(setup):
+    """With `param_shardings` the optimizer keeps each leaf's sharding
+    (for the steps' gradient sums) and AdamW's moments take the shape of
+    the leaves it was given; off a mesh a step with it equals the step
+    without it (every leaf replicated, nothing to sum)."""
+    from flexam_tpu_torch.parallel import replicated_shardings
+    np_tree, batch, key, noise = setup
+    port = _port_tree(np_tree)
+    specs = replicated_shardings(None, port)
+    opt = T.make_train_state(port, param_shardings=specs)
+    assert [t for t, _ in opt.shardings] == opt.params
+    assert all(s.axis is None for _, s in opt.shardings)
+    plain = _port_tree(np_tree)
+    popt = T.make_train_state(plain)
+    tb = T.batch_to(batch, "cpu")
+    _, loss = T.train_step(port, opt, CFG.dit, tb, sigma=noise[2],
+                           eps=noise[3])
+    _, ploss = T.train_step(plain, popt, CFG.dit, tb, sigma=noise[2],
+                            eps=noise[3])
+    assert float(loss) == float(ploss)
+    for a, b in zip(tree_leaves(port), tree_leaves(plain)):
+        assert torch.equal(a, b)
+        assert opt.opt.state[a]["exp_avg"].shape == a.shape
 
 
 def test_refuse_autograd():
