@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port (`flexam_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+
+`--profile` adds the torch.profiler breakdowns (each "..._profile" line or
+key: one more call under the profiler, by kernel group); without it those
+entries say {"profiled": false} and their calls do not run (they re-run
+work the smoke has already checked, and reading each trace takes seconds).
 
 Phases, each printing one JSON line with "phase" and "seconds" when it ends:
 
@@ -50,8 +55,8 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        foreground_edit with a video, mask video and raster
                        mask (per-token timestep), and background_edit with
                        a video and no mask video, whose denoise step must
-                       launch B4's broadcast mode. One more prepare from
-                       tracks runs under torch.profiler
+                       launch B4's broadcast mode. With --profile one more
+                       prepare from tracks runs under torch.profiler
                        ("prepare_from_tracks_profile");
   generate_long        the long-clip path on the same pipeline, weights and
                        prompt context: 512x896x201f (23,296 tokens with the
@@ -60,8 +65,48 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        CFG 6.0 through the auto attention ladder (B6 for
                        self-attention); then 1 step under
                        FLEXAM_ATTENTION=sparse (B5). Launch counts are reset
-                       and read around each; a profiled step of each
-                       follows ("denoise_long_profile");
+                       and read around each; with --profile a profiled
+                       step of each follows ("denoise_long_profile");
+  residency            weights between host and card on the same pipeline
+                       and context, 512x896x97f: (a) one cond from tracks
+                       and one latents=, generate_from_cond with the DiT
+                       offloaded around the decode (groups of 4) and
+                       resident (groups of 2), 2 steps each (B1-B4
+                       launched); the decode's peak, seconds and allocator
+                       counts in each mode; the videos within
+                       RESIDENCY_GROUP_MEAN / _MAX uint8 levels of each
+                       other (below); two offload / restore cycles of the
+                       bf16 DiT and of an int8 copy: the device bytes
+                       freed (at least the tree's), each copy's seconds,
+                       the host copy pinned and reused by the second
+                       cycle, the leaves after each restore equal to a
+                       copy taken before, bit for bit; (b), run last
+                       (after train, "residency_b"), on a pipeline without
+                       a DiT and the main path's VAE: memory held so that
+                       only group 2's peak plus RESIDENCY_ROOM of the gap
+                       to group 4's stays free: the decode must try 4,
+                       print JAX's warning, and give a direct group-2
+                       decode's video bit for bit (last, because a decode
+                       that ran out of memory leaves cuDNN's cached
+                       algorithms for its shapes at slow ones: later
+                       group-4 decodes ran 5.6x slower; a short group-4
+                       decode is timed before and after it); (c)
+                       FLEXAM_DECODE_FETCH=yuv420 against the RGB fetch:
+                       bytes copied to the host, seconds, luma within
+                       JAX's test bound RESIDENCY_YUV_LUMA; (d)
+                       prepare_encode_batch 2 against 1: seconds, peaks,
+                       the latents within RESIDENCY_BATCH_REL of max |ref|;
+                       (e) `serving_bench --mode bf16-offload`, 2 runs of
+                       2 steps, `restore_dit_s` a run; (f) `cold_start
+                       --make-prequant --with-vae` in process (a full-depth
+                       int8 DiT and the VAE, written under build/ and
+                       deleted after), then `cold_start --prequant` in a
+                       fresh process with --stream-upload --overlap
+                       --upload-threads 4 and with neither, 1 step: every
+                       stage's seconds, the kernel library's load and the
+                       time to the first video. Launch counts are reset
+                       before (a) and (e) and read after each
+                       ("residency_launches": their sum);
   checkpoint_load      reference-format checkpoint files at full
                        Wan2.2-Fun-5B width, random bf16 weights: the DiT as
                        two .safetensors shards (2 of 30 blocks),
@@ -97,7 +142,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        weights from seeds, a random text context and no
                        umT5), in four modes: bf16 (resident), int8 (int8
                        block linears), fp8 (e4m3 weight storage) and int8
-                       with --attention sparse (B5), 2 runs of 2 steps each
+                       with --attention sparse (B5), 1 run of 2 steps each
                        (prepare from tracks, denoise, streamed decode). One
                        line a mode: the records and summary, the peak
                        memory, the resident DiT's bytes and the launches
@@ -113,7 +158,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        numpy's quantization byte for byte; one ffn linear
                        at the flagship rows and one flagship forward in int8
                        and in fp8 stay within the bounds below of bf16 (and
-                       the int8 forward is profiled);
+                       with --profile the int8 forward is profiled);
   serve                the generation server (`flexam_tpu_torch.serve`) as
                        `--host --random_init 5b` builds it (umT5-XXL, the
                        VAE and the DiT resident, random bf16), serving on
@@ -147,7 +192,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        differ); the adapter's forward on the CFG batch
                        timed by back-to-back launches;
   track                the video-input path at full width, on a textured
-                       512x896x97f clip whose scene moves by (-1, -1) px a
+                       512x896x49f clip whose scene moves by (-1, -1) px a
                        frame: (a) UniDepth V2 (ViT-L/14, bf16, random
                        weights) through the depth registry, with seconds,
                        frames/s, tokens a frame, peak and the exact
@@ -162,9 +207,11 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        three models at tiny configs on the card and on the
                        CPU, held to each other (bounds below); (e)
                        `python -m flexam_tpu_torch.tools.track --method
-                       delta` on the clip, then `demo.main` at --random_init
-                       5b, 49 frames, 1 step, full_edit from the clip: DELTA
-                       tracking (FLEXAM_DELTA_CKPT), the Farneback tracker
+                       delta` on the clip's first 17 frames ((c) ran
+                       DenseTrack3D on all 49), then `demo.main` at
+                       --random_init 5b, 49 frames, 1 step, full_edit from
+                       the clip: DELTA tracking (FLEXAM_DELTA_CKPT), the
+                       Farneback tracker
                        (--tracking_method flow, `track_video_flow` on the
                        card, as JAX's demo runs OpenCV's), and
                        --repaint true, each with its stage seconds, peak and
@@ -192,7 +239,8 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        the tiny configs of tests/test_{moge,vggt,pi3}.py on
                        the card and on the CPU, their camera heads' last
                        layers random (bounds below); (e) three `demo.main`
-                       runs at --random_init 5b, 49 frames, 1 step, each
+                       runs at --random_init 5b, 17 frames (the clip's
+                       first; (b) and (c) ran the models at 49), 1 step, each
                        model read from a reference-format file of the
                        random weights in bf16 (the loader's order, deleted
                        after): an image with FLEXAM_MOGE_CKPT,
@@ -207,7 +255,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        times and B2-B4, and prints its wall, stage seconds,
                        calls and peak ("geometry_launches");
   nodes                the ComfyUI node pack (`flexam_tpu_torch.nodes`) at
-                       full width on a textured 512x896x49f clip: (a)
+                       full width on a textured 512x896x17f clip: (a)
                        VideoToDepth through the depth registry with
                        FLEXAM_DAV2_CKPT (Depth-Anything-V2-Large, fp32,
                        518x910 in: 2,406 tokens a frame), then with only
@@ -222,7 +270,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        tracks (six host-rasterized streams) and VideoToCanny
                        (host work, thresholds 30 / 60: the widget's 100 /
                        200 find no edge in this clip); then VideoToPose on
-                       a 480x832x49f crop of the clip, the native DWPose
+                       a 480x832x17f crop of the clip, the native DWPose
                        (FLEXAM_DWPOSE_DET / FLEXAM_DWPOSE_POSE naming the
                        tiny YOLOX- and RTMPose-shaped graphs that
                        `flexam_tpu_torch.testing` writes: no real .onnx file
@@ -232,9 +280,11 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        two persons a frame), and the raw-keypoint branch (a
                        fixture of seeded keypoints), each timed; (c)
                        LoadFlexAMModel
-                       (random_init, Wan2.2-Fun-5B width, bf16) and
-                       FlexAMV2VSampler at the widgets' defaults
-                       (base_resolution 640: 480x832x49f, 5,460 tokens with
+                       (random_init, Wan2.2-Fun-5B width, bf16, its config
+                       input cut to NODES_SAMPLER_DEPTH of 30 blocks: the
+                       LoRA cache copies and merges the tree on the host)
+                       and FlexAMV2VSampler at the widgets' defaults
+                       (base_resolution 640: 480x832x17f, 1,950 tokens with
                        the ref frame, CFG 6.0, TeaCache on with 5 skip-start
                        steps) cut to 2 steps, fed (b)'s control, depth and
                        cosine videos and a rank-8 LoRA file written by the
@@ -313,8 +363,10 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        B1-B6 given an input that requires grad under grad
                        mode raises NotImplementedError and launches
                        nothing, and the same call under no_grad launches;
-                       (b) rank-16 LoRA on Wan2.2-Fun-5B at full width and
-                       depth (30 blocks, dim 3072, 24 x 128 heads), random
+                       (b) rank-16 LoRA on Wan2.2-Fun-5B at full width
+                       (dim 3072, 24 x 128 heads), TRAIN_LORA_DEPTH of its
+                       30 blocks (the merge and the base's host copies run
+                       block by block on the host), random
                        bf16 weights made on the card, FLEXAM_FUSED=0
                        FLEXAM_ATTENTION=xla, batch 1, the conditioning
                        inputs at 512x896x17f (2,688 tokens with the ref
@@ -375,7 +427,7 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        and 97 frames alone (each rank's peak); (c) tp 2 x
                        sp 2 at full width, PAR_TP_DEPTH blocks, bf16 and
                        int8 linears; (b) one CFG denoise step of the
-                       pipeline at full width and depth (30 blocks),
+                       pipeline at full width, PAR_DENOISE_DEPTH blocks,
                        512x896x97f, dp 2 x sp 2 under activation_sharding.
                        A group of 8: (e) one train_step at dp 2 x sp 2 x
                        tp 2, full width, PAR_TRAIN_DEPTH blocks, fp32,
@@ -388,8 +440,9 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        mesh run (the kernels line's "parallel_launches":
                        their sum; every kernel must have launched).
 
-The flagship phase also runs one more forward under torch.profiler, and a
-"dit_forward_profile" line gives its device time by kernel group.
+With --profile the flagship phase also runs one more forward under
+torch.profiler, and a "dit_forward_profile" line gives its device time by
+kernel group.
 
 Each kernel is held to its plain version element by element, within a few
 bf16 ulps of the element's own size (the bounds and their reasons are in
@@ -415,6 +468,17 @@ for one linear: twice that, 0.02 (JAX's own test bound for int8) and 0.1.
 A forward runs 30 blocks whose branch errors add independently in the
 residual stream, at most sqrt(30) times one linear's error: int8 0.053,
 fp8 0.29; the bounds are 0.06 and 0.3.
+
+Group 4 against group 2 (residency (a)): the two decodes compute each
+frame from the same inputs and caches, but cuDNN convolves tensors of
+other lengths, so it may pick other algorithms and sum in another order: a
+bf16 ulp here and there, carried through the decoder's 30-odd layers. The
+width-split decode of phase parallel (another conv shape, same latents)
+differed by 1.6e-2 of its range, ~2 levels; so the bound is a mean of 1
+uint8 level and a largest difference of 16. The encoder batch (residency
+(d)): batch 2 against 1 changes the same thing, through the encoder, in
+bf16; the bound is 5e-2 of max |ref|, the track path's bound against the
+host path.
 
 The flow tracker against the known translation (track (b)). A step's
 error is the dense flow's error at the track: the LK design (4 pyramid
@@ -548,6 +612,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+PROFILE = False              # --profile: profile_forward's breakdowns
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
@@ -569,6 +634,7 @@ DC_CARD_CPU_ABS = 1e-4             # tiny denoiser, card vs CPU ([0, 1])
 EXACT_CHUNK_REL = 1e-5             # the exact branch chunked vs whole
 TRAIN_HW = (512, 896)              # the conditioning inputs of phase train
 TRAIN_LORA_FRAMES = (17, 9)        # 2,688 / 1,792 tokens
+TRAIN_LORA_DEPTH = 10              # blocks of the LoRA run (b)
 TRAIN_LORA_RANK = 16
 TRAIN_LORA_STEPS = 3
 TRAIN_FULL_DEPTHS = (16, 12, 8)    # blocks tried for the full train_step
@@ -1169,7 +1235,9 @@ def phase_dit_flagship(dev, cfg):
 def profile_forward(fn) -> dict:
     """Device time of one more call of `fn` under torch.profiler: the wall
     time, the device-busy share, device time by kernel group, and the top
-    kernels."""
+    kernels. Without --profile `fn` is not called."""
+    if not PROFILE:
+        return {"profiled": False}
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1638,6 +1706,398 @@ def phase_generate_long(dev, pipe, context, results: dict) -> None:
     emit("denoise_long_profile", t0, **prof)
 
 
+# ---------------------------------------------------------------------------
+# Weights between host and card
+# ---------------------------------------------------------------------------
+
+RESIDENCY_STEPS = 2                # each generate of (a), each session of (e)
+RESIDENCY_GROUP_MEAN = 1.0         # group 4 vs 2: mean |diff|, uint8 levels
+RESIDENCY_GROUP_MAX = 16           # and the largest, uint8 levels
+RESIDENCY_YUV_LUMA = 3.0           # JAX's test bound: mean |Y| difference
+RESIDENCY_BATCH_REL = 5e-2         # encoder batch 2 vs 1, of max |ref|
+RESIDENCY_COLD_STEPS = 1           # the cold-start runs' denoise
+RESIDENCY_ROOM = 0.75              # (b): room left, from group 2's peak to 4's
+RESIDENCY_KERNELS = ("flash_attention", "single_kv_attention",
+                     "rmsnorm_rope", "ln_mod_binary")
+
+
+def _allocator_stats(since: dict = None) -> dict:
+    """The caching allocator's reserved bytes and its counts of cudaMalloc
+    retries (a failed cudaMalloc that freed the cache and tried again) and
+    of device allocations; with `since`, the counts' growth from it."""
+    import torch
+    st = torch.cuda.memory_stats()
+    out = {"reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "alloc_retries": st.get("num_alloc_retries", 0),
+           "device_allocs": st.get("num_device_alloc", 0)}
+    if since is not None:
+        for k in ("alloc_retries", "device_allocs"):
+            out[k] -= since[k]
+    return out
+
+
+def _tree_equal(before: list, tree) -> bool:
+    """Every leaf of `tree` equal to `before`'s, bit for bit."""
+    from flexam_tpu_torch.io.convert import tree_leaves
+    import torch
+    after = tree_leaves(tree)
+    return len(after) == len(before) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.reshape(-1).view(torch.uint8),
+                        b.reshape(-1).view(torch.uint8))
+        for a, b in zip(before, after))
+
+
+def _cycle(pipe, check_int8: bool) -> dict:
+    """One offload / restore cycle of `pipe`'s DiT after dropping its host
+    copy, then a second one: the device bytes freed, each copy's seconds,
+    whether the second reused the host copy, and the leaves after each
+    restore against a copy taken before (bit for bit)."""
+    import torch
+    from flexam_tpu_torch.io.convert import tree_leaves
+    pipe.set_dit_params(pipe.models.dit_params)       # drop any host copy
+    leaves = tree_leaves(pipe.models.dit_params)
+    dit_bytes = sum(t.nbytes for t in leaves)
+    dtypes = sorted({str(t.dtype).replace("torch.", "") for t in leaves})
+    if check_int8 and "int8" not in dtypes:
+        raise AssertionError(f"residency: no int8 leaves ({dtypes})")
+    before = [t.clone() for t in leaves]
+    del leaves
+    torch.cuda.synchronize()
+    out = {"dit_bytes": dit_bytes, "dit_dtypes": dtypes}
+    for i in (1, 2):
+        a0 = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        pipe.offload_dit_to_host()
+        off_s = time.perf_counter() - t1
+        a1 = torch.cuda.memory_allocated()
+        host = pipe._dit_host
+        pinned = all(t.is_pinned() for t in tree_leaves(host))
+        t1 = time.perf_counter()
+        pipe.restore_dit()
+        out[f"cycle_{i}"] = {
+            "allocated_before_gb": a0 / 1e9, "allocated_after_gb": a1 / 1e9,
+            "freed_gb": (a0 - a1) / 1e9, "offload_s": off_s,
+            "restore_s": time.perf_counter() - t1, "host_pinned": pinned,
+            "leaves_equal": _tree_equal(before, pipe.models.dit_params)}
+        if i == 1:
+            first_host = host
+    out["second_cycle_reused_host_copy"] = pipe._dit_host is first_host
+    c1 = out["cycle_1"]
+    if (not c1["host_pinned"] or not out["second_cycle_reused_host_copy"]
+            or not (c1["leaves_equal"] and out["cycle_2"]["leaves_equal"])
+            or c1["freed_gb"] * 1e9 < dit_bytes):
+        raise AssertionError(f"residency offload: {out}")
+    return out
+
+
+def phase_residency(dev, pipe, context, results: dict) -> dict:
+    """Weights between host and card at 5B width, 512x896x97f (module
+    docstring): (a) offload against resident, (c) the YUV 4:2:0 fetch, (d)
+    the encoder batch, (e) `serving_bench --mode bf16-offload`, (f)
+    `cold_start` in fresh processes; (b), the ladder, runs last
+    (`phase_residency_ladder`) with the decode peaks returned here. Reuses
+    the main path's pipeline (bf16 DiT, VAE) and context."""
+    import gc
+
+    import numpy as np
+    import torch
+    from flexam_tpu_torch import pipeline as tpipe
+    from flexam_tpu_torch.io.convert import map_leaves
+    from flexam_tpu_torch.tools import cold_start, serving_bench
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    T, Hp, Wp = TRACKS_VIDEO
+    tracks, vis = grid_tracks(T, Hp, Wp, TRACK_DENSITY, SEED + 6)
+    rs = np.random.RandomState(SEED + 7)
+    first = (rs.randint(0, 256, (1, 3, 1, Hp, Wp)) / 255.0).astype(np.float32)
+    keys = ("control_latents", "additional_control", "masked_video_latents",
+            "mask_latents", "ref_latents")
+
+    def prepare(batch):
+        pipe.prepare_encode_batch = batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        c = pipe.prepare_conditioning_from_tracks(tracks, vis, Hp, Wp,
+                                                  first_frame=first)
+        torch.cuda.synchronize()
+        pipe.prepare_encode_batch = 1
+        return c, {"seconds": time.perf_counter() - t1,
+                   "peak_above_start_gb":
+                       (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+    cond, prep1 = prepare(1)
+    noise = torch.randn((1, *cond["latent_shape"]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 20))
+
+    # (a) the same cond and noise, offloaded and resident
+    decodes = []
+    real_decode = pipe.decode_u8
+
+    def decode_spy(lat):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        stats = _allocator_stats()
+        t1 = time.perf_counter()
+        u8 = real_decode(lat)
+        decodes.append({
+            "dit_resident": pipe.models.dit_params is not None,
+            "group_sizes": pipe.decode_group_sizes(),
+            "allocated_at_start_gb": base / 1e9,
+            "peak_above_start_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "seconds": time.perf_counter() - t1,
+            "allocator": _allocator_stats(stats)})
+        return u8
+
+    a = {"cycles_bf16": _cycle(pipe, False)}
+    pipe.decode_u8 = decode_spy
+    _reset_counts()
+    try:
+        videos = {}
+        for mode, off in (("offloaded", True), ("resident", False)):
+            t1 = time.perf_counter()
+            videos[mode] = pipe.generate_from_cond(
+                cond, context, num_inference_steps=RESIDENCY_STEPS,
+                guidance_scale=6.0, seed=SEED, offload_dit_for_decode=off,
+                latents=noise)
+            a[f"generate_{mode}_s"] = time.perf_counter() - t1
+    finally:
+        del pipe.decode_u8
+    counts = _counts()
+    if any(counts[k] == 0 for k in RESIDENCY_KERNELS) or counts[
+            "sparse_attention"] or counts["int8_attention"]:
+        raise AssertionError(f"residency (a): launches {counts}")
+    a["decodes"] = decodes
+    diff = np.abs(videos["offloaded"] - videos["resident"]) * 255.0
+    a["group4_vs_group2_levels"] = {"mean": float(diff.mean()),
+                                    "max": float(diff.max()),
+                                    "bound_mean": RESIDENCY_GROUP_MEAN,
+                                    "bound_max": RESIDENCY_GROUP_MAX}
+    del videos, diff
+    if ([d["dit_resident"] for d in decodes] != [False, True]
+            or decodes[0]["group_sizes"][0] != 4
+            or decodes[1]["group_sizes"][0] != 2
+            or a["group4_vs_group2_levels"]["mean"] > RESIDENCY_GROUP_MEAN
+            or a["group4_vs_group2_levels"]["max"] > RESIDENCY_GROUP_MAX):
+        raise AssertionError(f"residency (a): {a}")
+    # an int8 copy round-trips as it is (a copy of every leaf: leaves it
+    # shared with the bf16 tree would stay on the card after its offload)
+    q = tpipe.FlexAMGenerationPipeline(
+        tpipe.FlexAMModels(cfg=pipe.cfg, dit_params=tpipe._quantize_dit(
+            map_leaves(pipe.models.dit_params, lambda k, t, b: t.clone()),
+            "int8", dev), vae_params=pipe.models.vae_params),
+        device=dev, compute_dtype=torch.bfloat16)
+    a["cycles_int8"] = _cycle(q, True)
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("residency_a", t0, card=card, counts=counts, **a)
+    launches = dict(counts)
+    peaks = {"latent_shape": tuple(cond["latent_shape"]),
+             "group_2": decodes[1]["peak_above_start_gb"] * 1e9,
+             "group_4": decodes[0]["peak_above_start_gb"] * 1e9}
+
+    # (c) the YUV 4:2:0 fetch against the RGB fetch (DiT resident: group 2)
+    t1 = time.perf_counter()
+    z = noise.to(torch.bfloat16)
+    fetched = {}
+    real_yuv = tpipe.vae_decode_streamed_yuv420
+
+    def yuv_spy(*args, **kw):
+        luma, uv = real_yuv(*args, **kw)
+        fetched["yuv420_bytes"] = luma.nbytes + uv.nbytes
+        return luma, uv
+    t2 = time.perf_counter()
+    rgb = pipe.decode_u8(z)
+    rgb_s = time.perf_counter() - t2
+    os.environ["FLEXAM_DECODE_FETCH"] = "yuv420"
+    tpipe.vae_decode_streamed_yuv420 = yuv_spy
+    try:
+        t2 = time.perf_counter()
+        yuv = pipe.decode_u8(z)
+        yuv_s = time.perf_counter() - t2
+    finally:
+        tpipe.vae_decode_streamed_yuv420 = real_yuv
+        del os.environ["FLEXAM_DECODE_FETCH"]
+
+    def luma(v):
+        f = v.float()
+        return 16.0 + 0.256788 * f[:, 0] + 0.504129 * f[:, 1] \
+            + 0.097906 * f[:, 2]
+    c = {"rgb_bytes": rgb.nbytes, **fetched, "rgb_decode_s": rgb_s,
+         "yuv420_decode_s": yuv_s,
+         "luma_mean_abs_diff": float((luma(yuv) - luma(rgb)).abs().mean()),
+         "bound": RESIDENCY_YUV_LUMA}
+    del rgb, yuv
+    if (c["luma_mean_abs_diff"] >= RESIDENCY_YUV_LUMA
+            or 2 * c["yuv420_bytes"] != c["rgb_bytes"]):
+        raise AssertionError(f"residency (c): {c}")
+    emit("residency_c", t1, card=card, **c)
+
+    # (d) the encoder batch: 2 streams at a time against 1
+    t1 = time.perf_counter()
+    cond2, prep2 = prepare(2)
+    d = {"batch_1": prep1, "batch_2": prep2,
+         "against_batch_1": {k: compare(cond2[k], cond[k], RESIDENCY_BATCH_REL,
+                                        f"residency (d) {k}") for k in keys}}
+    del cond2, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("residency_d", t1, card=card, **d)
+
+    # (e) the serving session with the DiT offloaded around each decode.
+    # This pipeline's host copy goes back to the pinned pool first, where
+    # the session's first offload finds blocks of its leaves' sizes (a
+    # fresh 10 GB pinned allocation took ~4 s of its first decode)
+    pipe.set_dit_params(pipe.models.dit_params)
+    t1 = time.perf_counter()
+    _reset_counts()
+    recs, summary = serving_bench.main(
+        ["--mode", "bf16-offload", "--runs", "2", "--steps",
+         str(RESIDENCY_STEPS)])
+    counts = _counts()
+    if any(counts[k] == 0 for k in RESIDENCY_KERNELS) or any(
+            "restore_dit_s" not in r for r in recs) or (
+            "restore_dit_s" not in summary["warm_medians"]):
+        raise AssertionError(f"residency (e): {recs} {summary} {counts}")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("residency_e", t1, card=card, records=recs, summary=summary,
+         launches=counts, restore_dit_s=[r["restore_dit_s"] for r in recs])
+
+    # (f) cold start in fresh processes from a full-depth int8 bundle
+    t1 = time.perf_counter()
+    bundle = HERE / "build" / "residency" / "bundle.npz"
+    bundle.parent.mkdir(parents=True, exist_ok=True)
+    t2 = time.perf_counter()
+    cold_start.make_prequant(str(bundle), with_vae=True, device=dev)
+    f = {"make_prequant_s": time.perf_counter() - t2,
+         "bundle_gb": bundle.stat().st_size / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    try:
+        for name, levers in (("stream_upload_overlap",
+                              ["--stream-upload", "--overlap",
+                               "--upload-threads", "4"]), ("neither", [])):
+            t2 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "flexam_tpu_torch.tools.cold_start",
+                 "--prequant", str(bundle), "--steps",
+                 str(RESIDENCY_COLD_STEPS), *levers],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"residency (f) {name}: exit "
+                                     f"{run.returncode}\n{run.stderr[-3000:]}")
+            rec = json.loads(run.stdout.strip().splitlines()[-1])
+            rec["process_wall_s"] = time.perf_counter() - t2
+            if rec["video_shape"] != [1, 3, T, Hp, Wp] or not rec["bundle"]:
+                raise AssertionError(f"residency (f) {name}: {rec}")
+            f[name] = rec
+    finally:
+        bundle.unlink(missing_ok=True)
+    emit("residency_f", t1, card=card, **f)
+
+    for k in results:
+        results[k]["residency_launches"] = launches.get(k, 0)
+    emit("residency", t0, card=card, launches=launches)
+    return peaks
+
+
+def phase_residency_ladder(dev, peaks: dict) -> None:
+    """Residency (b), run last: the streamed decode's out-of-memory ladder
+    on a real error, on a pipeline without a DiT (its first group is 4)
+    and the main path's VAE. It runs after every other phase because a
+    decode that runs out of memory leaves cuDNN's cached algorithms for
+    its shapes at the ones that fitted the held memory: later decodes of
+    that group size ran 5.6x slower in the same process (11.5 s against
+    2.04 s at 97f), which slowed every later 512x896 decode that offloads
+    the DiT; a 9-latent-frame group-4 decode is timed before the ladder
+    and after it to show it. `peaks`: (a)'s decode peaks above their
+    start."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    from flexam_tpu_torch import pipeline as tpipe
+    from flexam_tpu_torch.config import WAN22_5B_FLEXAM
+    from flexam_tpu_torch.models.vae import init_vae_params
+    from flexam_tpu_torch.models.vae_stream import vae_decode_streamed_u8
+
+    t1 = time.perf_counter()
+    pipe = tpipe.FlexAMGenerationPipeline(
+        tpipe.FlexAMModels(cfg=WAN22_5B_FLEXAM, dit_params=None,
+                           vae_params=init_vae_params(WAN22_5B_FLEXAM.vae,
+                                                      seed=SEED + 2,
+                                                      device=dev)),
+        device=dev, compute_dtype=torch.bfloat16)
+    z = torch.randn((1, *peaks["latent_shape"]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 20)).to(torch.bfloat16)
+    e2, e4 = peaks["group_2"], peaks["group_4"]
+
+    def short_group4_s():
+        # 9 latent frames (33 pixel frames) in groups of 4, 4, then 1: the
+        # first group and a later one, whose shapes the ladder's group-4
+        # attempt ran under the held memory
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        vae_decode_streamed_u8(pipe.models.vae_params, pipe.cfg.vae,
+                               z[:, :, :9], group_size=4)
+        return time.perf_counter() - t2
+    before_s = short_group4_s()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    # room for group 2 with a margin: a convolution whose workspace cannot
+    # be allocated falls back to another algorithm (other bits)
+    target = e2 + RESIDENCY_ROOM * (e4 - e2)
+    ballast = torch.empty(max(0, int(free - target)), dtype=torch.uint8,
+                          device=dev)
+    tried = []
+    real_u8 = tpipe.vae_decode_streamed_u8
+
+    def u8_spy(*args, group_size=4, **kw):
+        tried.append(group_size)
+        return real_u8(*args, group_size=group_size, **kw)
+    tpipe.vae_decode_streamed_u8 = u8_spy
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            got = pipe.decode_u8(z)
+    finally:
+        tpipe.vae_decode_streamed_u8 = real_u8
+    warned = buf.getvalue()
+    print(warned, end="", flush=True)
+    direct = vae_decode_streamed_u8(pipe.models.vae_params, pipe.cfg.vae, z,
+                                    group_size=2)
+    b = {"free_before_ballast_gb": free / 1e9, "ballast_gb": ballast.numel()
+         / 1e9, "room_left_gb": target / 1e9, "group2_peak_gb": e2 / 1e9,
+         "group4_peak_gb": e4 / 1e9, "groups_tried": tried,
+         "warning": warned.strip(),
+         "equal_to_group_2": bool(torch.equal(got, direct))}
+    del ballast, got, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    b["group4_9_latent_frames_s"] = {"before": before_s,
+                                     "after": short_group4_s()}
+    del pipe
+    if tried != [4, 2] or not b["equal_to_group_2"] or (
+            "OOM at group_size=4" not in b["warning"]):
+        raise AssertionError(f"residency (b): {b}")
+    emit("residency_b", t1, card=gpu_line(), **b)
+
+
 CKPT_LAYERS = 2                    # DiT blocks / umT5 layers written
 DEMO_PROMPT = "a red fox runs through fresh snow"
 
@@ -2028,7 +2488,7 @@ def serving_checks(dev) -> dict:
     """What the serving sessions rest on, on the card: int8 accumulators
     equal to the CPU's, a block's weight quantization equal to numpy's byte
     for byte, one linear and one flagship forward in int8 and in fp8 within
-    their bounds of bf16 (the int8 forward also profiled)."""
+    their bounds of bf16 (with --profile the int8 forward also profiled)."""
     import gc
 
     import numpy as np
@@ -2148,7 +2608,7 @@ def serving_checks(dev) -> dict:
 def phase_serving(dev, results: dict) -> None:
     """`flexam_tpu_torch.tools.serving_bench.main` in process at 5B width,
     512x896x97f, in the modes bf16, int8, fp8 and int8 with sparse
-    attention, 2 runs of 2 steps each (module docstring), after the checks
+    attention, 1 run of 2 steps each (module docstring), after the checks
     of `serving_checks`."""
     import gc
 
@@ -2168,7 +2628,7 @@ def phase_serving(dev, results: dict) -> None:
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         reset_launch_counts()
-        recs, summary = serving_bench.main(argv + ["--runs", "2", "--steps",
+        recs, summary = serving_bench.main(argv + ["--runs", "1", "--steps",
                                                    "2"])
         counts = launch_counts()
         sparse = "sparse" in name
@@ -2701,7 +3161,9 @@ TRACK_SHIFT = (1, 1)               # the textured clip's motion, px a frame
 TRACK_FLOW_BOUND_PX = 12.0         # median end-point error (docstring)
 TRACK_FLOW_BIAS_PX = 1.5           # mean end-point error vector
 TRACK_FLOW_VISIBLE = 0.5           # visible share of the tracks inside
+TRACK_CLIP_FRAMES = 49             # the clip of UniDepth, flow, DELTA
 TRACK_DEMO_FRAMES = 49
+TRACK_TOOL_FRAMES = 17             # tools.track's --video_length ((c): 49)
 SERVE_TRACK_FRAMES = 17
 TRACK_DT_TINY = dict(stride=4, window_len=8, model_resolution=(64, 96),
                      upsample_factor=4, latent_dim=32, dim=64, num_heads=4,
@@ -2877,7 +3339,7 @@ def track_card_vs_cpu(dev) -> dict:
 
 def phase_track(dev, results: dict, track: dict, total: dict) -> None:
     """The video-input path at full width (module docstring): (a) UniDepth
-    V2 on a textured 512x896x97f clip moving by a known translation, (b)
+    V2 on a textured 512x896x49f clip moving by a known translation, (b)
     the device flow tracker on it, held to the translation, (c)
     DenseTrack3D from a reference-format checkpoint file, (d) the card
     against the CPU at tiny configs, (e) `tools.track` and three
@@ -2908,7 +3370,7 @@ def phase_track(dev, results: dict, track: dict, total: dict) -> None:
     root = HERE / "build" / "smoke_track"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    F, Hp, Wp = TRACKS_VIDEO
+    F, Hp, Wp = TRACK_CLIP_FRAMES, TRACKS_VIDEO[1], TRACKS_VIDEO[2]
     clip_u8 = textured_clip(F, Hp, Wp, TRACK_SHIFT, SEED + 70, dev)
     video = clip_u8.astype(np.float32) / 255.0             # [T, H, W, 3]
 
@@ -3023,14 +3485,15 @@ def phase_track(dev, results: dict, track: dict, total: dict) -> None:
          "--input", str(clip_path), "--output", str(root / "tracks.npz"),
          "--method", "delta", "--delta_ckpt", str(path),
          "--density", str(TRACK_DENSITY),
-         "--video_length", str(F), "--sample_size", str(Hp), str(Wp)],
+         "--video_length", str(TRACK_TOOL_FRAMES),
+         "--sample_size", str(Hp), str(Wp)],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     tool_s = time.perf_counter() - t1
     if proc.returncode != 0:
         raise AssertionError(f"track: tools.track rc {proc.returncode} "
                              f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
     written = np.load(root / "tracks.npz")
-    if written["tracks"].shape != (F, n, 3):
+    if written["tracks"].shape != (TRACK_TOOL_FRAMES, n, 3):
         raise AssertionError(f"track: tools.track {written['tracks'].shape}")
     track["tools_track"] = {"seconds": tool_s,
                             "tracks": list(written["tracks"].shape),
@@ -3101,7 +3564,8 @@ def phase_track(dev, results: dict, track: dict, total: dict) -> None:
 # Camera and image geometry: MoGe-2, VGGT, Pi3 and the demo's branches
 # ---------------------------------------------------------------------------
 
-GEOMETRY_FRAMES = 49               # the demo clip of the geometry runs
+GEOMETRY_FRAMES = 49               # the clip of VGGT and Pi3 in (b), (c)
+GEOMETRY_DEMO_FRAMES = 17          # the demo runs' clip (e): its first frames
 GEOMETRY_PATH_FRAMES = 17          # the video given as the camera path
 GEOMETRY_POSE_ATOL = 1e-6          # random VGGT / Pi3: identity poses
 GEO_MOGE_TINY = dict(patch_size=14, embed_dim=32, depth=2, num_heads=2,
@@ -3237,9 +3701,10 @@ def phase_geometry(dev, results: dict) -> None:
     MoGe-2 on one 512x896 frame, (b) VGGT and (c) Pi3 through their video
     pose helpers on a 49-frame 512x896 clip, random weights from seeds; (d)
     the card against the CPU at tiny configs; (e) three `demo.main` runs at
-    5B width, 49 frames, 1 step, each taking its geometry from a model
-    loaded from a reference-format file of random bf16 values. Launch
-    counts are reset before each run of (e) and read after it."""
+    5B width, GEOMETRY_DEMO_FRAMES frames, 1 step, each taking its geometry
+    from a model loaded from a reference-format file of random bf16
+    values. Launch counts are reset before each run of (e) and read after
+    it."""
     import gc
     import shutil
 
@@ -3354,28 +3819,29 @@ def phase_geometry(dev, results: dict) -> None:
     omask = np.zeros((Hp, Wp), np.uint8)
     omask[Hp // 4: 3 * Hp // 4, Wp // 3: 2 * Wp // 3] = 255
     np.save(root / "object_mask.npy", omask)
-    np.savez(root / "clip.npz", video=clip_u8, fps=16)
+    D = GEOMETRY_DEMO_FRAMES
+    np.savez(root / "clip.npz", video=clip_u8[:D], fps=16)
     # the camera path's video: 17 frames (Pi3 runs on every one), only
     # its frame dump, no .mp4
     np.savez(root / "path.mp4.npz", video=clip_u8[:GEOMETRY_PATH_FRAMES],
              fps=16)
-    tracks, vis = grid_tracks(F, Hp, Wp, TRACK_DENSITY, SEED + 114)
+    tracks, vis = grid_tracks(D, Hp, Wp, TRACK_DENSITY, SEED + 114)
     np.savez(root / "tracks.npz", tracks=tracks, visibility=vis)
     del video, clip_u8
     base = ["--prompt", DEMO_PROMPT, "--random_init", "5b", "--sample_size",
             str(Hp), str(Wp), "--seed", str(SEED), "--video_length",
-            str(F), "--num_inference_steps", "1", "--generate_type",
+            str(D), "--num_inference_steps", "1", "--generate_type",
             "full_edit"]
     video_in = ["--input_path", str(root / "clip.npz"), "--tracks_npz",
                 str(root / "tracks.npz")]
-    runs = [("moge_image_49f", {"FLEXAM_MOGE_CKPT": moge_file},
+    runs = [(f"moge_image_{D}f", {"FLEXAM_MOGE_CKPT": moge_file},
              ["--input_path", str(img), "--object_motion", "up",
               "--object_mask", str(root / "object_mask.npy")],
              {"load_moge": 1, "infer": 1}),
-            ("vggt_camera_49f", {"FLEXAM_VGGT_CKPT": vggt_file},
+            (f"vggt_camera_{D}f", {"FLEXAM_VGGT_CKPT": vggt_file},
              video_in + ["--camera_motion", "rot y 10"],
              {"load_vggt": 1, "vggt_video_poses": 1}),
-            ("pi3_path_49f", {"FLEXAM_PI3_CKPT": pi3_file},
+            (f"pi3_path_{D}f", {"FLEXAM_PI3_CKPT": pi3_file},
              video_in + ["--camera_motion", "path", "--pose_file",
                          str(root / "path.mp4")],
              {"load_pi3": 2, "pi3_video_poses": 1,
@@ -3398,7 +3864,7 @@ def phase_geometry(dev, results: dict) -> None:
             counts = _counts()
             for k in env:
                 del os.environ[k]
-            if out.shape != (1, 3, F, Hp, Wp) or not np.isfinite(out).all():
+            if out.shape != (1, 3, D, Hp, Wp) or not np.isfinite(out).all():
                 raise AssertionError(f"geometry demo {name}: {out.shape}")
             if any(st.calls.get(k) != n for k, n in calls.items()) or \
                     st.calls.get("solve_camera_poses"):
@@ -3438,7 +3904,8 @@ def phase_geometry(dev, results: dict) -> None:
 # nodes: the ComfyUI node pack on the card
 # ---------------------------------------------------------------------------
 
-NODES_FRAMES = 49                  # the annotators' clip, 512x896
+NODES_FRAMES = 17                  # the annotators' and sampler's clip
+NODES_SAMPLER_DEPTH = 6            # DiT blocks of LoadFlexAMModel's config
 NODES_BASE_RESOLUTION = 640        # the sampler widget's default: 480x832
 NODES_LORA_RANK = 8
 NODES_PROMPT = "a red fox runs through fresh snow"
@@ -3697,18 +4164,19 @@ def phase_nodes(dev, results: dict) -> None:
     """The ComfyUI node pack at full width (module docstring): (a) the
     depth annotators (VideoToDepth through Depth-Anything-V2-Large, then
     ZoeDepth ZoeD_M12_N, each read from a reference-format file of random
-    weights) on a textured 512x896x49f clip; (b) VideoToTrackingPredict
+    weights) on a textured 512x896x17f clip; (b) VideoToTrackingPredict
     (no DELTA file: the Farneback tracker), VideoToTrackingVisualizeAll
     and VideoToCanny on it, and VideoToPose (DWPose on the tiny graphs,
     then on YOLOX-L and RTMPose-l of random weights, then raw keypoints)
     on a 480x832 crop; (c) LoadFlexAMModel at
-    Wan2.2-Fun-5B width and FlexAMV2VSampler at the widgets' defaults
-    (480x832x49f, 5,460 tokens
+    Wan2.2-Fun-5B width, NODES_SAMPLER_DEPTH blocks, and FlexAMV2VSampler
+    at the widgets' defaults (480x832, the clip's 17 frames: 1,950 tokens
     with the ref frame), 2 steps with a rank-8 LoRA through the host cache,
     a second run at strength 0.5 (1 step), an fg_generation step with a
     mask video and a step after FunAttention("sparse"); (d) the card
     against the CPU. Launch counts are reset before each run of (c) and
     read after it ("nodes_launches")."""
+    import dataclasses
     import gc
     import shutil
 
@@ -3717,6 +4185,7 @@ def phase_nodes(dev, results: dict) -> None:
 
     import flexam_tpu_torch.perception as perception
     from flexam_tpu_torch import nodes as N
+    from flexam_tpu_torch.config import WAN22_5B_FLEXAM
     from flexam_tpu_torch.core.attention import _backend_choice, exact_calls
     from flexam_tpu_torch.io.checkpoints import save_safetensors
     from flexam_tpu_torch.perception import depth as depth_registry
@@ -3939,12 +4408,17 @@ def phase_nodes(dev, results: dict) -> None:
                                 "pose_keypoints")}}), flush=True)
         del rendered, drawn
 
-        # (c) the loader and the sampler at 5B width
+        # (c) the loader and the sampler at 5B width, the DiT's depth cut
+        # through the loader's config input (a LoadConfig output)
+        cut = dataclasses.replace(WAN22_5B_FLEXAM, dit=dataclasses.replace(
+            WAN22_5B_FLEXAM.dit, num_layers=NODES_SAMPLER_DEPTH))
         t1 = start()
         pipe, = N.LoadFlexAMModel().loadmodel(
-            "Wan2.2-Fun-5B-FLEXAM", random_init="5b", device=dev)
+            "Wan2.2-Fun-5B-FLEXAM", random_init="5b", config=cut,
+            device=dev)
         secs, peak = stop(t1)
-        out["load_model"] = {"seconds": secs,
+        out["load_model"] = {"seconds": secs, "dit_blocks":
+                             len(pipe.models.dit_params["blocks"]),
                              "peak_memory_allocated_gb": peak}
         blocks = pipe.models.dit_params["blocks"]
         gen = torch.Generator().manual_seed(SEED + 143)
@@ -4696,7 +5170,9 @@ def lora_merge_check(base, lora, sd) -> tuple:
 
 
 def train_lora(dev, cfg, results: dict) -> dict:
-    """(b): rank-16 LoRA training of the 5B DiT at full width and depth."""
+    """(b): rank-16 LoRA training of the 5B DiT at full width,
+    TRAIN_LORA_DEPTH blocks."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -4707,7 +5183,8 @@ def train_lora(dev, cfg, results: dict) -> dict:
     from flexam_tpu_torch.utils.lora import (init_lora_params,
                                              lora_to_state_dict)
 
-    out = {}
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LORA_DEPTH)
+    out = {"blocks": cfg.num_layers}
     t1 = time.perf_counter()
     base = init_dit_params(cfg, seed=SEED + 72, dtype=torch.bfloat16,
                            device=dev)
@@ -5218,7 +5695,8 @@ PAR_TEXT = 512                     # the text keys of cross-attention
 PAR_GEOMETRY = (25, 448)           # flagship frames and tokens a frame
 PAR_VAE_FRAMES = (17, 97)          # compared whole / peak alone
 PAR_TP_DEPTH = 2                   # blocks of case (c)
-PAR_TRAIN_DEPTH = 2                # blocks of case (e)
+PAR_DENOISE_DEPTH = 4              # blocks of case (b)
+PAR_TRAIN_DEPTH = 1                # blocks of case (e)
 PAR_TRAIN_FRAMES = 1               # latent frames of case (e): 896 tokens
 PAR_SAME_KERNEL_REL = 1e-2         # a kernel on a rank's heads vs all heads
 PAR_RING_REL = 1e-2                # fp32 online softmax vs B1 / B5 in bf16
@@ -5455,8 +5933,11 @@ def _par_tp(dev, cfg, records):
 
 
 def _par_denoise(dev, cfg, records):
-    """(b): one CFG denoise step of the pipeline at full width and depth,
-    dp 2 x sp 2 under activation_sharding, against the single-rank step."""
+    """(b): one CFG denoise step of the pipeline at full width,
+    PAR_DENOISE_DEPTH blocks, dp 2 x sp 2 under activation_sharding, against
+    the single-rank step."""
+    import dataclasses
+
     import torch
     from flexam_tpu_torch.models.dit import init_dit_params
     from flexam_tpu_torch.parallel import activation_sharding, make_mesh
@@ -5464,7 +5945,8 @@ def _par_denoise(dev, cfg, records):
                                            FlexAMModels)
 
     mesh = make_mesh({"dp": 2, "sp": 2}, device=dev)
-    dcfg = cfg.dit
+    dcfg = dataclasses.replace(cfg.dit, num_layers=PAR_DENOISE_DEPTH)
+    cfg = dataclasses.replace(cfg, dit=dcfg)
     params = init_dit_params(dcfg, seed=SEED + 45, dtype=torch.bfloat16,
                              device=dev)
     pipe = FlexAMGenerationPipeline(FlexAMModels(cfg, params, None),
@@ -5689,9 +6171,16 @@ LONG_PATH_KERNELS = ("int8_attention", "single_kv_attention", "rmsnorm_rope",
                      "ln_mod_binary")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import gc
 
+    global PROFILE
+    args = sys.argv[1:] if argv is None else argv
+    if any(a != "--profile" for a in args):
+        print(f"chip_smoke: unknown arguments {args}; usage: "
+              "python3 chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
+    PROFILE = "--profile" in args
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -5754,6 +6243,8 @@ def main() -> int:
     phase_generate_from_tracks(dev, pipe, context)
     torch.cuda.empty_cache()
     phase_generate_long(dev, pipe, context, results)
+    torch.cuda.empty_cache()
+    peaks = phase_residency(dev, pipe, context, results)
     del pipe, context
     gc.collect()
     torch.cuda.empty_cache()
@@ -5790,6 +6281,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(dev, WAN22_5B_FLEXAM, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_residency_ladder(dev, peaks)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -5810,6 +6304,7 @@ def main() -> int:
             "depthcrafter_launches": r["depthcrafter_launches"],
             "train_launches": r["train_launches"],
             "parallel_launches": r["parallel_launches"],
+            "residency_launches": r["residency_launches"],
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
                                   "flux_shapes") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,7 +31,7 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Callable, Dict, Iterator, Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -610,19 +610,21 @@ def save_pytree(path: str, tree) -> None:
     np.savez(path, **flat)
 
 
+def npz_member(z, k: str) -> Tuple[str, torch.Tensor]:
+    """(path, host tensor) of member `k` of an open save_pytree .npz, its
+    bf16 / float8 storage undone."""
+    if k.endswith("::bf16"):
+        return k[:-6], torch.from_numpy(z[k].view(np.int16)).view(
+            torch.bfloat16)
+    if k.endswith("::f8e4m3"):
+        return k[:-8], torch.from_numpy(z[k]).view(torch.float8_e4m3fn)
+    return k, torch.from_numpy(z[k])
+
+
 def load_pytree_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A save_pytree .npz back as a flat '/'-path dict of host tensors."""
-    out = {}
     with np.load(path) as z:
-        for k in z.files:
-            if k.endswith("::bf16"):
-                out[k[:-6]] = torch.from_numpy(
-                    z[k].view(np.int16)).view(torch.bfloat16)
-            elif k.endswith("::f8e4m3"):
-                out[k[:-8]] = torch.from_numpy(z[k]).view(torch.float8_e4m3fn)
-            else:
-                out[k] = torch.from_numpy(z[k])
-    return out
+        return dict(npz_member(z, k) for k in z.files)
 
 
 def nest_flat_paths(flat: dict) -> dict:

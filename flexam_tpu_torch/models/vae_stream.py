@@ -15,6 +15,11 @@ Cache contents per op:
   * encoder downsample3d time_conv: the last spatially resampled frame
     (the stride-2 windows stay aligned because groups are 1+4k / 4k frames).
 
+The decode's host copy is uint8 RGB (`vae_decode_streamed_u8`) or, under
+the pipeline's FLEXAM_DECODE_FETCH=yuv420, YUV 4:2:0 made on the device
+(`vae_decode_streamed_yuv420`, half the bytes); `yuv420_to_rgb` (OpenCV's
+I420 inverse, `utils/cv.py`) turns it back into RGB on the host.
+
 Layout: channels-first [B, C, T, H, W] as in `models/vae.py`, so every
 concatenation over time is on dim 2 (dim 1 in the channels-last JAX code)
 and the cache shapes are (B, C, frames, H, W). Like the whole-clip VAE,
@@ -33,6 +38,7 @@ from flexam_tpu_torch.models.vae import (_silu, _stats, _upsample_nearest2x,
                                          causal_conv3d, channel_rms_norm,
                                          conv2d, dup_up3d, patchify,
                                          unpatchify)
+from flexam_tpu_torch.utils.cv import yuv420_to_rgb  # noqa: F401 (JAX's name)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +204,42 @@ def vae_decode_streamed_u8(params: dict, cfg: VAEConfig, zlat: torch.Tensor,
     u8 = [_group_to_u8(y) for y in _decode_groups(params, cfg, zlat,
                                                    group_size)]
     return torch.cat(u8, dim=2).cpu()
+
+
+def _group_to_yuv420(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-unpatchify decoder group -> limited-range BT.601 YUV 4:2:0
+    uint8 (Y [B, t, H, W], UV planar [B, t, 2, H/2, W/2]): JAX's matrix,
+    its 2x2 chroma mean and its rounding (half to even). Limited range is
+    what a yuv420p encoder takes and what `yuv420_to_rgb` inverts."""
+    rgb = (unpatchify(y, 2).float().clamp(-1.0, 1.0) + 1.0) * (255.0 / 2.0)
+    r, g, b = rgb.unbind(1)                           # [B, t, H, W] each
+    luma = 16.0 + 0.256788 * r + 0.504129 * g + 0.097906 * b
+    u = 128.0 - 0.148223 * r - 0.290993 * g + 0.439216 * b
+    v = 128.0 + 0.439216 * r - 0.367788 * g - 0.071427 * b
+    uv = torch.stack([u, v], dim=2)                   # [B, t, 2, H, W]
+    bb, t, _, h, w = uv.shape
+    uv = uv.view(bb, t, 2, h // 2, 2, w // 2, 2).mean(dim=(4, 6))
+
+    def to_u8(x):
+        return torch.round(x).clamp(0, 255).to(torch.uint8)
+    return to_u8(luma), to_u8(uv)
+
+
+@torch.no_grad()
+def vae_decode_streamed_yuv420(params: dict, cfg: VAEConfig,
+                               zlat: torch.Tensor, group_size: int = 4
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed decode fetching YUV 4:2:0 in place of RGB: host uint8
+    (Y [B, T, H, W], UV planar [B, T, 2, H/2, W/2]), 1.5 bytes a pixel
+    against the RGB path's 3. Chroma is subsampled on the device, so the
+    result is not the RGB path's bytes; a yuv420p encoder discards the
+    same chroma. `yuv420_to_rgb` turns it back into RGB."""
+    ys, uvs = [], []
+    for y in _decode_groups(params, cfg, zlat, group_size):
+        luma, uv = _group_to_yuv420(y)
+        ys.append(luma)
+        uvs.append(uv)
+    return torch.cat(ys, dim=1).cpu(), torch.cat(uvs, dim=1).cpu()
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,7 @@ bound that their tests state; DWPose's two ONNX graphs run through
 
 Deliberate divergences from JAX's nodes:
   * `LoadFlexAMModel(random_init=...)` draws every model in the DiT's
-    dtype (JAX draws the VAE and umT5 in float32), as the demo does; the
-    offload modes are kept as strings only (ROADMAP A15);
+    dtype (JAX draws the VAE and umT5 in float32), as the demo does;
   * `FunCompile` passes the models through, as JAX's: no torch.compile.
 """
 
@@ -50,10 +49,13 @@ def _tree_to(tree, device):
 class LoadFlexAMModel:
     """`LoadWan2_2FunModel_FlexAM` (`wan2_2_fun_flexam/nodes.py:220-357`).
 
-    GPU_memory_mode: model_full_load keeps bf16 weights resident;
-    *_qfloat8 stores the DiT weights as float8 (`utils/fp8.py`); the
-    cpu-offload and sequential modes are accepted and kept as the
-    pipeline's `gpu_memory_mode` string, with no offload (ROADMAP A15)."""
+    GPU_memory_mode (the reference's five CUDA memory modes):
+    model_full_load keeps bf16 weights resident; *_qfloat8 stores the DiT
+    weights as float8 (`utils/fp8.py`); model_cpu_offload* and
+    sequential_cpu_offload are kept as the pipeline's `gpu_memory_mode`
+    string, and `generate` moves the DiT to host memory around the decode
+    of every clip that streams the VAE (`offload_dit_for_decode`'s default,
+    as in JAX), whatever the mode."""
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -170,7 +172,9 @@ class LoadFlexAMModel:
             models, tokenizer=tokenizer, device=dev,
             compute_dtype=(load_cast if models.t5_from_checkpoint
                            else None))
-        # the offload modes are kept for graph parity (no offload here)
+        # cpu-offload / sequential modes: generate() moves the DiT to host
+        # memory around the decode of a streamed clip by itself; the mode
+        # string is kept for graph parity
         pipe.gpu_memory_mode = GPU_memory_mode
         return (pipe,)
 

@@ -346,9 +346,10 @@ def evaluate_adherence(stack: Dict, cases: Sequence[Tuple[np.ndarray,
         g = dict(g, T=int(t_override))
     dit_params = stack["dit_params"]
     if quant:
-        # quantization rewrites the tree's containers; the caller's stays
-        dit_params = {**dit_params, "blocks": [dict(b) for b in
-                                               dit_params["blocks"]]}
+        # quantization replaces linears in its tree's dicts: new containers
+        # (every level) keep the caller's tree as it is
+        from flexam_tpu_torch.io.convert import map_leaves
+        dit_params = map_leaves(dit_params, lambda key, t, in_block: t)
     models = FlexAMModels(cfg=cfg, dit_params=dit_params,
                           vae_params=stack["vae_params"])
     pipe = FlexAMGenerationPipeline(models, device=dev, attn_fn=attn_fn,
@@ -369,7 +370,8 @@ def evaluate_adherence(stack: Dict, cases: Sequence[Tuple[np.ndarray,
         videos = cond.pop("videos", None)
         gen = pipe.generate_from_cond(
             cond, ctx, num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, seed=seed, latents=latents)[0]
+            guidance_scale=guidance_scale, seed=seed,
+            offload_dit_for_decode=False, latents=latents)[0]
         res = {"case": i, "p0": np.asarray(p0), "p1": np.asarray(p1),
                "centers": centers, "video": gen}
         res["centroid"] = centroid_trajectory(gen)

@@ -8,8 +8,12 @@ times: prepare the conditioning from tracks (the device rasterizer and the
 VAE encode), the CFG flow-matching denoise, and the streamed decode to
 uint8 on the host. Modes:
 
-  bf16     the default: the bf16 DiT stays resident through the decode (the
-           H100's 80 GB holds it; the JAX package's 16 GB chip could not)
+  bf16     the default: the bf16 DiT stays resident through the decode
+           (which then runs in groups of 2 latent frames)
+  bf16-offload  the DiT moves to pinned host memory before the decode and
+           back after it (`pipe.offload_dit_to_host` / `restore_dit`, the
+           reference's cpu-offload modes); the decode runs in groups of 4,
+           and each record carries the restore's seconds, `restore_dit_s`
   int8     block linears int8 (`ops/qlinear.py`): half the resident bytes,
            the block GEMMs as int8 GEMMs
   fp8      float8-e4m3 weight storage (`utils/fp8.py`): half the resident
@@ -26,8 +30,9 @@ Usage (on the card):
       --size 32 32 --frames 9 --steps 2
 
 Prints one JSON line a run {run, mode, prepare_s, denoise_s, decode_s,
-e2e_s, steps_per_s, video_shape, latents_finite, and attention /
-sparse_window / cfg_skip / riflex_k / frames where set}, then a summary
+e2e_s, steps_per_s, video_shape, latents_finite, and restore_dit_s /
+attention / sparse_window / cfg_skip / riflex_k / frames where set}, then
+a summary
 line {summary, mode, runs, init_s, warm_medians, run0_e2e_s, the resident
 DiT's bytes and leaf dtypes, and on the card the peak allocated memory}:
 JAX's format, less its link probe (`probe_rtt_ms`, `healthy`). Times are host clock around work that
@@ -40,11 +45,10 @@ with no umT5 tower, as in JAX: an encode is once per prompt, not a serving
 loop cost. The demo's 40.9 GB peak (PERF.md) comes with a resident umT5;
 this session's does not.
 
-Not ported: `bf16-offload` (the 16 GB chip's offload, ROADMAP A15) raises;
-`--aot-cache`, `--steps-per-launch`, the link probe and the compile cache
-are TPU workarounds (A15). `--tiny` runs on either device; on the card its
-head_dim 24 takes the dispatcher's exact branch (`core.attention.
-exact_attention`), as JAX's takes `xla_attention`.
+Not ported: `--aot-cache`, `--steps-per-launch`, the link probe and the
+compile cache are TPU workarounds (A15). `--tiny` runs on either device;
+on the card its head_dim 24 takes the dispatcher's exact branch
+(`core.attention.exact_attention`), as JAX's takes `xla_attention`.
 """
 
 from __future__ import annotations
@@ -123,11 +127,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run a session; returns (records, summary) after printing them."""
     args = build_argparser().parse_args(argv)
-    if args.mode == "bf16-offload":
-        raise NotImplementedError(
-            "--mode bf16-offload is the 16 GB TPU chip's DiT offload around "
-            "the decode; it is not ported (ROADMAP A15): the H100 keeps the "
-            "bf16 DiT resident (--mode bf16)")
     import torch
 
     from flexam_tpu_torch.demo import _device
@@ -186,6 +185,7 @@ def _session(args, device, torch):
     _sync(device, torch)
     if quant:
         log(f"quantize({quant}) {time.perf_counter() - t0:.1f}s")
+    resident = args.mode != "bf16-offload"
 
     h, w = args.size
     frame, tracks = synthetic_inputs(h, w, args.frames)
@@ -228,8 +228,14 @@ def _session(args, device, torch):
         rec["latents_finite"] = bool(torch.isfinite(latents).all())
 
         t0 = time.perf_counter()
+        if not resident:
+            pipe.offload_dit_to_host()
         u8 = pipe.decode_u8(latents)      # on the host: the copy syncs
         rec["decode_s"] = time.perf_counter() - t0
+        if not resident:
+            t0 = time.perf_counter()
+            pipe.restore_dit()            # synchronizes
+            rec["restore_dit_s"] = time.perf_counter() - t0
         rec["e2e_s"] = time.perf_counter() - t_run
         rec["video_shape"] = list(u8.shape)
         del cond, latents, u8
@@ -239,7 +245,7 @@ def _session(args, device, torch):
     warm = records[1:] or records
     med = {k: float(np.median([r[k] for r in warm]))
            for k in ("prepare_s", "denoise_s", "decode_s", "e2e_s",
-                     "steps_per_s")}
+                     "steps_per_s", "restore_dit_s") if k in warm[0]}
     dit_bytes, dit_dtypes = tree_bytes(pipe.models.dit_params)
     summary = {"summary": True, "mode": args.mode, "runs": args.runs,
                "init_s": init_s, "warm_medians": med,

@@ -56,6 +56,11 @@ OpenCV's build fuses `1 - s*h` into one FMA; its vectorized loop takes each
 row's first multiple of 32 pixels (4 vectors of 8 floats, the AVX2 build
 OpenCV dispatches) and truncates there, while its scalar tail rounds half
 to even: the port keeps both, by column.
+
+The streamed decoder's YUV 4:2:0 fetch (`models/vae_stream.py`) is turned
+back into RGB by `yuv420_to_rgb`: `cv2.cvtColor` COLOR_YUV2RGB_I420,
+OpenCV's BT.601 limited-range inverse in 20-bit fixed point, each 2x2
+block sharing its U and V, equal to OpenCV 5 on all 256^3 (Y, U, V).
 """
 
 from __future__ import annotations
@@ -725,3 +730,28 @@ def hsv_to_rgb_u8(img: np.ndarray) -> np.ndarray:
     simd = np.arange(w) < w - w % HSV_SIMD_COLUMNS
     out = np.where(simd[:, None], np.trunc(bgr), np.rint(bgr))
     return np.clip(out, 0, 255).astype(np.uint8)[..., ::-1]
+
+
+# OpenCV's ITUR_BT_601 constants (color_yuv.simd.hpp): the inverse of the
+# limited-range BT.601 matrix scaled by 2^20
+_I420_CY, _I420_CUB, _I420_CUG = 1220542, 2116026, -409993
+_I420_CVG, _I420_CVR, _I420_SHIFT = -852492, 1673527, 20
+
+
+def yuv420_to_rgb(luma, uv) -> torch.Tensor:
+    """(Y [B, T, H, W], UV planar [B, T, 2, H/2, W/2]) uint8 -> RGB uint8
+    [B, T, H, W, 3], as `cv2.cvtColor(i420, COLOR_YUV2RGB_I420)` frame by
+    frame. Integer work in torch (numpy arrays or tensors in, a tensor on
+    their device out)."""
+    y = torch.as_tensor(luma).to(torch.int32)
+    c = torch.as_tensor(uv).to(torch.int32) - 128
+    b, t, h, w = y.shape
+    u, v = c[:, :, 0, :, None, :, None], c[:, :, 1, :, None, :, None]
+    half = 1 << (_I420_SHIFT - 1)
+    yy = ((y - 16).clamp_min(0) * _I420_CY + half).view(
+        b, t, h // 2, 2, w // 2, 2)
+    planes = [yy + _I420_CVR * v, yy + _I420_CVG * v + _I420_CUG * u,
+              yy + _I420_CUB * u]
+    rgb = torch.stack([(p >> _I420_SHIFT).clamp(0, 255).to(torch.uint8)
+                       for p in planes], dim=-1)
+    return rgb.view(b, t, h, w, 3)

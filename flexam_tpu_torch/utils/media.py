@@ -25,7 +25,9 @@ it. At `sample_size` both
 return the frames unchanged, as PIL and OpenCV do.
 
 `save_video` writes through `imageio` when it imports, else the `.npz`
-frame dump (JAX's order, without its OpenCV step). The writers' OpenCV
+frame dump (JAX's order, without its OpenCV step); `save_video_yuv420`
+writes the decoder's YUV 4:2:0 fetch the same way after OpenCV's I420 ->
+RGB (JAX writes it through OpenCV's VideoWriter). The writers' OpenCV
 steps are rebuilt in numpy: `save_videos_comparison` resizes as
 `cv2.resize` (INTER_LINEAR, half-pixel centres) does float frames, and
 `color_transfer` converts RGB <-> LAB as `cv2.cvtColor` does uint8 images,
@@ -43,6 +45,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from flexam_tpu_torch.utils.cv import yuv420_to_rgb
 
 VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".flv",
                     ".wmv")
@@ -493,6 +497,25 @@ def save_video(video: np.ndarray, path: str, fps: int = 16):
     if v.ndim == 5:
         v = v[0]
     frames = (np.clip(v.transpose(1, 2, 3, 0), 0, 1) * 255).astype(np.uint8)
+    return _write_frames(frames, path, fps)
+
+
+def save_video_yuv420(luma, uv, path: str, fps: int = 16):
+    """Write a video from the streamed decoder's YUV 4:2:0 fetch
+    (`models.vae_stream.vae_decode_streamed_yuv420`: Y [B, T, H, W] or
+    [T, H, W], UV planar [B, T, 2, H/2, W/2] or [T, 2, H/2, W/2],
+    limited-range BT.601): one I420 -> RGB conversion a frame (OpenCV's,
+    `utils.cv.yuv420_to_rgb`), then `save_video`'s writers, without a round
+    trip through float. Returns the path written."""
+    luma, uv = torch.as_tensor(luma).cpu(), torch.as_tensor(uv).cpu()
+    if luma.dim() == 3:
+        luma, uv = luma[None], uv[None]
+    return _write_frames(yuv420_to_rgb(luma[:1], uv[:1])[0].numpy(), path,
+                         fps)
+
+
+def _write_frames(frames: np.ndarray, path: str, fps: int):
+    """uint8 frames [T, H, W, 3] to `path` (imageio), else the .npz dump."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     try:
         import imageio

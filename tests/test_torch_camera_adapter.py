@@ -162,13 +162,11 @@ def test_camera_refusals_match_jax():
 
 def test_generate_parameter_order_matches_jax():
     """`generate` and `generate_from_cond` take JAX's parameters in JAX's
-    order, less `offload_dit_for_decode` (the 16 GB chip's offload), with
-    the port's `latents` last; so a positional caller reaches the same
-    parameter in both."""
+    order, `offload_dit_for_decode` included, with the port's `latents`
+    last; so a positional caller reaches the same parameter in both."""
     for name in ("generate", "generate_from_cond"):
-        jparams = [p for p in inspect.signature(
-            getattr(jpipe.FlexAMGenerationPipeline, name)).parameters
-            if p != "offload_dit_for_decode"]
+        jparams = list(inspect.signature(
+            getattr(jpipe.FlexAMGenerationPipeline, name)).parameters)
         tparams = list(inspect.signature(
             getattr(tpipe.FlexAMGenerationPipeline, name)).parameters)
         assert tparams == jparams + ["latents"], name

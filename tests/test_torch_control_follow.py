@@ -178,6 +178,28 @@ def test_evaluate_adherence_matches_jax(trees):
                 np.testing.assert_allclose(g[k], w[k], atol=0.1)
 
 
+def test_quantized_evaluation_keeps_the_callers_tree(trees):
+    """`quant="int8"` quantizes a copy: the stack's DiT keeps its float
+    linears (a copy of the block list alone shared the nested dicts, whose
+    linears the quantization replaced)."""
+    vae, dit = trees
+    stack = {"cfg": CFG, "vae_params": _port(vae), "dit_params": _port(dit),
+             "ctx": np.zeros((1, CFG.t5.text_length, CFG.dit.text_dim),
+                             np.float32),
+             "geometry": {"T": 9, "H": 64, "W": 64, "size": 16.0}}
+    before = [t.clone() for t in jax.tree_util.tree_leaves(
+        stack["dit_params"])]
+    res = T.evaluate_adherence(stack, T.default_holdout_cases()[:1],
+                               num_inference_steps=1, quant="int8",
+                               device="cpu")
+    assert len(res) == 1
+    assert "weight" in stack["dit_params"]["blocks"][0]["self_attn"]["q"]
+    after = jax.tree_util.tree_leaves(stack["dit_params"])
+    assert len(after) == len(before)
+    for a, b in zip(before, after):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_artifacts_and_cache(trees, tmp_path):
     """The artifact set (as `.mp4.npz` dumps where no encoder is
     installed) and the stack cache's round trip."""

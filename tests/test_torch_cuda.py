@@ -777,3 +777,101 @@ def test_ulysses_two_ranks_on_one_card(dev):
     assert r["launches"] == 1
     scale = float(r["ref"].abs().max())
     assert float((r["out"] - r["ref"]).abs().max()) <= 2 ** -8 * scale
+
+
+def _tiny_pipe(dev, quant=None):
+    from flexam_tpu_torch.config import tiny_test_config
+    from flexam_tpu_torch.models.dit import init_dit_params
+    from flexam_tpu_torch.models.vae import init_vae_params
+    from flexam_tpu_torch.pipeline import (FlexAMGenerationPipeline,
+                                           FlexAMModels)
+    cfg = tiny_test_config()
+    return FlexAMGenerationPipeline(FlexAMModels(
+        cfg=cfg, dit_params=init_dit_params(cfg.dit, seed=0,
+                                            dtype=torch.bfloat16, device=dev),
+        vae_params=init_vae_params(cfg.vae, seed=1, dtype=torch.bfloat16,
+                                   device=dev)), device=dev, quant=quant)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_offload_pins_frees_and_restores(dev, quant):
+    """The DiT's host copy is pinned; the offload frees the tree's device
+    bytes; the restore gives every leaf back bit for bit in its dtype; a
+    second cycle reuses the host copy and an in-place write refetches."""
+    from flexam_tpu_torch.io.convert import tree_leaves
+    pipe = _tiny_pipe(dev, quant)
+    leaves = tree_leaves(pipe.models.dit_params)
+    nbytes = sum(t.nbytes for t in leaves)
+    before = [t.clone() for t in leaves]
+    del leaves
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    pipe.offload_dit_to_host()
+    freed = a0 - torch.cuda.memory_allocated()
+    assert nbytes <= freed <= nbytes + 512 * len(before)
+    host = tree_leaves(pipe._dit_host)
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    pipe.restore_dit()
+    after = tree_leaves(pipe.models.dit_params)
+    for a, b in zip(before, after):
+        assert b.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    host1 = pipe._dit_host
+    pipe.offload_dit_to_host()
+    pipe.restore_dit()
+    assert pipe._dit_host is host1
+    bias = pipe.models.dit_params["head"]["head"]["bias"]
+    bias.add_(1.0)
+    want = bias.clone()
+    pipe.offload_dit_to_host()
+    assert pipe._dit_host is not host1
+    pipe.restore_dit()
+    assert torch.equal(pipe.models.dit_params["head"]["head"]["bias"], want)
+
+
+def test_decode_ladder_on_a_real_oom(dev, monkeypatch, capsys):
+    """Device memory held so that a group of 4 latent frames cannot be
+    decoded and a group of 2 can: the ladder steps down on the real
+    out-of-memory error and gives group 2's video bit for bit."""
+    import gc
+
+    from flexam_tpu_torch import pipeline as tpipe
+    pipe = _tiny_pipe(dev)
+    pipe.VAE_STREAM_THRESHOLD = 1000
+    pipe.offload_dit_to_host()                        # first group: 4
+    g = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((1, 8, 9, 64, 64), generator=g, device=dev)
+    extra, videos = {}, {}
+    for group in (2, 4):
+        monkeypatch.setenv("FLEXAM_DECODE_GROUP", str(group))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        videos[group] = pipe.decode_u8(z)
+        extra[group] = torch.cuda.max_memory_allocated() - base
+    monkeypatch.delenv("FLEXAM_DECODE_GROUP")
+    assert extra[4] > extra[2] + (64 << 20), extra
+    tried = []
+    real = tpipe.vae_decode_streamed_u8
+
+    def spy(*args, group_size=4, **kw):
+        tried.append(group_size)
+        return real(*args, group_size=group_size, **kw)
+    monkeypatch.setattr(tpipe, "vae_decode_streamed_u8", spy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    # room for group 2 with a margin: a convolution whose workspace cannot
+    # be allocated falls back to another algorithm (other bits)
+    ballast = torch.empty(int(free - extra[2] - 0.75 * (extra[4] - extra[2])),
+                          dtype=torch.uint8, device=dev)
+    try:
+        got = pipe.decode_u8(z)
+    finally:
+        del ballast
+    assert tried == [4, 2], (tried, extra)
+    assert torch.equal(got, videos[2])
+    assert "OOM at group_size=4; retrying smaller" in capsys.readouterr().out
