@@ -84,13 +84,14 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        (after train, "residency_b"), on a pipeline without
                        a DiT and the main path's VAE: memory held so that
                        only group 2's peak plus RESIDENCY_ROOM of the gap
-                       to group 4's stays free: the decode must try 4,
-                       print JAX's warning, and give a direct group-2
-                       decode's video bit for bit (last, because a decode
-                       that ran out of memory leaves cuDNN's cached
-                       algorithms for its shapes at slow ones: later
-                       group-4 decodes ran 5.6x slower; a short group-4
-                       decode is timed before and after it); (c)
+                       to group 4's stays free: the decode must start at
+                       2 from its estimate of group 4's peak without
+                       trying 4, say so, and give a direct group-2
+                       decode's video bit for bit (a decode that ran out
+                       of memory would leave cuDNN's cached plans for its
+                       shapes at slow ones: later group-4 decodes ran 4-6x
+                       slower); a short group-4 decode is timed before
+                       and after, within RESIDENCY_AFTER_RATIO; (c)
                        FLEXAM_DECODE_FETCH=yuv420 against the RGB fetch:
                        bytes copied to the host, seconds, luma within
                        JAX's test bound RESIDENCY_YUV_LUMA; (d)
@@ -705,20 +706,28 @@ class StagePeaks:
         return max(self.gb.values())
 
 
-# the wgmma opcodes each attention kernel must have (int8 wgmma is IGMMA)
-HOPPER_OPCODES = {"flash_kernel": ("HGMMA", "UTMALDG"),
-                  "single_kv_kernel": ("HGMMA", "UTMALDG"),
-                  "sparse_attention_kernel": ("HGMMA", "UTMALDG"),
-                  "int8_attention_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
+# the wgmma opcodes each attention kernel must have (int8 wgmma is IGMMA),
+# by instantiation: head dims 128 and 256, and the wide design (384 on)
+HOPPER_OPCODES = {
+    **{f"{k}<{d}>": need for d in (128, 256) for k, need in (
+        ("flash_kernel", ("HGMMA", "UTMALDG")),
+        ("single_kv_kernel", ("HGMMA", "UTMALDG")),
+        ("sparse_attention_kernel", ("HGMMA", "UTMALDG")),
+        ("int8_attention_kernel", ("IGMMA", "HGMMA", "UTMALDG")))},
+    "flash_wide_kernel": ("HGMMA", "UTMALDG"),
+    "single_kv_wide_kernel": ("HGMMA", "UTMALDG"),
+    "sparse_attention_wide_kernel": ("HGMMA", "UTMALDG"),
+    "int8_attention_wide_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
 
 
 def hopper_sass(lib: Path) -> dict:
     """Counts of the opcodes that tell the attention kernels' Hopper design
     from an mma.sync one (wgmma: HGMMA for bf16, IGMMA for int8; TMA
     loads: UTMALDG; mbarriers: SYNCS; HMMA / IMMA are mma.sync) in their
-    SASS, from cuobjdump; fails if B1, B2 or B5 lacks HGMMA or UTMALDG, or
+    SASS, from cuobjdump; fails if an instantiation of B1, B2 or B5 (head
+    dims 128, 256, and the wide design) lacks HGMMA or UTMALDG, or one of
     B6 lacks IGMMA, HGMMA or UTMALDG. Also B6's int -> float conversions
-    by full opcode: I2F.*.RP comes from integer divisions (the work-item
+    at head dims 128 and 256 by full opcode: I2F.*.RP comes from integer divisions (the work-item
     index); a conversion of each logit would add I2F (or I2FP) without RP.
     And the row kernels' (B3, B4) 128-bit global loads and stores, by
     instantiation (`ln_mod_kernel<12>` serves 3072 features); fails if one
@@ -742,11 +751,13 @@ def hopper_sass(lib: Path) -> dict:
         if not all(got.get(op) for op in need):
             raise AssertionError(f"{kernel}: no {' / '.join(need)} in its "
                                  f"SASS ({got})")
-    i2f = {op: n for op, n in ops["int8_attention_kernel"].items()
-           if op.split(".")[0] in ("I2F", "I2FP")}
-    keys["int8_attention_kernel_i2f"] = i2f
-    keys["int8_attention_kernel_i2f_outside_divisions"] = sum(
-        n for op, n in i2f.items() if ".RP" not in op)
+    for d in (128, 256):
+        kernel = f"int8_attention_kernel<{d}>"
+        i2f = {op: n for op, n in ops[kernel].items()
+               if op.split(".")[0] in ("I2F", "I2FP")}
+        keys[f"{kernel}_i2f"] = i2f
+        keys[f"{kernel}_i2f_outside_divisions"] = sum(
+            n for op, n in i2f.items() if ".RP" not in op)
     return keys
 
 
@@ -876,6 +887,9 @@ def phase_kernels(dev, results: dict) -> None:
     del x
     lines.update(long_kernels(dev, gen))
     lines["flash_attention"]["flux_shapes"] = flux_b1_shapes(dev, gen)
+    for name, row in head_dim_256_kernels(dev, gen).items():
+        lines[name]["d256"] = row
+    lines["wide_head_dims"] = wide_head_dims(dev)
     results.update(lines)
     emit("kernels", t0, kernels=sorted(lines), **lines)
 
@@ -1031,6 +1045,173 @@ def long_kernels(dev, gen) -> dict:
     return lines
 
 
+HD256 = (2, 11648, 12, 256)        # the flagship's tokens in 12 heads of 256
+HD256_LONG = (2, LONG_TOKENS, 12, 256)   # the long clip's
+WIDE_CHECK_DIMS = (384, 512)       # the wide design, checked at small shapes
+
+
+def head_dim_256_kernels(dev, gen) -> dict:
+    """B1, B2, B5 and B6 at head dim 256 (their own instances: 64-key
+    tiles): B1 at q/k/v [2, 11648, 12, 256], B2 with k/v [2, 512, 12, 256],
+    B5 (the w=2 policy of 51 frames + ref) and B6 at [2, 23296, 12, 256].
+    Each is held to its plain version over every query row, timed (back to
+    back, `device_ms`) beside it, beside its bound and beside SDPA (the
+    yardstick, never on the path). {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import sparse_attention as sp
+    from flexam_tpu_torch.testing import (check_attention,
+                                          check_int8_attention,
+                                          check_sparse_attention)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def row(check, name, fn, plain, flops, nbytes, yardstick, t_ops=None,
+            **extra):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = check(got, ref, name)
+        del got, ref
+        bms, by = bound_ms(flops, nbytes)
+        if t_ops is not None:        # B6: int8 and bf16 operations
+            bms, by = ((t_ops, "operations") if t_ops >= nbytes / PEAK_BYTES
+                       * 1e3 else (nbytes / PEAK_BYTES * 1e3, "bytes"))
+        ms = device_ms(fn)
+        try:
+            lib_ms = device_ms(yardstick)
+        except torch.cuda.OutOfMemoryError as e:
+            lib_ms = None
+            extra["library_not_measured"] = f"out of memory: {str(e)[:120]}"
+        torch.cuda.empty_cache()
+        return dict(err, ms=ms, tflops=flops / ms / 1e9, bound_ms=bms,
+                    bound_by=by, bound_share=bms / ms,
+                    plain_ms=device_ms(plain, launches=1, reps=3, warmup=1),
+                    library_ms=lib_ms, **extra)
+
+    B, L, H, D = HD256
+    out = {}
+    q = randn(B, L, H, D)
+    for name, lk, fn in (("flash_attention", L, fa.flash_attention),
+                         ("single_kv_attention", 512,
+                          fa.single_kv_attention)):
+        k, v = randn(B, lk, H, D), randn(B, lk, H, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out[name] = row(
+            check_attention, f"{name} d256", lambda: fn(q, k, v),
+            lambda: fa.attention_plain(q, k, v, q_chunk=1024),
+            4.0 * B * H * L * lk * D,
+            2.0 * (2 * q.numel() + k.numel() + v.numel()),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            shape=f"q [{B},{L},{H},{D}] k/v [{B},{lk},{H},{D}] bf16",
+            instance=fa.head_dim_instance(D))
+        del k, v, qt, kt, vt
+    del q
+
+    B, L, H, D = HD256_LONG
+    q, k, v = randn(B, L, H, D), randn(B, L, H, D), randn(B, L, H, D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 2.0 * 4 * q.numel()
+    pol = sp.video_sparse_policy(51, 448, ref_tokens=448, window=2)
+    rows, blk = pol["rows"], pol["blk"]
+    kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
+    pairs = int(nnz.sum().item())
+    tok_blk = torch.arange(L, device=dev) // blk
+    bmask = torch.zeros((len(rows), len(rows)), dtype=torch.bool, device=dev)
+    for i, r in enumerate(rows):
+        bmask[i, r] = True
+    tok_mask = bmask[tok_blk][:, tok_blk]
+    out["sparse_attention"] = row(
+        check_sparse_attention, "sparse_attention d256",
+        lambda: sp.sparse_flash_attention(q, k, v, rows, blk, kidx=kidx,
+                                          nnz=nnz),
+        lambda: sp.masked_dense_attention(q, k, v, rows, blk),
+        4.0 * B * H * pairs * blk * blk * D, nbytes,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               attn_mask=tok_mask),
+        library="F.scaled_dot_product_attention with the boolean token mask",
+        blocks=len(rows), blk=blk, active_pairs=pairs,
+        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance="d256")
+    del tok_mask
+    ops = 2.0 * B * H * L * L * D
+    out["int8_attention"] = row(
+        check_int8_attention, "int8_attention d256",
+        lambda: i8.int8_attention(q, k, v),
+        lambda: i8.int8_attention_plain(q, k, v), 2 * ops, nbytes,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        t_ops=(ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS) * 1e3,
+        library="bf16 F.scaled_dot_product_attention (exact attention, not "
+                "the int8 function)",
+        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance="d256")
+    got = i8.int8_attention(q, k, v)
+    exact = fa.attention_plain(q, k, v, q_chunk=1024)
+    rel = ((got.float() - exact.float()).abs().mean()
+           / exact.float().abs().mean()).item()
+    out["int8_attention"]["mean_rel_err_vs_exact"] = rel
+    if rel >= 0.02:
+        raise AssertionError(f"int8_attention d256: mean relative error "
+                             f"{rel} against exact attention >= 0.02")
+    del q, k, v, qt, kt, vt, got, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_head_dims(dev) -> dict:
+    """B1, B2, B5 and B6 at head dims 384 and 512 (the wide design), at
+    small shapes with ragged edges and k_len masks, each held to its plain
+    version; the launch counters must move by one a call."""
+    import torch
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import launch_counts
+    from flexam_tpu_torch.ops import sparse_attention as sp
+    from flexam_tpu_torch.testing import (check_attention,
+                                          check_int8_attention,
+                                          check_sparse_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    pol = sp.video_sparse_policy(5, 100, ref_tokens=100, window=2)
+    rows, blk, L = pol["rows"], pol["blk"], pol["video_len"]
+    out = {}
+    for d in WIDE_CHECK_DIMS:
+        q, k, v = randn(2, 300, 3, d), randn(2, 700, 3, d), randn(2, 700, 3, d)
+        t, s = randn(2, 300, 3, d), randn(2, 512, 3, d)
+        kl = torch.tensor([700, 129], device=dev)
+        qs, ks, vs = randn(1, L, 2, d), randn(1, L, 2, d), randn(1, L, 2, d)
+        before = launch_counts()
+        rec = {
+            "flash_attention": check_attention(
+                fa.flash_attention(q, k, v, k_len=kl),
+                fa.attention_plain(q, k, v, k_len=kl), f"B1 d{d}"),
+            "single_kv_attention": check_attention(
+                fa.single_kv_attention(t, s, s),
+                fa.attention_plain(t, s, s), f"B2 d{d}"),
+            "sparse_attention": check_sparse_attention(
+                sp.sparse_flash_attention(qs, ks, vs, rows, blk),
+                sp.masked_dense_attention(qs, ks, vs, rows, blk), f"B5 d{d}"),
+            "int8_attention": check_int8_attention(
+                i8.int8_attention(q, k, v, k_len=kl),
+                i8.int8_attention_plain(q, k, v, k_len=kl), f"B6 d{d}")}
+        torch.cuda.synchronize()
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in rec}
+        if any(n != 1 for n in moved.values()):
+            raise AssertionError(f"wide head dim {d}: launches {moved}")
+        out[f"d{d}"] = dict(rec, instance=fa.head_dim_instance(d),
+                            shapes=f"B1/B6 q [2,300,3,{d}] k/v [2,700,3,{d}] "
+                                   f"k_len [700,129]; B2 k/v [2,512,3,{d}]; "
+                                   f"B5 [1,{L},2,{d}] blk {blk}")
+    return out
+
+
 def long_path_shapes(dev, gen) -> dict:
     """B2, B3 and B4 (binary) at the long path's shapes, against their plain
     versions: cross-attention of 23,296 queries over 512 text tokens, the
@@ -1177,33 +1358,16 @@ def phase_dit_flagship(dev, cfg):
                              device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    bf = torch.bfloat16
     lt, lh, lw = FLAGSHIP_LATENT
-    c = dcfg.out_dim
-
-    def randn(*shape, dtype=bf):
-        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-
-    x = randn(2, c, lt, lh, lw)
-    y = randn(2, dcfg.in_dim - c, lt, lh, lw)
-    ac = randn(2, dcfg.in_dim_cnn_block - c, lt, lh, lw)
-    ref = randn(2, c, lh, lw)
-    ctx = randn(2, dcfg.text_len, dcfg.text_dim)
-    t = torch.full((2,), 900.0, device=dev)
-    dens = torch.full((2,), 0.5, device=dev)
-    n_vid = lt * (lh // 2) * (lw // 2)
-    mask = torch.ones((2, n_vid), device=dev)
-    mask[:, :(lh // 2) * (lw // 2)] = 0.0     # first frame known
+    x, t, ctx, kw = flagship_inputs(dev, dcfg)
+    n_vid = kw["binary_t_mask"].shape[1]
     rope = make_rope_tables_for(dcfg, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t1 = time.perf_counter()
     with torch.no_grad():
-        out = dit_forward(params, dcfg, x, t, ctx, density=dens, y=y,
-                          additional_control=ac, full_ref=ref,
-                          rope_tables=rope, binary_t_mask=mask)
+        out = dit_forward(params, dcfg, x, t, ctx, rope_tables=rope, **kw)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t1
     counts = launch_counts()
@@ -1226,10 +1390,98 @@ def phase_dit_flagship(dev, cfg):
     t0 = time.perf_counter()
     with torch.no_grad():
         emit("dit_forward_profile", t0, **profile_forward(
-            lambda: dit_forward(params, dcfg, x, t, ctx, density=dens, y=y,
-                                additional_control=ac, full_ref=ref,
-                                rope_tables=rope, binary_t_mask=mask)))
+            lambda: dit_forward(params, dcfg, x, t, ctx, rope_tables=rope,
+                                **kw)))
     return params
+
+
+def flagship_inputs(dev, dcfg) -> tuple:
+    """The flagship forward's inputs (512x896x97f, CFG batch 2, the first
+    frame known), bf16 N(0, 1) from a generator seeded with SEED + 1:
+    (x, t, context, keyword arguments of `dit_forward`)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lt, lh, lw = FLAGSHIP_LATENT
+    c = dcfg.out_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    x = randn(2, c, lt, lh, lw)
+    y = randn(2, dcfg.in_dim - c, lt, lh, lw)
+    ac = randn(2, dcfg.in_dim_cnn_block - c, lt, lh, lw)
+    ref = randn(2, c, lh, lw)
+    ctx = randn(2, dcfg.text_len, dcfg.text_dim)
+    mask = torch.ones((2, lt * (lh // 2) * (lw // 2)), device=dev)
+    mask[:, :(lh // 2) * (lw // 2)] = 0.0     # first frame known
+    return x, torch.full((2,), 900.0, device=dev), ctx, dict(
+        density=torch.full((2,), 0.5, device=dev), y=y, additional_control=ac,
+        full_ref=ref, binary_t_mask=mask)
+
+
+# the dh-256 forward against its exact composition (FLEXAM_FUSED=0,
+# FLEXAM_ATTENTION=xla): bf16 models' bound, as reference_check and the
+# parallel phase's whole models (the two round in other places: B3/B4 fuse
+# what the composition rounds to bf16 between ops, B1/B2 cast P to bf16)
+HD256_FORWARD_REL = 5e-2
+
+
+def phase_dit_head_dim_256(dev, cfg, params, results: dict) -> None:
+    """The flagship forward at 12 heads of 256 (`DiTConfig(num_heads=12)`:
+    the same leaf shapes as 24 x 128, so the flagship's parameter tree is
+    reused, nothing drawn or uploaded), full depth, on the flagship's
+    inputs: B1 (self-attention), B2 (the 512 text keys), B3 and B4 at head
+    dim 256, their launches counted (reset just before, read just after).
+    Held to the same forward through the exact composition within
+    HD256_FORWARD_REL of its largest value."""
+    import dataclasses
+
+    import torch
+    from flexam_tpu_torch.models.dit import dit_forward, make_rope_tables_for
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    dcfg = dataclasses.replace(cfg.dit, num_heads=12)
+    assert dcfg.head_dim == 256
+    x, t, ctx, kw = flagship_inputs(dev, dcfg)
+    rope = make_rope_tables_for(dcfg, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        out = dit_forward(params, dcfg, x, t, ctx, rope_tables=rope, **kw)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t1
+    counts = launch_counts()
+    expect = {"flash_attention": dcfg.num_layers,
+              "single_kv_attention": dcfg.num_layers,
+              "rmsnorm_rope": 2 * dcfg.num_layers,
+              "ln_mod_binary": 2 * dcfg.num_layers}
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"dh-256 forward: {k} launched {counts[k]} "
+                                 f"times, expected {n}")
+    for k in results:
+        if isinstance(results[k], dict) and k in counts:
+            results[k]["head_dim_256_launches"] = counts[k]
+    _train_env(True)
+    try:
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            exact = dit_forward(params, dcfg, x, t, ctx, rope_tables=rope,
+                                **kw)
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t1
+    finally:
+        _train_env(False)
+    err = compare(out, exact, HD256_FORWARD_REL, "dh-256 forward")
+    emit("dit_forward_head_dim_256", t0, heads=dcfg.num_heads,
+         head_dim=dcfg.head_dim, layers=dcfg.num_layers,
+         tokens=kw["binary_t_mask"].shape[1] + FLAGSHIP_LATENT[1]
+         * FLAGSHIP_LATENT[2] // 4, batch=2, forward_seconds=fwd_s,
+         exact_composition_seconds=exact_s, launches=counts,
+         vs_exact_composition=err)
 
 
 def profile_forward(fn) -> dict:
@@ -1717,6 +1969,7 @@ RESIDENCY_YUV_LUMA = 3.0           # JAX's test bound: mean |Y| difference
 RESIDENCY_BATCH_REL = 5e-2         # encoder batch 2 vs 1, of max |ref|
 RESIDENCY_COLD_STEPS = 1           # the cold-start runs' denoise
 RESIDENCY_ROOM = 0.75              # (b): room left, from group 2's peak to 4's
+RESIDENCY_AFTER_RATIO = 2.0        # (b): short group-4 decode, after / before
 RESIDENCY_KERNELS = ("flash_attention", "single_kv_attention",
                      "rmsnorm_rope", "ln_mod_binary")
 
@@ -2014,16 +2267,20 @@ def phase_residency(dev, pipe, context, results: dict) -> dict:
 
 
 def phase_residency_ladder(dev, peaks: dict) -> None:
-    """Residency (b), run last: the streamed decode's out-of-memory ladder
-    on a real error, on a pipeline without a DiT (its first group is 4)
-    and the main path's VAE. It runs after every other phase because a
-    decode that runs out of memory leaves cuDNN's cached algorithms for
-    its shapes at the ones that fitted the held memory: later decodes of
-    that group size ran 5.6x slower in the same process (11.5 s against
-    2.04 s at 97f), which slowed every later 512x896 decode that offloads
-    the DiT; a 9-latent-frame group-4 decode is timed before the ladder
-    and after it to show it. `peaks`: (a)'s decode peaks above their
-    start."""
+    """Residency (b), run last: the streamed decode under held memory, on a
+    pipeline without a DiT (its first group is 4) and the main path's VAE.
+    Memory is held so that group 2's peak and RESIDENCY_ROOM of the gap to
+    group 4's stay free. The decode must start at group 2 from its
+    estimate of group 4's peak (`decode_group_sizes`), without trying 4:
+    a group-4 decode that runs out of memory leaves cuDNN's cached plans
+    for its shapes at ones that fitted the held memory (the legacy
+    implicit_convolveNd_sgemm in place of the sm90 implicit GEMM,
+    `tools/decode_probe.py --ladder`), and later decodes of that group
+    size ran 4-6x slower in the same process. A 9-latent-frame group-4
+    decode is timed before and after; the after must stay within
+    RESIDENCY_AFTER_RATIO of the before. `peaks`: (a)'s decode peaks above
+    their start. (The ladder's step down on a real out-of-memory error is
+    `tests/test_torch_cuda.py::test_decode_ladder_on_a_real_oom`.)"""
     import contextlib
     import gc
     import io
@@ -2092,8 +2349,11 @@ def phase_residency_ladder(dev, peaks: dict) -> None:
     b["group4_9_latent_frames_s"] = {"before": before_s,
                                      "after": short_group4_s()}
     del pipe
-    if tried != [4, 2] or not b["equal_to_group_2"] or (
-            "OOM at group_size=4" not in b["warning"]):
+    times = b["group4_9_latent_frames_s"]
+    b["after_over_before"] = times["after"] / times["before"]
+    if tried != [2] or not b["equal_to_group_2"] or (
+            "starting at group_size=2" not in b["warning"]) or (
+            b["after_over_before"] > RESIDENCY_AFTER_RATIO):
         raise AssertionError(f"residency (b): {b}")
     emit("residency_b", t1, card=gpu_line(), **b)
 
@@ -6237,6 +6497,8 @@ def main(argv=None) -> int:
     phase_parallel(dev, "WAN22_5B_FLEXAM", results)
     dit_params = phase_dit_flagship(dev, WAN22_5B_FLEXAM)
     torch.cuda.empty_cache()
+    phase_dit_head_dim_256(dev, WAN22_5B_FLEXAM, dit_params, results)
+    torch.cuda.empty_cache()
     pipe, context = phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
     del dit_params
     torch.cuda.empty_cache()
@@ -6305,8 +6567,9 @@ def main(argv=None) -> int:
             "train_launches": r["train_launches"],
             "parallel_launches": r["parallel_launches"],
             "residency_launches": r["residency_launches"],
+            "head_dim_256_launches": r.get("head_dim_256_launches", 0),
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
-                                  "flux_shapes") if k in r})})
+                                  "flux_shapes", "d256") if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,12 @@ package picks xla off the TPU). On a CPU tensor each kernel takes its plain
 version; on CUDA there is no fallback: an input the kernel does not take
 raises.
 
-Head dims the kernels do not take (not a multiple of 128: the tiny test
-config's 24, the SVD UNet's 64) go to `exact_attention`, the counterpart of
-JAX's `xla_attention`, for the pallas and pallas_int8 backends alike: where
+The kernels take every head dim that is a multiple of 128, as JAX's
+Pallas kernels do: 128 (every preset) and 256 each run an instance of
+their own design on the card, wider heads the slab design of
+`csrc/hopper_wide.cuh`. Head dims they do not take (the tiny test config's
+24, the SVD UNet's 64) go to `exact_attention`, the counterpart of JAX's
+`xla_attention`, for the pallas and pallas_int8 backends alike: where
 JAX's dispatcher catches its kernels' NotImplementedError, this one decides
 by shape before any launch, on both devices. `exact_calls` counts the
 branch's calls beside the kernels' launch counters.

@@ -10,10 +10,12 @@
 // fp32; probabilities cast to bf16 before P.V; the output is acc / sum, cast
 // to bf16.
 //
-// Layout: q, k, v and o are [B, L, H, D] bf16, contiguous, D == 128. The
-// kernels read q, k and v in place through 4-D TMA tensor maps over
-// (D, H, L, B): rows past L read as zeros, so the ragged edge of L never
-// touches the next batch.
+// Layout: q, k, v and o are [B, L, H, D] bf16, contiguous, D any multiple
+// of 128. The kernels read q, k and v in place through 4-D TMA tensor maps
+// over (D, H, L, B): rows past L read as zeros, so the ragged edge of L
+// never touches the next batch. D = 128 and 256 run the design below, each
+// its own instance; D >= 384 runs hopper_wide.cuh's (slabs of 128 output
+// columns, S recomputed for each).
 //
 // What bounds it on an H100: at the flagship self-attention shape (B 2,
 // H 24, L 11,648) the work is 4*B*H*L*L*D = 3.3e12 flops against about 27 MB
@@ -45,32 +47,30 @@
 //  * the epilogue writes acc / sum as bf16 straight from registers (rows
 //    past Lq are not written).
 //
-// B2 is B1's kernel with at most 4 key tiles (512 keys), a bound known at
-// compile time: an online softmax over <= 4 tiles, rather than one max per
+// B2 is B1's kernel with at most 512 keys, a bound known at compile time:
+// an online softmax over <= 4 tiles (8 at D = 256), rather than one max per
 // row from a first pass and the logits recomputed in a second (1.5x the
 // flops) or kept in shared memory (148 KB a block at 512 keys, one block
 // an SM).
+//
+// At D = 256 a 128 x 256 bf16 tile is 64 KB, so K/V tiles are 64 keys and
+// the ring 2 stages (Q 64 KB + 4 x 32 KB); a consumer holds its 64 x 256
+// fp32 accumulator in 128 registers, as two 128-column halves that each
+// P.V k-step updates by one m64n128k16 wgmma, beside S over 64 keys (32).
 
 #include "hopper_attention.cuh"
+#include "hopper_wide.cuh"
 
 namespace {
 
 using flexam::bf16;
 using namespace flexam::hopper;
 
-constexpr int kD = 128;                 // head dim
 constexpr int kBM = 128;                // query rows a CTA (2 x 64)
-constexpr int kBN = 128;                // keys a tile
-constexpr int kStages = 3;              // K/V ring depth
 constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
-constexpr int kSingleKvTiles = 4;       // B2: <= 512 keys
+constexpr int kMaxKeysB2 = 512;         // B2: <= 512 keys
 constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 64 columns
-constexpr uint32_t kBoxBytes = kBoxRows * 64 * sizeof(bf16);     // 8 KB
-constexpr uint32_t kHalfBytes = 128 * 64 * sizeof(bf16);         // 16 KB
-constexpr uint32_t kTileBytes = 2 * kHalfBytes;                  // 32 KB
-constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
-constexpr size_t kSmemBytes = 1024 + kTileBytes * (1 + 2 * kStages) + kBarBytes;
 
 struct Params {
   const int* k_len;  // [B] or null
@@ -87,7 +87,7 @@ struct Work {
   int q0, h, b, valid, n_tiles;
 };
 
-template <int kMaxTiles>
+template <int kBN, int kMaxTiles>
 __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   const int n_qt = (a.Lq + kBM - 1) / kBM;
   Work w;
@@ -100,16 +100,20 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   return w;
 }
 
-template <int kMaxTiles>
+template <int kD, int kMaxKeys>
 __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                                               const CUtensorMap* tk,
                                               const CUtensorMap* tv,
                                               const Params& a) {
+  using S = Bf16Tiles<kD>;
+  constexpr int kBN = S::kBN, kStages = S::kStages, kSpans = S::kSpans;
+  constexpr int kMaxTiles = kMaxKeys / kBN;
+  constexpr uint32_t kKVBytes = S::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kTileBytes;                      // + s * kTileBytes
-  const uint32_t v_s = q_s + (1 + kStages) * kTileBytes;
-  const uint32_t bars = q_s + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t k_s = q_s + S::kQBytes;                      // + s * kKVBytes
+  const uint32_t v_s = k_s + kStages * kKVBytes;
+  const uint32_t bars = v_s + kStages * kKVBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8u * (2 + s); };
   auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
@@ -137,20 +141,20 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     if (threadIdx.x == 0) {
       int it = 0, n = 0;
       for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-        const Work w = work_item<kMaxTiles>(a, wi);
+        const Work w = work_item<kBN, kMaxTiles>(a, wi);
         // Q of the next item once both consumers' last Q.K^T has landed
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
-        mbar_arrive_expect_tx(q_full, kTileBytes);
-        tma_load_bf16_tile(q_s, tq, q_full, w.h, w.q0, w.b);
+        mbar_arrive_expect_tx(q_full, S::kQBytes);
+        tma_load_bf16_tile<kSpans, kBM>(q_s, tq, q_full, w.h, w.q0, w.b);
         for (int t = 0; t < w.n_tiles; ++t, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
-          mbar_arrive_expect_tx(k_full(s), kTileBytes);
-          tma_load_bf16_tile(k_s + s * kTileBytes, tk, k_full(s), w.h, t * kBN,
-                             w.b);
-          mbar_arrive_expect_tx(v_full(s), kTileBytes);
-          tma_load_bf16_tile(v_s + s * kTileBytes, tv, v_full(s), w.h, t * kBN,
-                             w.b);
+          mbar_arrive_expect_tx(k_full(s), kKVBytes);
+          tma_load_bf16_tile<kSpans, kBN>(k_s + s * kKVBytes, tk, k_full(s),
+                                          w.h, t * kBN, w.b);
+          mbar_arrive_expect_tx(v_full(s), kKVBytes);
+          tma_load_bf16_tile<kSpans, kBN>(v_s + s * kKVBytes, tv, v_full(s),
+                                          w.h, t * kBN, w.b);
         }
       }
     }
@@ -160,38 +164,46 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     const int c = wg - 1;
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int quad = lane & 3;
-    const uint32_t q_c = q_s + c * kBoxBytes;   // its rows, in each half
+    const uint32_t q_c = q_s + c * 64 * 128;   // its rows, in each span
 
-    // S = Q K^T over D in 8 steps of 16 (4 per 64-column half), issued
-    auto issue_qk = [&](float (&sc)[64], int stage) {
-      const uint32_t ks = k_s + stage * kTileBytes;
+    // S = Q K^T over D in D / 16 steps of 16 (4 per 64-column span), issued
+    auto issue_qk = [&](float (&sc)[kBN / 2], int stage) {
+      const uint32_t ks = k_s + stage * kKVBytes;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const uint32_t off = (k >> 2) * kHalfBytes + (k & 3) * 32;
-        wgmma_m64n128k16_ss(sc, sw128_desc(q_c + off, 16, 1024),
-                            sw128_desc(ks + off, 16, 1024), k);
+      for (int k = 0; k < kD / 16; ++k) {
+        const uint32_t col = (k & 3) * 32;
+        wgmma_qk(sc, sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16, 1024),
+                 sw128_desc(ks + (k >> 2) * S::kKVSpanBytes + col, 16, 1024), k);
       }
       wgmma_commit();
     };
-    // O += P V over a tile's keys in 8 steps of 16, issued; V is [keys, D]
-    // with D contiguous: MN-major, the two D halves 16 KB apart
-    auto issue_pv = [&](float (&o)[64], uint32_t (&p)[8][4], int stage) {
-      const uint32_t vs = v_s + stage * kTileBytes;
+    // O += P V over a tile's keys in kBN / 16 steps of 16, issued, each a
+    // wgmma for every 128 columns of D; V is [keys, D] with D contiguous:
+    // MN-major, the 64-column spans kKVSpanBytes apart
+    auto issue_pv = [&](float (&o)[kD / 128][64], uint32_t (&p)[kBN / 16][4],
+                        int stage) {
+      const uint32_t vs = v_s + stage * kKVBytes;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_m64n128k16_rs_tb(o, p[kk],
-                               sw128_desc(vs + kk * 16 * 128, kHalfBytes, 1024));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h)
+          wgmma_m64n128k16_rs_tb(
+              o[h], p[kk],
+              sw128_desc(vs + 2 * h * S::kKVSpanBytes + kk * 16 * 128,
+                         S::kKVSpanBytes, 1024));
       wgmma_commit();
     };
 
-    float o[64], sc[64];
-    uint32_t p[8][4];
+    float o[kD / 128][64], sc[kBN / 2];
+    uint32_t p[kBN / 16][4];
     float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
     int it = 0, n = 0;
     for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-      const Work w = work_item<kMaxTiles>(a, wi);
+      const Work w = work_item<kBN, kMaxTiles>(a, wi);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
       m_a = m_b = kNeg;
 
       // Probabilities of key tile t in sc, in place. The tile holding the
@@ -202,7 +214,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         float scale = a.scale_log2;
         if (n0 + kBN > w.valid) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kBN / 2; ++i) {
             const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
             sc[i] = key < w.valid ? sc[i] * scale
                                   : (key < a.Lk ? kNeg : kNegInf);
@@ -239,11 +251,13 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         if (t == w.n_tiles - 1) mbar_arrive(q_empty);
         tile_probs(t);
         wgmma_wait<0>();
-        fence_regs(o);
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
         fence_regs(p);
         fence_regs(sc);
         mbar_arrive(empty(prev % kStages));
-        rescale_rows(o, al_a, al_b);
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
         l_a = l_a * al_a + sum_a;
         l_b = l_b * al_b + sum_b;
         probs_to_a(sc, p);
@@ -253,7 +267,8 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       wgmma_fence();
       issue_pv(o, p, last % kStages);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
       mbar_arrive(empty(last % kStages));
       it += w.n_tiles;
 
@@ -266,46 +281,67 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       bf16* base = a.o + (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
       const size_t stride = (size_t)a.H * kD;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (r_a < a.Lq)
-          *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
-              pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
-        if (r_b < a.Lq)
-          *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
-              pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
-      }
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (r_a < a.Lq)
+            *reinterpret_cast<uint32_t*>(base + r_a * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+          if (r_b < a.Lq)
+            *reinterpret_cast<uint32_t*>(base + r_b * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+        }
     }
   }
 }
 
 // B1: a persistent CTA on each SM walks (128-row q tile, head, batch)
-// items; online softmax over 128-key tiles.
+// items; online softmax over key tiles.
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<0>(&tq, &tk, &tv, a);
+  attention_cta<kD, 0>(&tq, &tk, &tv, a);
 }
 
-// B2: the same, for at most 512 keys (4 tiles).
+// B2: the same, for at most 512 keys.
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     single_kv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<kSingleKvTiles>(&tq, &tk, &tv, a);
+  attention_cta<kD, kMaxKeysB2>(&tq, &tk, &tv, a);
 }
 
-template <typename Kernel>
+// B1 and B2 at head dims from 384 on (hopper_wide.cuh).
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const wide::Params a) {
+  wide::wide_cta<wide::kDense, 0>(&tq, &tk, &tv, a);
+}
+
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    single_kv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const wide::Params a) {
+  wide::wide_cta<wide::kDense, kMaxKeysB2 / wide::kKeys>(&tq, &tk, &tv, a);
+}
+
+template <int kD, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
-           void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
+           void* o, const void* k_len, int B, int H, int Lq, int Lk,
            float scale_log2, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  constexpr size_t kSmemBytes = Bf16Tiles<kD>::kSmemBytes;
   CUtensorMap tq, tk, tv;
-  if (!make_bl_hd_map(&tq, q, B, Lq, H, kBoxRows) ||
-      !make_bl_hd_map(&tk, k, B, Lk, H, kBoxRows) ||
-      !make_bl_hd_map(&tv, v, B, Lk, H, kBoxRows))
+  if (!make_bl_hd_map(&tq, q, B, Lq, H, kD, kBoxRows) ||
+      !make_bl_hd_map(&tk, k, B, Lk, H, kD, kBoxRows) ||
+      !make_bl_hd_map(&tv, v, B, Lk, H, kD, kBoxRows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -324,6 +360,40 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// B1 (single_kv false) or B2 at head dim D: the instance for D, or
+// cudaErrorInvalidValue for a D that is not a positive multiple of 128.
+int dispatch(bool single_kv, const void* q, const void* k, const void* v,
+             void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
+             float scale_log2, void* stream) {
+  if (D <= 0 || D % 128 || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return single_kv ? launch<128>(single_kv_kernel<128>, q, k, v, o, k_len, B,
+                                   H, Lq, Lk, scale_log2, stream)
+                     : launch<128>(flash_kernel<128>, q, k, v, o, k_len, B, H,
+                                   Lq, Lk, scale_log2, stream);
+  if (D == 256)
+    return single_kv ? launch<256>(single_kv_kernel<256>, q, k, v, o, k_len, B,
+                                   H, Lq, Lk, scale_log2, stream)
+                     : launch<256>(flash_kernel<256>, q, k, v, o, k_len, B, H,
+                                   Lq, Lk, scale_log2, stream);
+  wide::Params a{};
+  a.k_len = static_cast<const int*>(k_len);
+  a.o = static_cast<bf16*>(o);
+  a.B = B;
+  a.H = H;
+  a.D = D;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.scale_log2 = scale_log2;
+  return single_kv
+             ? wide::launch<wide::kDense>(single_kv_wide_kernel, q, k, v, a,
+                                          stream)
+             : wide::launch<wide::kDense>(flash_wide_kernel, q, k, v, a,
+                                          stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,20 +402,20 @@ extern "C" {
 int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
                            const void* k_len, int B, int H, int Lq, int Lk, int D,
                            float scale_log2, void* stream) {
-  return launch(flash_kernel, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
-                stream);
+  return dispatch(false, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
+                  stream);
 }
 
-// Dynamic shared memory a B1 / B2 CTA takes, in bytes.
-int flexam_attention_smem_bytes() { return (int)kSmemBytes; }
+// Dynamic shared memory a B1 / B2 CTA takes at head dim 128, in bytes.
+int flexam_attention_smem_bytes() { return (int)Bf16Tiles<128>::kSmemBytes; }
 
 // B2 (Lk <= 512). Returns a cudaError_t.
 int flexam_single_kv_attention(const void* q, const void* k, const void* v, void* o,
                                const void* k_len, int B, int H, int Lq, int Lk, int D,
                                float scale_log2, void* stream) {
-  if (Lk > kSingleKvTiles * kBN) return (int)cudaErrorInvalidValue;
-  return launch(single_kv_kernel, q, k, v, o, k_len, B, H, Lq, Lk, D,
-                scale_log2, stream);
+  if (Lk > kMaxKeysB2) return (int)cudaErrorInvalidValue;
+  return dispatch(true, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
+                  stream);
 }
 
 }  // extern "C"

@@ -6,12 +6,12 @@
 // persistent CTA frees its Q buffer for the next item's load instead of
 // staging the output there.
 //
-// Tiles in shared memory use the 128-byte swizzle: a [rows, 128] bf16 tile
-// is two column halves of [rows, 64] (128 bytes a row), each 1024-byte
-// aligned; a [rows, 128] int8 tile is one such span (128 bytes a row).
-// Inside a span, the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-// TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it
-// through descriptors with layout type 1.
+// Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
+// is D / 64 column spans of [rows, 64] (128 bytes a row), one after
+// another, each 1024-byte aligned; a [rows, D] int8 tile is D / 128 such
+// spans (128 bytes a row). Inside a span, the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8). TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B)
+// and wgmma reads it through descriptors with layout type 1.
 //
 // Fragments: a warpgroup (4 warps, 128 threads) owns 64 rows. In a wgmma
 // m64nN f32 accumulator d[N / 2], register i of lane l in warp w holds row
@@ -36,6 +36,25 @@ using attn::pack_bf16;
 using attn::quad_max;
 using attn::quad_sum;
 
+// The bf16 tiles of B1, B2 and B5 at head dim kD (128 or 256): 128 query
+// rows an item, kBN keys a K/V tile in a ring of kStages (at 256 a 128-key
+// tile is 64 KB, which leaves no room for two stages beside Q: 64 keys and
+// 2 stages), each tile kD / 64 spans of 64 columns (128-byte rows).
+template <int kD>
+struct Bf16Tiles {
+  static constexpr int kBN = kD == 128 ? 128 : 64;
+  static constexpr int kStages = kD == 128 ? 3 : 2;
+  static constexpr int kSpans = kD / 64;
+  static constexpr uint32_t kQSpanBytes = 128 * 128;              // 16 KB
+  static constexpr uint32_t kKVSpanBytes = kBN * 128;
+  static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
+  static constexpr uint32_t kKVBytes = kSpans * kKVSpanBytes;
+  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+  // Q, the K and V rings and their barriers, 1024-byte aligned
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+};
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------------
@@ -59,17 +78,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a [B, L, H, 128] bf16 tensor, dims innermost first
-// (128, H, L, B), with boxes of (64 columns, 1 head, box_rows rows, 1 batch)
+// A 4-D map over a [B, L, H, D] bf16 tensor, dims innermost first
+// (D, H, L, B), with boxes of (64 columns, 1 head, box_rows rows, 1 batch)
 // and the 128-byte swizzle. Rows past L (or before 0) read as zeros and
 // are not written: the ragged edge of L stays inside its batch. Returns
 // false if the map is refused (e.g. a pointer not 16-byte aligned).
 inline bool make_bl_hd_map(CUtensorMap* map, const void* base, int B, int L,
-                           int H, int box_rows) {
+                           int H, int D, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t row = 128 * sizeof(bf16);
-  cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                        (cuuint64_t)B};
   cuuint64_t strides[3] = {row, row * H, row * H * L};   // bytes, dims 1..3
   cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
@@ -81,16 +101,17 @@ inline bool make_bl_hd_map(CUtensorMap* map, const void* base, int B, int L,
   return r == CUDA_SUCCESS;
 }
 
-// The same over a [B, L, H, 128] int8 tensor: a row of 128 bytes is one
+// The same over a [B, L, H, D] int8 tensor: 128 bytes of a row are one
 // 128-byte-swizzle span, so a box is (128 columns, 1 head, box_rows rows,
 // 1 batch). The bytes are copied as they are (UINT8 is the map type TMA
 // has for one-byte elements).
 inline bool make_bl_hd_map_i8(CUtensorMap* map, const void* base, int B,
-                              int L, int H, int box_rows) {
+                              int L, int H, int D, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t row = 128;
-  cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)D;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                        (cuuint64_t)B};
   cuuint64_t strides[3] = {row, row * H, row * H * L};
   cuuint32_t box[4] = {128, 1, (cuuint32_t)box_rows, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
@@ -156,19 +177,36 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Rows row0 .. row0 + 127 of head h, batch b of a [B, L, H, 128] bf16 map
-// with 64-row boxes into a swizzled 128-row tile at dst (32 KB): two
-// 64-column halves of 16 KB, each as two 64-row boxes of 8 KB.
+// Rows row0 .. row0 + kRows - 1 of head h, batch b of a [B, L, H, D] bf16
+// map with 64-row boxes into a swizzled tile at dst: kSpans 64-column spans
+// from column col0 on, each [kRows, 64] (kRows * 128 bytes) and made of
+// kRows / 64 boxes of 8 KB.
+template <int kSpans, int kRows>
 __device__ __forceinline__ void tma_load_bf16_tile(uint32_t dst,
                                                    const CUtensorMap* map,
                                                    uint32_t bar, int h,
-                                                   int row0, int b) {
+                                                   int row0, int b,
+                                                   int col0 = 0) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half)
+  for (int span = 0; span < kSpans; ++span)
 #pragma unroll
-    for (int part = 0; part < 2; ++part)
-      tma_load_4d(dst + half * 16384 + part * 8192, map, bar, 64 * half, h,
-                  row0 + 64 * part, b);
+    for (int part = 0; part < kRows / 64; ++part)
+      tma_load_4d(dst + span * kRows * 128 + part * 8192, map, bar,
+                  col0 + 64 * span, h, row0 + 64 * part, b);
+}
+
+// The same from a [B, L, H, D] int8 map whose boxes are kRows rows: kSpans
+// spans of 128 bytes (columns) from byte col0 on, one box each.
+template <int kSpans, int kRows>
+__device__ __forceinline__ void tma_load_i8_tile(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 uint32_t bar, int h,
+                                                 int row0, int b,
+                                                 int col0 = 0) {
+#pragma unroll
+  for (int span = 0; span < kSpans; ++span)
+    tma_load_4d(dst + span * kRows * 128, map, bar, col0 + 128 * span, h,
+                row0, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -224,9 +262,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // The same for the A fragments of a register-A wgmma, which it reads until
 // its wait.
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -312,8 +351,86 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
       : "l"(da), "l"(db), "n"(1));
 }
 
+// The 32 registers of an m64n64 accumulator fragment.
+#define FLEXAM_REGS32(c, d)                                                    \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),      \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),      \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),    \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),    \
+      c(d[29]), c(d[30]), c(d[31])
+
+#define FLEXAM_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31}"
+
+// d (+)= A B for a 64 x 64 x 16 step, A and B both K-major in shared
+// memory (S over a 64-key tile). `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLEXAM_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FLEXAM_REGS32("+f", d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// A 64 x 64 x 32 step of int8 operands, s32 accumulate, both K-major in
+// shared memory: the first step of a product writes d, the others add.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_ss_first(int (&d)[32],
+                                                            uint64_t da,
+                                                            uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLEXAM_D32
+      ", %32, %33, p;\n}\n"
+      : FLEXAM_REGS32("=r", d)
+      : "l"(da), "l"(db), "n"(0));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k32_s8_ss(int (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLEXAM_D32
+      ", %32, %33, p;\n}\n"
+      : FLEXAM_REGS32("+r", d)
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// S (+)= Q K^T for one k-step, by the S fragment's width: 128 keys
+// (m64n128k16) or 64 keys (m64n64k16).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_m64n128k16_ss(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_m64n64k16_ss(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_qk_s8_first(int (&d)[64], uint64_t da,
+                                                  uint64_t db) {
+  wgmma_m64n128k32_s8_ss_first(d, da, db);
+}
+__device__ __forceinline__ void wgmma_qk_s8_first(int (&d)[32], uint64_t da,
+                                                  uint64_t db) {
+  wgmma_m64n64k32_s8_ss_first(d, da, db);
+}
+__device__ __forceinline__ void wgmma_qk_s8(int (&d)[64], uint64_t da,
+                                            uint64_t db) {
+  wgmma_m64n128k32_s8_ss(d, da, db);
+}
+__device__ __forceinline__ void wgmma_qk_s8(int (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  wgmma_m64n64k32_s8_ss(d, da, db);
+}
+
 #undef FLEXAM_REGS64
 #undef FLEXAM_D64
+#undef FLEXAM_REGS32
+#undef FLEXAM_D32
 
 // ---------------------------------------------------------------------------
 // Device: softmax on a 64 x 128 accumulator fragment
@@ -327,23 +444,24 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The online-softmax step of a 128-key tile, up to the accumulator: s holds
-// this thread's values of rows a = l/4 and b = l/4 + 8 of its warp, whose
-// logits are s * `scale_a` / s * `scale_b` (or, with scales 1, logits
-// already scaled and masked); the scales are positive. Raises the running
-// maxima m_a / m_b, turns s into exp2(scale * s - m) in place, and returns
-// the factors al_* that the accumulator and the sums must take and this
-// thread's share of the tile's row sums. Scaling by a positive factor
-// keeps the max, so the max is taken on s and scaled once; the exponent is
-// one FFMA.
-__device__ __forceinline__ void softmax_tile_rows(float (&s)[64], float scale_a,
+// The online-softmax step of a tile of 2N keys (an m64n(2N) fragment
+// s[N]), up to the accumulator: s holds this thread's values of rows
+// a = l/4 and b = l/4 + 8 of its warp, whose logits are s * `scale_a` /
+// s * `scale_b` (or, with scales 1, logits already scaled and masked); the
+// scales are positive. Raises the running maxima m_a / m_b, turns s into
+// exp2(scale * s - m) in place, and returns the factors al_* that the
+// accumulator and the sums must take and this thread's share of the
+// tile's row sums. Scaling by a positive factor keeps the max, so the max
+// is taken on s and scaled once; the exponent is one FFMA.
+template <int N>
+__device__ __forceinline__ void softmax_tile_rows(float (&s)[N], float scale_a,
                                                   float scale_b, float& m_a,
                                                   float& m_b, float& al_a,
                                                   float& al_b, float& sum_a,
                                                   float& sum_b) {
   float mx_a = s[0], mx_b = s[2];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
     mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -355,7 +473,7 @@ __device__ __forceinline__ void softmax_tile_rows(float (&s)[64], float scale_a,
   m_b = mx_b;
   sum_a = sum_b = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     s[4 * j] = ex2(fmaf(s[4 * j], scale_a, -mx_a));
     s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_a, -mx_a));
     s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_b, -mx_b));
@@ -366,7 +484,8 @@ __device__ __forceinline__ void softmax_tile_rows(float (&s)[64], float scale_a,
 }
 
 // The same with one scale for both rows (B1, B2, B5: the softmax scale).
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float scale,
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float scale,
                                              float& m_a, float& m_b,
                                              float& al_a, float& al_b,
                                              float& sum_a, float& sum_b) {
@@ -377,16 +496,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float scale,
 // an integer is the fp32 bit pattern of 12582912 + s (the exponent stays
 // 2^23), and the subtraction is exact. One IADD and one FADD on full-rate
 // pipes, not the quarter-rate I2F. B6's products are at most
-// 127^2 * 128 = 2,064,512 in size.
+// 127^2 * D in size: 2,064,512 at D = 128, 4,129,024 at D = 256; wider
+// heads convert by I2F.
 __device__ __forceinline__ float s32_to_f32_small(int s) {
   return __int_as_float(s + 0x4B400000) - 12582912.0f;
 }
 
-// Rows a / b of a 64 x 128 accumulator times al_a / al_b.
-__device__ __forceinline__ void rescale_rows(float (&o)[64], float al_a,
+// Rows a / b of a 64 x 2N accumulator times al_a / al_b.
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&o)[N], float al_a,
                                              float al_b) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     o[4 * j] *= al_a;
     o[4 * j + 1] *= al_a;
     o[4 * j + 2] *= al_b;
@@ -394,13 +515,15 @@ __device__ __forceinline__ void rescale_rows(float (&o)[64], float al_a,
   }
 }
 
-// Probabilities of a 64 x 128 fragment as bf16 A fragments of the P.V
-// product's 8 k-steps of 16 keys: columns 8j.. are keys 16(j/2) + 8(j%2)..
-// of k-step j/2 (the mma.sync m16n8k16 A layout of each warp's rows).
-__device__ __forceinline__ void probs_to_a(const float (&s)[64],
-                                           uint32_t (&p)[8][4]) {
+// Probabilities of a 64 x 2N fragment as bf16 A fragments of the P.V
+// product's N/8 k-steps of 16 keys: columns 8j.. are keys 16(j/2) +
+// 8(j%2).. of k-step j/2 (the mma.sync m16n8k16 A layout of each warp's
+// rows).
+template <int N>
+__device__ __forceinline__ void probs_to_a(const float (&s)[N],
+                                           uint32_t (&p)[N / 8][4]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     p[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
     p[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }

@@ -16,8 +16,13 @@
 // acc / sum. The dequantization is reassociated (module note below); keys
 // past the key count (TMA's zero fill) do not count at all.
 //
-// Layout: q8, k8 are [B, L, H, D] int8, v and o [B, L, H, D] bf16, D == 128,
-// contiguous; qs [B, H, Lq] and ks [B, H, Lk] fp32.
+// Layout: q8, k8 are [B, L, H, D] int8, v and o [B, L, H, D] bf16, D any
+// multiple of 128, contiguous; qs [B, H, Lq] and ks [B, H, Lk] fp32. D = 128
+// and 256 run the design below, each its own instance (at 256: 64-key
+// tiles, a ring of 3 stages, the accumulator as two 128-column halves);
+// D >= 384 runs hopper_wide.cuh's. The products accumulate in s32, exact
+// at any D; the magic-number conversion below holds up to D = 256 (the
+// wide design converts by I2F).
 //
 // What bounds it on an H100: at 23,296 tokens (B 2, H 24) Q K^T is
 // 6.7e12 int8 operations (3.4 ms at 1,979 TOP/s) and P.V 6.7e12 bf16
@@ -32,11 +37,11 @@
 // Design: B1's (flash_attention.cu), on hopper_attention.cuh.
 //  * a persistent CTA on each SM walks items of 128 query rows of one
 //    (batch, head), q tiles fastest. The producer warp (its warpgroup at 24
-//    registers) loads an item's Q8 (16 KB, one TMA box), then each 128-key
-//    tile's K8 (16 KB, one box) and V (32 KB) into a ring of kStages stages;
-//    its 32 lanes also write the tile's 128 key factors ks[key] * c into the
-//    stage (512 B) and arrive on the K barrier, which TMA's bytes and the
-//    32 lanes complete together.
+//    registers) loads an item's Q8 (16 KB at D = 128, one TMA box a
+//    128-byte span), then each key tile's K8 (16 KB) and V (32 KB) into a
+//    ring of kStages stages; its 32 lanes also write the tile's key
+//    factors ks[key] * c into the stage (512 B) and arrive on the K
+//    barrier, which TMA's bytes and the 32 lanes complete together.
 //  * two consumer warpgroups (240 registers), 64 query rows each: S = Q8 K8^T
 //    by 4 s8 wgmma m64n128k32 into an s32 accumulator (both operands K-major
 //    from shared memory), issued before P_{t-1} V_{t-1} (B1's bf16 wgmma
@@ -63,26 +68,38 @@
 // faster, L2 traffic is not what bounds it).
 
 #include "hopper_attention.cuh"
-
+#include "hopper_wide.cuh"
 
 namespace {
 
 using flexam::bf16;
 using namespace flexam::hopper;
 
-constexpr int kD = 128;                 // head dim
 constexpr int kBM = 128;                // query rows a CTA (2 x 64)
-constexpr int kBN = 128;                // keys a tile
-constexpr int kStages = 4;              // K/V ring depth
 constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
 constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
-constexpr uint32_t kI8TileBytes = kBN * kD;                      // 16 KB
-constexpr uint32_t kVTileBytes = kBN * kD * sizeof(bf16);        // 32 KB
-constexpr uint32_t kFacBytes = kBN * sizeof(float);              // 512 B
-constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
-constexpr size_t kSmemBytes = 1024 + kI8TileBytes * (1 + kStages) +
-                              kVTileBytes * kStages + kFacBytes * kStages +
-                              kBarBytes;
+
+// The instance for head dim kD (128 or 256): keys a tile, ring depth and
+// the bytes of its tiles (int8 rows in 128-byte spans, V in 64-column
+// spans of 128 bytes).
+template <int kD>
+struct Shape {
+  static constexpr int kBN = kD == 128 ? 128 : 64;
+  static constexpr int kStages = kD == 128 ? 4 : 3;
+  static constexpr int kI8Spans = kD / 128;
+  static constexpr uint32_t kQSpanBytes = kBM * 128;              // 16 KB
+  static constexpr uint32_t kKSpanBytes = kBN * 128;
+  static constexpr uint32_t kVSpanBytes = kBN * 128;
+  static constexpr uint32_t kQBytes = kI8Spans * kQSpanBytes;
+  static constexpr uint32_t kKBytes = kI8Spans * kKSpanBytes;
+  static constexpr uint32_t kVTileBytes = kBN * kD * sizeof(bf16);
+  static constexpr uint32_t kFacBytes = kBN * sizeof(float);
+  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+  static constexpr size_t kSmemBytes = 1024 + kQBytes +
+                                       (kKBytes + kVTileBytes + kFacBytes) *
+                                           kStages +
+                                       kBarBytes;
+};
 
 struct Params {
   const float* qs;   // [B, H, Lq] scale of each query row
@@ -100,6 +117,7 @@ struct Work {
   int q0, h, b, valid, n_tiles;
 };
 
+template <int kBN>
 __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   const int n_qt = (a.Lq + kBM - 1) / kBM;
   Work w;
@@ -111,15 +129,20 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   return w;
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_attention_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const Params a) {
+  using S = Shape<kD>;
+  constexpr int kBN = S::kBN, kStages = S::kStages;
+  constexpr uint32_t kKBytes = S::kKBytes, kVTileBytes = S::kVTileBytes;
+  constexpr uint32_t kFacBytes = S::kFacBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kI8TileBytes;              // + s * kI8TileBytes
-  const uint32_t v_s = k_s + kStages * kI8TileBytes;    // + s * kVTileBytes
+  const uint32_t k_s = q_s + S::kQBytes;                // + s * kKBytes
+  const uint32_t v_s = k_s + kStages * kKBytes;         // + s * kVTileBytes
   const uint32_t f_s = v_s + kStages * kVTileBytes;     // + s * kFacBytes
   const uint32_t bars = f_s + kStages * kFacBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
@@ -153,33 +176,42 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int lane = threadIdx.x;
       int it = 0, n = 0;
       for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-        const Work w = work_item(a, wi);
+        const Work w = work_item<kBN>(a, wi);
         const float* ks = a.ks + ((size_t)w.b * a.H + w.h) * a.Lk;
         // Q of the next item once both consumers' last Q.K^T has landed
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
         if (lane == 0) {
-          mbar_arrive_expect_tx(q_full, kI8TileBytes);
-          tma_load_4d(q_s, &tq, q_full, 0, w.h, w.q0, w.b);
+          mbar_arrive_expect_tx(q_full, S::kQBytes);
+          tma_load_i8_tile<S::kI8Spans, kBM>(q_s, &tq, q_full, w.h, w.q0,
+                                             w.b);
         }
         for (int t = 0; t < w.n_tiles; ++t, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
-          // this lane's 4 keys' factors ks * c (0 past Lk)
-          const int key = t * kBN + 4 * lane;
-          float f[4];
+          // this lane's kBN / 32 keys' factors ks * c (0 past Lk), in one
+          // 16- or 8-byte store
+          constexpr int kPer = kBN / 32;
+          const int key = t * kBN + kPer * lane;
+          float f[kPer];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+          for (int e = 0; e < kPer; ++e)
             f[e] = key + e < a.Lk ? ks[key + e] * a.scale_log2 : 0.f;
-          asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
-                       ::"r"(f_s + s * kFacBytes + 16 * lane), "f"(f[0]),
-                         "f"(f[1]), "f"(f[2]), "f"(f[3]) : "memory");
+          const uint32_t f_dst = f_s + s * kFacBytes + 4 * kPer * lane;
+          if (kPer == 4)
+            asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                         ::"r"(f_dst), "f"(f[0]), "f"(f[1]),
+                           "f"(f[kPer > 2 ? 2 : 0]), "f"(f[kPer > 3 ? 3 : 0])
+                         : "memory");
+          else
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+                         ::"r"(f_dst), "f"(f[0]), "f"(f[1]) : "memory");
           if (lane == 0) {
-            mbar_arrive_expect_tx(k_full(s), kI8TileBytes);
-            tma_load_4d(k_s + s * kI8TileBytes, &tk, k_full(s), 0, w.h,
-                        t * kBN, w.b);
+            mbar_arrive_expect_tx(k_full(s), kKBytes);
+            tma_load_i8_tile<S::kI8Spans, kBN>(k_s + s * kKBytes, &tk,
+                                               k_full(s), w.h, t * kBN, w.b);
             mbar_arrive_expect_tx(v_full(s), kVTileBytes);
-            tma_load_bf16_tile(v_s + s * kVTileBytes, &tv, v_full(s), w.h,
-                               t * kBN, w.b);
+            tma_load_bf16_tile<kD / 64, kBN>(v_s + s * kVTileBytes, &tv,
+                                             v_full(s), w.h, t * kBN, w.b);
           } else {
             mbar_arrive(k_full(s));
           }
@@ -192,44 +224,56 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int c = wg - 1;
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int quad = lane & 3;
-    const uint32_t q_c = q_s + c * (kI8TileBytes / 2);   // its 64 rows
+    const uint32_t q_c = q_s + c * 64 * 128;   // its 64 rows, in each span
 
-    // S = Q8 K8^T over D in 4 steps of 32 bytes, issued
-    auto issue_qk = [&](int (&si)[64], int stage) {
-      const uint32_t ks = k_s + stage * kI8TileBytes;
-      wgmma_m64n128k32_s8_ss_first(si, sw128_desc(q_c, 16, 1024),
-                                   sw128_desc(ks, 16, 1024));
+    // S = Q8 K8^T over D in D / 32 steps of 32 bytes (4 a 128-byte span),
+    // issued
+    auto issue_qk = [&](int (&si)[kBN / 2], int stage) {
+      const uint32_t ks = k_s + stage * kKBytes;
+      wgmma_qk_s8_first(si, sw128_desc(q_c, 16, 1024),
+                        sw128_desc(ks, 16, 1024));
 #pragma unroll
-      for (int k = 1; k < 4; ++k)
-        wgmma_m64n128k32_s8_ss(si, sw128_desc(q_c + 32 * k, 16, 1024),
-                               sw128_desc(ks + 32 * k, 16, 1024));
+      for (int k = 1; k < kD / 32; ++k) {
+        const uint32_t col = (k & 3) * 32;
+        wgmma_qk_s8(si, sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16,
+                                   1024),
+                    sw128_desc(ks + (k >> 2) * S::kKSpanBytes + col, 16, 1024));
+      }
       wgmma_commit();
     };
-    // O += P V over a tile's keys in 8 steps of 16, issued; V is [keys, D]
-    // with D contiguous: MN-major, the two D halves 16 KB apart
-    auto issue_pv = [&](float (&o)[64], uint32_t (&p)[8][4], int stage) {
+    // O += P V over a tile's keys in kBN / 16 steps of 16, issued, each a
+    // wgmma for every 128 columns of D; V is [keys, D] with D contiguous:
+    // MN-major, the 64-column spans kVSpanBytes apart
+    auto issue_pv = [&](float (&o)[kD / 128][64], uint32_t (&p)[kBN / 16][4],
+                        int stage) {
       const uint32_t vs = v_s + stage * kVTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_m64n128k16_rs_tb(o, p[kk],
-                               sw128_desc(vs + kk * 16 * 128, 16384, 1024));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h)
+          wgmma_m64n128k16_rs_tb(
+              o[h], p[kk],
+              sw128_desc(vs + 2 * h * S::kVSpanBytes + kk * 16 * 128,
+                         S::kVSpanBytes, 1024));
       wgmma_commit();
     };
 
-    float o[64], sc[64];
-    int si[64];
-    uint32_t p[8][4];
+    float o[kD / 128][64], sc[kBN / 2];
+    int si[kBN / 2];
+    uint32_t p[kBN / 16][4];
     float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
     int it = 0, n = 0;
     for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-      const Work w = work_item(a, wi);
+      const Work w = work_item<kBN>(a, wi);
       const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
       const float* qs = a.qs + ((size_t)w.b * a.H + w.h) * a.Lq;
       // rows past Lq are zeros from TMA and are not stored
       const float qs_a = r_a < a.Lq ? qs[r_a] : 1.f;
       const float qs_b = r_b < a.Lq ? qs[r_b] : 1.f;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
       m_a = m_b = kNeg;
 
       // Probabilities of key tile t (stage `stage`) in sc, from si. Each
@@ -239,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       auto tile_probs = [&](int t, int stage) {
         const float* f = f_gen + stage * kBN + 2 * quad;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBN / 8; ++j) {
           const float2 fk = *reinterpret_cast<const float2*>(f + 8 * j);
           sc[4 * j] = s32_to_f32_small(si[4 * j]) * fk.x;
           sc[4 * j + 1] = s32_to_f32_small(si[4 * j + 1]) * fk.y;
@@ -250,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float sa = qs_a, sb = qs_b;
         if (n0 + kBN > w.valid) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kBN / 2; ++i) {
             const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
             sc[i] = key < w.valid ? sc[i] * ((i & 2) ? sb : sa)
                                   : (key < a.Lk ? kNeg : kNegInf);
@@ -285,13 +329,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (t == w.n_tiles - 1) mbar_arrive(q_empty);
         tile_probs(t, cur % kStages);
         wgmma_wait<0>();
-        fence_regs(o);
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
         fence_regs(p);
         mbar_arrive(empty(prev % kStages));
         // a factor of exactly 1 for every row of the warp (no new maximum)
         // leaves the accumulator as it is
-        if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f))
-          rescale_rows(o, al_a, al_b);
+        if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {
+#pragma unroll
+          for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
+        }
         l_a = l_a * al_a + sum_a;
         l_b = l_b * al_b + sum_b;
         probs_to_a(sc, p);
@@ -301,7 +348,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       issue_pv(o, p, last % kStages);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
       mbar_arrive(empty(last % kStages));
       it += w.n_tiles;
 
@@ -313,37 +361,44 @@ __global__ void __launch_bounds__(kThreads, 1)
       bf16* base = a.o + (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
       const size_t stride = (size_t)a.H * kD;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (r_a < a.Lq)
-          *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
-              pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
-        if (r_b < a.Lq)
-          *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
-              pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
-      }
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (r_a < a.Lq)
+            *reinterpret_cast<uint32_t*>(base + r_a * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+          if (r_b < a.Lq)
+            *reinterpret_cast<uint32_t*>(base + r_b * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+        }
     }
   }
 }
 
-}  // namespace
+// B6 at head dims from 384 on (hopper_wide.cuh).
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    int8_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const wide::Params a) {
+  wide::wide_cta<wide::kInt8, 0>(&tq, &tk, &tv, a);
+}
 
-extern "C" {
-
-// B6. Returns a cudaError_t (0 on a clean launch).
-int flexam_int8_attention(const void* q8, const void* k8, const void* v, void* o,
-                          const void* qs, const void* ks, const void* k_len,
-                          int B, int H, int Lq, int Lk, int D, float scale_log2,
-                          void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+template <int kD>
+int launch(const void* q8, const void* k8, const void* v, void* o,
+           const void* qs, const void* ks, const void* k_len, int B, int H,
+           int Lq, int Lk, float scale_log2, void* stream) {
+  using S = Shape<kD>;
+  constexpr size_t kSmemBytes = S::kSmemBytes;
   CUtensorMap tq, tk, tv;
-  if (!make_bl_hd_map_i8(&tq, q8, B, Lq, H, kBM) ||
-      !make_bl_hd_map_i8(&tk, k8, B, Lk, H, kBN) ||
-      !make_bl_hd_map(&tv, v, B, Lk, H, 64))
+  if (!make_bl_hd_map_i8(&tq, q8, B, Lq, H, kD, kBM) ||
+      !make_bl_hd_map_i8(&tk, k8, B, Lk, H, kD, S::kBN) ||
+      !make_bl_hd_map(&tv, v, B, Lk, H, kD, 64))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int8_attention_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
@@ -356,12 +411,47 @@ int flexam_int8_attention(const void* q8, const void* k8, const void* v, void* o
                  Lq, Lk, scale_log2};
   const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
   const int grid = (int)(n_work < sms ? n_work : sms);
-  int8_attention_kernel<<<grid, kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
+  int8_attention_kernel<kD><<<grid, kThreads, kSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(tq, tk, tv,
+                                                                   a);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a B6 CTA takes, in bytes.
-int flexam_int8_attention_smem_bytes() { return (int)kSmemBytes; }
+}  // namespace
+
+extern "C" {
+
+// B6. Returns a cudaError_t (0 on a clean launch); cudaErrorInvalidValue
+// for a D that is not a positive multiple of 128.
+int flexam_int8_attention(const void* q8, const void* k8, const void* v, void* o,
+                          const void* qs, const void* ks, const void* k_len,
+                          int B, int H, int Lq, int Lk, int D, float scale_log2,
+                          void* stream) {
+  if (D <= 0 || D % 128 || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return launch<128>(q8, k8, v, o, qs, ks, k_len, B, H, Lq, Lk, scale_log2,
+                       stream);
+  if (D == 256)
+    return launch<256>(q8, k8, v, o, qs, ks, k_len, B, H, Lq, Lk, scale_log2,
+                       stream);
+  wide::Params a{};
+  a.k_len = static_cast<const int*>(k_len);
+  a.qs = static_cast<const float*>(qs);
+  a.ks = static_cast<const float*>(ks);
+  a.o = static_cast<bf16*>(o);
+  a.B = B;
+  a.H = H;
+  a.D = D;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.scale_log2 = scale_log2;
+  return wide::launch<wide::kInt8>(int8_attention_wide_kernel, q8, k8, v, a,
+                                   stream);
+}
+
+// Dynamic shared memory a B6 CTA takes at head dim 128, in bytes.
+int flexam_int8_attention_smem_bytes() { return (int)Shape<128>::kSmemBytes; }
 
 }  // extern "C"

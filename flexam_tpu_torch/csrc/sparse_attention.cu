@@ -12,7 +12,8 @@
 // active blocks in list order; probabilities cast to bf16 for P.V; the
 // output is acc / sum.
 //
-// Layout: q, k, v, o [B, L, H, D] bf16, contiguous, D == 128, L = nq * blk;
+// Layout: q, k, v, o [B, L, H, D] bf16, contiguous, D any multiple of 128,
+// L = nq * blk;
 // kidx [nq, max_nnz] and nnz [nq] int32 on the device, and one int32 of
 // scratch on the device for the work counter, which the entry point zeroes
 // on the stream before the launch.
@@ -34,10 +35,13 @@
 //    (Walking the blocks with the most key blocks first changed nothing
 //    measurable.)
 //  * the producer thread loads the item's Q rows, then for each listed key
-//    block kidx[qb, j] its ceil(blk / 128) key tiles, from row kidx * blk,
-//    into B1's 3-stage K/V ring; the two consumer warpgroups run B1's
-//    wgmma pipeline (Q K_t^T issued before P_{t-1} V_{t-1}), and skip the
+//    block kidx[qb, j] its ceil(blk / kBN) key tiles, from row kidx * blk,
+//    into B1's K/V ring; the two consumer warpgroups run B1's wgmma
+//    pipeline (Q K_t^T issued before P_{t-1} V_{t-1}), and skip the
 //    accumulator's rescale when no row of a warp has a new maximum.
+//  * D = 128 and 256 are instances of this design with B1's tiles (at 256:
+//    64-key tiles, so a listed block is ceil(blk / 64) of them, in a ring
+//    of 2 stages); D >= 384 runs hopper_wide.cuh's.
 //  * `blk` is a multiple of 8 only: a key block's last tile may hold the
 //    next block's keys (TMA loads them: they lie inside L), which get the
 //    logit -1e30; the rows of an item past its block's end belong to the
@@ -45,37 +49,37 @@
 //    7 x 128) no edge falls inside a tile.
 
 #include "hopper_attention.cuh"
+#include "hopper_wide.cuh"
 
 namespace {
 
 using flexam::bf16;
 using namespace flexam::hopper;
 
-constexpr int kD = 128;                 // head dim
 constexpr int kBM = 128;                // query rows an item (2 x 64)
-constexpr int kBN = 128;                // keys a tile
-constexpr int kStages = 3;              // K/V ring depth
 constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 64 columns
-constexpr uint32_t kHalfBytes = 128 * 64 * sizeof(bf16);         // 16 KB
-constexpr uint32_t kTileBytes = 2 * kHalfBytes;                  // 32 KB
-constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
-// + the current work item, handed from the producer to the consumers
-constexpr size_t kSmemBytes =
-    1024 + kTileBytes * (1 + 2 * kStages) + kBarBytes + 16;
+
+// B1's tiles at head dim kD, + the current work item, handed from the
+// producer to the consumers
+template <int kD>
+struct Shape : Bf16Tiles<kD> {
+  static constexpr size_t kSmemBytes = Bf16Tiles<kD>::kSmemBytes + 16;
+};
 
 struct Params {
   const int* kidx;   // [nq, max_nnz]
   const int* nnz;    // [nq]
   int* counter;      // the next work item to hand out
   bf16* o;           // [B, L, H, D]
-  int B, H, L, blk, max_nnz, tiles, n_items;  // tiles: 128-row tiles a block
+  int B, H, L, blk, max_nnz;
+  int q_tiles, k_tiles, n_items;  // 128-row / key tiles a block; nq * q_tiles
   float scale_log2;  // softmax scale * log2(e)
 };
 
 // Work item `wi`: row tile `t` of query block `qb` for head h, batch b,
-// with nnz[qb] key blocks of `tiles` key tiles each (n_items = nq * tiles
-// items a (batch, head)).
+// with nnz[qb] key blocks of `k_tiles` key tiles each (n_items = nq *
+// q_tiles items a (batch, head)).
 struct Work {
   int qb, t, h, b, nb, n_tiles;
 };
@@ -84,30 +88,34 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   const int item = wi % a.n_items;
   const int bh = wi / a.n_items;
   Work w;
-  w.qb = item / a.tiles;
-  w.t = item % a.tiles;
+  w.qb = item / a.q_tiles;
+  w.t = item % a.q_tiles;
   w.h = bh % a.H;
   w.b = bh / a.H;
   w.nb = a.nnz[w.qb];
-  w.n_tiles = w.nb * a.tiles;
+  w.n_tiles = w.nb * a.k_tiles;
   return w;
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     sparse_attention_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const Params a) {
+  using S = Shape<kD>;
+  constexpr int kBN = S::kBN, kStages = S::kStages, kSpans = S::kSpans;
+  constexpr uint32_t kKVBytes = S::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kTileBytes;                      // + s * kTileBytes
-  const uint32_t v_s = q_s + (1 + kStages) * kTileBytes;
-  const uint32_t bars = q_s + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t k_s = q_s + S::kQBytes;                      // + s * kKVBytes
+  const uint32_t v_s = k_s + kStages * kKVBytes;
+  const uint32_t bars = v_s + kStages * kKVBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8u * (2 + s); };
   auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
   auto empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
-  const uint32_t item_s = bars + kBarBytes;
+  const uint32_t item_s = bars + S::kBarBytes;
   volatile int* item_gen = reinterpret_cast<volatile int*>(
       smem + (item_s - smem_u32(smem)));
   const int n_work = a.n_items * a.B * a.H;
@@ -144,21 +152,23 @@ __global__ void __launch_bounds__(kThreads, 1)
           break;
         }
         const Work w = work_item(a, wi);
-        mbar_arrive_expect_tx(q_full, kTileBytes);
-        tma_load_bf16_tile(q_s, &tq, q_full, w.h, w.qb * a.blk + w.t * kBM,
-                           w.b);
+        mbar_arrive_expect_tx(q_full, S::kQBytes);
+        tma_load_bf16_tile<kSpans, kBM>(q_s, &tq, q_full, w.h,
+                                        w.qb * a.blk + w.t * kBM, w.b);
         const int* kb = a.kidx + w.qb * a.max_nnz;
         for (int j = 0; j < w.nb; ++j) {
           const int row0 = kb[j] * a.blk;
-          for (int t = 0; t < a.tiles; ++t, ++it) {
+          for (int t = 0; t < a.k_tiles; ++t, ++it) {
             const int s = it % kStages;
             if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
-            mbar_arrive_expect_tx(k_full(s), kTileBytes);
-            tma_load_bf16_tile(k_s + s * kTileBytes, &tk, k_full(s), w.h,
-                               row0 + t * kBN, w.b);
-            mbar_arrive_expect_tx(v_full(s), kTileBytes);
-            tma_load_bf16_tile(v_s + s * kTileBytes, &tv, v_full(s), w.h,
-                               row0 + t * kBN, w.b);
+            mbar_arrive_expect_tx(k_full(s), kKVBytes);
+            tma_load_bf16_tile<kSpans, kBN>(k_s + s * kKVBytes, &tk,
+                                            k_full(s), w.h, row0 + t * kBN,
+                                            w.b);
+            mbar_arrive_expect_tx(v_full(s), kKVBytes);
+            tma_load_bf16_tile<kSpans, kBN>(v_s + s * kKVBytes, &tv,
+                                            v_full(s), w.h, row0 + t * kBN,
+                                            w.b);
           }
         }
       }
@@ -169,34 +179,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int c = wg - 1;
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int quad = lane & 3;
-    const uint32_t q_c = q_s + c * (kHalfBytes / 2);   // its rows, in each half
+    const uint32_t q_c = q_s + c * 64 * 128;   // its rows, in each span
 
-    // S = Q K^T over D in 8 steps of 16 (4 per 64-column half), issued
-    auto issue_qk = [&](float (&sc)[64], int stage) {
-      const uint32_t ks = k_s + stage * kTileBytes;
+    // S = Q K^T over D in D / 16 steps of 16 (4 per 64-column span), issued
+    auto issue_qk = [&](float (&sc)[kBN / 2], int stage) {
+      const uint32_t ks = k_s + stage * kKVBytes;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const uint32_t off = (k >> 2) * kHalfBytes + (k & 3) * 32;
-        wgmma_m64n128k16_ss(sc, sw128_desc(q_c + off, 16, 1024),
-                            sw128_desc(ks + off, 16, 1024), k);
+      for (int k = 0; k < kD / 16; ++k) {
+        const uint32_t col = (k & 3) * 32;
+        wgmma_qk(sc, sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16, 1024),
+                 sw128_desc(ks + (k >> 2) * S::kKVSpanBytes + col, 16, 1024), k);
       }
       wgmma_commit();
     };
-    // O += P V over a tile's keys in 8 steps of 16, issued; V is [keys, D]
-    // with D contiguous: MN-major, the two D halves 16 KB apart
-    auto issue_pv = [&](float (&o)[64], uint32_t (&p)[8][4], int stage) {
-      const uint32_t vs = v_s + stage * kTileBytes;
+    // O += P V over a tile's keys in kBN / 16 steps of 16, issued, each a
+    // wgmma for every 128 columns of D; V is [keys, D] with D contiguous:
+    // MN-major, the 64-column spans kKVSpanBytes apart
+    auto issue_pv = [&](float (&o)[kD / 128][64], uint32_t (&p)[kBN / 16][4],
+                        int stage) {
+      const uint32_t vs = v_s + stage * kKVBytes;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_m64n128k16_rs_tb(o, p[kk],
-                               sw128_desc(vs + kk * 16 * 128, kHalfBytes, 1024));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h)
+          wgmma_m64n128k16_rs_tb(
+              o[h], p[kk],
+              sw128_desc(vs + 2 * h * S::kKVSpanBytes + kk * 16 * 128,
+                         S::kKVSpanBytes, 1024));
       wgmma_commit();
     };
 
     // keys of a block's last tile: the rest belong to the next block
-    const int edge_keys = a.blk - (a.tiles - 1) * kBN;
-    float o[64], sc[64];
-    uint32_t p[8][4];
+    const int edge_keys = a.blk - (a.k_tiles - 1) * kBN;
+    float o[kD / 128][64], sc[kBN / 2];
+    uint32_t p[kBN / 16][4];
     float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
     int it = 0;
     for (int n = 0;; ++n) {
@@ -205,7 +221,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (wi >= n_work) break;
       const Work w = work_item(a, wi);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
       m_a = m_b = kNeg;
 
       // Probabilities of key tile t in sc, in place. On a block's last
@@ -214,16 +232,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       int tb = 0;   // the tile's index within its key block
       auto tile_probs = [&]() {
         float scale = a.scale_log2;
-        if (tb == a.tiles - 1 && edge_keys < kBN) {
+        if (tb == a.k_tiles - 1 && edge_keys < kBN) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kBN / 2; ++i) {
             const int key = 8 * (i >> 2) + 2 * quad + (i & 1);
             sc[i] = key < edge_keys ? sc[i] * scale : kNeg;
           }
           scale = 1.f;
         }
         softmax_tile(sc, scale, m_a, m_b, al_a, al_b, sum_a, sum_b);
-        tb = tb == a.tiles - 1 ? 0 : tb + 1;
+        tb = tb == a.k_tiles - 1 ? 0 : tb + 1;
       };
 
       // Tile 0 alone; then, for each next tile t, Q K_t^T is issued before
@@ -250,14 +268,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (t == w.n_tiles - 1) mbar_arrive(q_empty);
         tile_probs();
         wgmma_wait<0>();
-        fence_regs(o);
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
         fence_regs(p);
         fence_regs(sc);
         mbar_arrive(empty(prev % kStages));
         // a factor of exactly 1 for every row of the warp (no new maximum)
         // leaves the accumulator as it is
-        if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f))
-          rescale_rows(o, al_a, al_b);
+        if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {
+#pragma unroll
+          for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
+        }
         l_a = l_a * al_a + sum_a;
         l_b = l_b * al_b + sum_b;
         probs_to_a(sc, p);
@@ -267,7 +288,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       issue_pv(o, p, last % kStages);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
       mbar_arrive(empty(last % kStages));
       it += w.n_tiles;
 
@@ -281,59 +303,105 @@ __global__ void __launch_bounds__(kThreads, 1)
       bf16* base = a.o + ((size_t)w.b * a.L + (size_t)w.qb * a.blk) * stride +
                    w.h * kD + 2 * quad;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (r_a < a.blk)
-          *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
-              pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
-        if (r_b < a.blk)
-          *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
-              pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
-      }
+      for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (r_a < a.blk)
+            *reinterpret_cast<uint32_t*>(base + r_a * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+          if (r_b < a.blk)
+            *reinterpret_cast<uint32_t*>(base + r_b * stride + 128 * h +
+                                         8 * j) =
+                pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+        }
     }
   }
 }
 
-}  // namespace
+// B5 at head dims from 384 on (hopper_wide.cuh).
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    sparse_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const wide::Params a) {
+  wide::wide_cta<wide::kSparse, 0>(&tq, &tk, &tv, a);
+}
 
-extern "C" {
-
-// B5. Returns a cudaError_t (0 on a clean launch). `counter` is one int32
-// of scratch on the device; it is zeroed here, on `stream`, before the
-// launch, so no call depends on what an earlier one left there.
-int flexam_sparse_attention(const void* q, const void* k, const void* v, void* o,
-                            const void* kidx, const void* nnz, void* counter,
-                            int B, int H, int nq, int blk, int max_nnz, int D,
-                            float scale_log2, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || nq <= 0 || blk <= 0 || max_nnz <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const void* kidx, const void* nnz, void* counter, int B, int H,
+           int nq, int blk, int max_nnz, float scale_log2, void* stream) {
+  using S = Shape<kD>;
   const int L = nq * blk;
   CUtensorMap tq, tk, tv;
-  if (!make_bl_hd_map(&tq, q, B, L, H, kBoxRows) ||
-      !make_bl_hd_map(&tk, k, B, L, H, kBoxRows) ||
-      !make_bl_hd_map(&tv, v, B, L, H, kBoxRows))
+  if (!make_bl_hd_map(&tq, q, B, L, H, kD, kBoxRows) ||
+      !make_bl_hd_map(&tk, k, B, L, H, kD, kBoxRows) ||
+      !make_bl_hd_map(&tv, v, B, L, H, kD, kBoxRows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      sparse_attention_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
-  const int tiles = (blk + kBM - 1) / kBM;
+  const int q_tiles = (blk + kBM - 1) / kBM;
+  const int k_tiles = (blk + S::kBN - 1) / S::kBN;
   const Params a{static_cast<const int*>(kidx), static_cast<const int*>(nnz),
                  static_cast<int*>(counter), static_cast<bf16*>(o), B, H,
-                 L, blk, max_nnz, tiles, nq * tiles, scale_log2};
-  const long long n_work = (long long)nq * tiles * H * B;
+                 L, blk, max_nnz, q_tiles, k_tiles, nq * q_tiles, scale_log2};
+  const long long n_work = (long long)nq * q_tiles * H * B;
   const int grid = (int)(n_work < sms ? n_work : sms);
   if ((err = cudaMemsetAsync(counter, 0, sizeof(int),
                              static_cast<cudaStream_t>(stream))) != cudaSuccess)
     return (int)err;
-  sparse_attention_kernel<<<grid, kThreads, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
+  sparse_attention_kernel<kD><<<grid, kThreads, S::kSmemBytes,
+                                static_cast<cudaStream_t>(stream)>>>(tq, tk,
+                                                                     tv, a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// B5. Returns a cudaError_t (0 on a clean launch); cudaErrorInvalidValue
+// for a D that is not a positive multiple of 128. `counter` is one int32 of
+// scratch on the device; it is zeroed here, on `stream`, before the launch,
+// so no call depends on what an earlier one left there (the kernel for
+// D >= 384 takes its items from the grid and does not use it).
+int flexam_sparse_attention(const void* q, const void* k, const void* v, void* o,
+                            const void* kidx, const void* nnz, void* counter,
+                            int B, int H, int nq, int blk, int max_nnz, int D,
+                            float scale_log2, void* stream) {
+  if (D <= 0 || D % 128 || B <= 0 || H <= 0 || nq <= 0 || blk <= 0 ||
+      max_nnz <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return launch<128>(q, k, v, o, kidx, nnz, counter, B, H, nq, blk, max_nnz,
+                       scale_log2, stream);
+  if (D == 256)
+    return launch<256>(q, k, v, o, kidx, nnz, counter, B, H, nq, blk, max_nnz,
+                       scale_log2, stream);
+  wide::Params a{};
+  a.kidx = static_cast<const int*>(kidx);
+  a.nnz = static_cast<const int*>(nnz);
+  a.o = static_cast<bf16*>(o);
+  a.B = B;
+  a.H = H;
+  a.D = D;
+  a.Lq = a.Lk = nq * blk;
+  a.blk = blk;
+  a.max_nnz = max_nnz;
+  a.q_tiles = (blk + wide::kRows - 1) / wide::kRows;
+  a.k_tiles = (blk + wide::kKeys - 1) / wide::kKeys;
+  a.scale_log2 = scale_log2;
+  return wide::launch<wide::kSparse>(sparse_attention_wide_kernel, q, k, v, a,
+                                     stream);
 }
 
 }  // extern "C"

@@ -61,11 +61,12 @@ from flexam_tpu_torch.parallel.ulysses import mesh_attention
 
 
 def use_kernels(head_dim: int) -> bool:
-    """The fused kernels B3/B4 serve head dims that are a multiple of 128
-    (the production width); other head dims take the unfused composition.
-    FLEXAM_FUSED, as JAX's `fused_enabled` reads it, turns them off when set
-    to anything but 1 / interpret (FLEXAM_FUSED=0: the differentiable
-    composition that training takes)."""
+    """The fused kernels B3/B4 serve head dims that are a multiple of 128,
+    the head dims the attention kernels take on the card (128 on every
+    preset, 256 and wider too); other head dims take the unfused
+    composition. FLEXAM_FUSED, as JAX's `fused_enabled` reads it, turns them
+    off when set to anything but 1 / interpret (FLEXAM_FUSED=0: the
+    differentiable composition that training takes)."""
     env = os.environ.get("FLEXAM_FUSED")
     if env is not None and env not in ("1", "interpret"):
         return False

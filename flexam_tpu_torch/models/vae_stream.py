@@ -157,6 +157,45 @@ def _decoder_cache_shapes(cfg: VAEConfig, b, lh, lw, dtype, device):
     return caches
 
 
+# The streamed decode's peak above its start, in copies of the widest
+# activation one latent frame makes (`decode_widest_bytes`): a base and so
+# many more a latent frame of the group. The peaks measured on an H100 at
+# 480x832 and 512x896, groups 1, 2 and 4 (`tools/decode_probe.py
+# --ladder`), are 24.3, 38.4 and 69.5 such copies at both sizes; these
+# constants lie 6-9 % above them.
+DECODE_PEAK_BASE = 10.0
+DECODE_PEAK_PER_FRAME = 16.0
+
+
+def decode_widest_bytes(cfg: VAEConfig, b: int, lh: int, lw: int,
+                        itemsize: int = 2) -> int:
+    """Bytes of the largest activation one latent frame makes in the
+    decoder at latent size lh x lw: the input of a spatial upsample's conv
+    (the stage's channels at twice its height and width) or the last
+    stage's output, over the pixel frames the latent frame becomes."""
+    dims = _decoder_dims(cfg)
+    temporal_up = tuple(reversed(cfg.temporal_downsample))
+    frames, hw, widest = 1, lh * lw, 0
+    for i in range(len(cfg.dim_mult)):
+        if i == len(cfg.dim_mult) - 1:
+            widest = max(widest, dims[i + 1] * frames * hw)
+            break
+        if i < len(temporal_up) and temporal_up[i]:
+            frames *= 2
+        hw *= 4
+        widest = max(widest, dims[i + 1] * frames * hw)
+    return b * widest * itemsize
+
+
+def decode_group_peak_bytes(cfg: VAEConfig, b: int, group_size: int,
+                            lh: int, lw: int, itemsize: int = 2) -> int:
+    """Estimate of the device memory a streamed decode in groups of
+    `group_size` latent frames takes above what was allocated when it
+    started (module constants above)."""
+    return int((DECODE_PEAK_BASE + DECODE_PEAK_PER_FRAME * group_size)
+               * decode_widest_bytes(cfg, b, lh, lw, itemsize))
+
+
 def _decode_groups(params: dict, cfg: VAEConfig, zlat: torch.Tensor,
                    group_size: int):
     """The streamed-decode loop: latent de-normalization, then the causal

@@ -13,11 +13,14 @@ Port of `flexam_tpu/ops/flash_attention.py`. The CUDA kernels live in
 Both are Hopper kernels (TMA loads into an mbarrier ring, wgmma, a producer
 warp beside two consumer warpgroups); `csrc/flash_attention.cu` says how.
 
-Layout [B, L, H, D] (the reference `attention()` layout), bf16, D == 128 on
-the card. A CUDA tensor launches the kernel or raises; a CPU tensor takes
-`attention_plain`, which mirrors the JAX math (`core/attention.py:
-xla_attention`: fp32 logits and softmax, probabilities cast to q.dtype before
-P.V) with the kernels' -1e30 key mask.
+Layout [B, L, H, D] (the reference `attention()` layout), bf16, on the card
+any D that is a multiple of 128, the JAX kernels' domain. Each head dim
+runs one instance of the kernel (`head_dim_instance`, shared with B5 and
+B6): 128 and 256 have their own, every larger multiple of 128 the wide
+design of `csrc/hopper_wide.cuh`. A CUDA tensor launches the kernel or
+raises; a CPU tensor takes `attention_plain`, which mirrors the JAX math
+(`core/attention.py:xla_attention`: fp32 logits and softmax, probabilities
+cast to q.dtype before P.V) with the kernels' -1e30 key mask.
 """
 
 from __future__ import annotations
@@ -90,9 +93,22 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def head_dim_instance(d: int) -> str:
+    """The kernel instance that runs head dim `d` on the card, in B1, B2,
+    B5 and B6 alike: "d128", "d256", or "wide" (`csrc/hopper_wide.cuh`:
+    slabs of 128 output columns) for any larger multiple of 128. Raises
+    ValueError for a head dim that is not a positive multiple of 128 (the
+    dispatcher sends those to exact attention, as JAX's does)."""
+    if d <= 0 or d % 128:
+        raise ValueError(f"the attention kernels take a head_dim that is a "
+                         f"multiple of 128, got {d}")
+    return {128: "d128", 256: "d256"}.get(d, "wide")
+
+
 def check_inputs(q, k, v, k_len, name):
-    """Raise unless q [B, Lq, H, 128], k = v [B, Lk, H, 128] are bf16,
-    contiguous and on one CUDA device; returns k_len as int32 (or None)."""
+    """Raise unless q [B, Lq, H, D], k = v [B, Lk, H, D] are bf16,
+    contiguous and on one CUDA device, with D a multiple of 128
+    (`head_dim_instance`); returns k_len as int32 (or None)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k and v must be on one CUDA device")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -106,8 +122,10 @@ def check_inputs(q, k, v, k_len, name):
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree on B, H or D")
-    if d != 128:
-        raise ValueError(f"{name}: the kernel takes head_dim 128, got {d}")
+    try:
+        head_dim_instance(d)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: q, k, v must be contiguous and "

@@ -18,11 +18,15 @@ done here in plain torch ops, step for step, by `quantize_qk`:
 The kernel then takes int8 logits, dequantized by (q scale * k scale) *
 (softmax scale * log2 e), an exp2 online softmax in fp32, and a bf16 P.V.
 `int8_attention_plain` repeats the same steps in torch over query chunks;
-its int8 products are exact in fp32 (|s| <= 127^2 * 128 < 2^24) as long as
-the matmul runs in full fp32 (on the card: TF32 off).
+its int8 products are exact in fp32 (|s| <= 127^2 * D < 2^24) up to
+D = 1024 as long as the matmul runs in full fp32 (on the card: TF32 off).
+Above that its fp32 sums round; the kernel sums in s32, exact at any D, and
+refuses no D for it. The quantization blocks stay `blk` rows by the whole
+head dim, as in JAX.
 
-Layout [B, L, H, D], bf16, D == 128 on the card. A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain version.
+Layout [B, L, H, D], bf16, on the card any D that is a multiple of 128
+(`flash_attention.head_dim_instance`). A CUDA tensor launches the kernel or
+raises; a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ The CUDA kernel lives in `csrc/sparse_attention.cu`. It takes the
 compacted per-row key-block lists `kidx [nq, max_nnz]` and `nnz [nq]` as
 int32 tensors on the device and a scratch int32 for the counter by which
 its CTAs take their work items (the entry point zeroes it), and runs B1's
-online softmax over each query block's active key blocks only.
+online softmax over each query block's active key blocks only, at any head
+dim that is a multiple of 128 (`flash_attention.head_dim_instance`).
 `masked_dense_attention` is its plain version: dense attention under the token mask the rows expand to, with the
 probabilities cast to q's dtype before P.V as in B1's plain version.
 

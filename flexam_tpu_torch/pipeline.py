@@ -65,7 +65,8 @@ from flexam_tpu_torch.models.dit import (WAN22_TEACACHE_COEFFICIENTS,
                                          make_rope_tables_for)
 from flexam_tpu_torch.models.t5 import t5_encode
 from flexam_tpu_torch.models.vae import vae_decode, vae_encode_mode
-from flexam_tpu_torch.models.vae_stream import (vae_decode_streamed_u8,
+from flexam_tpu_torch.models.vae_stream import (decode_group_peak_bytes,
+                                                vae_decode_streamed_u8,
                                                 vae_decode_streamed_yuv420,
                                                 vae_encode_mode_streamed,
                                                 vae_encode_stream_fn,
@@ -150,6 +151,18 @@ class FlexAMModels:
     t5_params: Optional[dict] = None
     dit2_params: Optional[dict] = None   # high-noise expert (timestep MoE)
     t5_from_checkpoint: bool = False
+
+
+def device_room_bytes(device) -> Optional[int]:
+    """Bytes a new allocation on `device` can take: the free memory
+    `torch.cuda.mem_get_info` reports and what torch's caching allocator
+    holds unused; None off CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
 
 
 def _put_quantized(tree, device, wide_dtype=torch.bfloat16):
@@ -1004,10 +1017,12 @@ class FlexAMGenerationPipeline:
         """Latents -> uint8 video [B, 3, T, H, W] on the host. Above the
         streaming threshold the decode runs in groups of latent frames,
         JAX's sizes and ladder: FLEXAM_DECODE_GROUP if set, else 2 with the
-        DiT resident and 4 without it; on running out of device memory the
-        group steps down to 2, then 1 (an error on the last size, and any
-        other error, is raised). FLEXAM_DECODE_FETCH=yuv420 copies YUV
-        4:2:0 to the host and converts it there (`yuv420_to_rgb`)."""
+        DiT resident and 4 without it, started below a size whose estimated
+        peak exceeds the device's room (`decode_group_sizes`); on running
+        out of device memory the group steps down to 2, then 1 (an error on
+        the last size, and any other error, is raised).
+        FLEXAM_DECODE_FETCH=yuv420 copies YUV 4:2:0 to the host and
+        converts it there (`yuv420_to_rgb`)."""
         n, _, lt, lh, lw = latents.shape
         if self.vae_mesh is not None:
             from flexam_tpu_torch.parallel.vae_parallel import \
@@ -1023,20 +1038,41 @@ class FlexAMGenerationPipeline:
         u8 = torch.round((out.float() + 1.0) * (255.0 / 2.0)).clamp(0, 255)
         return u8.to(torch.uint8).cpu()
 
-    def decode_group_sizes(self) -> List[int]:
+    def decode_group_sizes(self, latents: Optional[torch.Tensor] = None
+                           ) -> List[int]:
         """The streamed decode's group sizes, largest first: the first, then
         the out-of-memory ladder's 2 and 1. JAX's first size is 2 only with
         the DiT resident and the clip big (more than VAE_STREAM_THRESHOLD
         pixels at 4 frames a latent frame), which every clip that streams
-        here is."""
+        here is. Given the latents on a CUDA device, the ladder starts at
+        its largest size whose estimated peak (`decode_group_peak_bytes`)
+        fits in the room the device has, printing why, rather than running
+        the larger size out of memory: a convolution whose workspace cannot
+        be allocated runs, and stays for the rest of the process, on a
+        slower cuDNN plan (4x the decode's time, PERF.md). None fits: the
+        smallest."""
         env = os.environ.get("FLEXAM_DECODE_GROUP")
         first = int(env) if env else (
             2 if self.models.dit_params is not None else 4)
-        return sorted({g for g in (first, 2, 1) if g <= first}, reverse=True)
+        sizes = sorted({g for g in (first, 2, 1) if g <= first}, reverse=True)
+        room = None if latents is None else device_room_bytes(latents.device)
+        if room is None:
+            return sizes
+        n, _, _, lh, lw = latents.shape
+
+        def peak(g):
+            return decode_group_peak_bytes(self.cfg.vae, n, g, lh, lw,
+                                           latents.element_size())
+        start = next((g for g in sizes if peak(g) <= room), sizes[-1])
+        if start != sizes[0]:
+            print(f"streamed decode: group_size={sizes[0]} needs about "
+                  f"{peak(sizes[0]) / 1e9:.1f} GB, {room / 1e9:.1f} GB free; "
+                  f"starting at group_size={start}", flush=True)
+        return [g for g in sizes if g <= start]
 
     def _decode_streamed_u8(self, z: torch.Tensor) -> torch.Tensor:
         yuv = os.environ.get("FLEXAM_DECODE_FETCH", "") == "yuv420"
-        sizes = self.decode_group_sizes()
+        sizes = self.decode_group_sizes(z)
         for i, g in enumerate(sizes):
             try:
                 if yuv:

@@ -20,7 +20,8 @@ prints one JSON line per result:
     global loads and stores (LDG.E.128 / STG.E.128, any suffix), its SASS
     instruction count, and the opcodes whose counts differ from the first
     other tree's. A kernel instantiated for several row widths (B3, B4) is
-    reported at the flagship width's instantiation (`FLAGSHIP_NV`);
+    reported at the flagship width's instantiation (`FLAGSHIP_NV`), one
+    instantiated for several head dims (B1, B2, B5, B6) at head dim 128;
   * "within_bound": each build's output held to the plain version by the
     kernel's check in `testing` (the designs sum in different orders, so
     their outputs are compared with the bound, not bit for bit), with the
@@ -78,7 +79,9 @@ ENTRY_POINTS = ("flexam_flash_attention", "flexam_single_kv_attention",
                 "flexam_sparse_attention", "flexam_int8_attention",
                 "flexam_ln_modulation", "flexam_rmsnorm_rope")
 KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
-           "int8_attention_kernel", "ln_mod_kernel", "rmsnorm_rope_kernel")
+           "int8_attention_kernel", "ln_mod_kernel", "rmsnorm_rope_kernel",
+           "flash_wide_kernel", "single_kv_wide_kernel",
+           "sparse_attention_wide_kernel", "int8_attention_wide_kernel")
 # the row kernels' instantiation at the flagship width (3072 features: 12
 # 16-byte vectors a lane)
 FLAGSHIP_NV = 12
@@ -138,8 +141,12 @@ def kernel_label(symbol: str):
 
 def flagship(by_label: dict, kernel: str):
     """The entry of `kernel` in a dict keyed by `kernel_label`: the kernel
-    itself, or its instantiation at the flagship width."""
-    return by_label.get(kernel, by_label.get(f"{kernel}<{FLAGSHIP_NV}>"))
+    itself, or its instantiation at the flagship width (B3, B4:
+    FLAGSHIP_NV vectors a lane; B1, B2, B5, B6: head dim 128)."""
+    for key in (kernel, f"{kernel}<{FLAGSHIP_NV}>", f"{kernel}<128>"):
+        if key in by_label:
+            return by_label[key]
+    return None
 
 
 def wide_accesses(ops) -> dict:

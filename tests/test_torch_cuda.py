@@ -94,8 +94,8 @@ def test_attention_rejects_unsupported(dev):
 def test_attention_entry_refuses_bad_maps(dev, entry):
     """The C entry points themselves (below the wrappers' checks) return an
     error and launch nothing when a tensor map cannot be built: a pointer
-    off a 16-byte boundary, or a head dim other than 128; B2 also refuses
-    more than 512 keys."""
+    off a 16-byte boundary, or a head dim that is not a multiple of 128; B2
+    also refuses more than 512 keys."""
     from flexam_tpu_torch.ops import build
     fn = getattr(build.library(), entry)
     q = _rand(dev, 1, 64, 2, 128)
@@ -115,20 +115,20 @@ def test_attention_entry_refuses_bad_maps(dev, entry):
     torch.cuda.synchronize()
 
 
-def _structured(dev, b, lq, lk, h, seed):
+def _structured(dev, b, lq, lk, h, seed, d=128):
     """q/k/v whose rows and columns all differ in known ways: q and k carry
     a row-dependent offset along one dim (so each query row prefers other
     keys, and a row or key swap moves the output), v a ramp over its
     columns plus one over keys (so a transposed or mis-swizzled V, or a
     column swap, is off by far more than the bound)."""
-    q, k, v = (_rand(dev, b, n, h, 128, seed=seed + i).float()
+    q, k, v = (_rand(dev, b, n, h, d, seed=seed + i).float()
                for i, n in enumerate((lq, lk, lk)))
     rows = torch.arange(lq, device=dev, dtype=torch.float32)
     keys = torch.arange(lk, device=dev, dtype=torch.float32)
     q[..., 0] += 6.0 * (rows / lq - 0.5)[None, :, None]
     k[..., 0] += 6.0 * (keys / lk - 0.5)[None, :, None]
-    cols = torch.arange(128, device=dev, dtype=torch.float32)
-    v = 0.25 * v + (cols / 32.0)[None, None, None, :] \
+    cols = torch.arange(d, device=dev, dtype=torch.float32)
+    v = 0.25 * v + (cols / 32.0 * 128 / d)[None, None, None, :] \
         - (2.0 * keys / lk)[None, :, None, None]
     return (t.to(torch.bfloat16) for t in (q, k, v))
 
@@ -583,6 +583,122 @@ def test_sparse_refuses_an_empty_block_list(dev):
     assert sp.launches["sparse_attention"] == before
 
 
+# head dims above 128: 256 runs its own instance of each kernel, 384 and
+# 512 the wide design (csrc/hopper_wide.cuh)
+WIDE_HEAD_DIMS = (256, 384, 512)
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("b,h,lq,lk,k_len", [
+    (1, 2, 1, 129, None),            # one query row, keys 1 past a tile
+    (2, 2, 200, 300, [300, 63]),     # k_len inside the first 64-key tile
+    (2, 1, 77, 700, [1, 650]),       # k_len 1; a ragged q tile
+    (1, 2, 130, 520, [0]),           # every key masked alike
+])
+def test_flash_attention_head_dims(dev, d, b, h, lq, lk, k_len):
+    """B1 at head dims 256, 384 and 512 on structured inputs (a column,
+    span or slab mixed up is off by far more than the bound)."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=80, d=d)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), f"B1 d{d}")
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("lq,lk,k_len", [(300, 96, None), (200, 512, [5, 300]),
+                                         (65, 512, [512, 0]), (1, 1, None)])
+def test_single_kv_attention_head_dims(dev, d, lq, lk, k_len):
+    """B2 at head dims 256, 384 and 512, up to its 512 keys."""
+    q, k, v = _structured(dev, 2, lq, lk, 2, seed=84, d=d)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["single_kv_attention"]
+    got = fa.single_kv_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["single_kv_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), f"B2 d{d}")
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("b,lq,lk,k_len", [(2, 300, 300, None),
+                                           (1, 2000, 2000, [777]),
+                                           (2, 130, 70, [70, 1])])
+def test_int8_attention_head_dims(dev, d, b, lq, lk, k_len):
+    """B6 at head dims 256, 384 and 512, with k_len masks and quantization
+    blocks that do not align with its tiles."""
+    q, k, v = (_rand(dev, b, lq, 2, d, seed=88), _rand(dev, b, lk, 2, d,
+                                                        seed=89),
+               _rand(dev, b, lk, 2, d, seed=90))
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    check_int8_attention(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                         f"B6 d{d}")
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("frames,window,spatial", [
+    (5, 2, 448),     # blk 896: 7 row tiles, 14 key tiles of 64
+    (9, 2, 100),     # blk 200: each block's last tile ends mid-tile
+    (6, 1, 40),      # blk 40: a block inside one tile
+])
+def test_sparse_attention_head_dims(dev, d, frames, window, spatial):
+    """B5 at head dims 256, 384 and 512 on structured inputs."""
+    pol = sp.video_sparse_policy(frames, spatial, ref_tokens=spatial,
+                                 window=window)
+    rows, blk = pol["rows"], pol["blk"]
+    q, k, v = _structured(dev, 1, pol["video_len"], pol["video_len"], 2,
+                          seed=92, d=d)
+    before = sp.launches["sparse_attention"]
+    got = sp.sparse_flash_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before + 1
+    check_sparse_attention(got, sp.masked_dense_attention(q, k, v, rows, blk),
+                           f"B5 d{d}")
+
+
+@pytest.mark.parametrize("d", [256, 384])
+def test_head_dims_above_128_launch_kernels_not_the_branch(dev, d,
+                                                           monkeypatch):
+    """The dispatcher sends a head dim that is a multiple of 128 to the
+    kernels, never to the exact branch: B1 for self-attention, B2 for 512
+    text keys, B6 under pallas_int8; and a head dim that is not one (192)
+    to the exact branch; the kernels themselves raise on it."""
+    q = _rand(dev, 2, 600, 2, d, seed=95)
+    t = _rand(dev, 2, 512, 2, d, seed=96)
+    calls = attn.exact_calls["exact_attention"]
+    before = dict(fa.launches)
+    check_attention(attn.attention(q, q, q), fa.attention_plain(q, q, q),
+                    "dispatch B1")
+    check_attention(attn.attention(q, t, t), fa.attention_plain(q, t, t),
+                    "dispatch B2")
+    assert fa.launches == {"flash_attention": before["flash_attention"] + 1,
+                           "single_kv_attention":
+                               before["single_kv_attention"] + 1}
+    monkeypatch.setenv("FLEXAM_ATTENTION", "pallas_int8")
+    attn._default_backend.cache_clear()
+    try:
+        n8 = i8.launches["int8_attention"]
+        check_int8_attention(attn.attention(q, q, q),
+                             i8.int8_attention_plain(q, q, q), "dispatch B6")
+        assert i8.launches["int8_attention"] == n8 + 1
+    finally:
+        monkeypatch.delenv("FLEXAM_ATTENTION")
+        attn._default_backend.cache_clear()
+    assert attn.exact_calls["exact_attention"] == calls
+    odd = _rand(dev, 1, 64, 2, 192, seed=97)
+    attn.attention(odd, odd, odd)
+    assert attn.exact_calls["exact_attention"] == calls + 1
+    for fn in (fa.flash_attention, fa.single_kv_attention,
+               i8.int8_attention):
+        with pytest.raises(ValueError):
+            fn(odd, odd, odd)
+
+
 @pytest.mark.parametrize("d", [24, 64, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k_len", [None, [300, 77]])
@@ -833,10 +949,13 @@ def test_offload_pins_frees_and_restores(dev, quant):
 def test_decode_ladder_on_a_real_oom(dev, monkeypatch, capsys):
     """Device memory held so that a group of 4 latent frames cannot be
     decoded and a group of 2 can: the ladder steps down on the real
-    out-of-memory error and gives group 2's video bit for bit."""
+    out-of-memory error and gives group 2's video bit for bit. The first
+    group's choice from the device's room is turned off, so that the
+    decode meets the error (the ladder is its backstop)."""
     import gc
 
     from flexam_tpu_torch import pipeline as tpipe
+    monkeypatch.setattr(tpipe, "device_room_bytes", lambda device: None)
     pipe = _tiny_pipe(dev)
     pipe.VAE_STREAM_THRESHOLD = 1000
     pipe.offload_dit_to_host()                        # first group: 4

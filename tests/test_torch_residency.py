@@ -336,6 +336,40 @@ def test_decode_ladder_steps_down(pipes, streaming, monkeypatch, capsys):
     assert tried == [4, 2, 1]
 
 
+@pytest.mark.parametrize("room,want", [(4, [4, 2, 1]), (2, [2, 1]),
+                                       (1, [1])])
+def test_decode_starts_at_the_group_that_fits(pipes, streaming, monkeypatch,
+                                              capsys, room, want):
+    """The device's room (faked) at a group's estimated peak: the decode
+    starts at the largest group whose peak fits and never tries a larger
+    one (which would run out of memory and leave slower cuDNN plans behind
+    for its shapes); the video is that group's, bit for bit, and a step
+    below the first size is announced. Room below group 1's peak starts
+    at 1 and leaves the error to the ladder."""
+    tp = pipes[1]
+    z = torch.from_numpy(_latents(12))
+    n, _, _, lh, lw = z.shape
+    peak = {g: tvs.decode_group_peak_bytes(tp.cfg.vae, n, g, lh, lw,
+                                           z.element_size())
+            for g in (1, 2, 4)}
+    assert peak[1] < peak[2] < peak[4]
+    bytes_free = peak[room] if room > 1 else peak[1] - 1
+    monkeypatch.setenv("FLEXAM_DECODE_GROUP", "4")
+    monkeypatch.setattr(tpipe, "device_room_bytes",
+                        lambda device: bytes_free)
+    assert tp.decode_group_sizes() == [4, 2, 1]
+    assert tp.decode_group_sizes(z) == want
+    tried = []
+    _group_spy(monkeypatch, tpipe, "vae_decode_streamed_u8", tried)
+    got = tp.decode_u8(z)
+    assert tried == want[:1]
+    direct = tvs.vae_decode_streamed_u8(tp.models.vae_params, tp.cfg.vae, z,
+                                        group_size=want[0])
+    assert torch.equal(got, direct)
+    out = capsys.readouterr().out
+    assert (f"starting at group_size={want[0]}" in out) == (want[0] != 4)
+
+
 def _luma(a):
     a = a.astype(np.float32)
     return 16.0 + 0.256788 * a[..., 0] + 0.504129 * a[..., 1] \
