@@ -26,13 +26,32 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        yardstick (B3/B4: GB/s beside out.copy_(x)'s); then
                        B6 on q/k whose size changes from one quantization
                        block to the next, and B2, B3 (RIFLEx tables) and B4
-                       at the long path's shapes;
+                       at the long path's shapes; B1, B2, B5 and B6 at head
+                       dim 256 ("d256") and in the wide design at the
+                       flagship's width 3,072 ("wide": 8 x 384, 6 x 512),
+                       384 and 512 also checked at small shapes; and B1, B2,
+                       B3, B4 (both modes) and B1 at FLUX's shape in fp32
+                       ("f32": TF32 attention, each held to its exact fp32
+                       plain version, the bound at the TF32 peak), fp32 B1
+                       and B2 at head dims 256 and 384 checked;
   reference_check      a small head_dim-128 DiT through the kernels on the
                        card against the same DiT on the CPU (plain path),
                        with dense, block-sparse and int8 attention;
   dit_forward_flagship one DiT forward at full width (Wan2.2-Fun-5B,
                        512x896x97f: 11,648 tokens with the ref block, CFG
                        batch 2), random bf16 weights made on the card;
+  dit_forward_head_dim_256  the same forward in 12 heads of 256, held to
+                       its exact composition;
+  dit_forward_fp32     the same forward in fp32 (the flagship's tree cast
+                       to fp32; the bf16 tree waits on the host): B1 30,
+                       B2 30, B3 60 and B4 60 launches in fp32, held to the
+                       exact fp32 composition within FP32_FORWARD_REL;
+  generate_fp32        FlexAMGenerationPipeline(compute_dtype=float32)
+                       .generate on that tree at 512x896x17f (cut from the
+                       flagship clip for the smoke's time), 2 steps, frame 0
+                       known, a random text context in place of umT5: the
+                       uint8 video's shape and finiteness, launches,
+                       seconds and peak memory;
   generate             the main path: the full-width model (umT5-XXL, the
                        48-channel VAE, the DiT) on 512x896x17f with the
                        first frame known, 4 Euler steps at CFG 6.0, T5
@@ -615,10 +634,14 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PROFILE = False              # --profile: profile_forward's breakdowns
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 tensor-core peak
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 SEED = 1234
 FLAGSHIP_LATENT = (25, 32, 56)     # 97 frames at 512 x 896, 16x VAE
+FLAGSHIP_QKV = (2, 11648, 24, 128)  # its attention q/k/v [B, L, H, D]
+FLAGSHIP_TEXT = 512                # its text keys
+FLAGSHIP_DIM = 3072                # its hidden width
 GENERATE_VIDEO = (17, 512, 896)    # frames, height, width of the main path
 TRACKS_VIDEO = (97, 512, 896)      # the track path: 11,648 tokens
 TRACK_DENSITY = 10                 # grid spacing in pixels: 4,680 points
@@ -716,6 +739,10 @@ HOPPER_OPCODES = {
         ("int8_attention_kernel", ("IGMMA", "HGMMA", "UTMALDG")))},
     "flash_wide_kernel": ("HGMMA", "UTMALDG"),
     "single_kv_wide_kernel": ("HGMMA", "UTMALDG"),
+    # fp32 (TF32 wgmma is HGMMA too): head dim 128 and the wide design
+    **{f"{k}<f32>": ("HGMMA", "UTMALDG") for k in (
+        "flash_kernel", "single_kv_kernel", "flash_wide_kernel",
+        "single_kv_wide_kernel")},
     "sparse_attention_wide_kernel": ("HGMMA", "UTMALDG"),
     "int8_attention_wide_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
 
@@ -731,7 +758,8 @@ def hopper_sass(lib: Path) -> dict:
     index); a conversion of each logit would add I2F (or I2FP) without RP.
     And the row kernels' (B3, B4) 128-bit global loads and stores, by
     instantiation (`ln_mod_kernel<12>` serves 3072 features); fails if one
-    lacks either. Null where the toolkit has no cuobjdump."""
+    lacks either (their fp32 instances, `ln_mod_f32_kernel<3>` at 3072,
+    alike). Null where the toolkit has no cuobjdump."""
     from flexam_tpu_torch.tools.attention_ab import (key_opcodes,
                                                      sass_opcodes,
                                                      wide_accesses)
@@ -741,7 +769,8 @@ def hopper_sass(lib: Path) -> dict:
         return {"cuobjdump": None, "reason": str(e)[:200]}
     keys = {k: v for k, v in key_opcodes(ops).items() if k in HOPPER_OPCODES}
     rows = {k: wide_accesses(v) for k, v in ops.items()
-            if k.startswith(("ln_mod_kernel", "rmsnorm_rope_kernel"))}
+            if k.startswith(("ln_mod_kernel", "rmsnorm_rope_kernel",
+                             "ln_mod_f32_kernel", "rmsnorm_rope_f32_kernel"))}
     if len(rows) < 2 or not all(all(n.values()) for n in rows.values()):
         raise AssertionError(f"row kernels without 128-bit global loads or "
                              f"stores in their SASS: {rows}")
@@ -761,9 +790,57 @@ def hopper_sass(lib: Path) -> dict:
     return keys
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """The least time of `flops` at `peak` (bf16 by default; TF32 for the
+    fp32 kernels) and of `nbytes` at the card's memory rate, the larger
+    and what bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for
+    `F.scaled_dot_product_attention` on these [B, H, L, D] inputs."""
+    try:
+        import torch
+        from torch.nn.attention import SDPBackend
+        names = {int(b.value): b.name
+                 for b in SDPBackend.__members__.values()}
+        return names.get(int(torch._fused_sdp_choice(q, k, v, **kw)),
+                         "unknown")
+    except Exception as e:            # a private call: name what failed
+        return f"unknown ({type(e).__name__})"
+
+
+def kernel_row(check, name, fn, plain, flops, nbytes, yardstick,
+               peak=PEAK_BF16_FLOPS, t_ops=None, lib_kw=None,
+               **extra) -> dict:
+    """One kernel line: `fn()` held to `plain()` by `check`, timed back to
+    back beside its bound (`bound_ms` at `peak`, or `t_ops` ms of
+    operations where they run at two rates), the plain version and the
+    yardstick (a library call never on the path, timed with `device_ms`'s
+    `lib_kw`; None if it runs out of memory)."""
+    import torch
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err = check(got, ref, name)
+    del got, ref
+    bms, by = bound_ms(flops, nbytes, peak)
+    if t_ops is not None:        # B6: int8 and bf16 operations
+        bms, by = ((t_ops, "operations") if t_ops >= nbytes / PEAK_BYTES
+                   * 1e3 else (nbytes / PEAK_BYTES * 1e3, "bytes"))
+    ms = device_ms(fn)
+    try:
+        lib_ms = device_ms(yardstick, **(lib_kw or {}))
+    except torch.cuda.OutOfMemoryError as e:
+        lib_ms = None
+        extra["library_not_measured"] = f"out of memory: {str(e)[:120]}"
+    torch.cuda.empty_cache()
+    return dict(err, ms=ms, tflops=flops / ms / 1e9, bound_ms=bms,
+                bound_by=by, bound_share=bms / ms,
+                plain_ms=device_ms(plain, launches=1, reps=3, warmup=1),
+                library_ms=lib_ms, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -783,7 +860,8 @@ def phase_kernels(dev, results: dict) -> None:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
-    B, H, D, L, LT, DIM = 2, 24, 128, 11648, 512, 3072
+    B, L, H, D = FLAGSHIP_QKV
+    LT, DIM = FLAGSHIP_TEXT, FLAGSHIP_DIM
 
     def randn(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
@@ -890,6 +968,10 @@ def phase_kernels(dev, results: dict) -> None:
     for name, row in head_dim_256_kernels(dev, gen).items():
         lines[name]["d256"] = row
     lines["wide_head_dims"] = wide_head_dims(dev)
+    for name, rows in wide_head_dim_times(dev, gen).items():
+        lines[name]["wide"] = rows
+    for name, row in fp32_kernels(dev, gen).items():
+        lines[name]["f32"] = row
     results.update(lines)
     emit("kernels", t0, kernels=sorted(lines), **lines)
 
@@ -1060,37 +1142,11 @@ def head_dim_256_kernels(dev, gen) -> dict:
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
-    from flexam_tpu_torch.ops import int8_attention as i8
-    from flexam_tpu_torch.ops import sparse_attention as sp
-    from flexam_tpu_torch.testing import (check_attention,
-                                          check_int8_attention,
-                                          check_sparse_attention)
+    from flexam_tpu_torch.testing import check_attention
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
-
-    def row(check, name, fn, plain, flops, nbytes, yardstick, t_ops=None,
-            **extra):
-        got, ref = fn(), plain()
-        torch.cuda.synchronize()
-        err = check(got, ref, name)
-        del got, ref
-        bms, by = bound_ms(flops, nbytes)
-        if t_ops is not None:        # B6: int8 and bf16 operations
-            bms, by = ((t_ops, "operations") if t_ops >= nbytes / PEAK_BYTES
-                       * 1e3 else (nbytes / PEAK_BYTES * 1e3, "bytes"))
-        ms = device_ms(fn)
-        try:
-            lib_ms = device_ms(yardstick)
-        except torch.cuda.OutOfMemoryError as e:
-            lib_ms = None
-            extra["library_not_measured"] = f"out of memory: {str(e)[:120]}"
-        torch.cuda.empty_cache()
-        return dict(err, ms=ms, tflops=flops / ms / 1e9, bound_ms=bms,
-                    bound_by=by, bound_share=bms / ms,
-                    plain_ms=device_ms(plain, launches=1, reps=3, warmup=1),
-                    library_ms=lib_ms, **extra)
 
     B, L, H, D = HD256
     out = {}
@@ -1100,18 +1156,37 @@ def head_dim_256_kernels(dev, gen) -> dict:
                           fa.single_kv_attention)):
         k, v = randn(B, lk, H, D), randn(B, lk, H, D)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        out[name] = row(
+        out[name] = kernel_row(
             check_attention, f"{name} d256", lambda: fn(q, k, v),
             lambda: fa.attention_plain(q, k, v, q_chunk=1024),
             4.0 * B * H * L * lk * D,
             2.0 * (2 * q.numel() + k.numel() + v.numel()),
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            library=f"F.scaled_dot_product_attention "
+                    f"({sdpa_backend(qt, kt, vt)})",
             shape=f"q [{B},{L},{H},{D}] k/v [{B},{lk},{H},{D}] bf16",
             instance=fa.head_dim_instance(D))
         del k, v, qt, kt, vt
     del q
 
-    B, L, H, D = HD256_LONG
+    out.update(long_rows(dev, randn, HD256_LONG, "d256"))
+    return out
+
+
+def long_rows(dev, randn, shape, instance, lib_kw=None) -> dict:
+    """B5 (the long path's w=2 policy of 51 frames + ref) and B6 at q/k/v
+    `shape` [B, 23296, H, D] bf16, each a `kernel_row` (B6's bound counts
+    its int8 and bf16 operations apart; its mean relative error against
+    exact attention must stay under JAX's 0.02). {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import sparse_attention as sp
+    from flexam_tpu_torch.testing import (check_int8_attention,
+                                          check_sparse_attention)
+    B, L, H, D = shape
+    out = {}
     q, k, v = randn(B, L, H, D), randn(B, L, H, D), randn(B, L, H, D)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     nbytes = 2.0 * 4 * q.numel()
@@ -1124,35 +1199,37 @@ def head_dim_256_kernels(dev, gen) -> dict:
     for i, r in enumerate(rows):
         bmask[i, r] = True
     tok_mask = bmask[tok_blk][:, tok_blk]
-    out["sparse_attention"] = row(
-        check_sparse_attention, "sparse_attention d256",
+    out["sparse_attention"] = kernel_row(
+        check_sparse_attention, f"sparse_attention {instance}",
         lambda: sp.sparse_flash_attention(q, k, v, rows, blk, kidx=kidx,
                                           nnz=nnz),
         lambda: sp.masked_dense_attention(q, k, v, rows, blk),
         4.0 * B * H * pairs * blk * blk * D, nbytes,
         lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                attn_mask=tok_mask),
-        library="F.scaled_dot_product_attention with the boolean token mask",
-        blocks=len(rows), blk=blk, active_pairs=pairs,
-        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance="d256")
+        library="F.scaled_dot_product_attention with the boolean token mask "
+                f"({sdpa_backend(qt, kt, vt, attn_mask=tok_mask)})",
+        lib_kw=lib_kw, blocks=len(rows), blk=blk, active_pairs=pairs,
+        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance=instance)
     del tok_mask
     ops = 2.0 * B * H * L * L * D
-    out["int8_attention"] = row(
-        check_int8_attention, "int8_attention d256",
+    out["int8_attention"] = kernel_row(
+        check_int8_attention, f"int8_attention {instance}",
         lambda: i8.int8_attention(q, k, v),
         lambda: i8.int8_attention_plain(q, k, v), 2 * ops, nbytes,
         lambda: F.scaled_dot_product_attention(qt, kt, vt),
         t_ops=(ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS) * 1e3,
         library="bf16 F.scaled_dot_product_attention (exact attention, not "
-                "the int8 function)",
-        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance="d256")
+                f"the int8 function; {sdpa_backend(qt, kt, vt)})",
+        lib_kw=lib_kw, shape=f"q/k/v [{B},{L},{H},{D}] bf16",
+        instance=instance)
     got = i8.int8_attention(q, k, v)
     exact = fa.attention_plain(q, k, v, q_chunk=1024)
     rel = ((got.float() - exact.float()).abs().mean()
            / exact.float().abs().mean()).item()
     out["int8_attention"]["mean_rel_err_vs_exact"] = rel
     if rel >= 0.02:
-        raise AssertionError(f"int8_attention d256: mean relative error "
+        raise AssertionError(f"int8_attention {instance}: mean relative error "
                              f"{rel} against exact attention >= 0.02")
     del q, k, v, qt, kt, vt, got, exact
     torch.cuda.empty_cache()
@@ -1209,6 +1286,196 @@ def wide_head_dims(dev) -> dict:
                             shapes=f"B1/B6 q [2,300,3,{d}] k/v [2,700,3,{d}] "
                                    f"k_len [700,129]; B2 k/v [2,512,3,{d}]; "
                                    f"B5 [1,{L},2,{d}] blk {blk}")
+    return out
+
+
+# the wide design timed at the flagship's hidden width of 3,072 (heads x
+# head dim): the operations of the 128-wide rows, so their bounds
+WIDE_TIMED = ((8, 384), (6, 512))
+# B1/B2 in fp32 beyond head dim 128 (the fp32 wide design), checked only
+FP32_CHECK_DIMS = (256, 384)
+# device_ms for the slow yardsticks and plain versions: 2 calls a run, 3
+# runs
+SLOW_TIMING = dict(launches=2, reps=3, warmup=1)
+
+
+def wide_head_dim_times(dev, gen) -> dict:
+    """The wide design (`csrc/hopper_wide.cuh`, bf16) timed at the
+    flagship's width: B1 at q/k/v [2, 11648, 8, 384] and [2, 11648, 6,
+    512], B2 at [2, 11648, 8, 384] with 512 keys, B5 (the long path's w=2
+    policy) and B6 at [2, 23296, 8, 384]. Each a `kernel_row` held to its
+    plain version over every row, beside SDPA with the backend PyTorch
+    picked (FlashAttention takes head dims up to 256). {kernel: {"d384"
+    or "d512": record}}."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.testing import check_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    out = {k: {} for k in ("flash_attention", "single_kv_attention",
+                           "sparse_attention", "int8_attention")}
+    L = FLAGSHIP_QKV[1]
+    for h, d in WIDE_TIMED:
+        q = randn(2, L, h, d)
+        calls = [("flash_attention", L, fa.flash_attention)]
+        if d == 384:
+            calls.append(("single_kv_attention", FLAGSHIP_TEXT,
+                          fa.single_kv_attention))
+        for name, lk, fn in calls:
+            k, v = randn(2, lk, h, d), randn(2, lk, h, d)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out[name][f"d{d}"] = kernel_row(
+                check_attention, f"{name} d{d}", lambda: fn(q, k, v),
+                lambda: fa.attention_plain(q, k, v, q_chunk=1024),
+                4.0 * 2 * h * L * lk * d,
+                2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                lib_kw=SLOW_TIMING,
+                library=f"F.scaled_dot_product_attention "
+                        f"({sdpa_backend(qt, kt, vt)})",
+                shape=f"q [2,{L},{h},{d}] k/v [2,{lk},{h},{d}] bf16",
+                instance=fa.head_dim_instance(d))
+            del k, v, qt, kt, vt
+        del q
+    for name, rec in long_rows(dev, randn, (2, LONG_TOKENS, 8, 384), "wide",
+                               lib_kw=SLOW_TIMING).items():
+        out[name]["d384"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_kernels(dev, gen) -> dict:
+    """B1, B2, B3 and B4 (both modes) in fp32 at the flagship shapes (B1 at
+    q/k/v [2, 11648, 24, 128], B2 with k/v [2, 512, 24, 128], B3/B4 at x
+    [2, 11648, 3072]) and B1 at FLUX's [1, 2304, 24, 128]. Each is held to
+    its plain version in fp32 (TF32 off: exact fp32) over every row by its
+    fp32 bound (`flexam_tpu_torch/testing.py`), timed back to back beside
+    its bound (TF32 peak, 4 bytes an element), the plain version and the
+    yardstick: fp32 SDPA for B1/B2 with the backend PyTorch picked, the
+    card's `copy_` of x for B3/B4. B1 and B2 at head dims 256 and 384 (the
+    fp32 wide design) are checked at a few hundred tokens, one launch a
+    call, not timed. {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+    from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
+    from flexam_tpu_torch.ops import fused, launch_counts
+    from flexam_tpu_torch.testing import (check_attention_tf32,
+                                          check_ln_modulation_f32,
+                                          check_rmsnorm_rope_f32)
+    f32 = torch.float32
+    B, L, H, D = FLAGSHIP_QKV
+    LT, DIM = FLAGSHIP_TEXT, FLAGSHIP_DIM
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    def attention(name, fn, q, k, v, tag):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        b, lq, h, d = q.shape
+        rec = kernel_row(
+            check_attention_tf32, f"{name} f32 {tag}", lambda: fn(q, k, v),
+            lambda: fa.attention_plain(q, k, v, q_chunk=1024),
+            4.0 * b * h * lq * k.shape[1] * d,
+            4.0 * (2 * q.numel() + k.numel() + v.numel()),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            peak=PEAK_TF32_FLOPS, lib_kw=SLOW_TIMING,
+            library=f"fp32 F.scaled_dot_product_attention "
+                    f"({sdpa_backend(qt, kt, vt)})",
+            shape=f"q [{b},{lq},{h},{d}] k/v {list(k.shape)} fp32",
+            instance=fa.attention_instance(d, f32))
+        torch.cuda.empty_cache()
+        return rec
+
+    out = {}
+    q = randn(B, L, H, D)
+    for name, lk, fn in (("flash_attention", L, fa.flash_attention),
+                         ("single_kv_attention", LT, fa.single_kv_attention)):
+        k, v = randn(B, lk, H, D), randn(B, lk, H, D)
+        out[name] = attention(name, fn, q, k, v, "flagship")
+        del k, v
+    del q
+    q, k, v = (randn(1, FLUX_TOKENS, 24, 128) for _ in range(3))
+    out["flash_attention"]["flux_2304"] = attention(
+        "flash_attention", fa.flash_attention, q, k, v, "flux_2304")
+    del q, k, v
+
+    # the fp32 wide design (and f32_d128 beside it), checked only
+    for d in FP32_CHECK_DIMS:
+        q, k, v = randn(2, 300, 2, d), randn(2, 700, 2, d), randn(2, 700, 2, d)
+        t, c = randn(2, 300, 2, d), randn(2, 512, 2, d)
+        kl = torch.tensor([700, 129], device=dev)
+        before = launch_counts()
+        rec = {"flash_attention": check_attention_tf32(
+                   fa.flash_attention(q, k, v, k_len=kl),
+                   fa.attention_plain(q, k, v, k_len=kl), f"B1 f32 d{d}"),
+               "single_kv_attention": check_attention_tf32(
+                   fa.single_kv_attention(t, c, c),
+                   fa.attention_plain(t, c, c), f"B2 f32 d{d}")}
+        torch.cuda.synchronize()
+        after = launch_counts()
+        for name, r in rec.items():
+            if after[name] - before[name] != 1:
+                raise AssertionError(f"fp32 head dim {d}: {name} launched "
+                                     f"{after[name] - before[name]} times")
+            out[name][f"checked_d{d}"] = dict(
+                r, instance=fa.attention_instance(d, f32),
+                shape=(f"q [2,300,2,{d}] k/v [2,700,2,{d}] k_len [700,129]"
+                       if name == "flash_attention" else
+                       f"q [2,300,2,{d}] k/v [2,512,2,{d}]"))
+
+    # B3 / B4: rows with their own offset and scale, as DiT hidden states
+    x = (randn(B, L, DIM) * torch.exp(0.5 * randn(B, L, 1))
+         + 4.0 * randn(B, L, 1))
+    gamma = 1.0 + 0.1 * randn(DIM)
+    tables = torch.from_numpy(make_rope_tables(D, 1024)).to(dev)
+    cos, sin = build_video_rope(tables, (26, 16, 28), D)
+    copy_out = torch.empty_like(x)
+    copy_ms = device_ms(lambda: copy_out.copy_(x))
+    del copy_out
+
+    def streamed(check, fn, plain, nbytes, shape):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = check(got, ref)
+        del got, ref
+        bms, by = bound_ms(10.0 * x.numel(), nbytes, PEAK_TF32_FLOPS)
+        ms = device_ms(fn)
+        return dict(err, ms=ms, gbps=nbytes / ms / 1e6, bound_ms=bms,
+                    bound_by=by, bound_share=bms / ms,
+                    plain_ms=device_ms(plain), library_ms=None,
+                    library="none; the card's out.copy_(x) beside",
+                    copy_ms=copy_ms,
+                    copy_gbps=8.0 * x.numel() / copy_ms / 1e6, shape=shape)
+
+    out["rmsnorm_rope"] = streamed(
+        lambda g, r: check_rmsnorm_rope_f32(g, r, "rmsnorm_rope f32"),
+        lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H),
+        lambda: fused.rmsnorm_rope_plain(x, gamma, cos, sin, H),
+        4.0 * 2 * x.numel() + 4 * DIM + 4.0 * 2 * cos.numel(),
+        f"x [{B},{L},{DIM}] fp32, tables [{L},{D // 2}] fp32")
+    mask = torch.ones((B, L), device=dev)
+    mask[:, 448:896] = 0.0     # the first video frame after the ref block
+    for name, terms, m in (("ln_mod_binary", (B, 2, DIM), mask),
+                           ("ln_mod_bcast", (B, DIM), None)):
+        mod = randn(B, terms[1] if m is not None else 1, 6, DIM)
+        sh = randn(*terms)
+        sc = mod[:, :, 1] if m is not None else mod[:, 0, 1]
+        out[name] = streamed(
+            lambda g, r: check_ln_modulation_f32(g, r, x, sh, sc, m,
+                                                 f"{name} f32"),
+            lambda: fused.ln_modulation(x, sh, sc, mask=m),
+            lambda: fused.ln_modulation_plain(x, sh, sc, mask=m),
+            4.0 * 2 * x.numel() + 4.0 * 2 * sh.numel()
+            + (4.0 * m.numel() if m is not None else 0.0),
+            f"x [{B},{L},{DIM}] fp32, shift/scale {list(terms)} fp32 "
+            "(scale a strided view)")
+    del x
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1337,13 +1604,19 @@ def phase_reference_check(dev) -> None:
     emit("reference_check", t0, **out)
 
 
-def _to(tree, dev):
+def _to(tree, dev, dtype=None):
+    """A copy of a parameter tree on `dev`, its floating tensors cast to
+    `dtype` if one is given."""
     import torch
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return {k: _to(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+        return [_to(v, dev, dtype) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(dev, dtype)
+    return tree.to(dev)
 
 
 def phase_dit_flagship(dev, cfg):
@@ -1482,6 +1755,148 @@ def phase_dit_head_dim_256(dev, cfg, params, results: dict) -> None:
          * FLAGSHIP_LATENT[2] // 4, batch=2, forward_seconds=fwd_s,
          exact_composition_seconds=exact_s, launches=counts,
          vs_exact_composition=err)
+
+
+# the fp32 forward against its exact composition (FLEXAM_FUSED=0,
+# FLEXAM_ATTENTION=xla, exact fp32 with TF32 off): the bf16 bound
+# (HD256_FORWARD_REL) times 2^-3. The two differ only where B1/B2 round
+# their operands to tf32 (10 mantissa bits) and the composition keeps
+# fp32, and in the order of B3/B4's fp32 sums; the bf16 bound covers bf16
+# roundings (7 mantissa bits) in those places and more, and each tf32
+# rounding is 2^-3 the size.
+FP32_FORWARD_REL = HD256_FORWARD_REL / 8
+FP32_GENERATE_VIDEO = (17, 512, 896)   # frames, height, width
+FP32_GENERATE_STEPS = 2
+
+
+def phase_dit_fp32(dev, cfg, params, results: dict) -> None:
+    """The flagship forward in fp32 (`params`: the flagship's tree cast to
+    fp32, nothing drawn anew), full depth, on the flagship's inputs in
+    fp32: B1, B2 (the 512 text keys), B3 and B4 (binary mode) in fp32, their
+    launches counted (reset just before, read just after) and the exact
+    branch never taken. Held to the same forward through the exact
+    composition within FP32_FORWARD_REL of its largest value."""
+    import torch
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.models.dit import dit_forward, make_rope_tables_for
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    dcfg = cfg.dit
+    x, t, ctx, kw = flagship_inputs(dev, dcfg)
+    x, ctx = x.float(), ctx.float()
+    kw = {k: v.float() for k, v in kw.items()}
+    rope = make_rope_tables_for(dcfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exact_before = exact_calls["exact_attention"]
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        out = dit_forward(params, dcfg, x, t, ctx, rope_tables=rope, **kw)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect = {"flash_attention": dcfg.num_layers,
+              "single_kv_attention": dcfg.num_layers,
+              "rmsnorm_rope": 2 * dcfg.num_layers,
+              "ln_mod_binary": 2 * dcfg.num_layers,
+              "ln_mod_bcast": 0, "sparse_attention": 0, "int8_attention": 0}
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"fp32 forward: {k} launched {counts[k]} "
+                                 f"times, expected {n}")
+    if exact_calls["exact_attention"] != exact_before:
+        raise AssertionError("fp32 forward: the exact branch ran")
+    if out.dtype != torch.float32 or tuple(out.shape) != tuple(x.shape):
+        raise AssertionError(f"fp32 forward: {out.dtype} {tuple(out.shape)}")
+    for k in KERNELS:
+        results.setdefault(k, {})["fp32_launches"] = counts[k]
+    _train_env(True)
+    try:
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            exact = dit_forward(params, dcfg, x, t, ctx, rope_tables=rope,
+                                **kw)
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t1
+    finally:
+        _train_env(False)
+    err = compare(out, exact, FP32_FORWARD_REL, "fp32 forward")
+    del out, exact
+    torch.cuda.empty_cache()
+    emit("dit_forward_fp32", t0, layers=dcfg.num_layers,
+         tokens=kw["binary_t_mask"].shape[1] + FLAGSHIP_LATENT[1]
+         * FLAGSHIP_LATENT[2] // 4, batch=2, forward_seconds=fwd_s,
+         exact_composition_seconds=exact_s, launches=counts,
+         max_memory_allocated_gb=peak, vs_exact_composition=err)
+
+
+def phase_generate_fp32(dev, cfg, params, results: dict) -> None:
+    """`FlexAMGenerationPipeline(models, compute_dtype=torch.float32)
+    .generate` at 5B width (`params`: the fp32 tree; the VAE drawn in fp32)
+    at 512x896x17f, 2 steps, a mask with frame 0 known. No umT5: a random
+    text context stands in for `encode_prompt`, as in the serving session.
+    Its kernels' launches are counted (reset just before, read just after):
+    B1-B4 must run, the exact branch not. Prints the uint8 video's shape and
+    finiteness, the launches, the seconds and the peak memory."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.models.vae import init_vae_params
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flexam_tpu_torch.pipeline import FlexAMGenerationPipeline, FlexAMModels
+
+    t0 = time.perf_counter()
+    models = FlexAMModels(cfg=cfg, dit_params=params, vae_params=init_vae_params(
+        cfg.vae, seed=SEED + 2, dtype=torch.float32, device=dev))
+    pipe = FlexAMGenerationPipeline(models, device=dev,
+                                    compute_dtype=torch.float32)
+    T, Hp, Wp = FP32_GENERATE_VIDEO
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    context = torch.randn((2, cfg.dit.text_len, cfg.dit.text_dim),
+                          generator=gen, device=dev)
+    pipe.encode_prompt = lambda *a, **k: context
+    video = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    control = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    mask = torch.ones((1, 1, T, Hp, Wp), device=dev)
+    mask[:, :, 0] = 0.0                       # first frame known
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    exact_before = exact_calls["exact_attention"]
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    out = pipe.generate(video, "a red fox runs through fresh snow",
+                        mask_video=mask, control_video=control,
+                        num_inference_steps=FP32_GENERATE_STEPS,
+                        guidance_scale=6.0, seed=SEED)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(np.isfinite(out).all())
+    if out.shape != (1, 3, T, Hp, Wp) or not finite or out.min() < 0.0 \
+            or out.max() > 1.0:
+        raise AssertionError(f"fp32 generate: output {out.shape}, finite "
+                             f"{finite}, range [{out.min()}, {out.max()}]")
+    missing = [k for k in ("flash_attention", "single_kv_attention",
+                           "rmsnorm_rope", "ln_mod_binary") if counts[k] == 0]
+    if missing or exact_calls["exact_attention"] != exact_before:
+        raise AssertionError(f"fp32 generate: kernels never launched "
+                             f"{missing}, exact calls "
+                             f"{exact_calls['exact_attention'] - exact_before}")
+    for k in KERNELS:
+        results.setdefault(k, {})["generate_fp32_launches"] = counts[k]
+    u8 = np.rint(out * 255.0)
+    del pipe, models
+    torch.cuda.empty_cache()
+    emit("generate_fp32", t0, compute_dtype="float32", frames=T,
+         steps=FP32_GENERATE_STEPS, setup_seconds=t_setup,
+         generate_seconds=gen_s, output_shape=list(out.shape),
+         output_finite=finite, uint8_levels=[int(u8.min()), int(u8.max())],
+         peak_memory_allocated_gb=peak, launches=counts)
 
 
 def profile_forward(fn) -> dict:
@@ -6499,6 +6914,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_dit_head_dim_256(dev, WAN22_5B_FLEXAM, dit_params, results)
     torch.cuda.empty_cache()
+    # the fp32 path on the flagship's tree cast to fp32, the bf16 tree on
+    # the host meanwhile
+    f32_params = _to(dit_params, dev, torch.float32)
+    host_params = _to(dit_params, "cpu")
+    del dit_params
+    phase_dit_fp32(dev, WAN22_5B_FLEXAM, f32_params, results)
+    phase_generate_fp32(dev, WAN22_5B_FLEXAM, f32_params, results)
+    del f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit_params = _to(host_params, dev)
+    del host_params
     pipe, context = phase_generate(dev, WAN22_5B_FLEXAM, dit_params, results)
     del dit_params
     torch.cuda.empty_cache()
@@ -6568,8 +6995,11 @@ def main(argv=None) -> int:
             "parallel_launches": r["parallel_launches"],
             "residency_launches": r["residency_launches"],
             "head_dim_256_launches": r.get("head_dim_256_launches", 0),
+            "fp32_launches": r.get("fp32_launches", 0),
+            "generate_fp32_launches": r.get("generate_fp32_launches", 0),
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
-                                  "flux_shapes", "d256") if k in r})})
+                                  "flux_shapes", "d256", "wide", "f32")
+                if k in r})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,14 @@ JAX's dispatcher catches its kernels' NotImplementedError, this one decides
 by shape before any launch, on both devices. `exact_calls` counts the
 branch's calls beside the kernels' launch counters.
 
+Dtypes: B1 and B2 take bf16 and fp32 (fp32 on TF32 wgmma, the card's
+counterpart of the TPU's default fp32 matmul precision; the exact branch
+stays exact fp32), as JAX's kernels take any dtype; B5 and B6 take bf16
+only until ROADMAP B-dtype's second half, so fp32 under
+`FLEXAM_ATTENTION=sparse` or `pallas_int8`, or the auto int8 upgrade of an
+fp32 clip of at least INT8_AUTO_MIN_TOKENS tokens, raises TypeError on the
+card. fp16 raises in every kernel.
+
 Inputs use layout [B, L, H, D]; `k_len` masks padded keys.
 """
 

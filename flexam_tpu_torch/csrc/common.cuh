@@ -86,6 +86,55 @@ __device__ __forceinline__ void load_row(const bf16* row, int lane, int nvec,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 rows (B3 and B4 in fp32): a row of up to 8192 fp32 is 32 KB, twice
+// what a warp holds in registers, so a CTA of kRowThreads threads holds one
+// row at a time: thread t owns 16-byte vectors (4 fp32) t, t + 256, ... NV
+// of them (rows of up to 1024 * NV features); sums run in each thread's
+// registers, then through warp shuffles, then over the 8 warps in shared
+// memory, in a fixed order.
+// ---------------------------------------------------------------------------
+
+#define FLEXAM_ROW_VECTORS_F32(X) X(1) X(2) X(3) X(4) X(6) X(8)
+constexpr int kRowThreads = 256;
+
+// The smallest instantiated fp32 NV that holds a row of D features, 0 if
+// none.
+inline int row_vectors_f32(int D) {
+  const int need = (D / 4 + kRowThreads - 1) / kRowThreads;
+#define FLEXAM_PICK(n) if (need <= n) return n;
+  FLEXAM_ROW_VECTORS_F32(FLEXAM_PICK)
+#undef FLEXAM_PICK
+  return 0;
+}
+
+// This thread's vectors of one fp32 row, all loads issued before any is
+// used; the vectors past the row's end are zero.
+template <int NV>
+__device__ __forceinline__ void load_row_f32(const float* row, int nvec,
+                                             float4 (&v)[NV]) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + kRowThreads * i;
+    v[i] = c < nvec ? p[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Sum of v over the CTA's kRowThreads threads; every thread gets the same
+// value. `red` is kRowThreads / 32 floats of shared memory, free again on
+// return.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) t = __fadd_rn(t, red[w]);
+  __syncthreads();
+  return t;
+}
+
 // x-extent of a persistent grid whose y-extent is `batches`: as many CTAs as
 // the card holds at once, shared among the batches, and no more than `need`.
 template <typename Kernel>

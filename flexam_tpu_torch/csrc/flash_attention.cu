@@ -4,17 +4,28 @@
 // online-softmax kernel over key blocks) and :_single_kv_kernel (B2, taken
 // when one key block covers every key: cross-attention over 512 text tokens).
 //
-// Math, as in the TPU kernels: logits in fp32 from bf16 q.k, with log2(e)
+// Math, as in the TPU kernels: logits in fp32 from q.k, with log2(e)
 // folded into the softmax scale so exp2 replaces exp; keys at or past
 // min(k_len[b], Lk) get the logit -1e30; running max, sum and accumulator in
-// fp32; probabilities cast to bf16 before P.V; the output is acc / sum, cast
-// to bf16.
+// fp32; probabilities cast to the input's dtype before P.V; the output is
+// acc / sum in the input's dtype.
 //
-// Layout: q, k, v and o are [B, L, H, D] bf16, contiguous, D any multiple
-// of 128. The kernels read q, k and v in place through 4-D TMA tensor maps
-// over (D, H, L, B): rows past L read as zeros, so the ragged edge of L
-// never touches the next batch. D = 128 and 256 run the design below, each
-// its own instance; D >= 384 runs hopper_wide.cuh's (slabs of 128 output
+// Dtypes: bf16 (bf16 wgmma) and fp32. The TPU kernels run fp32 operands at
+// the default matmul precision, the chip's fast mode; the card's
+// counterpart is TF32 wgmma, which the fp32 instances use whatever
+// torch.backends.cuda.matmul.allow_tf32 says. Every tf32 operand is rounded
+// to nearest first: a pre-pass (tf32_prep) writes Q and K rounded and V^T
+// rounded (tf32 wgmma takes no transposed operand, so P.V reads V^T
+// K-major) into workspaces the wrapper allocates, and the probabilities
+// are rounded in registers. The pre-pass reads Q, K and V once and writes
+// them once more: about 0.17 ms of HBM time at the flagship shape.
+//
+// Layout: q, k, v and o are [B, L, H, D], contiguous, D any multiple of
+// 128. The kernels read q, k and v (bf16), or their rounded copies (fp32),
+// through 4-D TMA tensor maps over (D, H, L, B): rows past L read as zeros,
+// so the ragged edge of L never touches the next batch. D = 128 and 256 run
+// the design below in bf16, each its own instance, and D = 128 in fp32
+// (F32Plan); every other D runs hopper_wide.cuh's (slabs of 128 output
 // columns, S recomputed for each).
 //
 // What bounds it on an H100: at the flagship self-attention shape (B 2,
@@ -57,6 +68,13 @@
 // the ring 2 stages (Q 64 KB + 4 x 32 KB); a consumer holds its 64 x 256
 // fp32 accumulator in 128 registers, as two 128-column halves that each
 // P.V k-step updates by one m64n128k16 wgmma, beside S over 64 keys (32).
+//
+// fp32 at D = 128 takes the same bytes as bf16 at 256 (a 128-byte span
+// holds 32 fp32): Q 64 KB, 64-key K tiles and 64-key V^T tiles of 32 KB in
+// a ring of 2 stages. S over 64 keys is 16 steps of wgmma m64n64k8 (tf32,
+// 32 bytes of D a step, as bf16's k16); P.V 8 steps of m64n128k8 with P
+// from registers (probs_to_a_tf32) and V^T's [128 columns, 8 keys] from
+// shared memory. A consumer holds O (64), S (32) and P (32) registers.
 
 #include "hopper_attention.cuh"
 #include "hopper_wide.cuh"
@@ -70,14 +88,53 @@ constexpr int kBM = 128;                // query rows a CTA (2 x 64)
 constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
 constexpr int kMaxKeysB2 = 512;         // B2: <= 512 keys
 constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
-constexpr int kBoxRows = 64;            // TMA box: 64 rows x 64 columns
+constexpr int kBoxRows = 64;            // TMA box: 64 rows x 128 bytes
+constexpr int kKeyPad = 64;             // fp32: V^T's keys padded to this
 
 struct Params {
   const int* k_len;  // [B] or null
-  bf16* o;           // [B, Lq, H, D]
+  void* o;           // [B, Lq, H, D], bf16 or fp32
   int B, H, Lq, Lk;
   float scale_log2;  // softmax scale * log2(e)
 };
+
+// The bf16 plan of Bf16Tiles<kD> as the CTA below reads it: K and V tiles
+// alike, Q K^T in kD / 16 wgmma steps of 16 (32 bytes), P.V in steps of 16
+// keys.
+template <int kD_>
+struct Bf16Plan : Bf16Tiles<kD_> {
+  static constexpr bool kF32 = false;
+  static constexpr int kD = kD_;
+  static constexpr int kCols = 64;                 // columns a span
+  static constexpr int kQKSteps = kD / 16;
+  static constexpr int kPVKeys = 16;               // keys a P.V step
+};
+
+// fp32 at D = 128 (TF32): Q [128, 128] as four 32-column spans (64 KB), K
+// tiles [64 keys, 128] (four spans, 32 KB) and V^T tiles [128 columns, 64
+// keys] (two 32-key spans of 16 KB) in a ring of 2 stages.
+struct F32Plan {
+  static constexpr bool kF32 = true;
+  static constexpr int kD = 128;
+  static constexpr int kBN = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kSpans = 4;
+  static constexpr int kCols = 32;
+  static constexpr uint32_t kQSpanBytes = 128 * 128;
+  static constexpr uint32_t kKVSpanBytes = kBN * 128;   // K: [64, 32]
+  static constexpr uint32_t kVtSpanBytes = kD * 128;    // V^T: [128, 32]
+  static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
+  static constexpr uint32_t kKVBytes = kSpans * kKVSpanBytes;  // = V^T tile
+  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static constexpr int kQKSteps = kD * 4 / 32;
+  static constexpr int kPVKeys = 8;
+};
+static_assert(F32Plan::kKVBytes == (F32Plan::kBN / 32) * F32Plan::kVtSpanBytes,
+              "a V^T tile fills a K tile's stage");
+static_assert(kKeyPad % F32Plan::kBN == 0 && kKeyPad % wide::kKeys == 0,
+              "V^T's padded keys cover whole key tiles");
 
 // The (q tile, head, batch) of work item `wi`, q tiles fastest, so the CTAs
 // running at one time share heads (and their K/V in L2); and its key
@@ -100,12 +157,14 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   return w;
 }
 
-template <int kD, int kMaxKeys>
+// One CTA of B1 / B2 on the plan S (Bf16Plan<kD> or F32Plan). In fp32, tv
+// maps the V^T workspace.
+template <typename S, int kMaxKeys>
 __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                                               const CUtensorMap* tk,
                                               const CUtensorMap* tv,
                                               const Params& a) {
-  using S = Bf16Tiles<kD>;
+  constexpr int kD = S::kD;
   constexpr int kBN = S::kBN, kStages = S::kStages, kSpans = S::kSpans;
   constexpr int kMaxTiles = kMaxKeys / kBN;
   constexpr uint32_t kKVBytes = S::kKVBytes;
@@ -145,16 +204,23 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         // Q of the next item once both consumers' last Q.K^T has landed
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
         mbar_arrive_expect_tx(q_full, S::kQBytes);
-        tma_load_bf16_tile<kSpans, kBM>(q_s, tq, q_full, w.h, w.q0, w.b);
+        tma_load_span_tile<kSpans, kBM, S::kCols>(q_s, tq, q_full, w.h, w.q0,
+                                                  w.b);
         for (int t = 0; t < w.n_tiles; ++t, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
           mbar_arrive_expect_tx(k_full(s), kKVBytes);
-          tma_load_bf16_tile<kSpans, kBN>(k_s + s * kKVBytes, tk, k_full(s),
-                                          w.h, t * kBN, w.b);
+          tma_load_span_tile<kSpans, kBN, S::kCols>(
+              k_s + s * kKVBytes, tk, k_full(s), w.h, t * kBN, w.b);
           mbar_arrive_expect_tx(v_full(s), kKVBytes);
-          tma_load_bf16_tile<kSpans, kBN>(v_s + s * kKVBytes, tv, v_full(s),
-                                          w.h, t * kBN, w.b);
+          if constexpr (S::kF32)
+            // V^T [B, D, H, Lkp]: the tile's keys as columns, all kD rows
+            tma_load_span_tile<kBN / 32, kD, 32>(v_s + s * kKVBytes, tv,
+                                                 v_full(s), w.h, 0, w.b,
+                                                 t * kBN);
+          else
+            tma_load_span_tile<kSpans, kBN, 64>(v_s + s * kKVBytes, tv,
+                                                v_full(s), w.h, t * kBN, w.b);
         }
       }
     }
@@ -166,36 +232,60 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     const int quad = lane & 3;
     const uint32_t q_c = q_s + c * 64 * 128;   // its rows, in each span
 
-    // S = Q K^T over D in D / 16 steps of 16 (4 per 64-column span), issued
+    // S = Q K^T over D in steps of 32 bytes (4 per 128-byte span), issued
     auto issue_qk = [&](float (&sc)[kBN / 2], int stage) {
       const uint32_t ks = k_s + stage * kKVBytes;
 #pragma unroll
-      for (int k = 0; k < kD / 16; ++k) {
+      for (int k = 0; k < S::kQKSteps; ++k) {
         const uint32_t col = (k & 3) * 32;
-        wgmma_qk(sc, sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16, 1024),
-                 sw128_desc(ks + (k >> 2) * S::kKVSpanBytes + col, 16, 1024), k);
+        const uint64_t da =
+            sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16, 1024);
+        const uint64_t db =
+            sw128_desc(ks + (k >> 2) * S::kKVSpanBytes + col, 16, 1024);
+        if constexpr (S::kF32)
+          wgmma_m64n64k8_tf32_ss(sc, da, db, k);
+        else
+          wgmma_qk(sc, da, db, k);
       }
       wgmma_commit();
     };
-    // O += P V over a tile's keys in kBN / 16 steps of 16, issued, each a
-    // wgmma for every 128 columns of D; V is [keys, D] with D contiguous:
-    // MN-major, the 64-column spans kKVSpanBytes apart
-    auto issue_pv = [&](float (&o)[kD / 128][64], uint32_t (&p)[kBN / 16][4],
-                        int stage) {
+    // O += P V over a tile's keys in steps of kPVKeys, issued. bf16: a
+    // wgmma for every 128 columns of D; V is [keys, D] with D contiguous,
+    // MN-major, the 64-column spans kKVSpanBytes apart. fp32: V^T is
+    // [D, keys] with keys contiguous, K-major, the 32-key spans
+    // kVtSpanBytes apart.
+    auto issue_pv = [&](float (&o)[kD / 128][64],
+                        uint32_t (&p)[kBN / S::kPVKeys][4], int stage) {
       const uint32_t vs = v_s + stage * kKVBytes;
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < kBN / S::kPVKeys; ++kk) {
+        if constexpr (S::kF32) {
+          wgmma_m64n128k8_tf32_rs(
+              o[0], p[kk],
+              sw128_desc(vs + (kk >> 2) * S::kVtSpanBytes + (kk & 3) * 32, 16,
+                         1024));
+        } else {
 #pragma unroll
-        for (int h = 0; h < kD / 128; ++h)
-          wgmma_m64n128k16_rs_tb(
-              o[h], p[kk],
-              sw128_desc(vs + 2 * h * S::kKVSpanBytes + kk * 16 * 128,
-                         S::kKVSpanBytes, 1024));
+          for (int h = 0; h < kD / 128; ++h)
+            wgmma_m64n128k16_rs_tb(
+                o[h], p[kk],
+                sw128_desc(vs + 2 * h * S::kKVSpanBytes + kk * 16 * 128,
+                           S::kKVSpanBytes, 1024));
+        }
+      }
       wgmma_commit();
+    };
+    // the probabilities as P.V's A fragments (bf16, or tf32 rounded)
+    auto to_a = [&](const float (&sc)[kBN / 2],
+                    uint32_t (&p)[kBN / S::kPVKeys][4]) {
+      if constexpr (S::kF32)
+        probs_to_a_tf32(sc, p);
+      else
+        probs_to_a(sc, p);
     };
 
     float o[kD / 128][64], sc[kBN / 2];
-    uint32_t p[kBN / 16][4];
+    uint32_t p[kBN / S::kPVKeys][4];
     float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
     int it = 0, n = 0;
     for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
@@ -238,7 +328,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       tile_probs(0);
       l_a = sum_a;
       l_b = sum_b;
-      probs_to_a(sc, p);
+      to_a(sc, p);
       for (int t = 1; t < w.n_tiles; ++t) {
         const int cur = it + t, prev = cur - 1;
         mbar_wait(k_full(cur % kStages), (cur / kStages) & 1);
@@ -260,7 +350,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
         l_a = l_a * al_a + sum_a;
         l_b = l_b * al_b + sum_b;
-        probs_to_a(sc, p);
+        to_a(sc, p);
       }
       const int last = it + w.n_tiles - 1;
       mbar_wait(v_full(last % kStages), (last / kStages) & 1);
@@ -272,26 +362,37 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       mbar_arrive(empty(last % kStages));
       it += w.n_tiles;
 
-      // acc / sum as bf16, straight from registers to [B, Lq, H, D] (the
-      // Q buffer already holds the next item's Q): a quad writes 16
-      // contiguous bytes of a row; rows at or past Lq are not written
+      // acc / sum in the output's dtype, straight from registers to
+      // [B, Lq, H, D] (the Q buffer already holds the next item's Q): a
+      // quad writes 16 (bf16) or 32 (fp32) contiguous bytes of a row; rows
+      // at or past Lq are not written
       l_a = quad_sum(l_a);
       l_b = quad_sum(l_b);
       const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
-      bf16* base = a.o + (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
+      const size_t off = (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
       const size_t stride = (size_t)a.H * kD;
 #pragma unroll
       for (int h = 0; h < kD / 128; ++h)
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          if (r_a < a.Lq)
-            *reinterpret_cast<uint32_t*>(base + r_a * stride + 128 * h +
-                                         8 * j) =
-                pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
-          if (r_b < a.Lq)
-            *reinterpret_cast<uint32_t*>(base + r_b * stride + 128 * h +
-                                         8 * j) =
-                pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+          const size_t col = off + 128 * h + 8 * j;
+          if constexpr (S::kF32) {
+            float* base = static_cast<float*>(a.o) + col;
+            if (r_a < a.Lq)
+              *reinterpret_cast<float2*>(base + r_a * stride) =
+                  make_float2(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+            if (r_b < a.Lq)
+              *reinterpret_cast<float2*>(base + r_b * stride) =
+                  make_float2(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+          } else {
+            bf16* base = static_cast<bf16*>(a.o) + col;
+            if (r_a < a.Lq)
+              *reinterpret_cast<uint32_t*>(base + r_a * stride) =
+                  pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+            if (r_b < a.Lq)
+              *reinterpret_cast<uint32_t*>(base + r_b * stride) =
+                  pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+          }
         }
     }
   }
@@ -299,50 +400,118 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
 
 // B1: a persistent CTA on each SM walks (128-row q tile, head, batch)
 // items; online softmax over key tiles.
-template <int kD>
+template <typename P>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<kD, 0>(&tq, &tk, &tv, a);
+  attention_cta<P, 0>(&tq, &tk, &tv, a);
 }
 
 // B2: the same, for at most 512 keys.
-template <int kD>
+template <typename P>
 __global__ void __launch_bounds__(kThreads, 1)
     single_kv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<kD, kMaxKeysB2>(&tq, &tk, &tv, a);
+  attention_cta<P, kMaxKeysB2>(&tq, &tk, &tv, a);
 }
 
-// B1 and B2 at head dims from 384 on (hopper_wide.cuh).
+// B1 and B2 at the head dims the plans above do not take
+// (hopper_wide.cuh): bf16 from 384 on, fp32 from 256 on.
+template <bool kF32>
 __global__ void __launch_bounds__(wide::kThreads, 1)
     flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const wide::Params a) {
-  wide::wide_cta<wide::kDense, 0>(&tq, &tk, &tv, a);
+  wide::wide_cta<wide::kDense, 0, kF32>(&tq, &tk, &tv, a);
 }
 
+template <bool kF32>
 __global__ void __launch_bounds__(wide::kThreads, 1)
     single_kv_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const wide::Params a) {
-  wide::wide_cta<wide::kDense, kMaxKeysB2 / wide::kKeys>(&tq, &tk, &tv, a);
+  wide::wide_cta<wide::kDense, kMaxKeysB2 / wide::kKeys, kF32>(&tq, &tk, &tv,
+                                                               a);
 }
 
-template <int kD, typename Kernel>
+// ---------------------------------------------------------------------------
+// fp32: the pre-pass (tf32_prep) that rounds the operands to tf32
+// ---------------------------------------------------------------------------
+
+constexpr int kPrepThreads = 256;
+
+// y = x rounded to tf32, over n4 float4 vectors (grid-stride).
+__global__ void __launch_bounds__(kPrepThreads)
+    round_tf32_kernel(const float4* __restrict__ x, float4* __restrict__ y,
+                      long long n4) {
+  for (long long i = blockIdx.x * (long long)kPrepThreads + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * kPrepThreads) {
+    const float4 t = x[i];
+    y[i] = make_float4(__uint_as_float(round_tf32(t.x)),
+                       __uint_as_float(round_tf32(t.y)),
+                       __uint_as_float(round_tf32(t.z)),
+                       __uint_as_float(round_tf32(t.w)));
+  }
+}
+
+// V^T: vt[b, d, h, p] = tf32(v[b, key(p), h, d]) for p < Lkp, 0 for keys at
+// or past Lk, where key(p) takes each 8 keys in the order (0, 2, 4, 6, 1,
+// 3, 5, 7) that probs_to_a_tf32's fragments need. A block moves 32 keys x
+// 32 columns of one (b, h) through shared memory: it reads along d and
+// writes along keys, 128 contiguous bytes a warp both ways.
+__global__ void __launch_bounds__(kPrepThreads)
+    transpose_v_kernel(const float* __restrict__ v, float* __restrict__ vt,
+                       int H, int Lk, int D, int Lkp) {
+  __shared__ float tile[32][33];
+  const int n_kt = Lkp / 32;
+  const int key0 = (blockIdx.x % n_kt) * 32, d0 = (blockIdx.x / n_kt) * 32;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += kPrepThreads / 32) {
+    const int key = key0 + i;
+    tile[i][tx] =
+        key < Lk ? v[(((size_t)b * Lk + key) * H + h) * D + d0 + tx] : 0.f;
+  }
+  __syncthreads();
+  const int g = tx & 7;
+  const int src = (tx & ~7) | (g < 4 ? 2 * g : 2 * (g - 4) + 1);
+  for (int i = ty; i < 32; i += kPrepThreads / 32)
+    vt[(((size_t)b * D + d0 + i) * H + h) * Lkp + key0 + tx] =
+        __uint_as_float(round_tf32(tile[src][i]));
+}
+
+// Blocks of a grid-stride pass over n4 vectors.
+inline int prep_blocks(long long n4) {
+  const long long need = (n4 + kPrepThreads - 1) / kPrepThreads;
+  return (int)(need < 8192 ? (need > 0 ? need : 1) : 8192);
+}
+
+// ---------------------------------------------------------------------------
+// Host
+// ---------------------------------------------------------------------------
+
+// Launch `kernel` (flash_kernel<P> or single_kv_kernel<P>) over q, k, v
+// (bf16), or over the pre-pass's rounded q, k and the V^T workspace with
+// Lkp keys (F32Plan).
+template <typename P, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
            void* o, const void* k_len, int B, int H, int Lq, int Lk,
-           float scale_log2, void* stream) {
-  constexpr size_t kSmemBytes = Bf16Tiles<kD>::kSmemBytes;
+           float scale_log2, void* stream, int Lkp = 0) {
+  constexpr int kD = P::kD;
+  constexpr size_t kSmemBytes = P::kSmemBytes;
   CUtensorMap tq, tk, tv;
-  if (!make_bl_hd_map(&tq, q, B, Lq, H, kD, kBoxRows) ||
-      !make_bl_hd_map(&tk, k, B, Lk, H, kD, kBoxRows) ||
-      !make_bl_hd_map(&tv, v, B, Lk, H, kD, kBoxRows))
-    return (int)cudaErrorInvalidValue;
+  const bool ok =
+      P::kF32 ? make_bl_hd_map_f32(&tq, q, B, Lq, H, kD, kBoxRows) &&
+                    make_bl_hd_map_f32(&tk, k, B, Lk, H, kD, kBoxRows) &&
+                    make_bl_hd_map_f32(&tv, v, B, kD, H, Lkp, kBoxRows)
+              : make_bl_hd_map(&tq, q, B, Lq, H, kD, kBoxRows) &&
+                    make_bl_hd_map(&tk, k, B, Lk, H, kD, kBoxRows) &&
+                    make_bl_hd_map(&tv, v, B, Lk, H, kD, kBoxRows);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -351,8 +520,7 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
-  const Params a{static_cast<const int*>(k_len), static_cast<bf16*>(o), B, H,
-                 Lq, Lk, scale_log2};
+  const Params a{static_cast<const int*>(k_len), o, B, H, Lq, Lk, scale_log2};
   const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
   const int grid = (int)(n_work < sms ? n_work : sms);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
@@ -360,45 +528,101 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// B1 (single_kv false) or B2 at head dim D: the instance for D, or
-// cudaErrorInvalidValue for a D that is not a positive multiple of 128.
-int dispatch(bool single_kv, const void* q, const void* k, const void* v,
-             void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
-             float scale_log2, void* stream) {
-  if (D <= 0 || D % 128 || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(o) % 16) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return single_kv ? launch<128>(single_kv_kernel<128>, q, k, v, o, k_len, B,
-                                   H, Lq, Lk, scale_log2, stream)
-                     : launch<128>(flash_kernel<128>, q, k, v, o, k_len, B, H,
-                                   Lq, Lk, scale_log2, stream);
-  if (D == 256)
-    return single_kv ? launch<256>(single_kv_kernel<256>, q, k, v, o, k_len, B,
-                                   H, Lq, Lk, scale_log2, stream)
-                     : launch<256>(flash_kernel<256>, q, k, v, o, k_len, B, H,
-                                   Lq, Lk, scale_log2, stream);
+bool bad_shape(int B, int H, int Lq, int Lk, int D, const void* o) {
+  return D <= 0 || D % 128 || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 ||
+         reinterpret_cast<uintptr_t>(o) % 16;
+}
+
+wide::Params wide_params(const void* k_len, void* o, int B, int H, int Lq,
+                         int Lk, int D, float scale_log2) {
   wide::Params a{};
   a.k_len = static_cast<const int*>(k_len);
-  a.o = static_cast<bf16*>(o);
+  a.o = o;
   a.B = B;
   a.H = H;
   a.D = D;
   a.Lq = Lq;
   a.Lk = Lk;
   a.scale_log2 = scale_log2;
+  return a;
+}
+
+// bf16 B1 (single_kv false) or B2 at head dim D: the instance for D, or
+// cudaErrorInvalidValue for a D that is not a positive multiple of 128.
+int dispatch(bool single_kv, const void* q, const void* k, const void* v,
+             void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
+             float scale_log2, void* stream) {
+  if (bad_shape(B, H, Lq, Lk, D, o)) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return single_kv
+               ? launch<Bf16Plan<128>>(single_kv_kernel<Bf16Plan<128>>, q, k,
+                                       v, o, k_len, B, H, Lq, Lk, scale_log2,
+                                       stream)
+               : launch<Bf16Plan<128>>(flash_kernel<Bf16Plan<128>>, q, k, v,
+                                       o, k_len, B, H, Lq, Lk, scale_log2,
+                                       stream);
+  if (D == 256)
+    return single_kv
+               ? launch<Bf16Plan<256>>(single_kv_kernel<Bf16Plan<256>>, q, k,
+                                       v, o, k_len, B, H, Lq, Lk, scale_log2,
+                                       stream)
+               : launch<Bf16Plan<256>>(flash_kernel<Bf16Plan<256>>, q, k, v,
+                                       o, k_len, B, H, Lq, Lk, scale_log2,
+                                       stream);
+  const wide::Params a = wide_params(k_len, o, B, H, Lq, Lk, D, scale_log2);
   return single_kv
-             ? wide::launch<wide::kDense>(single_kv_wide_kernel, q, k, v, a,
-                                          stream)
-             : wide::launch<wide::kDense>(flash_wide_kernel, q, k, v, a,
-                                          stream);
+             ? wide::launch<wide::kDense>(single_kv_wide_kernel<false>, q, k,
+                                          v, a, stream)
+             : wide::launch<wide::kDense>(flash_wide_kernel<false>, q, k, v,
+                                          a, stream);
+}
+
+// fp32 B1 or B2 at head dim D: the pre-pass into qw, kw ([B, L, H, D] like
+// q and k) and vt ([B, D, H, Lkp], Lkp = Lk rounded up to kKeyPad), then
+// F32Plan at D = 128 or the wide design's fp32 dense mode above it.
+int dispatch_f32(bool single_kv, const void* q, const void* k, const void* v,
+                 void* qw, void* kw, void* vt, void* o, const void* k_len,
+                 int B, int H, int Lq, int Lk, int D, float scale_log2,
+                 void* stream) {
+  if (bad_shape(B, H, Lq, Lk, D, o) || (long long)B * H > 65535 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(qw) |
+       reinterpret_cast<uintptr_t>(kw) | reinterpret_cast<uintptr_t>(vt)) %
+          16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Lkp = (Lk + kKeyPad - 1) / kKeyPad * kKeyPad;
+  const long long nq4 = (long long)B * Lq * H * D / 4;
+  const long long nk4 = (long long)B * Lk * H * D / 4;
+  round_tf32_kernel<<<prep_blocks(nq4), kPrepThreads, 0, st>>>(
+      static_cast<const float4*>(q), static_cast<float4*>(qw), nq4);
+  round_tf32_kernel<<<prep_blocks(nk4), kPrepThreads, 0, st>>>(
+      static_cast<const float4*>(k), static_cast<float4*>(kw), nk4);
+  transpose_v_kernel<<<dim3((Lkp / 32) * (D / 32), B * H), kPrepThreads, 0,
+                       st>>>(static_cast<const float*>(v),
+                             static_cast<float*>(vt), H, Lk, D, Lkp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (D == 128)
+    return single_kv
+               ? launch<F32Plan>(single_kv_kernel<F32Plan>, qw, kw, vt, o,
+                                 k_len, B, H, Lq, Lk, scale_log2, stream, Lkp)
+               : launch<F32Plan>(flash_kernel<F32Plan>, qw, kw, vt, o, k_len,
+                                 B, H, Lq, Lk, scale_log2, stream, Lkp);
+  const wide::Params a = wide_params(k_len, o, B, H, Lq, Lk, D, scale_log2);
+  return single_kv ? wide::launch<wide::kDense, true>(
+                         single_kv_wide_kernel<true>, qw, kw, vt, a, stream,
+                         Lkp)
+                   : wide::launch<wide::kDense, true>(flash_wide_kernel<true>,
+                                                      qw, kw, vt, a, stream,
+                                                      Lkp);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B1. Returns a cudaError_t (0 on a clean launch).
+// B1 in bf16. Returns a cudaError_t (0 on a clean launch).
 int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
                            const void* k_len, int B, int H, int Lq, int Lk, int D,
                            float scale_log2, void* stream) {
@@ -409,13 +633,35 @@ int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
 // Dynamic shared memory a B1 / B2 CTA takes at head dim 128, in bytes.
 int flexam_attention_smem_bytes() { return (int)Bf16Tiles<128>::kSmemBytes; }
 
-// B2 (Lk <= 512). Returns a cudaError_t.
+// B2 in bf16 (Lk <= 512). Returns a cudaError_t.
 int flexam_single_kv_attention(const void* q, const void* k, const void* v, void* o,
                                const void* k_len, int B, int H, int Lq, int Lk, int D,
                                float scale_log2, void* stream) {
   if (Lk > kMaxKeysB2) return (int)cudaErrorInvalidValue;
   return dispatch(true, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
                   stream);
+}
+
+// B1 in fp32 (TF32 wgmma). qw, kw: workspaces shaped as q and k; vt: a
+// workspace of B * D * H * Lkp floats, Lkp = Lk rounded up to 64. All
+// 16-byte aligned. Returns a cudaError_t.
+int flexam_flash_attention_f32(const void* q, const void* k, const void* v,
+                               void* qw, void* kw, void* vt, void* o,
+                               const void* k_len, int B, int H, int Lq, int Lk,
+                               int D, float scale_log2, void* stream) {
+  return dispatch_f32(false, q, k, v, qw, kw, vt, o, k_len, B, H, Lq, Lk, D,
+                      scale_log2, stream);
+}
+
+// B2 in fp32 (Lk <= 512), with B1's workspaces. Returns a cudaError_t.
+int flexam_single_kv_attention_f32(const void* q, const void* k, const void* v,
+                                   void* qw, void* kw, void* vt, void* o,
+                                   const void* k_len, int B, int H, int Lq,
+                                   int Lk, int D, float scale_log2,
+                                   void* stream) {
+  if (Lk > kMaxKeysB2) return (int)cudaErrorInvalidValue;
+  return dispatch_f32(true, q, k, v, qw, kw, vt, o, k_len, B, H, Lq, Lk, D,
+                      scale_log2, stream);
 }
 
 }  // extern "C"

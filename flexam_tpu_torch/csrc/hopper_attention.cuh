@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the port's attention kernels: TMA
-// tensor maps and loads, mbarriers, wgmma (bf16 and s8), register
+// tensor maps and loads, mbarriers, wgmma (bf16, tf32 and s8), register
 // reallocation, and the online softmax on wgmma accumulator fragments.
 // Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
 // (int8_attention.cu). Outputs leave by plain stores from registers: a
@@ -8,8 +8,8 @@
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
 // is D / 64 column spans of [rows, 64] (128 bytes a row), one after
-// another, each 1024-byte aligned; a [rows, D] int8 tile is D / 128 such
-// spans (128 bytes a row). Inside a span, the 16-byte chunk c of row r sits
+// another, each 1024-byte aligned; a [rows, D] fp32 tile is D / 32 such
+// spans and a [rows, D] int8 tile D / 128 (128 bytes a row). Inside a span, the 16-byte chunk c of row r sits
 // at chunk c ^ (r % 8). TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B)
 // and wgmma reads it through descriptors with layout type 1.
 //
@@ -78,49 +78,53 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a [B, L, H, D] bf16 tensor, dims innermost first
-// (D, H, L, B), with boxes of (64 columns, 1 head, box_rows rows, 1 batch)
-// and the 128-byte swizzle. Rows past L (or before 0) read as zeros and
-// are not written: the ragged edge of L stays inside its batch. Returns
-// false if the map is refused (e.g. a pointer not 16-byte aligned).
-inline bool make_bl_hd_map(CUtensorMap* map, const void* base, int B, int L,
-                           int H, int D, int box_rows) {
+// A 4-D map over a [B, L, H, D] tensor of `type` (elements of `bytes`
+// bytes), dims innermost first (D, H, L, B), with boxes of (one
+// 128-byte-swizzle span of 128 / bytes columns, 1 head, box_rows rows,
+// 1 batch). Rows past L (or before 0) read as zeros and are not written:
+// the ragged edge of L stays inside its batch. Returns false if the map is
+// refused (e.g. a pointer not 16-byte aligned).
+inline bool make_span_map(CUtensorMap* map, CUtensorMapDataType type,
+                          int bytes, const void* base, int B, int L, int H,
+                          int D, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+  const cuuint64_t row = (cuuint64_t)D * bytes;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {row, row * H, row * H * L};   // bytes, dims 1..3
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / bytes), 1, (cuuint32_t)box_rows, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                      const_cast<void*>(base), dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides,
+                      box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
 }
 
-// The same over a [B, L, H, D] int8 tensor: 128 bytes of a row are one
-// 128-byte-swizzle span, so a box is (128 columns, 1 head, box_rows rows,
-// 1 batch). The bytes are copied as they are (UINT8 is the map type TMA
-// has for one-byte elements).
+// bf16 [B, L, H, D]: boxes of 64 columns.
+inline bool make_bl_hd_map(CUtensorMap* map, const void* base, int B, int L,
+                           int H, int D, int box_rows) {
+  return make_span_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, L,
+                       H, D, box_rows);
+}
+
+// fp32 [B, L, H, D]: boxes of 32 columns. The Vt workspace of the fp32
+// kernels, [B, D, H, Lkp], is mapped as this with L = D and D = Lkp: its
+// boxes are 32 keys of box_rows head-dim rows.
+inline bool make_bl_hd_map_f32(CUtensorMap* map, const void* base, int B,
+                               int L, int H, int D, int box_rows) {
+  return make_span_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, B, L,
+                       H, D, box_rows);
+}
+
+// int8 [B, L, H, D]: boxes of 128 columns. The bytes are copied as they
+// are (UINT8 is the map type TMA has for one-byte elements).
 inline bool make_bl_hd_map_i8(CUtensorMap* map, const void* base, int B,
                               int L, int H, int D, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t row = (cuuint64_t)D;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {row, row * H, row * H * L};
-  cuuint32_t box[4] = {128, 1, (cuuint32_t)box_rows, 1};
-  cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
-                      const_cast<void*>(base), dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS;
+  return make_span_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, B, L, H,
+                       D, box_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -177,12 +181,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Rows row0 .. row0 + kRows - 1 of head h, batch b of a [B, L, H, D] bf16
-// map with 64-row boxes into a swizzled tile at dst: kSpans 64-column spans
-// from column col0 on, each [kRows, 64] (kRows * 128 bytes) and made of
-// kRows / 64 boxes of 8 KB.
-template <int kSpans, int kRows>
-__device__ __forceinline__ void tma_load_bf16_tile(uint32_t dst,
+// Rows row0 .. row0 + kRows - 1 of head h, batch b of a [B, L, H, D] map
+// with 64-row boxes into a swizzled tile at dst: kSpans spans of kCols
+// columns (128 bytes: 64 bf16 or 32 fp32) from column col0 on, each
+// [kRows, kCols] (kRows * 128 bytes) and made of kRows / 64 boxes of 8 KB.
+template <int kSpans, int kRows, int kCols = 64>
+__device__ __forceinline__ void tma_load_span_tile(uint32_t dst,
                                                    const CUtensorMap* map,
                                                    uint32_t bar, int h,
                                                    int row0, int b,
@@ -192,7 +196,16 @@ __device__ __forceinline__ void tma_load_bf16_tile(uint32_t dst,
 #pragma unroll
     for (int part = 0; part < kRows / 64; ++part)
       tma_load_4d(dst + span * kRows * 128 + part * 8192, map, bar,
-                  col0 + 64 * span, h, row0 + 64 * part, b);
+                  col0 + kCols * span, h, row0 + 64 * part, b);
+}
+
+template <int kSpans, int kRows>
+__device__ __forceinline__ void tma_load_bf16_tile(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int h,
+                                                   int row0, int b,
+                                                   int col0 = 0) {
+  tma_load_span_tile<kSpans, kRows, 64>(dst, map, bar, h, row0, b, col0);
 }
 
 // The same from a [B, L, H, D] int8 map whose boxes are kRows rows: kSpans
@@ -376,6 +389,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (+)= A B for a 64 x 64 x 8 step of tf32 operands, A and B both
+// K-major in shared memory (fp32 S over a 64-key tile). A step is 32 bytes
+// of K, as bf16's k16, so a descriptor advances as in wgmma_m64n64k16_ss.
+// The tensor core reads the operands' top 19 bits (tf32): the fp32 kernels
+// round them to nearest beforehand (round_tf32). `accumulate` 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FLEXAM_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : FLEXAM_REGS32("+f", d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for a 64 x 128 x 8 step of tf32 operands, A from registers
+// (probs_to_a_tf32's fragment), B K-major in shared memory: tf32 wgmma has
+// no transposed operand, so B is V^T (rows of the output's columns, keys
+// contiguous).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " FLEXAM_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : FLEXAM_REGS64("+f", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // A 64 x 64 x 32 step of int8 operands, s32 accumulate, both K-major in
 // shared memory: the first step of a product writes d, the others add.
 __device__ __forceinline__ void wgmma_m64n64k32_s8_ss_first(int (&d)[32],
@@ -526,6 +572,34 @@ __device__ __forceinline__ void probs_to_a(const float (&s)[N],
   for (int j = 0; j < N / 4; ++j) {
     p[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
     p[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+// An fp32 value rounded to tf32 (10 mantissa bits, to nearest, ties away
+// from zero), as the fp32 bit pattern with the low 13 bits zero.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// Probabilities of a 64 x 2N fragment as the tf32 A fragments of the P.V
+// product's N/4 k-steps of 8 keys. A tf32 A fragment gives lane l of a
+// warp k columns l%4 and l%4 + 4 of its rows l/4 and l/4 + 8; the
+// accumulator gives it keys 2(l%4) and 2(l%4) + 1 of each 8. So k column
+// c of a step stands for key 2c (c < 4) or 2(c - 4) + 1 of the step's 8
+// keys: V^T's keys are stored in that order within each 8 (the Vt
+// workspace the fp32 kernels' pre-pass writes), and each probability goes
+// to the register that holds its own key, rounded to nearest.
+template <int N>
+__device__ __forceinline__ void probs_to_a_tf32(const float (&s)[N],
+                                                uint32_t (&p)[N / 4][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    p[j][0] = round_tf32(s[4 * j]);        // row l/4,     key 8j + 2(l%4)
+    p[j][1] = round_tf32(s[4 * j + 2]);    // row l/4 + 8, key 8j + 2(l%4)
+    p[j][2] = round_tf32(s[4 * j + 1]);    // row l/4,     key 8j + 2(l%4) + 1
+    p[j][3] = round_tf32(s[4 * j + 3]);    // row l/4 + 8, key 8j + 2(l%4) + 1
   }
 }
 

@@ -23,6 +23,13 @@
 // count), kInt8 (B6: int8 Q K^T accumulated in s32, each logit s times
 // (q scale * k scale) * (softmax scale * log2 e), the plain version's
 // order).
+//
+// kDense also runs fp32 (kF32, TF32 wgmma), on the rounded Q and K and the
+// V^T workspace of flash_attention.cu's pre-pass: chunks of 32 columns
+// (128 bytes, the same 8 KB boxes), m64n64k8 steps, and V^T's slab as two
+// 32-key spans of [128 columns, 32 keys] read K-major by m64n128k8 steps
+// with P from registers (probs_to_a_tf32). The sparse and int8 modes are
+// bf16 only.
 #pragma once
 
 #include "hopper_attention.cuh"
@@ -40,8 +47,16 @@ constexpr int kThreads = 128;             // one warpgroup
 constexpr float kNegInf = -__builtin_huge_valf();
 constexpr uint32_t kChunkBytes = 64 * 128;           // 64 rows x 128 bytes
 constexpr uint32_t kStageBytes = 2 * kChunkBytes;    // a Q and a K chunk
-constexpr uint32_t kVBytes = kKeys * kSlab * 2;      // 16 KB
-constexpr size_t kSmemBytes = 1024 + 2 * kStageBytes + kVBytes + 3 * 8;
+// V's slab of a tile: [64 keys, 128] bf16 (16 KB), or V^T's [128, 64 keys]
+// fp32 (32 KB)
+template <bool kF32>
+__host__ __device__ constexpr uint32_t v_bytes() {
+  return kKeys * kSlab * (kF32 ? 4 : 2);
+}
+template <bool kF32>
+constexpr size_t smem_bytes() {
+  return 1024 + 2 * kStageBytes + v_bytes<kF32>() + 3 * 8;
+}
 
 struct Params {
   const int* k_len;  // kDense, kInt8: [B] or null
@@ -49,7 +64,7 @@ struct Params {
   const int* nnz;    // kSparse: [nq]
   const float* qs;   // kInt8: [B, H, Lq] scale of each query row
   const float* ks;   // kInt8: [B, H, Lk] scale of each key
-  bf16* o;           // [B, Lq, H, D]
+  void* o;           // [B, Lq, H, D], bf16 (fp32 for kF32)
   int B, H, D, Lq, Lk;
   int blk, max_nnz, q_tiles, k_tiles;  // kSparse: tiles of a block
   float scale_log2;  // softmax scale * log2(e)
@@ -103,11 +118,13 @@ __device__ __forceinline__ int tile_key0(const Params& a, const Item& w,
   return t * kKeys;
 }
 
-template <int kMode, int kMaxTiles>
+template <int kMode, int kMaxTiles, bool kF32 = false>
 __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
                                          const CUtensorMap* tk,
                                          const CUtensorMap* tv,
                                          const Params& a) {
+  static_assert(!kF32 || kMode == kDense, "fp32 runs the dense mode only");
+  constexpr uint32_t kVBytes = v_bytes<kF32>();
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t stage0 = (smem_u32(smem) + 1023u) & ~1023u;
   const uint32_t v_s = stage0 + 2 * kStageBytes;
@@ -116,7 +133,8 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
   auto full = [&](int s) { return bars + 8u * s; };
 
   const Item w = item_of<kMode, kMaxTiles>(a, blockIdx.x);
-  const int n_chunks = kMode == kInt8 ? a.D / 128 : a.D / 64;
+  // chunks of 128 bytes of a row: 128 int8, 64 bf16 or 32 fp32 columns
+  const int n_chunks = kMode == kInt8 ? a.D / 128 : (kF32 ? a.D / 32 : a.D / 64);
   const int total = w.n_tiles * n_chunks;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane & 3;
@@ -132,17 +150,27 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
       tma_load_i8_tile<1, 64>(dst, tq, full(s), w.h, w.q0, w.b, 128 * c);
       tma_load_i8_tile<1, 64>(dst + kChunkBytes, tk, full(s), w.h, k0, w.b,
                               128 * c);
+    } else if (kF32) {
+      tma_load_span_tile<1, 64, 32>(dst, tq, full(s), w.h, w.q0, w.b, 32 * c);
+      tma_load_span_tile<1, 64, 32>(dst + kChunkBytes, tk, full(s), w.h, k0,
+                                    w.b, 32 * c);
     } else {
       tma_load_bf16_tile<1, 64>(dst, tq, full(s), w.h, w.q0, w.b, 64 * c);
       tma_load_bf16_tile<1, 64>(dst + kChunkBytes, tk, full(s), w.h, k0,
                                 w.b, 64 * c);
     }
   };
-  // V's slab of tile t: two 64-column spans
+  // V's slab of tile t: two 64-column spans; in fp32, V^T's [B, D, H, Lkp]
+  // rows of the slab, two 32-key spans
   auto load_v = [&](int t) {
     mbar_arrive_expect_tx(v_full, kVBytes);
-    tma_load_bf16_tile<2, 64>(v_s, tv, v_full, w.h, tile_key0<kMode>(a, w, t),
-                              w.b, kSlab * w.slab);
+    if (kF32)
+      tma_load_span_tile<2, kSlab, 32>(v_s, tv, v_full, w.h, kSlab * w.slab,
+                                       w.b, tile_key0<kMode>(a, w, t));
+    else
+      tma_load_bf16_tile<2, 64>(v_s, tv, v_full, w.h,
+                                tile_key0<kMode>(a, w, t), w.b,
+                                kSlab * w.slab);
   };
 
   if (tid == 0) {
@@ -193,6 +221,9 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
         if (kMode == kInt8)
           wgmma_m64n64k32_s8_ss(si, sw128_desc(qa + 32 * k, 16, 1024),
                                 sw128_desc(ka + 32 * k, 16, 1024));
+        else if (kF32)
+          wgmma_m64n64k8_tf32_ss(sc, sw128_desc(qa + 32 * k, 16, 1024),
+                                 sw128_desc(ka + 32 * k, 16, 1024), 1);
         else
           wgmma_m64n64k16_ss(sc, sw128_desc(qa + 32 * k, 16, 1024),
                              sw128_desc(ka + 32 * k, 16, 1024), 1);
@@ -237,18 +268,32 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
     rescale_rows(o, al_a, al_b);
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
-    uint32_t p[4][4];
-    probs_to_a(sc, p);
+    uint32_t p[kF32 ? 8 : 4][4];
+    if constexpr (kF32)
+      probs_to_a_tf32(sc, p);
+    else
+      probs_to_a(sc, p);
 
-    // O += P V over the tile's 64 keys in 4 steps of 16; V is [keys, 128]
-    // with the columns contiguous: MN-major, the two 64-column spans 8 KB
-    // apart
+    // O += P V over the tile's 64 keys: bf16 in 4 steps of 16, V [keys,
+    // 128] with the columns contiguous, MN-major, the two 64-column spans
+    // 8 KB apart; fp32 in 8 steps of 8, V^T [128, keys] K-major, the two
+    // 32-key spans 16 KB apart
     mbar_wait(v_full, t & 1);
     wgmma_fence();
+    if constexpr (kF32) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n128k16_rs_tb(o, p[kk],
-                             sw128_desc(v_s + kk * 16 * 128, kChunkBytes, 1024));
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128k8_tf32_rs(
+            o, p[kk],
+            sw128_desc(v_s + (kk >> 2) * kSlab * 128 + (kk & 3) * 32, 16,
+                       1024));
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_rs_tb(o, p[kk],
+                               sw128_desc(v_s + kk * 16 * 128, kChunkBytes,
+                                          1024));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -257,21 +302,32 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
     if (tid == 0 && t + 1 < w.n_tiles) load_v(t + 1);
   }
 
-  // acc / sum as bf16 into the slab's columns of [B, Lq, H, D]; rows at or
-  // past q_end are not written
+  // acc / sum (bf16, or fp32) into the slab's columns of [B, Lq, H, D];
+  // rows at or past q_end are not written
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
   const size_t stride = (size_t)a.H * a.D;
-  bf16* base = a.o + (size_t)w.b * a.Lq * stride + (size_t)w.h * a.D +
-               kSlab * w.slab + 2 * quad;
+  const size_t off = (size_t)w.b * a.Lq * stride + (size_t)w.h * a.D +
+                     kSlab * w.slab + 2 * quad;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    if (r_a < w.q_end)
-      *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
-          pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
-    if (r_b < w.q_end)
-      *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
-          pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
+    if constexpr (kF32) {
+      float* base = static_cast<float*>(a.o) + off;
+      if (r_a < w.q_end)
+        *reinterpret_cast<float2*>(base + r_a * stride + 8 * j) =
+            make_float2(o[4 * j] / l_a, o[4 * j + 1] / l_a);
+      if (r_b < w.q_end)
+        *reinterpret_cast<float2*>(base + r_b * stride + 8 * j) =
+            make_float2(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
+    } else {
+      bf16* base = static_cast<bf16*>(a.o) + off;
+      if (r_a < w.q_end)
+        *reinterpret_cast<uint32_t*>(base + r_a * stride + 8 * j) =
+            pack_bf16(o[4 * j] / l_a, o[4 * j + 1] / l_a);
+      if (r_b < w.q_end)
+        *reinterpret_cast<uint32_t*>(base + r_b * stride + 8 * j) =
+            pack_bf16(o[4 * j + 2] / l_b, o[4 * j + 3] / l_b);
+    }
   }
 }
 
@@ -285,26 +341,34 @@ inline long long n_items(const Params& a) {
 }
 
 // Launch `kernel` (a __global__ wrapper of wide_cta) over every item of
-// `a`, with maps over q, k (bf16, or int8 for kInt8) and v built here.
-// Returns a cudaError_t.
-template <int kMode, typename Kernel>
+// `a`, with maps over q, k (bf16, int8 for kInt8, fp32 for kF32) and v
+// (bf16; for kF32 the V^T workspace [B, D, H, Lkp]) built here. Returns a
+// cudaError_t.
+template <int kMode, bool kF32 = false, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
-           const Params& a, void* stream) {
+           const Params& a, void* stream, int Lkp = 0) {
+  constexpr size_t kSmem = smem_bytes<kF32>();
   CUtensorMap tq, tk, tv;
-  const bool ok =
-      kMode == kInt8
-          ? make_bl_hd_map_i8(&tq, q, a.B, a.Lq, a.H, a.D, kRows) &&
-                make_bl_hd_map_i8(&tk, k, a.B, a.Lk, a.H, a.D, kKeys)
-          : make_bl_hd_map(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
-                make_bl_hd_map(&tk, k, a.B, a.Lk, a.H, a.D, 64);
-  if (!ok || !make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64))
-    return (int)cudaErrorInvalidValue;
+  bool ok;
+  if (kF32)
+    ok = make_bl_hd_map_f32(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
+         make_bl_hd_map_f32(&tk, k, a.B, a.Lk, a.H, a.D, 64) &&
+         make_bl_hd_map_f32(&tv, v, a.B, a.D, a.H, Lkp, 64);
+  else if (kMode == kInt8)
+    ok = make_bl_hd_map_i8(&tq, q, a.B, a.Lq, a.H, a.D, kRows) &&
+         make_bl_hd_map_i8(&tk, k, a.B, a.Lk, a.H, a.D, kKeys) &&
+         make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64);
+  else
+    ok = make_bl_hd_map(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
+         make_bl_hd_map(&tk, k, a.B, a.Lk, a.H, a.D, 64) &&
+         make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
   const long long items = n_items<kMode>(a);
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)items, kThreads, kSmemBytes,
+  kernel<<<(unsigned)items, kThreads, kSmem,
            static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }

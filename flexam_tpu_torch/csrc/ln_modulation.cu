@@ -8,6 +8,8 @@
 //         mask[b, s] picks the t branch where 1, the t = 0 branch where 0)
 //   sh  = shift[b]                                  (broadcast mode)
 //   out = ln * (1 + bf16(sc)) + bf16(sh)            each op rounded to bf16
+// x may also be fp32: the casts are then no-ops and every op rounds to fp32
+// (ln_mod_f32_kernel).
 // Multiplies and adds use the _rn intrinsics (no FMA contraction) so the
 // kernel rounds where the plain PyTorch version does.
 //
@@ -28,6 +30,11 @@
 //     branch's term); any other mask value mixes the fp32 terms as above;
 //   * the terms are read through their strides (the last dim contiguous), so
 //     a strided view of the modulation tensor needs no copy first.
+//
+// fp32 (ln_mod_f32_kernel): a CTA of 256 threads holds a row (common.cuh),
+// each thread 16-byte vectors of 4 features; the same two-pass mean and
+// variance, and the same staged terms, sh and 1 + sc of each branch in
+// fp32; the next row's loads go out before this row is reduced.
 
 #include "common.cuh"
 
@@ -166,6 +173,118 @@ ln_mod_kernel(const bf16* __restrict__ x, const float* __restrict__ shift,
 }
 
 template <int NV>
+__global__ void __launch_bounds__(flexam::kRowThreads)
+ln_mod_f32_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+                  const float* __restrict__ scale, const float* __restrict__ mask,
+                  float* __restrict__ out, int S, int D, int sh_b, int sh_r,
+                  int sc_b, int sc_r, float eps) {
+  extern __shared__ float4 terms_f32[];  // [branch][sh, 1 + sc][D / 4]
+  __shared__ float red[flexam::kRowThreads / 32];
+  const int b = blockIdx.y;
+  const int nvec = D >> 2;
+  int s = blockIdx.x;
+  const float* shb = shift + (size_t)b * sh_b;
+  const float* scb = scale + (size_t)b * sc_b;
+
+  float4 xv[NV];
+  float m = 1.f;
+  if (s < S) {
+    flexam::load_row_f32<NV>(x + ((size_t)b * S + s) * D, nvec, xv);
+    if (mask) m = mask[(size_t)b * S + s];
+  }
+  const int branches = mask ? 2 : 1;
+  for (int i = threadIdx.x; i < branches * nvec; i += flexam::kRowThreads) {
+    const int br = i / nvec, c = i - br * nvec;
+    const float* sh = shb + (size_t)br * sh_r + 4 * c;
+    const float* sc = scb + (size_t)br * sc_r + 4 * c;
+    terms_f32[2 * br * nvec + c] = make_float4(sh[0], sh[1], sh[2], sh[3]);
+    terms_f32[(2 * br + 1) * nvec + c] =
+        make_float4(__fadd_rn(1.f, sc[0]), __fadd_rn(1.f, sc[1]),
+                    __fadd_rn(1.f, sc[2]), __fadd_rn(1.f, sc[3]));
+  }
+  __syncthreads();
+
+  while (s < S) {
+    const int next = s + gridDim.x;
+    float4 xn[NV];
+    float mn = 1.f;
+    if (next < S) {
+      flexam::load_row_f32<NV>(x + ((size_t)b * S + next) * D, nvec, xn);
+      if (mask) mn = mask[(size_t)b * S + next];
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      sum = __fadd_rn(sum, __fadd_rn(__fadd_rn(xv[i].x, xv[i].y),
+                                     __fadd_rn(xv[i].z, xv[i].w)));
+    const float mean = flexam::block_sum(sum, red) / (float)D;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (threadIdx.x + flexam::kRowThreads * i >= nvec) continue;
+      const float d0 = __fsub_rn(xv[i].x, mean), d1 = __fsub_rn(xv[i].y, mean);
+      const float d2 = __fsub_rn(xv[i].z, mean), d3 = __fsub_rn(xv[i].w, mean);
+      sq = __fadd_rn(sq, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
+                                   __fadd_rn(__fmul_rn(d2, d2), __fmul_rn(d3, d3))));
+    }
+    const float rstd = 1.f / sqrtf(flexam::block_sum(sq, red) / (float)D + eps);
+    const int br = m == 1.f ? 0 : 1;
+    const bool mix = m != 1.f && m != 0.f;
+    float* orow = out + ((size_t)b * S + s) * D;
+
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + flexam::kRowThreads * i;
+      if (c >= nvec) continue;
+      float4 sh4, sc4;
+      if (!mix) {
+        sh4 = terms_f32[2 * br * nvec + c];
+        sc4 = terms_f32[(2 * br + 1) * nvec + c];
+      } else {
+        const float* a = shb + 4 * c;
+        const float* g = scb + 4 * c;
+        const float u = __fsub_rn(1.f, m);
+        float hs[4], hc[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          hs[k] = __fadd_rn(__fmul_rn(m, a[k]), __fmul_rn(u, a[sh_r + k]));
+          hc[k] = __fadd_rn(1.f, __fadd_rn(__fmul_rn(m, g[k]), __fmul_rn(u, g[sc_r + k])));
+        }
+        sh4 = make_float4(hs[0], hs[1], hs[2], hs[3]);
+        sc4 = make_float4(hc[0], hc[1], hc[2], hc[3]);
+      }
+      const float4 v = xv[i];
+      reinterpret_cast<float4*>(orow)[c] = make_float4(
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.x, mean), rstd), sc4.x), sh4.x),
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.y, mean), rstd), sc4.y), sh4.y),
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.z, mean), rstd), sc4.z), sh4.z),
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.w, mean), rstd), sc4.w), sh4.w));
+    }
+    s = next;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) xv[i] = xn[i];
+    m = mn;
+  }
+}
+
+template <int NV>
+int launch_f32(const void* x, const void* shift, const void* scale, const void* mask,
+               void* out, int B, int S, int D, int sh_b, int sh_r, int sc_b, int sc_r,
+               float eps, cudaStream_t stream) {
+  const size_t smem = (mask ? 2 : 1) * 2 * (size_t)D * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_mod_f32_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int gx = flexam::persistent_ctas(ln_mod_f32_kernel<NV>, flexam::kRowThreads,
+                                         smem, B, S);
+  ln_mod_f32_kernel<NV><<<dim3(gx, B), flexam::kRowThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(shift),
+      static_cast<const float*>(scale), static_cast<const float*>(mask),
+      static_cast<float*>(out), S, D, sh_b, sh_r, sc_b, sc_r, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int NV>
 int launch(const void* x, const void* shift, const void* scale, const void* mask,
            void* out, int B, int S, int D, int sh_b, int sh_r, int sc_b, int sc_r,
            float eps, cudaStream_t stream) {
@@ -203,6 +322,26 @@ int flexam_ln_modulation(const void* x, const void* shift, const void* scale,
   case n:              \
     return launch<n>(x, shift, scale, mask, out, B, S, D, sh_b, sh_r, sc_b, sc_r, eps, st);
     FLEXAM_ROW_VECTORS(FLEXAM_CASE)
+#undef FLEXAM_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B4 in fp32: x/out fp32, the rest as flexam_ln_modulation.
+int flexam_ln_modulation_f32(const void* x, const void* shift, const void* scale,
+                             const void* mask, void* out, int B, int S, int D,
+                             int sh_b, int sh_r, int sc_b, int sc_r, float eps,
+                             void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || D % 8 != 0 || B > 65535 ||
+      ((uintptr_t)x | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (flexam::row_vectors_f32(D)) {
+#define FLEXAM_CASE(n) \
+  case n:              \
+    return launch_f32<n>(x, shift, scale, mask, out, B, S, D, sh_b, sh_r, sc_b, sc_r, eps, st);
+    FLEXAM_ROW_VECTORS_F32(FLEXAM_CASE)
 #undef FLEXAM_CASE
     default:
       return (int)cudaErrorInvalidValue;

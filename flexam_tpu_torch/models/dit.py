@@ -11,8 +11,10 @@ parameter dicts) and the head + unpatchify.
 On the kernel path (head_dim % 128 == 0, the dispatch by shape of the JAX
 `_use_fused`) the q/k RMSNorm + RoPE runs as kernel B3 and the two
 LayerNorm + AdaLN prologues of a block as kernel B4; attention goes through
-`core.attention` (B1/B2 on CUDA). On a CPU tensor every kernel takes its
-plain version. `attn_fn` replaces the attention of every block (the
+`core.attention` (B1/B2 on CUDA), in the compute dtype, bf16 or fp32
+(`compute_dtype=torch.float32`: the fp32 kernels, B1/B2 on TF32), as JAX's
+`_use_fused` checks only the head dim. On a CPU tensor every kernel takes
+its plain version. `attn_fn` replaces the attention of every block (the
 pipeline passes B5's sparse closure there); RIFLEx comes in through the
 RoPE tables (`make_rope_tables_for(..., riflex=)`).
 `dit_forward_teacache` is the TeaCache forward; as JAX's, it takes no

@@ -36,10 +36,18 @@ SIGNATURES = {
     "flexam_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flexam_single_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _P],
+    "flexam_flash_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _F, _P],
+    "flexam_single_kv_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _F, _P],
     "flexam_attention_smem_bytes": [],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flexam_rmsnorm_rope_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P],
     "flexam_ln_modulation": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _P],
+    "flexam_ln_modulation_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _P],
     "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
     "flexam_int8_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -13,12 +13,17 @@ Port of `flexam_tpu/ops/flash_attention.py`. The CUDA kernels live in
 Both are Hopper kernels (TMA loads into an mbarrier ring, wgmma, a producer
 warp beside two consumer warpgroups); `csrc/flash_attention.cu` says how.
 
-Layout [B, L, H, D] (the reference `attention()` layout), bf16, on the card
-any D that is a multiple of 128, the JAX kernels' domain. Each head dim
-runs one instance of the kernel (`head_dim_instance`, shared with B5 and
-B6): 128 and 256 have their own, every larger multiple of 128 the wide
-design of `csrc/hopper_wide.cuh`. A CUDA tensor launches the kernel or
-raises; a CPU tensor takes `attention_plain`, which mirrors the JAX math
+Layout [B, L, H, D] (the reference `attention()` layout), bf16 or fp32,
+on the card any D that is a multiple of 128, the JAX kernels' domain. Each
+(head dim, dtype) runs one instance of the kernel (`attention_instance`):
+in bf16 128 and 256 have their own, every larger multiple of 128 the wide
+design of `csrc/hopper_wide.cuh`; in fp32 (TF32 wgmma, the card's
+counterpart of the TPU's default fp32 matmul precision, whatever
+`torch.backends.cuda.matmul.allow_tf32` says) 128 has its own and every
+larger multiple the wide design. fp32 runs a pre-pass that rounds q and k
+to tf32 and writes V^T (rounded) into workspaces allocated here. B5 and B6
+take bf16 only (`check_inputs`' dtypes). A CUDA tensor launches the kernel
+or raises; a CPU tensor takes `attention_plain`, which mirrors the JAX math
 (`core/attention.py:xla_attention`: fp32 logits and softmax, probabilities
 cast to q.dtype before P.V) with the kernels' -1e30 key mask.
 """
@@ -34,6 +39,12 @@ from flexam_tpu_torch.ops import build
 LOG2E = 1.4426950408889634
 MASK_VALUE = -1e30
 SINGLE_KV_MAX_KEYS = 512
+# fp32: the V^T workspace's keys are padded to a multiple of this
+# (`csrc/flash_attention.cu` kKeyPad)
+F32_KEY_PAD = 64
+# the dtypes each kernel takes on the card
+DTYPES = (torch.bfloat16, torch.float32)          # B1, B2
+BF16_ONLY = (torch.bfloat16,)                     # B5, B6
 # bytes of fp32 logits one chunk of `attention_plain` may hold: the SVD
 # UNet's first-level spatial attention at 512x896 (32 frames x 5 heads x
 # 7,168 keys) would hold 33 GB unchunked
@@ -93,27 +104,52 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def head_dim_instance(d: int) -> str:
-    """The kernel instance that runs head dim `d` on the card, in B1, B2,
-    B5 and B6 alike: "d128", "d256", or "wide" (`csrc/hopper_wide.cuh`:
-    slabs of 128 output columns) for any larger multiple of 128. Raises
-    ValueError for a head dim that is not a positive multiple of 128 (the
-    dispatcher sends those to exact attention, as JAX's does)."""
+def attention_instance(d: int, dtype: torch.dtype) -> str:
+    """The kernel instance that runs head dim `d` in `dtype` on the card:
+    bf16 "d128", "d256", or "wide" (`csrc/hopper_wide.cuh`: slabs of 128
+    output columns) for any larger multiple of 128; fp32 (TF32) "f32_d128",
+    or "f32_wide" for any larger multiple of 128. Raises TypeError for any
+    other dtype (fp16 included: no path of the JAX package makes fp16
+    activations) and ValueError for a head dim that is not a positive
+    multiple of 128 (the dispatcher sends those to exact attention, as
+    JAX's does)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"the attention kernels take bf16 or fp32, got "
+                        f"{dtype}")
     if d <= 0 or d % 128:
         raise ValueError(f"the attention kernels take a head_dim that is a "
                          f"multiple of 128, got {d}")
+    if dtype == torch.float32:
+        return "f32_d128" if d == 128 else "f32_wide"
     return {128: "d128", 256: "d256"}.get(d, "wide")
 
 
-def check_inputs(q, k, v, k_len, name):
-    """Raise unless q [B, Lq, H, D], k = v [B, Lk, H, D] are bf16,
-    contiguous and on one CUDA device, with D a multiple of 128
-    (`head_dim_instance`); returns k_len as int32 (or None)."""
+def head_dim_instance(d: int) -> str:
+    """`attention_instance(d, bf16)`: the instance of head dim `d` in B1,
+    B2, B5 and B6 alike."""
+    return attention_instance(d, torch.bfloat16)
+
+
+def check_dtype(dtypes, name, q, k, v) -> None:
+    """Raise TypeError unless q, k and v share a dtype of `dtypes`; the
+    message of a kernel that takes no fp32 names the ROADMAP item that
+    brings it."""
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
+        later = (" (fp32 comes with ROADMAP B-dtype, second half)"
+                 if torch.float32 not in dtypes else "")
+        raise TypeError(f"{name}: the kernel takes {names} q, k, v{later}; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def check_inputs(q, k, v, k_len, name, dtypes=DTYPES):
+    """Raise unless q [B, Lq, H, D], k = v [B, Lk, H, D] share a dtype of
+    `dtypes` (B1, B2: bf16 or fp32; B5, B6: `BF16_ONLY`), are contiguous
+    and on one CUDA device, with D a multiple of 128 (`attention_instance`);
+    returns k_len as int32 (or None)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k and v must be on one CUDA device")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: the kernel takes bf16 q, k, v; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    check_dtype(dtypes, name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: expected q [B, Lq, H, D], k = v "
                          f"[B, Lk, H, D]; got {tuple(q.shape)}, "
@@ -123,7 +159,7 @@ def check_inputs(q, k, v, k_len, name):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree on B, H or D")
     try:
-        head_dim_instance(d)
+        attention_instance(d, q.dtype)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     for t in (q, k, v):
@@ -143,12 +179,22 @@ def _launch(entry, name, q, k, v, k_len, scale):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, lq, h, d = q.shape
+    lk = k.shape[1]
     out = torch.empty_like(q)
-    err = getattr(build.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        k_len.data_ptr() if k_len is not None else None,
-        b, h, lq, k.shape[1], d, float(scale) * LOG2E,
-        build.stream_handle(q))
+    tail = (k_len.data_ptr() if k_len is not None else None,
+            b, h, lq, lk, d, float(scale) * LOG2E, build.stream_handle(q))
+    if q.dtype == torch.float32:
+        # the pre-pass's outputs: q and k rounded to tf32, V^T [B, D, H,
+        # Lkp] rounded with its keys padded to F32_KEY_PAD
+        lkp = -(-lk // F32_KEY_PAD) * F32_KEY_PAD
+        qw, kw = torch.empty_like(q), torch.empty_like(k)
+        vt = torch.empty((b, d, h, lkp), dtype=q.dtype, device=q.device)
+        err = getattr(build.library(), entry + "_f32")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(),
+            kw.data_ptr(), vt.data_ptr(), out.data_ptr(), *tail)
+    else:
+        err = getattr(build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
     build.check(err, name)
     launches[name] += 1
     return out
@@ -157,7 +203,8 @@ def _launch(entry, name, q, k, v, k_len, scale):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """B1: exact attention over [B, L, H, D]; any key count."""
+    """B1: exact attention over [B, L, H, D], bf16 or fp32; any key
+    count."""
     if not q.is_cuda:
         return attention_plain(q, k, v, k_len=k_len, scale=scale)
     return _launch("flexam_flash_attention", "flash_attention", q, k, v,
@@ -167,7 +214,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def single_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_len: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """B2: exact attention over [B, L, H, D] with at most 512 keys."""
+    """B2: exact attention over [B, L, H, D], bf16 or fp32, with at most
+    512 keys."""
     if k.shape[1] > SINGLE_KV_MAX_KEYS:
         raise ValueError(f"single_kv_attention takes at most "
                          f"{SINGLE_KV_MAX_KEYS} keys, got {k.shape[1]}")

@@ -10,12 +10,16 @@ Port of `flexam_tpu/ops/fused.py`. The CUDA kernels live in
     TI2V binary-timestep select (mask given: [B, 2, D] shift/scale pairs) or
     per-batch terms (no mask: [B, D]).
 
-Both kernels stream token rows, a warp a row held in registers as 16-byte
-vectors; they take x 16-byte aligned with a width that is a multiple of 8
-up to `MAX_FEATURES` (B3: a head_dim that is a multiple of 8), and B4 reads
-its terms through their strides. A CUDA tensor (bf16, the DiT's compute dtype) launches the kernel or
-raises; a CPU tensor takes the plain version, which repeats the JAX math op
-for op (`core/layers.rms_norm` + `core/rope.apply_rope`; `_ln_mod_unfused`).
+Both kernels stream token rows held in registers as 16-byte vectors (bf16:
+a warp a row; fp32, whose rows are twice the bytes: a CTA of 256 threads a
+row); they take x 16-byte aligned with a width that is a multiple of 8 up
+to `MAX_FEATURES` in both dtypes (B3: a head_dim that is a multiple of 8),
+and B4 reads its terms through their strides. x is bf16 or fp32 (the DiT's
+compute dtype; fp32 is `generate(compute_dtype=torch.float32)`), gamma
+takes x's dtype, the RoPE tables and B4's terms stay fp32. A CUDA tensor
+launches the kernel or raises; a CPU tensor takes the plain version, which
+repeats the JAX math op for op (`core/layers.rms_norm` +
+`core/rope.apply_rope`; `_ln_mod_unfused`), the casts no-ops in fp32.
 """
 
 from __future__ import annotations
@@ -56,22 +60,31 @@ def ln_modulation_plain(x: torch.Tensor, shift: torch.Tensor,
             + shift.to(dtype)[:, None]).to(dtype)
 
 
-# widest row the kernels hold in registers (csrc/common.cuh kMaxRowVectors
-# 16-byte vectors a lane, 32 lanes, 8 bf16 a vector)
+# widest row the kernels hold in registers (csrc/common.cuh: bf16
+# kMaxRowVectors 16-byte vectors a lane, 32 lanes, 8 bf16 a vector; fp32 8
+# vectors a thread, 256 threads, 4 fp32 a vector)
 MAX_FEATURES = 8192
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_x(x: torch.Tensor, name: str) -> None:
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous x [B, S, D], got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bf16, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{name}: the kernel takes bf16 or fp32, got "
+                        f"{x.dtype}")
     if x.shape[2] % 8 or x.shape[2] > MAX_FEATURES:
         raise ValueError(f"{name}: the kernel takes widths that are a "
                          f"multiple of 8 up to {MAX_FEATURES}, got "
                          f"{x.shape[2]}")
     _aligned(x, name)
+
+
+def _entry(name: str, x: torch.Tensor):
+    """The C entry point `name` for x's dtype (`name` + "_f32" for fp32)."""
+    return getattr(build.library(),
+                   name + ("_f32" if x.dtype == torch.float32 else ""))
 
 
 def _aligned(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -138,7 +151,7 @@ def rmsnorm_rope(x: torch.Tensor, gamma: torch.Tensor, cos: torch.Tensor,
     g, c, sn, dh = rmsnorm_rope_args(x, gamma, cos, sin, num_heads)
     b, s, d = x.shape
     out = torch.empty_like(x)
-    err = build.library().flexam_rmsnorm_rope(
+    err = _entry("flexam_rmsnorm_rope", x)(
         x.data_ptr(), g.data_ptr(), c.data_ptr(), sn.data_ptr(),
         out.data_ptr(), b, s, d, dh, c.shape[0], float(eps),
         build.stream_handle(x))
@@ -181,7 +194,7 @@ def ln_modulation(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                                                            mask)
     b, s, d = x.shape
     out = torch.empty_like(x)
-    err = build.library().flexam_ln_modulation(
+    err = _entry("flexam_ln_modulation", x)(
         x.data_ptr(), sh.data_ptr(), sc.data_ptr(),
         m.data_ptr() if m is not None else None, out.data_ptr(),
         b, s, d, sh_b, sh_r, sc_b, sc_r, float(eps), build.stream_handle(x))

@@ -25,8 +25,10 @@ refuses no D for it. The quantization blocks stay `blk` rows by the whole
 head dim, as in JAX.
 
 Layout [B, L, H, D], bf16, on the card any D that is a multiple of 128
-(`flash_attention.head_dim_instance`). A CUDA tensor launches the kernel or
-raises; a CPU tensor takes the plain version.
+(`flash_attention.head_dim_instance`). fp32 raises TypeError on the card
+until ROADMAP B-dtype's second half (B1 and B2 take it; the plain version
+takes it on the CPU). A CUDA tensor launches the kernel or raises; a CPU
+tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -37,9 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import (LOG2E, MASK_VALUE,
-                                                  check_inputs)
+from flexam_tpu_torch.ops.flash_attention import (BF16_ONLY, LOG2E,
+                                                  MASK_VALUE, check_inputs)
 
+# the dtypes the kernel takes on the card (fp32: ROADMAP B-dtype, second
+# half)
+DTYPES = BF16_ONLY
 # kernel launches on CUDA tensors
 launches = {"int8_attention": 0}
 
@@ -134,7 +139,7 @@ def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return int8_attention_plain(q, k, v, k_len=k_len, scale=scale)
     build.refuse_autograd("int8_attention", q, k, v)
-    k_len = check_inputs(q, k, v, k_len, "int8_attention")
+    k_len = check_inputs(q, k, v, k_len, "int8_attention", DTYPES)
     b, lq, h, d = q.shape
     q8, qs, k8, ks = quantize_qk(q, k)
     out = torch.empty_like(q)

@@ -14,7 +14,9 @@ compacted per-row key-block lists `kidx [nq, max_nnz]` and `nnz [nq]` as
 int32 tensors on the device and a scratch int32 for the counter by which
 its CTAs take their work items (the entry point zeroes it), and runs B1's
 online softmax over each query block's active key blocks only, at any head
-dim that is a multiple of 128 (`flash_attention.head_dim_instance`).
+dim that is a multiple of 128 (`flash_attention.head_dim_instance`), in
+bf16: fp32 raises TypeError on the card until ROADMAP B-dtype's second
+half.
 `masked_dense_attention` is its plain version: dense attention under the token mask the rows expand to, with the
 probabilities cast to q's dtype before P.V as in B1's plain version.
 
@@ -35,9 +37,13 @@ import numpy as np
 import torch
 
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import (LOG2E, attention_plain,
+from flexam_tpu_torch.ops.flash_attention import (BF16_ONLY, LOG2E,
+                                                  attention_plain,
                                                   check_inputs)
 
+# the dtypes the kernel takes on the card (fp32: ROADMAP B-dtype, second
+# half)
+DTYPES = BF16_ONLY
 # kernel launches on CUDA tensors
 launches = {"sparse_attention": 0}
 
@@ -188,7 +194,7 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return masked_dense_attention(q, k, v, rows, blk, scale=scale)
     build.refuse_autograd("sparse_attention", q, k, v)
     _check_geometry(q, k, rows, blk)
-    check_inputs(q, k, v, None, "sparse_attention")
+    check_inputs(q, k, v, None, "sparse_attention", DTYPES)
     if min(len(r) for r in rows) < 1:
         raise ValueError("sparse_attention: every query block needs at least "
                          "one key block")

@@ -1,12 +1,15 @@
 """Test helpers shared by the tests and `chip_smoke.py`: the closeness of a
-bf16 kernel output to its plain version, and small ONNX graphs for DWPose
-(the end of this module).
+kernel output to its plain version, and small ONNX graphs for DWPose (the
+end of this module).
 
 The closeness checks: `chip_smoke.py` and `tests/test_torch_cuda.py` hold
 each CUDA kernel to its plain PyTorch version on the card. Each element is
 held to its own size, not to the largest element of the tensor:
 
-    |got - ref| <= ulps * ulp_bf16(mag) + floor * mean(|ref|)
+    |got - ref| <= ulps * ulp(mag) + floor * mean(|ref|)
+
+with ulp the spacing of bf16 (the bf16 kernels), tf32 (the fp32 attention
+kernels, which run TF32 wgmma) or fp32 (the fp32 row kernels) numbers.
 
 `mag` is the size of the value the kernel rounds last (|ref| unless the
 caller gives more, e.g. the terms of a sum that may cancel); `floor` covers
@@ -25,41 +28,63 @@ import numpy as np
 import torch
 
 
+def _ulp(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """The spacing at |t| of numbers with `bits` significant bits and fp32's
+    exponent range, as fp32 (fixed at and below the smallest normal)."""
+    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                       (e - bits).to(torch.int32))
+
+
 def ulp_bf16(t: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 numbers at |t|, fp32 (2^-133 at and below the
     smallest normal)."""
-    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
-                       (e - 8).to(torch.int32))
+    return _ulp(t, 8)
+
+
+def ulp_tf32(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of tf32 numbers (10 mantissa bits) at |t|, fp32."""
+    return _ulp(t, 11)
+
+
+def ulp_f32(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of fp32 numbers at |t|."""
+    return _ulp(t, 24)
+
+
+_ULPS = {"bf16": ulp_bf16, "tf32": ulp_tf32, "fp32": ulp_f32}
 
 
 def check_close(got: torch.Tensor, ref: torch.Tensor, name: str, *,
                 ulps: float, floor: float = 0.0,
-                mag: Optional[torch.Tensor] = None) -> dict:
+                mag: Optional[torch.Tensor] = None,
+                unit: str = "bf16") -> dict:
     """Raise AssertionError unless every element of `got` is finite and
-    within its bound (module docstring) of `ref`; return the error figures."""
+    within its bound (module docstring, ulps of `unit`) of `ref`; return the
+    error figures."""
     g, r = got.float(), ref.float()
     if g.shape != r.shape:
         raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
                              f"{tuple(r.shape)}")
     err = (g - r).abs()
     mean_ref = r.abs().mean().item()
-    allowed = ulps * ulp_bf16(r.abs() if mag is None else mag) \
+    allowed = ulps * _ULPS[unit](r.abs() if mag is None else mag) \
         + floor * mean_ref
     ratio = err / allowed
     worst = int(ratio.argmax().item())
     out = {"max_abs_err": err.max().item(),
-           "max_err_over_bound": ratio.view(-1)[worst].item(),
-           "bound": f"{ulps} bf16 ulps of {'|ref|' if mag is None else 'mag'}"
+           "max_err_over_bound": ratio.reshape(-1)[worst].item(),
+           "bound": f"{ulps} {unit} ulps of "
+                    f"{'|ref|' if mag is None else 'mag'}"
                     + (f" + {floor} x mean|ref|" if floor else ""),
            "mean_abs_ref": mean_ref, "max_abs_ref": r.abs().max().item()}
     out["max_rel_err"] = out["max_abs_err"] / (out["max_abs_ref"] or 1.0)
     if not bool(g.isfinite().all()) or out["max_err_over_bound"] > 1.0:
         raise AssertionError(
-            f"{name}: error {err.view(-1)[worst].item()} at flat index "
-            f"{worst} (ref {r.view(-1)[worst].item()}, got "
-            f"{g.view(-1)[worst].item()}) exceeds its bound "
-            f"{allowed.view(-1)[worst].item()} ({out['bound']}); "
+            f"{name}: error {err.reshape(-1)[worst].item()} at flat index "
+            f"{worst} (ref {r.reshape(-1)[worst].item()}, got "
+            f"{g.reshape(-1)[worst].item()}) exceeds its bound "
+            f"{allowed.reshape(-1)[worst].item()} ({out['bound']}); "
             f"finite {bool(g.isfinite().all())}; {out}")
     return out
 
@@ -79,6 +104,22 @@ def check_attention(got, ref, name: str) -> dict:
     after), so each term of P.V carries an independent relative error of
     about 2^-9, whose sum is a few thousandths of the row's size."""
     return check_close(got, ref, name, ulps=2, floor=5e-2)
+
+
+def check_attention_tf32(got, ref, name: str) -> dict:
+    """B1/B2 in fp32 (TF32 wgmma) against `attention_plain` in exact fp32
+    (TF32 off): 2 tf32 ulps of |ref| plus 1.25e-2 of mean |ref|. The kernel
+    rounds four quantities of each term of P.V to tf32, to nearest: q and k
+    (its pre-pass; they move the term's logit), its probability and its v,
+    each a relative error of at most 2^-11, 2^-3 of a bf16 rounding; the
+    plain version rounds none. `check_attention`'s floor, 5e-2 of mean
+    |ref|, covers one bf16 rounding a term; four independent roundings of
+    2^-3 that size add in quadrature to 2 x 2^-3 of it, 1.25e-2. The ulps
+    cover a row whose weight sits on one key: its output is that key's v,
+    rounded once, over a sum that saw its probability rounded once. (TF32
+    keeps 3 more mantissa bits than bf16; the same arithmetic with bf16
+    operands is 8x further off and fails this bound.)"""
+    return check_close(got, ref, name, ulps=2, floor=1.25e-2, unit="tf32")
 
 
 def check_sparse_attention(got, ref, name: str) -> dict:
@@ -143,6 +184,58 @@ def check_ln_modulation(got, ref, shift, mask, name: str) -> dict:
         sh = m * sh[:, 0:1] + (1.0 - m) * sh[:, 1:2]
     mag = ref.float().abs() + sh.to(ref.dtype).float().abs()
     return check_close(got, ref, name, ulps=4, mag=mag)
+
+
+# The fp32 row kernels: a CTA of 256 threads sums a row of up to 8192
+# features as at most 8 vectors of 4 a thread (2 adds in a vector, 8 across
+# them), a 32-lane butterfly (5) and the 8 warps in order (8): no path
+# through its sum has more than 23 adds. PyTorch's reductions sum pairwise
+# or in cascades, and take fewer than 64 on any path at these widths. A sum
+# computed with at most c adds on any path is within c u sum|terms| of the
+# exact sum (u = 2^-24), so the two sides' sums differ by at most
+# (23 + 64) u = 87 u sum|terms|.
+
+
+def check_rmsnorm_rope_f32(got, ref, name: str) -> dict:
+    """B3 in fp32 against `rmsnorm_rope_plain` in fp32: 64 fp32 ulps of the
+    pair's norm. The sides differ only in the order of the sum of squares
+    (positive terms): their means differ relatively by at most 87 u (the
+    comment above), inv = 1 / sqrt(mean + eps) by half that plus each
+    side's square root and division (4 u), 48 u in all; y = x * inv * gamma
+    adds two roundings a side (4 u) and the rotation's two products and sum
+    three a side, each at most half an ulp of the pair's norm (|cos|, |sin|
+    <= 1): 55 ulps. A bf16 rounding is 2^15 of them."""
+    return check_close(got, ref, name, ulps=64, mag=pair_norm(ref),
+                       unit="fp32")
+
+
+def check_ln_modulation_f32(got, ref, x, shift, scale, mask,
+                            name: str) -> dict:
+    """B4 in fp32 against `ln_modulation_plain` in fp32: 96 fp32 ulps of
+    mag = |ref| + |sh| + |1 + sc| rstd (|x - mean| + mean|x|), sh and sc the
+    terms as the kernel selects them by token, mean and rstd the row's. The
+    sides differ in the order of the mean's and the variance's sums: the
+    means differ by at most 87 u mean|x| (the comment above), which ln =
+    (x - mean) rstd carries times rstd; the variances (positive terms)
+    relatively by 87 u, the rstd by half that plus a square root and a
+    division a side (48 u), which ln carries times |x - mean| rstd; ln
+    (1 + sc) and + sh round once a side, at most an ulp of |ref| + |sh|.
+    Times |1 + sc|: under 92 ulps of mag. A bf16 rounding is 2^15 ulps."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).pow(2).mean(-1, keepdim=True) + 1e-6)
+    sh, sc = shift.float(), scale.float()
+    if mask is None:
+        sh = sh.reshape(sh.shape[0], 1, -1)
+        sc = sc.reshape(sc.shape[0], 1, -1)
+    else:
+        m = mask.float()[:, :, None]
+        sh = m * sh[:, 0:1] + (1.0 - m) * sh[:, 1:2]
+        sc = m * sc[:, 0:1] + (1.0 - m) * sc[:, 1:2]
+    mag = (ref.float().abs() + sh.abs()
+           + (1.0 + sc).abs() * rstd
+           * ((xf - mean).abs() + xf.abs().mean(-1, keepdim=True)))
+    return check_close(got, ref, name, ulps=96, mag=mag, unit="fp32")
 
 
 # ---------------------------------------------------------------------------

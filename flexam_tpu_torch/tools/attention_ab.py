@@ -81,7 +81,8 @@ ENTRY_POINTS = ("flexam_flash_attention", "flexam_single_kv_attention",
 KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
            "int8_attention_kernel", "ln_mod_kernel", "rmsnorm_rope_kernel",
            "flash_wide_kernel", "single_kv_wide_kernel",
-           "sparse_attention_wide_kernel", "int8_attention_wide_kernel")
+           "sparse_attention_wide_kernel", "int8_attention_wide_kernel",
+           "ln_mod_f32_kernel", "rmsnorm_rope_f32_kernel")
 # the row kernels' instantiation at the flagship width (3072 features: 12
 # 16-byte vectors a lane)
 FLAGSHIP_NV = 12
@@ -129,13 +130,22 @@ def takes_counter(root: Path) -> bool:
 
 def kernel_label(symbol: str):
     """The kernel of KERNELS a (mangled) symbol names, with its template
-    argument where it has one ("ln_mod_kernel<12>"); None for any other
+    argument where it has one: an int ("ln_mod_kernel<12>"), the head dim
+    of a bf16 plan ("flash_kernel<128>"), or "f32" for an fp32 instance
+    ("flash_kernel<f32>", "flash_wide_kernel<f32>"); None for any other
     symbol."""
     for k in KERNELS:
         i = symbol.find(k)
         if i >= 0:
-            nv = re.match(r"ILi(\d+)E", symbol[i + len(k):])
-            return f"{k}<{nv.group(1)}>" if nv else k
+            rest = symbol[i + len(k):]
+            nv = re.match(r"ILi(\d+)E", rest)
+            if nv:
+                return f"{k}<{nv.group(1)}>"
+            plan = re.match(r"I\w*?(Bf16Plan|F32Plan)(?:ILi(\d+)E)?", rest)
+            if plan:
+                return (f"{k}<{plan.group(2)}>" if plan.group(1) == "Bf16Plan"
+                        else f"{k}<f32>")
+            return f"{k}<f32>" if rest.startswith("ILb1E") else k
     return None
 
 

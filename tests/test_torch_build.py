@@ -119,11 +119,22 @@ def test_attention_ab_reads_this_tree_s_counter():
      "ln_mod_kernel"),
     ("_ZN12_GLOBAL__N_112flash_kernelE14CUtensorMap_stS0_S0_6Params",
      "flash_kernel"),
+    ("_ZN12_GLOBAL__N_112flash_kernelINS_8Bf16PlanILi256EEEEEv14CUtensorMap"
+     "_stS3_S3_NS_6ParamsE", "flash_kernel<256>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelINS_7F32PlanEEEv14CUtensorMap_stS2_"
+     "S2_NS_6ParamsE", "single_kv_kernel<f32>"),
+    ("_ZN12_GLOBAL__N_117flash_wide_kernelILb1EEEv14CUtensorMap_stS1_S1_N6"
+     "flexam6hopper4wide6ParamsE", "flash_wide_kernel<f32>"),
+    ("_ZN12_GLOBAL__N_117flash_wide_kernelILb0EEEv14CUtensorMap_stS1_S1_N6"
+     "flexam6hopper4wide6ParamsE", "flash_wide_kernel"),
+    ("_ZN12_GLOBAL__N_117ln_mod_f32_kernelILi3EEEvPKfS2_S2_S2_Pfiiiiiif",
+     "ln_mod_f32_kernel<3>"),
     ("_Z10other_kernelPf", None),
 ])
 def test_attention_ab_labels_kernels(symbol, label):
     """Mangled symbols map to their kernel, a template with its row-vector
-    count (the row kernels are instantiated for several widths)."""
+    count (the row kernels are instantiated for several widths), the head
+    dim of its bf16 plan, or "f32" for an fp32 instance."""
     from flexam_tpu_torch.tools import attention_ab
     assert attention_ab.kernel_label(symbol) == label
 

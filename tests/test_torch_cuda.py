@@ -7,8 +7,10 @@ These need a CUDA device and skip without one. On a machine with an H100:
 (`--noconftest`: the suite's conftest configures JAX, which this file does
 not use.) Shapes here are the edge cases the smoke's flagship shapes do not
 reach: ragged lengths, per-batch key masks, tokens past the RoPE table.
-Each element is held to a few bf16 ulps of its own size, with the bounds
-`chip_smoke.py` uses (`flexam_tpu_torch/testing.py` states them and why).
+Each element is held to a few ulps of its own size (bf16; tf32 for B1/B2
+in fp32, fp32 for B3/B4 in fp32), with the bounds `chip_smoke.py` uses
+(`flexam_tpu_torch/testing.py` states them and why). B1-B4 run in both
+dtypes they take (`DTYPES`).
 """
 
 import importlib
@@ -21,14 +23,21 @@ from flexam_tpu_torch.ops import fused
 from flexam_tpu_torch.ops import int8_attention as i8
 from flexam_tpu_torch.ops import sparse_attention as sp
 from flexam_tpu_torch.testing import (block_scaled, check_attention,
+                                      check_attention_tf32,
                                       check_int8_attention,
                                       check_ln_modulation,
+                                      check_ln_modulation_f32,
                                       check_rmsnorm_rope,
+                                      check_rmsnorm_rope_f32,
                                       check_sparse_attention)
 
 fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
+
+# the dtypes B1-B4 take on the card
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                 ids=["bf16", "f32"])
 
 
 @pytest.fixture
@@ -38,42 +47,75 @@ def dev():
     return torch.device("cuda")
 
 
-def _rand(dev, *shape, seed=0):
+def _rand(dev, *shape, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    return torch.randn(shape, generator=g, device=dev, dtype=dtype)
 
 
+def _check_attn(got, ref, name):
+    """B1/B2's bound for the output's dtype (bf16, or TF32 for fp32)."""
+    if got.dtype == torch.float32:
+        return check_attention_tf32(got, ref, name + " f32")
+    return check_attention(got, ref, name)
+
+
+def _check_rms(got, ref, name):
+    if got.dtype == torch.float32:
+        return check_rmsnorm_rope_f32(got, ref, name + " f32")
+    return check_rmsnorm_rope(got, ref, name)
+
+
+def _check_ln(got, ref, x, sh, sc, mask, name):
+    if got.dtype == torch.float32:
+        return check_ln_modulation_f32(got, ref, x, sh, sc, mask,
+                                       name + " f32")
+    return check_ln_modulation(got, ref, sh, mask, name)
+
+
+@DTYPES
 @pytest.mark.parametrize("lq,lk,k_len", [(200, 300, None), (200, 300, [300, 129]),
                                          (1, 2000, [1, 1999]), (77, 64, None)])
-def test_flash_attention_edges(dev, lq, lk, k_len):
-    q, k, v = (_rand(dev, 2, lq, 3, 128, seed=1), _rand(dev, 2, lk, 3, 128, seed=2),
-               _rand(dev, 2, lk, 3, 128, seed=3))
+def test_flash_attention_edges(dev, lq, lk, k_len, dtype):
+    q, k, v = (_rand(dev, 2, lq, 3, 128, seed=1, dtype=dtype),
+               _rand(dev, 2, lk, 3, 128, seed=2, dtype=dtype),
+               _rand(dev, 2, lk, 3, 128, seed=3, dtype=dtype))
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     before = fa.launches["flash_attention"]
     got = fa.flash_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == before + 1
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B1")
+    assert got.dtype == dtype
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), "B1")
 
 
+@DTYPES
 @pytest.mark.parametrize("lk,k_len", [(96, None), (96, [96, 40]), (512, None),
                                       (1, None), (300, [5, 300])])
-def test_single_kv_attention_edges(dev, lk, k_len):
-    q, k, v = (_rand(dev, 2, 150, 2, 128, seed=4), _rand(dev, 2, lk, 2, 128, seed=5),
-               _rand(dev, 2, lk, 2, 128, seed=6))
+def test_single_kv_attention_edges(dev, lk, k_len, dtype):
+    q, k, v = (_rand(dev, 2, 150, 2, 128, seed=4, dtype=dtype),
+               _rand(dev, 2, lk, 2, 128, seed=5, dtype=dtype),
+               _rand(dev, 2, lk, 2, 128, seed=6, dtype=dtype))
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     got = fa.single_kv_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B2")
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), "B2")
 
 
 def test_attention_rejects_unsupported(dev):
+    """Head dims that are not a multiple of 128, fp16 (no path of the JAX
+    package makes fp16 activations; bf16 and fp32 launch), mixed dtypes,
+    non-contiguous and misaligned views raise before any launch."""
     q = _rand(dev, 1, 8, 2, 64)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)                       # head_dim 64
     q = _rand(dev, 1, 8, 2, 128)
-    with pytest.raises(TypeError):
-        fa.flash_attention(q.float(), q.float(), q.float())
+    before = dict(fa.launches)
+    for fn in (fa.flash_attention, fa.single_kv_attention):
+        with pytest.raises(TypeError):
+            fn(q.half(), q.half(), q.half())
+        with pytest.raises(TypeError):
+            fn(q.float(), q, q)
+    assert fa.launches == before
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                            q.transpose(1, 2))             # not contiguous
@@ -115,7 +157,7 @@ def test_attention_entry_refuses_bad_maps(dev, entry):
     torch.cuda.synchronize()
 
 
-def _structured(dev, b, lq, lk, h, seed, d=128):
+def _structured(dev, b, lq, lk, h, seed, d=128, dtype=torch.bfloat16):
     """q/k/v whose rows and columns all differ in known ways: q and k carry
     a row-dependent offset along one dim (so each query row prefers other
     keys, and a row or key swap moves the output), v a ramp over its
@@ -130,7 +172,7 @@ def _structured(dev, b, lq, lk, h, seed, d=128):
     cols = torch.arange(d, device=dev, dtype=torch.float32)
     v = 0.25 * v + (cols / 32.0 * 128 / d)[None, None, None, :] \
         - (2.0 * keys / lk)[None, :, None, None]
-    return (t.to(torch.bfloat16) for t in (q, k, v))
+    return (t.to(dtype) for t in (q, k, v))
 
 
 @pytest.mark.parametrize("b,h,lq,lk,k_len", [
@@ -141,16 +183,19 @@ def _structured(dev, b, lq, lk, h, seed, d=128):
     (2, 1, 129, 2049, [2049, 1919]),   # keys ending mid-stage
     (1, 3, 640, 513, [257]),           # 513 keys: B1 at the edge of B2
 ])
-def test_flash_attention_tile_edges(dev, b, h, lq, lk, k_len):
-    """B1 where 128-row query tiles, 128-key tiles and the 2-stage ring end
-    raggedly, on inputs whose rows and columns all differ."""
-    q, k, v = _structured(dev, b, lq, lk, h, seed=40)
+@DTYPES
+def test_flash_attention_tile_edges(dev, b, h, lq, lk, k_len, dtype):
+    """B1 where 128-row query tiles, 128-key (fp32: 64-key) tiles and the
+    ring end raggedly, on inputs whose rows and columns all differ (in
+    fp32 a V^T key out of the pre-pass's order is off by far more than the
+    bound)."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=40, dtype=dtype)
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     before = fa.launches["flash_attention"]
     got = fa.flash_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == before + 1
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B1")
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), "B1")
 
 
 @pytest.mark.parametrize("b,h,lq,lk,k_len", [
@@ -161,17 +206,18 @@ def test_flash_attention_tile_edges(dev, b, h, lq, lk, k_len):
     (2, 1, 129, 512, None),
     (2, 3, 256, 512, [511, 257]),
 ])
-def test_single_kv_tile_edges(dev, b, h, lq, lk, k_len):
-    """B2 from 1 key to exactly 512 (4 key tiles), ragged query tiles and
-    k_len on and inside tile edges, on inputs whose rows and columns all
-    differ."""
-    q, k, v = _structured(dev, b, lq, lk, h, seed=50)
+@DTYPES
+def test_single_kv_tile_edges(dev, b, h, lq, lk, k_len, dtype):
+    """B2 from 1 key to exactly 512 (4 key tiles; 8 in fp32), ragged query
+    tiles and k_len on and inside tile edges, on inputs whose rows and
+    columns all differ."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=50, dtype=dtype)
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     before = fa.launches["single_kv_attention"]
     got = fa.single_kv_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
     assert fa.launches["single_kv_attention"] == before + 1
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), "B2")
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), "B2")
 
 
 @pytest.mark.parametrize("lk,kernel", [(512, "single_kv_attention"),
@@ -188,24 +234,27 @@ def test_attention_dispatch_at_512_keys(dev, lk, kernel):
     check_attention(got, fa.attention_plain(q, k, v), kernel)
 
 
+@DTYPES
 @pytest.mark.parametrize("s,l_rot", [(48, 40), (1, 1), (300, 300), (33, 64)])
-def test_rmsnorm_rope_edges(dev, s, l_rot):
-    x = _rand(dev, 2, s, 3 * 128, seed=7)
-    gamma = 1.0 + 0.1 * _rand(dev, 3 * 128, seed=8)
+def test_rmsnorm_rope_edges(dev, s, l_rot, dtype):
+    x = _rand(dev, 2, s, 3 * 128, seed=7, dtype=dtype)
+    gamma = 1.0 + 0.1 * _rand(dev, 3 * 128, seed=8, dtype=dtype)
     ang = torch.rand((l_rot, 64), device=dev) * 6.0
     got = fused.rmsnorm_rope(x, gamma, torch.cos(ang), torch.sin(ang), 3)
     ref = fused.rmsnorm_rope_plain(x, gamma, torch.cos(ang), torch.sin(ang), 3)
     torch.cuda.synchronize()
-    check_rmsnorm_rope(got, ref, "B3")
+    assert got.dtype == dtype
+    _check_rms(got, ref, "B3")
 
 
+@DTYPES
 @pytest.mark.parametrize("mode", ["binary", "bcast"])
 @pytest.mark.parametrize("s,d", [(13, 256), (300, 3072), (1, 128)])
-def test_ln_modulation_edges(dev, mode, s, d):
+def test_ln_modulation_edges(dev, mode, s, d, dtype):
     # rows with their own offset and scale, as DiT hidden states have
     x = (_rand(dev, 2, s, d, seed=9).float()
          * torch.exp(0.5 * _rand(dev, 2, s, 1, seed=10).float())
-         + 4.0 * _rand(dev, 2, s, 1, seed=11).float()).to(torch.bfloat16)
+         + 4.0 * _rand(dev, 2, s, 1, seed=11).float()).to(dtype)
     terms = (2, 2, d) if mode == "binary" else (2, d)
     sh = torch.randn(terms, device=dev)
     sc = torch.randn(terms, device=dev)
@@ -214,16 +263,17 @@ def test_ln_modulation_edges(dev, mode, s, d):
     got = fused.ln_modulation(x, sh, sc, mask=mask)
     ref = fused.ln_modulation_plain(x, sh, sc, mask=mask)
     torch.cuda.synchronize()
-    check_ln_modulation(got, ref, sh, mask, "B4")
+    assert got.dtype == dtype
+    _check_ln(got, ref, x, sh, sc, mask, "B4")
 
 
-def _rows(dev, b, s, d, seed):
-    """x [b, s, d] bf16 whose rows have their own offset and scale, as DiT
+def _rows(dev, b, s, d, seed, dtype=torch.bfloat16):
+    """x [b, s, d] whose rows have their own offset and scale, as DiT
     hidden states have."""
     return (_rand(dev, b, s, d, seed=seed).float()
             * torch.exp(0.5 * _rand(dev, b, s, 1, seed=seed + 1).float())
             + 4.0 * _rand(dev, b, s, 1, seed=seed + 2).float()
-            ).to(torch.bfloat16)
+            ).to(dtype)
 
 
 def _ln_mod_once(x, sh, sc, mask, name):
@@ -234,19 +284,20 @@ def _ln_mod_once(x, sh, sc, mask, name):
     torch.cuda.synchronize()
     assert fused.launches[key] == before[key] + 1
     assert sum(fused.launches.values()) == sum(before.values()) + 1
-    check_ln_modulation(got, fused.ln_modulation_plain(x, sh, sc, mask=mask),
-                        sh, mask, name)
+    _check_ln(got, fused.ln_modulation_plain(x, sh, sc, mask=mask), x, sh,
+              sc, mask, name)
 
 
+@DTYPES
 @pytest.mark.parametrize("mode", ["binary", "bcast"])
 @pytest.mark.parametrize("d", [1536, 3072, 5120])
 @pytest.mark.parametrize("b,s", [(1, 1), (3, 13), (1, 300), (3, 300)])
-def test_ln_modulation_widths(dev, mode, d, b, s):
+def test_ln_modulation_widths(dev, mode, d, b, s, dtype):
     """B4 at every config width, with row counts that do not divide evenly
     among the persistent CTAs' warps, and the terms as the main path gives
     them: the scale a strided view of the [B, 2, 6, D] modulation tensor."""
     g = torch.Generator(device=dev).manual_seed(d + s)
-    x = _rows(dev, b, s, d, seed=20)
+    x = _rows(dev, b, s, d, seed=20, dtype=dtype)
     mod = torch.randn((b, 2, 6, d), generator=g, device=dev)
     if mode == "binary":
         sh, sc = mod[:, :, 0] + mod[:, :, 3], mod[:, :, 1]
@@ -256,13 +307,14 @@ def test_ln_modulation_widths(dev, mode, d, b, s):
     _ln_mod_once(x, sh, sc, mask, f"B4 {mode} D={d} B={b} S={s}")
 
 
+@DTYPES
 @pytest.mark.parametrize("d", [1536, 3072, 5120])
-def test_ln_modulation_mixed_mask(dev, d):
+def test_ln_modulation_mixed_mask(dev, d, dtype):
     """A mask that is not 0 or 1 (0.25, 0.7 among 0 and 1) takes the fp32
     mix of the two branches' terms, as the JAX kernel does."""
     g = torch.Generator(device=dev).manual_seed(d)
     b, s = 2, 300
-    x = _rows(dev, b, s, d, seed=30)
+    x = _rows(dev, b, s, d, seed=30, dtype=dtype)
     values = torch.tensor([0.0, 1.0, 0.25, 0.7], device=dev)
     mask = values[torch.randint(0, 4, (b, s), generator=g, device=dev)]
     assert all(bool((mask == v).any()) for v in values)
@@ -270,15 +322,17 @@ def test_ln_modulation_mixed_mask(dev, d):
     _ln_mod_once(x, mod[:, :, 0], mod[:, :, 1], mask, f"B4 mixed D={d}")
 
 
-@pytest.mark.parametrize("d", [1536, 3072, 5120])
+@DTYPES
+@pytest.mark.parametrize("d", [1536, 3072, 5120, 8192])
 @pytest.mark.parametrize("b,s,l_rot", [(1, 300, 263), (3, 300, 300),
                                        (1, 13, 64), (3, 1, 1)])
-def test_rmsnorm_rope_widths(dev, d, b, s, l_rot):
-    """B3 at every config width (heads of 128), with the RoPE table shorter
-    than, as long as and longer than the sequence."""
+def test_rmsnorm_rope_widths(dev, d, b, s, l_rot, dtype):
+    """B3 at every config width (heads of 128) and the widest row it takes,
+    with the RoPE table shorter than, as long as and longer than the
+    sequence."""
     heads = d // 128
-    x = _rand(dev, b, s, d, seed=40)
-    gamma = 1.0 + 0.1 * _rand(dev, d, seed=41)
+    x = _rand(dev, b, s, d, seed=40, dtype=dtype)
+    gamma = 1.0 + 0.1 * _rand(dev, d, seed=41, dtype=dtype)
     g = torch.Generator(device=dev).manual_seed(l_rot)
     ang = torch.rand((l_rot, 64), generator=g, device=dev) * 6.0
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -286,9 +340,8 @@ def test_rmsnorm_rope_widths(dev, d, b, s, l_rot):
     got = fused.rmsnorm_rope(x, gamma, cos, sin, heads)
     torch.cuda.synchronize()
     assert fused.launches["rmsnorm_rope"] == before + 1
-    check_rmsnorm_rope(got, fused.rmsnorm_rope_plain(x, gamma, cos, sin,
-                                                     heads),
-                       f"B3 D={d} B={b} S={s} L_rot={l_rot}")
+    _check_rms(got, fused.rmsnorm_rope_plain(x, gamma, cos, sin, heads),
+               f"B3 D={d} B={b} S={s} L_rot={l_rot}")
 
 
 def test_row_kernels_refuse_what_they_do_not_take(dev):
@@ -432,15 +485,19 @@ def test_int8_cross_attention_explicit(dev, monkeypatch):
 
 
 def test_long_kernels_reject_unsupported(dev):
+    """B5 and B6 take bf16 only until ROADMAP B-dtype's second half: fp32
+    raises before any launch (B1 and B2 take it)."""
     q = _rand(dev, 1, 64, 2, 128)
     rows, blk = [[0, 1], [0, 1]], 32
-    with pytest.raises(TypeError):
+    before = (dict(i8.launches), dict(sp.launches))
+    with pytest.raises(TypeError, match="B-dtype"):
         i8.int8_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError):
         i8.int8_attention(q[..., :64].contiguous(), q[..., :64].contiguous(),
                           q[..., :64].contiguous())          # head_dim 64
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="B-dtype"):
         sp.sparse_flash_attention(q.float(), q.float(), q.float(), rows, blk)
+    assert (dict(i8.launches), dict(sp.launches)) == before
     with pytest.raises(ValueError):
         sp.sparse_flash_attention(q, q, q, rows, 40)          # L != 2 * 40
     with pytest.raises(ValueError):
@@ -588,6 +645,7 @@ def test_sparse_refuses_an_empty_block_list(dev):
 WIDE_HEAD_DIMS = (256, 384, 512)
 
 
+@DTYPES
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("b,h,lq,lk,k_len", [
     (1, 2, 1, 129, None),            # one query row, keys 1 past a tile
@@ -595,30 +653,32 @@ WIDE_HEAD_DIMS = (256, 384, 512)
     (2, 1, 77, 700, [1, 650]),       # k_len 1; a ragged q tile
     (1, 2, 130, 520, [0]),           # every key masked alike
 ])
-def test_flash_attention_head_dims(dev, d, b, h, lq, lk, k_len):
+def test_flash_attention_head_dims(dev, d, b, h, lq, lk, k_len, dtype):
     """B1 at head dims 256, 384 and 512 on structured inputs (a column,
-    span or slab mixed up is off by far more than the bound)."""
-    q, k, v = _structured(dev, b, lq, lk, h, seed=80, d=d)
+    span or slab mixed up is off by far more than the bound); in fp32 all
+    three run the wide design's fp32 dense mode."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=80, d=d, dtype=dtype)
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     before = fa.launches["flash_attention"]
     got = fa.flash_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == before + 1
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), f"B1 d{d}")
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), f"B1 d{d}")
 
 
+@DTYPES
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("lq,lk,k_len", [(300, 96, None), (200, 512, [5, 300]),
                                          (65, 512, [512, 0]), (1, 1, None)])
-def test_single_kv_attention_head_dims(dev, d, lq, lk, k_len):
+def test_single_kv_attention_head_dims(dev, d, lq, lk, k_len, dtype):
     """B2 at head dims 256, 384 and 512, up to its 512 keys."""
-    q, k, v = _structured(dev, 2, lq, lk, 2, seed=84, d=d)
+    q, k, v = _structured(dev, 2, lq, lk, 2, seed=84, d=d, dtype=dtype)
     kl = None if k_len is None else torch.tensor(k_len, device=dev)
     before = fa.launches["single_kv_attention"]
     got = fa.single_kv_attention(q, k, v, k_len=kl)
     torch.cuda.synchronize()
     assert fa.launches["single_kv_attention"] == before + 1
-    check_attention(got, fa.attention_plain(q, k, v, k_len=kl), f"B2 d{d}")
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), f"B2 d{d}")
 
 
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
@@ -736,12 +796,12 @@ def test_head_dim_128_launches_kernels_not_the_branch(dev):
     assert attn.exact_calls["exact_attention"] == calls
 
 
-def _refusal_cases(dev):
+def _refusal_cases(dev, dtype=torch.bfloat16):
     """(name, launch key, call) of each kernel wrapper at a shape it
     takes; `call(t)` launches with `t` as its first tensor argument."""
-    q = _rand(dev, 1, 256, 2, 128, seed=40)
-    kv = _rand(dev, 1, 64, 2, 128, seed=41)
-    gamma = torch.ones(3072, device=dev, dtype=torch.bfloat16)
+    q = _rand(dev, 1, 256, 2, 128, seed=40, dtype=dtype)
+    kv = _rand(dev, 1, 64, 2, 128, seed=41, dtype=dtype)
+    gamma = torch.ones(3072, device=dev, dtype=dtype)
     cos = torch.ones(64, 64, device=dev)
     sin = torch.zeros(64, 64, device=dev)
     terms = torch.zeros(1, 3072, device=dev)
@@ -766,16 +826,20 @@ def _refusal_cases(dev):
     ]
 
 
-@pytest.mark.parametrize("case", range(7), ids=[
-    "B1", "B2", "B3", "B4prime", "B4", "B5", "B6"])
-def test_kernels_refuse_autograd(dev, case):
-    """Each of B1-B6 raises NotImplementedError for an input that requires
-    grad under grad mode (its output would carry no grad_fn), before any
-    launch; under no_grad the same call launches."""
-    name, counts, key, call = _refusal_cases(dev)[case]
+@pytest.mark.parametrize("case,dtype", [
+    *((c, torch.bfloat16) for c in range(7)),
+    *((c, torch.float32) for c in range(5))], ids=[
+    "B1", "B2", "B3", "B4prime", "B4", "B5", "B6",
+    "B1-f32", "B2-f32", "B3-f32", "B4prime-f32", "B4-f32"])
+def test_kernels_refuse_autograd(dev, case, dtype):
+    """Each of B1-B6 (and B1-B4 in fp32) raises NotImplementedError for an
+    input that requires grad under grad mode (its output would carry no
+    grad_fn), before any launch; under no_grad the same call launches."""
+    name, counts, key, call = _refusal_cases(dev, dtype)[case]
     attn_like = name not in ("rmsnorm_rope", "ln_mod_bcast", "ln_mod_binary")
-    t = (_rand(dev, 1, 256, 2, 128, seed=43) if attn_like
-         else _rand(dev, 1, 64, 3072, seed=43)).requires_grad_(True)
+    t = (_rand(dev, 1, 256, 2, 128, seed=43, dtype=dtype) if attn_like
+         else _rand(dev, 1, 64, 3072, seed=43, dtype=dtype)
+         ).requires_grad_(True)
     before = counts[key]
     with pytest.raises(NotImplementedError, match="FLEXAM_FUSED=0"):
         call(t)

@@ -39,6 +39,17 @@ def test_max_features_matches_the_kernels():
     assert most * 32 * 8 == fused.MAX_FEATURES
 
 
+def test_max_features_f32_matches_the_kernels():
+    """The fp32 instances take the same widest row: their largest vector
+    count a thread, kRowThreads threads, 4 fp32 a vector."""
+    src = (build.CSRC / "common.cuh").read_text()
+    threads = int(re.search(r"kRowThreads = (\d+)", src).group(1))
+    listed = re.search(r"#define FLEXAM_ROW_VECTORS_F32\(X\) (.*)",
+                       src).group(1)
+    most = max(int(n) for n in re.findall(r"X\((\d+)\)", listed))
+    assert most * threads * 4 == fused.MAX_FEATURES
+
+
 def test_ln_modulation_args_pass_strided_views():
     """The main path's scale, a view of the [B, 2, 6, D] modulation tensor,
     reaches the kernel as it is: no copy, its own strides."""
@@ -74,7 +85,7 @@ def test_ln_modulation_args_copy_other_layouts(layout):
 
 
 @pytest.mark.parametrize("case,error", [
-    ("x float32", TypeError),
+    ("x float16", TypeError),
     ("x not contiguous", ValueError),
     ("width 100", ValueError),
     ("width 8200", ValueError),
@@ -84,7 +95,7 @@ def test_ln_modulation_args_copy_other_layouts(layout):
 ])
 def test_ln_modulation_args_refuse(case, error):
     d = {"width 100": 100, "width 8200": 8200}.get(case, 384)
-    x = {"x float32": _x(d, dtype=torch.float32),
+    x = {"x float16": _x(d, dtype=torch.float16),
          "x not contiguous": _x(2 * d)[:, :, ::2],
          "x off 16 bytes": _off((2, 4, d), torch.bfloat16)}.get(case, _x(d))
     terms = torch.zeros((2, d) if "terms" in case else (2, 2, d))
@@ -111,6 +122,25 @@ def test_rmsnorm_rope_args_refuse(case):
         case, torch.zeros((4, dh // 2)))
     with pytest.raises(ValueError):
         fused.rmsnorm_rope_args(x, gamma, table, table, heads)
+
+
+@pytest.mark.parametrize("kernel", ["rmsnorm_rope", "ln_modulation"])
+def test_row_kernel_args_take_fp32(kernel):
+    """fp32 x passes both wrappers' checks (the fp32 instances): B3's
+    gamma takes x's dtype, B4's terms stay fp32 views."""
+    x = _x(3072, dtype=torch.float32)
+    if kernel == "rmsnorm_rope":
+        g, c, _, dh = fused.rmsnorm_rope_args(
+            x, torch.ones(3072, dtype=torch.bfloat16), torch.zeros((7, 64)),
+            torch.zeros((7, 64)), 24)
+        assert dh == 128 and g.dtype == torch.float32
+        assert c.dtype == torch.float32
+    else:
+        mod = torch.randn((2, 2, 6, 3072))
+        sh, _, _, sc, _, _, m = fused.ln_modulation_args(
+            x, mod[:, :, 0], mod[:, :, 1], torch.ones((2, 4)))
+        assert sc.data_ptr() == mod[:, :, 1].data_ptr()
+        assert sh.dtype == torch.float32 and m.dtype == torch.float32
 
 
 def test_rmsnorm_rope_args_take_the_flagship_layout():
