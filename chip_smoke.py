@@ -30,10 +30,13 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        dim 256 ("d256") and in the wide design at the
                        flagship's width 3,072 ("wide": 8 x 384, 6 x 512),
                        384 and 512 also checked at small shapes; and B1, B2,
-                       B3, B4 (both modes) and B1 at FLUX's shape in fp32
-                       ("f32": TF32 attention, each held to its exact fp32
-                       plain version, the bound at the TF32 peak), fp32 B1
-                       and B2 at head dims 256 and 384 checked;
+                       B3, B4 (both modes), B1 at FLUX's shape, B1 and B2
+                       at 8 x 384 and B5 and B6 at the long-clip shape in
+                       fp32 ("f32": TF32 attention, B6's Q K^T int8, each
+                       held to its exact fp32 plain version, the bound at
+                       the TF32 peak), fp32 B1, B2, B5 and B6 at head dims
+                       256 and 384 checked, and B2, B3 and B4 at the long
+                       path's shapes in fp32 ("long/...-f32");
   reference_check      a small head_dim-128 DiT through the kernels on the
                        card against the same DiT on the CPU (plain path),
                        with dense, block-sparse and int8 attention;
@@ -52,6 +55,14 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
                        known, a random text context in place of umT5: the
                        uint8 video's shape and finiteness, launches,
                        seconds and peak memory;
+  generate_long_fp32   the long-clip path in fp32 on the same pipeline:
+                       generate at 512x896x201f (23,296 tokens with the ref
+                       block), first frame known, RIFLEx (k 6, L_test 51),
+                       the streamed encode and decode, 1 Euler step at CFG
+                       6.0 through the auto ladder (B6 in fp32 30 times,
+                       B1 and the exact branch never), then 1 denoise step
+                       under FLEXAM_ATTENTION=sparse (B5 in fp32 30 times):
+                       stage seconds, peaks by stage, launches;
   generate             the main path: the full-width model (umT5-XXL, the
                        48-channel VAE, the DiT) on 512x896x17f with the
                        first frame known, 4 Euler steps at CFG 6.0, T5
@@ -693,6 +704,18 @@ def device_ms(fn, **kw) -> float:
     return timed(fn, **kw)
 
 
+def kernel_ms(fn) -> float:
+    """`device_ms` of a kernel: 20 calls a run, the median of 5 runs, or
+    for a call of SLOW_KERNEL_MS or more (the wide design, B6, fp32 at
+    8 x 384) SLOW_KERNEL_TIMING's 5 calls a run, the median of 3: 100
+    back-to-back calls of 20-75 ms each took a quarter of the kernels
+    phase on an H100, and 5 such calls already hide the wrapper's host
+    time."""
+    if device_ms(fn, launches=1, reps=1, warmup=1) >= SLOW_KERNEL_MS:
+        return device_ms(fn, **SLOW_KERNEL_TIMING)
+    return device_ms(fn)
+
+
 def compare(got, ref, bound_rel: float, name: str) -> dict:
     """max abs / max rel error of a whole model's output; fails above
     bound_rel of max |ref|."""
@@ -742,7 +765,10 @@ HOPPER_OPCODES = {
     # fp32 (TF32 wgmma is HGMMA too): head dim 128 and the wide design
     **{f"{k}<f32>": ("HGMMA", "UTMALDG") for k in (
         "flash_kernel", "single_kv_kernel", "flash_wide_kernel",
-        "single_kv_wide_kernel")},
+        "single_kv_wide_kernel", "sparse_attention_kernel",
+        "sparse_attention_wide_kernel")},
+    **{f"{k}<f32>": ("IGMMA", "HGMMA", "UTMALDG") for k in (
+        "int8_attention_kernel", "int8_attention_wide_kernel")},
     "sparse_attention_wide_kernel": ("HGMMA", "UTMALDG"),
     "int8_attention_wide_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
 
@@ -752,9 +778,9 @@ def hopper_sass(lib: Path) -> dict:
     from an mma.sync one (wgmma: HGMMA for bf16, IGMMA for int8; TMA
     loads: UTMALDG; mbarriers: SYNCS; HMMA / IMMA are mma.sync) in their
     SASS, from cuobjdump; fails if an instantiation of B1, B2 or B5 (head
-    dims 128, 256, and the wide design) lacks HGMMA or UTMALDG, or one of
-    B6 lacks IGMMA, HGMMA or UTMALDG. Also B6's int -> float conversions
-    at head dims 128 and 256 by full opcode: I2F.*.RP comes from integer divisions (the work-item
+    dims 128, 256, and the wide design, bf16 and fp32) lacks HGMMA or
+    UTMALDG, or one of B6 lacks IGMMA, HGMMA or UTMALDG. Also B6's int ->
+    float conversions at head dims 128 and 256 and in fp32 by full opcode: I2F.*.RP comes from integer divisions (the work-item
     index); a conversion of each logit would add I2F (or I2FP) without RP.
     And the row kernels' (B3, B4) 128-bit global loads and stores, by
     instantiation (`ln_mod_kernel<12>` serves 3072 features); fails if one
@@ -780,7 +806,7 @@ def hopper_sass(lib: Path) -> dict:
         if not all(got.get(op) for op in need):
             raise AssertionError(f"{kernel}: no {' / '.join(need)} in its "
                                  f"SASS ({got})")
-    for d in (128, 256):
+    for d in (128, 256, "f32"):
         kernel = f"int8_attention_kernel<{d}>"
         i2f = {op: n for op, n in ops[kernel].items()
                if op.split(".")[0] in ("I2F", "I2FP")}
@@ -830,7 +856,7 @@ def kernel_row(check, name, fn, plain, flops, nbytes, yardstick,
     if t_ops is not None:        # B6: int8 and bf16 operations
         bms, by = ((t_ops, "operations") if t_ops >= nbytes / PEAK_BYTES
                    * 1e3 else (nbytes / PEAK_BYTES * 1e3, "bytes"))
-    ms = device_ms(fn)
+    ms = kernel_ms(fn)
     try:
         lib_ms = device_ms(yardstick, **(lib_kw or {}))
     except torch.cuda.OutOfMemoryError as e:
@@ -839,7 +865,7 @@ def kernel_row(check, name, fn, plain, flops, nbytes, yardstick,
     torch.cuda.empty_cache()
     return dict(err, ms=ms, tflops=flops / ms / 1e9, bound_ms=bms,
                 bound_by=by, bound_share=bms / ms,
-                plain_ms=device_ms(plain, launches=1, reps=3, warmup=1),
+                plain_ms=device_ms(plain, **PLAIN_TIMING),
                 library_ms=lib_ms, **extra)
 
 
@@ -972,6 +998,7 @@ def phase_kernels(dev, results: dict) -> None:
         lines[name]["wide"] = rows
     for name, row in fp32_kernels(dev, gen).items():
         lines[name]["f32"] = row
+    lines.update(long_path_shapes(dev, gen, torch.float32))
     results.update(lines)
     emit("kernels", t0, kernels=sorted(lines), **lines)
 
@@ -1052,12 +1079,12 @@ def long_kernels(dev, gen) -> dict:
     tok_mask = bmask[tok_blk][:, tok_blk]            # [L, L] bool
     flops = 4.0 * B * H * pairs * blk * blk * D
     bms, by = bound_ms(flops, nbytes)
-    ms = device_ms(b5)
+    ms = kernel_ms(b5)
     lines["sparse_attention"] = dict(
         err, ms=ms, tflops=flops / ms / 1e9, bound_share=bms / ms,
         plain_ms=device_ms(lambda: sp.masked_dense_attention(q, k, v, rows,
                                                              blk),
-                           launches=1, reps=3, warmup=1),
+                           **PLAIN_TIMING),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=tok_mask)),
         library="F.scaled_dot_product_attention with the boolean token mask",
@@ -1085,14 +1112,14 @@ def long_kernels(dev, gen) -> dict:
     ops_bf = 2.0 * B * H * L * L * D        # P V in bf16
     t_ops = (ops_i8 / PEAK_INT8_OPS + ops_bf / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    ms = device_ms(b6)
+    ms = kernel_ms(b6)
     lines["int8_attention"] = dict(
         err, ms=ms, tflops=(ops_i8 + ops_bf) / ms / 1e9,
         bound_share=max(t_ops, t_bytes) / ms,
         tflops_note="int8 and bf16 operations together, per second",
         quantize_ms=device_ms(lambda: i8.quantize_qk(q, k)),
         plain_ms=device_ms(lambda: i8.int8_attention_plain(q, k, v),
-                           launches=1, reps=3, warmup=1),
+                           **PLAIN_TIMING),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt,
                                                                     vt)),
         library="bf16 F.scaled_dot_product_attention (exact attention, not "
@@ -1175,21 +1202,28 @@ def head_dim_256_kernels(dev, gen) -> dict:
 
 def long_rows(dev, randn, shape, instance, lib_kw=None) -> dict:
     """B5 (the long path's w=2 policy of 51 frames + ref) and B6 at q/k/v
-    `shape` [B, 23296, H, D] bf16, each a `kernel_row` (B6's bound counts
-    its int8 and bf16 operations apart; its mean relative error against
-    exact attention must stay under JAX's 0.02). {kernel: record}."""
+    `shape` [B, 23296, H, D] in randn's dtype, each a `kernel_row` (B6's
+    bound counts its int8 and bf16 / TF32 operations apart; its mean
+    relative error against exact attention must stay under JAX's 0.02).
+    fp32 takes the TF32 bounds and peak, fp32 SDPA as the yardstick, and
+    times B6's torch quantization apart. {kernel: record}."""
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import int8_attention as i8
     from flexam_tpu_torch.ops import sparse_attention as sp
     from flexam_tpu_torch.testing import (check_int8_attention,
-                                          check_sparse_attention)
+                                          check_int8_attention_tf32,
+                                          check_sparse_attention,
+                                          check_sparse_attention_tf32)
     B, L, H, D = shape
     out = {}
     q, k, v = randn(B, L, H, D), randn(B, L, H, D), randn(B, L, H, D)
+    f32 = q.dtype == torch.float32
+    tag, peak = ("fp32", PEAK_TF32_FLOPS) if f32 else ("bf16",
+                                                      PEAK_BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 2.0 * 4 * q.numel()
+    nbytes = float(q.element_size()) * 4 * q.numel()
     pol = sp.video_sparse_policy(51, 448, ref_tokens=448, window=2)
     rows, blk = pol["rows"], pol["blk"]
     kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
@@ -1200,29 +1234,35 @@ def long_rows(dev, randn, shape, instance, lib_kw=None) -> dict:
         bmask[i, r] = True
     tok_mask = bmask[tok_blk][:, tok_blk]
     out["sparse_attention"] = kernel_row(
-        check_sparse_attention, f"sparse_attention {instance}",
+        check_sparse_attention_tf32 if f32 else check_sparse_attention,
+        f"sparse_attention {instance}",
         lambda: sp.sparse_flash_attention(q, k, v, rows, blk, kidx=kidx,
                                           nnz=nnz),
         lambda: sp.masked_dense_attention(q, k, v, rows, blk),
         4.0 * B * H * pairs * blk * blk * D, nbytes,
         lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                attn_mask=tok_mask),
-        library="F.scaled_dot_product_attention with the boolean token mask "
-                f"({sdpa_backend(qt, kt, vt, attn_mask=tok_mask)})",
+        peak=peak,
+        library=f"{tag} F.scaled_dot_product_attention with the boolean "
+                f"token mask ({sdpa_backend(qt, kt, vt, attn_mask=tok_mask)})",
         lib_kw=lib_kw, blocks=len(rows), blk=blk, active_pairs=pairs,
-        shape=f"q/k/v [{B},{L},{H},{D}] bf16", instance=instance)
+        shape=f"q/k/v [{B},{L},{H},{D}] {tag}", instance=instance)
     del tok_mask
     ops = 2.0 * B * H * L * L * D
     out["int8_attention"] = kernel_row(
-        check_int8_attention, f"int8_attention {instance}",
+        check_int8_attention_tf32 if f32 else check_int8_attention,
+        f"int8_attention {instance}",
         lambda: i8.int8_attention(q, k, v),
         lambda: i8.int8_attention_plain(q, k, v), 2 * ops, nbytes,
         lambda: F.scaled_dot_product_attention(qt, kt, vt),
-        t_ops=(ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS) * 1e3,
-        library="bf16 F.scaled_dot_product_attention (exact attention, not "
-                f"the int8 function; {sdpa_backend(qt, kt, vt)})",
-        lib_kw=lib_kw, shape=f"q/k/v [{B},{L},{H},{D}] bf16",
+        t_ops=(ops / PEAK_INT8_OPS + ops / peak) * 1e3,
+        library=f"{tag} F.scaled_dot_product_attention (exact attention, "
+                f"not the int8 function; {sdpa_backend(qt, kt, vt)})",
+        lib_kw=lib_kw, shape=f"q/k/v [{B},{L},{H},{D}] {tag}",
         instance=instance)
+    if f32:
+        out["int8_attention"]["quantize_ms"] = device_ms(
+            lambda: i8.quantize_qk(q, k))
     got = i8.int8_attention(q, k, v)
     exact = fa.attention_plain(q, k, v, q_chunk=1024)
     rel = ((got.float() - exact.float()).abs().mean()
@@ -1292,11 +1332,21 @@ def wide_head_dims(dev) -> dict:
 # the wide design timed at the flagship's hidden width of 3,072 (heads x
 # head dim): the operations of the 128-wide rows, so their bounds
 WIDE_TIMED = ((8, 384), (6, 512))
-# B1/B2 in fp32 beyond head dim 128 (the fp32 wide design), checked only
+# B1, B2, B5 and B6 in fp32 beyond head dim 128 (the fp32 wide design),
+# checked at small shapes
 FP32_CHECK_DIMS = (256, 384)
-# device_ms for the slow yardsticks and plain versions: 2 calls a run, 3
-# runs
+# the fp32 wide design timed at the flagship's width: 8 heads of 384
+FP32_WIDE_TIMED = (8, 384)
+# device_ms for the slow yardsticks: 2 calls a run, 3 runs
 SLOW_TIMING = dict(launches=2, reps=3, warmup=1)
+# kernel_ms for a kernel call of SLOW_KERNEL_MS or more: 5 calls a run, 3
+# runs
+SLOW_KERNEL_MS = 10.0
+SLOW_KERNEL_TIMING = dict(launches=5, reps=3, warmup=1)
+# device_ms for the plain versions of the kernel rows (not a yardstick of
+# speed: they repeat the kernels' arithmetic in torch ops), one call after
+# the check's own; 4 calls each took 20 s of the kernels phase on an H100
+PLAIN_TIMING = dict(launches=1, reps=1, warmup=0)
 
 
 def wide_head_dim_times(dev, gen) -> dict:
@@ -1351,22 +1401,29 @@ def wide_head_dim_times(dev, gen) -> dict:
 def fp32_kernels(dev, gen) -> dict:
     """B1, B2, B3 and B4 (both modes) in fp32 at the flagship shapes (B1 at
     q/k/v [2, 11648, 24, 128], B2 with k/v [2, 512, 24, 128], B3/B4 at x
-    [2, 11648, 3072]) and B1 at FLUX's [1, 2304, 24, 128]. Each is held to
-    its plain version in fp32 (TF32 off: exact fp32) over every row by its
-    fp32 bound (`flexam_tpu_torch/testing.py`), timed back to back beside
-    its bound (TF32 peak, 4 bytes an element), the plain version and the
-    yardstick: fp32 SDPA for B1/B2 with the backend PyTorch picked, the
-    card's `copy_` of x for B3/B4. B1 and B2 at head dims 256 and 384 (the
-    fp32 wide design) are checked at a few hundred tokens, one launch a
-    call, not timed. {kernel: record}."""
+    [2, 11648, 3072]), B1 at FLUX's [1, 2304, 24, 128], B1 and B2 at 8
+    heads of 384 (the fp32 wide design), and B5 and B6 at the long clip's
+    [2, 23296, 24, 128] (`long_rows`). Each is held to its plain version
+    in fp32 (TF32 off: exact fp32) over every row by its fp32 bound
+    (`flexam_tpu_torch/testing.py`), timed back to back beside its bound
+    (TF32 peak, 4 bytes an element; B6 its int8 Q K^T at the int8 peak),
+    the plain version and the yardstick: fp32 SDPA for B1/B2/B5/B6 with the
+    backend PyTorch picked (B5 with the boolean token mask, B6 the exact
+    function), the card's `copy_` of x for B3/B4. B1, B2, B5 and B6 at
+    head dims 256 and 384 (the fp32 wide design) are checked at a few
+    hundred tokens, one launch a call. {kernel: record}."""
     import torch
     import torch.nn.functional as F
     from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
     fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import fused, launch_counts
+    from flexam_tpu_torch.ops import int8_attention as i8
+    from flexam_tpu_torch.ops import sparse_attention as sp
     from flexam_tpu_torch.testing import (check_attention_tf32,
+                                          check_int8_attention_tf32,
                                           check_ln_modulation_f32,
-                                          check_rmsnorm_rope_f32)
+                                          check_rmsnorm_rope_f32,
+                                          check_sparse_attention_tf32)
     f32 = torch.float32
     B, L, H, D = FLAGSHIP_QKV
     LT, DIM = FLAGSHIP_TEXT, FLAGSHIP_DIM
@@ -1403,11 +1460,24 @@ def fp32_kernels(dev, gen) -> dict:
     out["flash_attention"]["flux_2304"] = attention(
         "flash_attention", fa.flash_attention, q, k, v, "flux_2304")
     del q, k, v
+    h, d = FP32_WIDE_TIMED
+    q = randn(B, L, h, d)
+    for name, lk, fn in (("flash_attention", L, fa.flash_attention),
+                         ("single_kv_attention", LT, fa.single_kv_attention)):
+        k, v = randn(B, lk, h, d), randn(B, lk, h, d)
+        out[name][f"wide_d{d}"] = attention(name, fn, q, k, v, f"wide_d{d}")
+        del k, v
+    del q
+    out.update(long_rows(dev, randn, (2, LONG_TOKENS, 24, 128), "f32_d128",
+                         lib_kw=SLOW_TIMING))
 
     # the fp32 wide design (and f32_d128 beside it), checked only
+    pol = sp.video_sparse_policy(5, 100, ref_tokens=100, window=2)
+    rows, blk, ls = pol["rows"], pol["blk"], pol["video_len"]
     for d in FP32_CHECK_DIMS:
         q, k, v = randn(2, 300, 2, d), randn(2, 700, 2, d), randn(2, 700, 2, d)
         t, c = randn(2, 300, 2, d), randn(2, 512, 2, d)
+        qs, ks, vs = randn(1, ls, 2, d), randn(1, ls, 2, d), randn(1, ls, 2, d)
         kl = torch.tensor([700, 129], device=dev)
         before = launch_counts()
         rec = {"flash_attention": check_attention_tf32(
@@ -1415,18 +1485,29 @@ def fp32_kernels(dev, gen) -> dict:
                    fa.attention_plain(q, k, v, k_len=kl), f"B1 f32 d{d}"),
                "single_kv_attention": check_attention_tf32(
                    fa.single_kv_attention(t, c, c),
-                   fa.attention_plain(t, c, c), f"B2 f32 d{d}")}
+                   fa.attention_plain(t, c, c), f"B2 f32 d{d}"),
+               "sparse_attention": check_sparse_attention_tf32(
+                   sp.sparse_flash_attention(qs, ks, vs, rows, blk),
+                   sp.masked_dense_attention(qs, ks, vs, rows, blk),
+                   f"B5 f32 d{d}"),
+               "int8_attention": check_int8_attention_tf32(
+                   i8.int8_attention(q, k, v, k_len=kl),
+                   i8.int8_attention_plain(q, k, v, k_len=kl),
+                   f"B6 f32 d{d}")}
         torch.cuda.synchronize()
         after = launch_counts()
+        shapes = {"flash_attention": f"q [2,300,2,{d}] k/v [2,700,2,{d}] "
+                                     "k_len [700,129]",
+                  "single_kv_attention": f"q [2,300,2,{d}] k/v [2,512,2,{d}]",
+                  "sparse_attention": f"q/k/v [1,{ls},2,{d}] blk {blk}",
+                  "int8_attention": f"q [2,300,2,{d}] k/v [2,700,2,{d}] "
+                                    "k_len [700,129]"}
         for name, r in rec.items():
             if after[name] - before[name] != 1:
                 raise AssertionError(f"fp32 head dim {d}: {name} launched "
                                      f"{after[name] - before[name]} times")
             out[name][f"checked_d{d}"] = dict(
-                r, instance=fa.attention_instance(d, f32),
-                shape=(f"q [2,300,2,{d}] k/v [2,700,2,{d}] k_len [700,129]"
-                       if name == "flash_attention" else
-                       f"q [2,300,2,{d}] k/v [2,512,2,{d}]"))
+                r, instance=fa.attention_instance(d, f32), shape=shapes[name])
 
     # B3 / B4: rows with their own offset and scale, as DiT hidden states
     x = (randn(B, L, DIM) * torch.exp(0.5 * randn(B, L, 1))
@@ -1479,24 +1560,31 @@ def fp32_kernels(dev, gen) -> dict:
     return out
 
 
-def long_path_shapes(dev, gen) -> dict:
+def long_path_shapes(dev, gen, dtype=None) -> dict:
     """B2, B3 and B4 (binary) at the long path's shapes, against their plain
     versions: cross-attention of 23,296 queries over 512 text tokens, the
     q/k RMSNorm + RoPE with the RIFLEx tables (k 6, L_test 51) on the
     52 x 16 x 28 grid, and the AdaLN prologue with the first video frame
-    known."""
+    known. In bf16 (the "long/..." lines) or fp32 ("long/...-f32", the
+    fp32 bounds)."""
     import torch
     from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
     fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     from flexam_tpu_torch.ops import fused
     from flexam_tpu_torch.testing import (check_attention,
+                                          check_attention_tf32,
                                           check_ln_modulation,
-                                          check_rmsnorm_rope)
+                                          check_ln_modulation_f32,
+                                          check_rmsnorm_rope,
+                                          check_rmsnorm_rope_f32)
 
     B, H, D, L, LT, DIM = 2, 24, 128, LONG_TOKENS, 512, 3072
-    bf = torch.bfloat16
+    dt = torch.bfloat16 if dtype is None else dtype
+    f32 = dt == torch.float32
+    sfx, tag = ("-f32", "fp32") if f32 else ("", "bf16")
+    size = 4.0 if f32 else 2.0
 
-    def randn(*shape, dtype=bf):
+    def randn(*shape, dtype=dt):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     lines = {}
@@ -1504,17 +1592,18 @@ def long_path_shapes(dev, gen) -> dict:
     got = fa.single_kv_attention(q, k, v)
     ref = fa.attention_plain(q, k, v, q_chunk=1024)
     torch.cuda.synchronize()
-    lines["long/single_kv_attention"] = dict(
-        check_attention(got, ref, "long/single_kv_attention"),
+    name = f"long/single_kv_attention{sfx}"
+    lines[name] = dict(
+        (check_attention_tf32 if f32 else check_attention)(got, ref, name),
         ms=device_ms(lambda: fa.single_kv_attention(q, k, v)),
-        shape=f"q [{B},{L},{H},{D}] k/v [{B},{LT},{H},{D}] bf16")
+        shape=f"q [{B},{L},{H},{D}] k/v [{B},{LT},{H},{D}] {tag}")
     del q, k, v, got, ref
 
     # rows with their own offset and scale, as in the flagship check
     x = (randn(B, L, DIM, dtype=torch.float32)
          * torch.exp(0.5 * randn(B, L, 1, dtype=torch.float32))
-         + 4.0 * randn(B, L, 1, dtype=torch.float32)).to(bf)
-    gamma = (1.0 + 0.1 * randn(DIM, dtype=torch.float32)).to(bf)
+         + 4.0 * randn(B, L, 1, dtype=torch.float32)).to(dt)
+    gamma = (1.0 + 0.1 * randn(DIM, dtype=torch.float32)).to(dt)
     tables = torch.from_numpy(make_rope_tables(
         D, 1024, riflex={"k": 6, "L_test": 51})).to(dev)
     cos, sin = build_video_rope(tables, (52, 16, 28), D)
@@ -1522,11 +1611,13 @@ def long_path_shapes(dev, gen) -> dict:
     ref = fused.rmsnorm_rope_plain(x, gamma, cos, sin, H)
     torch.cuda.synchronize()
     ms = device_ms(lambda: fused.rmsnorm_rope(x, gamma, cos, sin, H))
-    lines["long/rmsnorm_rope"] = dict(
-        check_rmsnorm_rope(got, ref, "long/rmsnorm_rope"),
-        ms=ms, gbps=(4.0 * x.numel() + 8.0 * cos.numel()) / ms / 1e6,
+    name = f"long/rmsnorm_rope{sfx}"
+    lines[name] = dict(
+        (check_rmsnorm_rope_f32 if f32 else check_rmsnorm_rope)(got, ref,
+                                                                name),
+        ms=ms, gbps=(2 * size * x.numel() + 8.0 * cos.numel()) / ms / 1e6,
         riflex={"k": 6, "L_test": 51}, grid=[52, 16, 28],
-        shape=f"x [{B},{L},{DIM}] bf16, tables [{L},{D // 2}] fp32")
+        shape=f"x [{B},{L},{DIM}] {tag}, tables [{L},{D // 2}] fp32")
     del got, ref
 
     mask = torch.ones((B, L), device=dev)
@@ -1538,10 +1629,12 @@ def long_path_shapes(dev, gen) -> dict:
     ref = fused.ln_modulation_plain(x, sh, sc, mask=mask)
     torch.cuda.synchronize()
     ms = device_ms(lambda: fused.ln_modulation(x, sh, sc, mask=mask))
-    lines["long/ln_mod_binary"] = dict(
-        check_ln_modulation(got, ref, sh, mask, "long/ln_mod_binary"),
-        ms=ms, gbps=4.0 * x.numel() / ms / 1e6,
-        shape=f"x [{B},{L},{DIM}] bf16, shift/scale [{B},2,{DIM}] fp32")
+    name = f"long/ln_mod_binary{sfx}"
+    lines[name] = dict(
+        check_ln_modulation_f32(got, ref, x, sh, sc, mask, name) if f32
+        else check_ln_modulation(got, ref, sh, mask, name),
+        ms=ms, gbps=2 * size * x.numel() / ms / 1e6,
+        shape=f"x [{B},{L},{DIM}] {tag}, shift/scale [{B},2,{DIM}] fp32")
     return lines
 
 
@@ -1833,14 +1926,15 @@ def phase_dit_fp32(dev, cfg, params, results: dict) -> None:
          max_memory_allocated_gb=peak, vs_exact_composition=err)
 
 
-def phase_generate_fp32(dev, cfg, params, results: dict) -> None:
+def phase_generate_fp32(dev, cfg, params, results: dict) -> tuple:
     """`FlexAMGenerationPipeline(models, compute_dtype=torch.float32)
     .generate` at 5B width (`params`: the fp32 tree; the VAE drawn in fp32)
     at 512x896x17f, 2 steps, a mask with frame 0 known. No umT5: a random
     text context stands in for `encode_prompt`, as in the serving session.
     Its kernels' launches are counted (reset just before, read just after):
     B1-B4 must run, the exact branch not. Prints the uint8 video's shape and
-    finiteness, the launches, the seconds and the peak memory."""
+    finiteness, the launches, the seconds and the peak memory. Returns the
+    pipeline and the context for `phase_generate_long_fp32`."""
     import numpy as np
     import torch
     from flexam_tpu_torch.core.attention import exact_calls
@@ -1890,13 +1984,162 @@ def phase_generate_fp32(dev, cfg, params, results: dict) -> None:
     for k in KERNELS:
         results.setdefault(k, {})["generate_fp32_launches"] = counts[k]
     u8 = np.rint(out * 255.0)
-    del pipe, models
+    del models
     torch.cuda.empty_cache()
     emit("generate_fp32", t0, compute_dtype="float32", frames=T,
          steps=FP32_GENERATE_STEPS, setup_seconds=t_setup,
          generate_seconds=gen_s, output_shape=list(out.shape),
          output_finite=finite, uint8_levels=[int(u8.min()), int(u8.max())],
          peak_memory_allocated_gb=peak, launches=counts)
+    return pipe, context
+
+
+def phase_generate_long_fp32(dev, pipe, context, results: dict) -> None:
+    """The long-clip path in fp32 on `phase_generate_fp32`'s pipeline (the
+    5B tree cast to fp32, the fp32 VAE, its random text context): `generate`
+    at 512x896x201f (23,296 tokens with the ref block), first frame known,
+    a reference image, RIFLEx (k 6, L_test 51), the streamed encode and
+    decode (the DiT offloaded to the host around the decode), 1 Euler step
+    at CFG 6.0 through the auto attention ladder: B6 in fp32 for the video
+    self-attention (30 launches), B2 for the text, B3 and B4 (binary), B1
+    and the exact branch never. Then 1 `denoise` step of the same
+    conditioning under FLEXAM_ATTENTION=sparse: B5 in fp32 30 times, B1 and
+    B6 never. Launch counts are reset just before and read just after each;
+    the video must be finite in [0, 1]. Prints stage seconds and the peak
+    memory of each stage.
+
+    The VAE's fp32 convolutions run at PyTorch's default here, cuDNN's TF32
+    allowed (`torch.backends.cudnn.allow_tf32`, which the smoke turns off
+    for its card-against-CPU bounds), as a user's fp32 process runs them
+    and as the attention kernels run TF32: with it off, the 201-frame
+    encode and decode took 102 s of this phase's 123 on an H100."""
+    import numpy as np
+    import torch
+    from flexam_tpu_torch.core import attention
+    from flexam_tpu_torch.core.attention import exact_calls
+    from flexam_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    T, Hp, Wp = LONG_VIDEO
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    video = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    control = torch.rand((1, 3, T, Hp, Wp), generator=gen, device=dev)
+    ref_image = torch.rand((1, 3, 1, Hp, Wp), generator=gen, device=dev)
+    mask = torch.ones((1, 1, T, Hp, Wp), device=dev)
+    mask[:, :, 0] = 0.0                       # first frame known
+    if os.environ.get("FLEXAM_ATTENTION") or os.environ.get(
+            "FLEXAM_INT8_AUTO") == "0":
+        raise AssertionError("generate_long_fp32: FLEXAM_ATTENTION / "
+                             "FLEXAM_INT8_AUTO must be unset for the auto "
+                             "ladder")
+    pipe.enable_riflex(k=6, L_test=51)
+    attention._default_backend.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peaks = StagePeaks()
+    stage, step_times, conds = {}, [], []
+    prepare = pipe.prepare_conditioning
+
+    def timed_prepare(*args, **kw):
+        t1 = time.perf_counter()
+        cond = prepare(*args, **kw)
+        torch.cuda.synchronize()
+        stage["prepare_streamed_encode"] = time.perf_counter() - t1
+        peaks.mark("prepare_streamed_encode")
+        conds.append(cond)
+        return cond
+
+    def progress(done, total):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        if done == total:
+            peaks.mark("denoise_1_step")
+
+    pipe.prepare_conditioning = timed_prepare
+    tf32_cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    exact_before = exact_calls["exact_attention"]
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        out = pipe.generate(video, "a red fox runs through fresh snow",
+                            mask_video=mask, control_video=control,
+                            ref_image=ref_image, num_inference_steps=1,
+                            guidance_scale=6.0, seed=SEED,
+                            progress_cb=progress)
+    finally:
+        del pipe.prepare_conditioning
+        torch.backends.cudnn.allow_tf32 = tf32_cudnn
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    peaks.mark("decode_streamed")
+    counts = launch_counts()
+    exact_n = exact_calls["exact_attention"] - exact_before
+    del video, control, mask, ref_image
+    cond = conds[0]
+    _, lt, lh, lw = cond["latent_shape"]
+    tokens = (lt + 1) * (lh // 2) * (lw // 2)
+    stage["denoise_1_step"] = step_times[-1] - (t1 + stage[
+        "prepare_streamed_encode"])
+    stage["decode_streamed"] = t_end - step_times[-1]
+    stage["generate"] = t_end - t1
+    layers = pipe.cfg.dit.num_layers
+    if tokens != LONG_TOKENS or not cond["first_frame_known"]:
+        raise AssertionError(f"generate_long_fp32: {tokens} tokens, first "
+                             f"frame known {cond['first_frame_known']}")
+    if (counts["int8_attention"] != layers or counts["flash_attention"]
+            or exact_n):
+        raise AssertionError(f"generate_long_fp32: launches {counts}, exact "
+                             f"calls {exact_n}; expected int8_attention "
+                             f"{layers}, flash_attention 0, exact 0")
+    missing = [k for k in LONG_PATH_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"generate_long_fp32: never launched: {missing}")
+    if out.shape != (1, 3, T, Hp, Wp) or not np.isfinite(out).all() \
+            or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"generate_long_fp32: output {out.shape}, range "
+                             f"[{out.min()}, {out.max()}]")
+    out_range = [float(out.min()), float(out.max())]
+    del out
+
+    # one step with video self-attention block-sparse (B5 in fp32)
+    os.environ["FLEXAM_ATTENTION"] = "sparse"
+    attention._default_backend.cache_clear()
+    try:
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        lat = pipe.denoise(cond, context, num_inference_steps=1,
+                           guidance_scale=6.0, seed=SEED)
+        torch.cuda.synchronize()
+        stage["sparse_denoise_1_step"] = time.perf_counter() - t1
+        peaks.mark("sparse_denoise_1_step")
+        sparse_counts = launch_counts()
+    finally:
+        del os.environ["FLEXAM_ATTENTION"]
+        attention._default_backend.cache_clear()
+        pipe.disable_riflex()
+    if (sparse_counts["sparse_attention"] != layers
+            or sparse_counts["flash_attention"]
+            or sparse_counts["int8_attention"]):
+        raise AssertionError(f"generate_long_fp32 sparse step: launches "
+                             f"{sparse_counts}; expected sparse_attention "
+                             f"{layers}, flash and int8 0")
+    if lat.dtype != torch.float32 or not bool(lat.isfinite().all().item()):
+        raise AssertionError(f"generate_long_fp32 sparse step: latents "
+                             f"{lat.dtype}, finite "
+                             f"{bool(lat.isfinite().all().item())}")
+    del lat, cond, conds
+    for k in KERNELS:
+        results.setdefault(k, {})["generate_long_fp32_launches"] = counts[k]
+        results[k]["sparse_fp32_launches"] = sparse_counts[k]
+    emit("generate_long_fp32", t0, compute_dtype="float32", frames=T,
+         tokens=tokens, layers=layers, riflex={"k": 6, "L_test": 51},
+         tf32_cudnn_generate=True, tf32_matmul=False,
+         stages=stage, output_shape=[1, 3, T, Hp, Wp], output_range=out_range,
+         peak_memory_allocated_gb=peaks.peak(),
+         resident_at_start_gb=peaks.resident_gb,
+         peak_memory_allocated_gb_by_stage=peaks.gb, launches=counts,
+         exact_calls=exact_n, sparse_step_launches=sparse_counts)
 
 
 def profile_forward(fn) -> dict:
@@ -6844,6 +7087,9 @@ MAIN_PATH_KERNELS = ("flash_attention", "single_kv_attention", "rmsnorm_rope",
                      "ln_mod_binary", "ln_mod_bcast")
 LONG_PATH_KERNELS = ("int8_attention", "single_kv_attention", "rmsnorm_rope",
                      "ln_mod_binary")
+# the fp32 paths whose launches the "-f32" rows sum
+F32_PATH_LAUNCHES = ("fp32_launches", "generate_fp32_launches",
+                     "generate_long_fp32_launches", "sparse_fp32_launches")
 
 
 def main(argv=None) -> int:
@@ -6920,8 +7166,11 @@ def main(argv=None) -> int:
     host_params = _to(dit_params, "cpu")
     del dit_params
     phase_dit_fp32(dev, WAN22_5B_FLEXAM, f32_params, results)
-    phase_generate_fp32(dev, WAN22_5B_FLEXAM, f32_params, results)
+    pipe, context = phase_generate_fp32(dev, WAN22_5B_FLEXAM, f32_params,
+                                        results)
     del f32_params
+    phase_generate_long_fp32(dev, pipe, context, results)
+    del pipe, context
     gc.collect()
     torch.cuda.empty_cache()
     dit_params = _to(host_params, dev)
@@ -7000,6 +7249,21 @@ def main(argv=None) -> int:
             **({k: r[k] for k in ("tflops", "gbps", "bound_share", "copy_ms",
                                   "flux_shapes", "d256", "wide", "f32")
                 if k in r})})
+    # the fp32 instances as rows of their own: their numbers from the
+    # kernels phase's "f32" records, their launches from the fp32 paths
+    # (the forward, generate 17f, the long generate and its sparse step)
+    for name, (src, replaces) in KERNELS.items():
+        r = results[name]
+        f = r["f32"]
+        by_path = {k: r.get(k, 0) for k in F32_PATH_LAUNCHES}
+        kernels.append({
+            "name": f"{name}-f32", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+            **by_path, "bound_share": f["bound_share"],
+            "instance": f.get("instance", "f32 row kernel")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

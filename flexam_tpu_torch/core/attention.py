@@ -36,13 +36,13 @@ JAX's dispatcher catches its kernels' NotImplementedError, this one decides
 by shape before any launch, on both devices. `exact_calls` counts the
 branch's calls beside the kernels' launch counters.
 
-Dtypes: B1 and B2 take bf16 and fp32 (fp32 on TF32 wgmma, the card's
-counterpart of the TPU's default fp32 matmul precision; the exact branch
-stays exact fp32), as JAX's kernels take any dtype; B5 and B6 take bf16
-only until ROADMAP B-dtype's second half, so fp32 under
-`FLEXAM_ATTENTION=sparse` or `pallas_int8`, or the auto int8 upgrade of an
-fp32 clip of at least INT8_AUTO_MIN_TOKENS tokens, raises TypeError on the
-card. fp16 raises in every kernel.
+Dtypes: B1, B2, B5 and B6 take bf16 and fp32, as JAX's kernels take any
+dtype: fp32 runs its matmuls on TF32 wgmma (B6: its P.V; its Q K^T is
+int8 in either dtype), the card's counterpart of the TPU's default fp32
+matmul precision, so an fp32 clip takes the same ladder as a bf16 one
+(B6 under the auto upgrade or `pallas_int8`, B5 under
+`FLEXAM_ATTENTION=sparse`); the exact branch stays exact fp32. fp16
+raises in every kernel.
 
 Inputs use layout [B, L, H, D]; `k_len` masks padded keys.
 """

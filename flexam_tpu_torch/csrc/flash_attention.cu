@@ -14,7 +14,8 @@
 // the default matmul precision, the chip's fast mode; the card's
 // counterpart is TF32 wgmma, which the fp32 instances use whatever
 // torch.backends.cuda.matmul.allow_tf32 says. Every tf32 operand is rounded
-// to nearest first: a pre-pass (tf32_prep) writes Q and K rounded and V^T
+// to nearest first: a pre-pass (tf32_prep.cuh, shared with B5 and B6)
+// writes Q and K rounded and V^T
 // rounded (tf32 wgmma takes no transposed operand, so P.V reads V^T
 // K-major) into workspaces the wrapper allocates, and the probabilities
 // are rounded in registers. The pre-pass reads Q, K and V once and writes
@@ -69,15 +70,14 @@
 // fp32 accumulator in 128 registers, as two 128-column halves that each
 // P.V k-step updates by one m64n128k16 wgmma, beside S over 64 keys (32).
 //
-// fp32 at D = 128 takes the same bytes as bf16 at 256 (a 128-byte span
-// holds 32 fp32): Q 64 KB, 64-key K tiles and 64-key V^T tiles of 32 KB in
-// a ring of 2 stages. S over 64 keys is 16 steps of wgmma m64n64k8 (tf32,
-// 32 bytes of D a step, as bf16's k16); P.V 8 steps of m64n128k8 with P
-// from registers (probs_to_a_tf32) and V^T's [128 columns, 8 keys] from
-// shared memory. A consumer holds O (64), S (32) and P (32) registers.
+// fp32 at D = 128 runs F32Plan (hopper_attention.cuh): Q 64 KB, 64-key K
+// tiles and 64-key V^T tiles of 32 KB in a ring of 2 stages; S over 64
+// keys by wgmma m64n64k8 (tf32), P.V by m64n128k8 with P from registers
+// (probs_to_a_tf32) and V^T's [128 columns, 8 keys] from shared memory.
 
 #include "hopper_attention.cuh"
 #include "hopper_wide.cuh"
+#include "tf32_prep.cuh"
 
 namespace {
 
@@ -89,7 +89,6 @@ constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
 constexpr int kMaxKeysB2 = 512;         // B2: <= 512 keys
 constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 128 bytes
-constexpr int kKeyPad = 64;             // fp32: V^T's keys padded to this
 
 struct Params {
   const int* k_len;  // [B] or null
@@ -98,41 +97,6 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// The bf16 plan of Bf16Tiles<kD> as the CTA below reads it: K and V tiles
-// alike, Q K^T in kD / 16 wgmma steps of 16 (32 bytes), P.V in steps of 16
-// keys.
-template <int kD_>
-struct Bf16Plan : Bf16Tiles<kD_> {
-  static constexpr bool kF32 = false;
-  static constexpr int kD = kD_;
-  static constexpr int kCols = 64;                 // columns a span
-  static constexpr int kQKSteps = kD / 16;
-  static constexpr int kPVKeys = 16;               // keys a P.V step
-};
-
-// fp32 at D = 128 (TF32): Q [128, 128] as four 32-column spans (64 KB), K
-// tiles [64 keys, 128] (four spans, 32 KB) and V^T tiles [128 columns, 64
-// keys] (two 32-key spans of 16 KB) in a ring of 2 stages.
-struct F32Plan {
-  static constexpr bool kF32 = true;
-  static constexpr int kD = 128;
-  static constexpr int kBN = 64;
-  static constexpr int kStages = 2;
-  static constexpr int kSpans = 4;
-  static constexpr int kCols = 32;
-  static constexpr uint32_t kQSpanBytes = 128 * 128;
-  static constexpr uint32_t kKVSpanBytes = kBN * 128;   // K: [64, 32]
-  static constexpr uint32_t kVtSpanBytes = kD * 128;    // V^T: [128, 32]
-  static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
-  static constexpr uint32_t kKVBytes = kSpans * kKVSpanBytes;  // = V^T tile
-  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
-  static constexpr size_t kSmemBytes =
-      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
-  static constexpr int kQKSteps = kD * 4 / 32;
-  static constexpr int kPVKeys = 8;
-};
-static_assert(F32Plan::kKVBytes == (F32Plan::kBN / 32) * F32Plan::kVtSpanBytes,
-              "a V^T tile fills a K tile's stage");
 static_assert(kKeyPad % F32Plan::kBN == 0 && kKeyPad % wide::kKeys == 0,
               "V^T's padded keys cover whole key tiles");
 
@@ -439,58 +403,6 @@ __global__ void __launch_bounds__(wide::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the pre-pass (tf32_prep) that rounds the operands to tf32
-// ---------------------------------------------------------------------------
-
-constexpr int kPrepThreads = 256;
-
-// y = x rounded to tf32, over n4 float4 vectors (grid-stride).
-__global__ void __launch_bounds__(kPrepThreads)
-    round_tf32_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                      long long n4) {
-  for (long long i = blockIdx.x * (long long)kPrepThreads + threadIdx.x;
-       i < n4; i += (long long)gridDim.x * kPrepThreads) {
-    const float4 t = x[i];
-    y[i] = make_float4(__uint_as_float(round_tf32(t.x)),
-                       __uint_as_float(round_tf32(t.y)),
-                       __uint_as_float(round_tf32(t.z)),
-                       __uint_as_float(round_tf32(t.w)));
-  }
-}
-
-// V^T: vt[b, d, h, p] = tf32(v[b, key(p), h, d]) for p < Lkp, 0 for keys at
-// or past Lk, where key(p) takes each 8 keys in the order (0, 2, 4, 6, 1,
-// 3, 5, 7) that probs_to_a_tf32's fragments need. A block moves 32 keys x
-// 32 columns of one (b, h) through shared memory: it reads along d and
-// writes along keys, 128 contiguous bytes a warp both ways.
-__global__ void __launch_bounds__(kPrepThreads)
-    transpose_v_kernel(const float* __restrict__ v, float* __restrict__ vt,
-                       int H, int Lk, int D, int Lkp) {
-  __shared__ float tile[32][33];
-  const int n_kt = Lkp / 32;
-  const int key0 = (blockIdx.x % n_kt) * 32, d0 = (blockIdx.x / n_kt) * 32;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int i = ty; i < 32; i += kPrepThreads / 32) {
-    const int key = key0 + i;
-    tile[i][tx] =
-        key < Lk ? v[(((size_t)b * Lk + key) * H + h) * D + d0 + tx] : 0.f;
-  }
-  __syncthreads();
-  const int g = tx & 7;
-  const int src = (tx & ~7) | (g < 4 ? 2 * g : 2 * (g - 4) + 1);
-  for (int i = ty; i < 32; i += kPrepThreads / 32)
-    vt[(((size_t)b * D + d0 + i) * H + h) * Lkp + key0 + tx] =
-        __uint_as_float(round_tf32(tile[src][i]));
-}
-
-// Blocks of a grid-stride pass over n4 vectors.
-inline int prep_blocks(long long n4) {
-  const long long need = (n4 + kPrepThreads - 1) / kPrepThreads;
-  return (int)(need < 8192 ? (need > 0 ? need : 1) : 8192);
-}
-
-// ---------------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------------
 
@@ -585,22 +497,13 @@ int dispatch_f32(bool single_kv, const void* q, const void* k, const void* v,
                  int B, int H, int Lq, int Lk, int D, float scale_log2,
                  void* stream) {
   if (bad_shape(B, H, Lq, Lk, D, o) || (long long)B * H > 65535 ||
-      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(qw) |
-       reinterpret_cast<uintptr_t>(kw) | reinterpret_cast<uintptr_t>(vt)) %
-          16)
+      misaligned16(q, k, v, qw, kw, vt))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Lkp = (Lk + kKeyPad - 1) / kKeyPad * kKeyPad;
-  const long long nq4 = (long long)B * Lq * H * D / 4;
-  const long long nk4 = (long long)B * Lk * H * D / 4;
-  round_tf32_kernel<<<prep_blocks(nq4), kPrepThreads, 0, st>>>(
-      static_cast<const float4*>(q), static_cast<float4*>(qw), nq4);
-  round_tf32_kernel<<<prep_blocks(nk4), kPrepThreads, 0, st>>>(
-      static_cast<const float4*>(k), static_cast<float4*>(kw), nk4);
-  transpose_v_kernel<<<dim3((Lkp / 32) * (D / 32), B * H), kPrepThreads, 0,
-                       st>>>(static_cast<const float*>(v),
-                             static_cast<float*>(vt), H, Lk, D, Lkp);
+  const int Lkp = padded_keys(Lk);
+  round_tf32_async(q, qw, (long long)B * Lq * H * D, st);
+  round_tf32_async(k, kw, (long long)B * Lk * H * D, st);
+  transpose_v_async(v, vt, B, H, Lk, D, Lkp, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (D == 128)
@@ -631,7 +534,7 @@ int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // Dynamic shared memory a B1 / B2 CTA takes at head dim 128, in bytes.
-int flexam_attention_smem_bytes() { return (int)Bf16Tiles<128>::kSmemBytes; }
+int flexam_attention_smem_bytes() { return (int)Bf16Plan<128>::kSmemBytes; }
 
 // B2 in bf16 (Lk <= 512). Returns a cudaError_t.
 int flexam_single_kv_attention(const void* q, const void* k, const void* v, void* o,

@@ -2,9 +2,9 @@
 // tensor maps and loads, mbarriers, wgmma (bf16, tf32 and s8), register
 // reallocation, and the online softmax on wgmma accumulator fragments.
 // Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
-// (int8_attention.cu). Outputs leave by plain stores from registers: a
-// persistent CTA frees its Q buffer for the next item's load instead of
-// staging the output there.
+// (int8_attention.cu), in bf16 and fp32. Outputs leave by plain stores
+// from registers: a persistent CTA frees its Q buffer for the next item's
+// load instead of staging the output there.
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
 // is D / 64 column spans of [rows, 64] (128 bytes a row), one after
@@ -36,15 +36,22 @@ using attn::pack_bf16;
 using attn::quad_max;
 using attn::quad_sum;
 
-// The bf16 tiles of B1, B2 and B5 at head dim kD (128 or 256): 128 query
-// rows an item, kBN keys a K/V tile in a ring of kStages (at 256 a 128-key
-// tile is 64 KB, which leaves no room for two stages beside Q: 64 keys and
-// 2 stages), each tile kD / 64 spans of 64 columns (128-byte rows).
-template <int kD>
-struct Bf16Tiles {
+// The tile plans of B1, B2 and B5 (flash_attention.cu, sparse_attention.cu:
+// one CTA of 128 query rows, a ring of K and V tiles).
+//
+// bf16 at head dim kD (128 or 256): kBN keys a K/V tile in a ring of
+// kStages (at 256 a 128-key tile is 64 KB, which leaves no room for two
+// stages beside Q: 64 keys and 2 stages), each tile kD / 64 spans of 64
+// columns (128-byte rows); Q K^T in kD / 16 wgmma steps of 16 (32 bytes),
+// P.V in steps of 16 keys.
+template <int kD_>
+struct Bf16Plan {
+  static constexpr bool kF32 = false;
+  static constexpr int kD = kD_;
   static constexpr int kBN = kD == 128 ? 128 : 64;
   static constexpr int kStages = kD == 128 ? 3 : 2;
   static constexpr int kSpans = kD / 64;
+  static constexpr int kCols = 64;                 // columns a span
   static constexpr uint32_t kQSpanBytes = 128 * 128;              // 16 KB
   static constexpr uint32_t kKVSpanBytes = kBN * 128;
   static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
@@ -53,7 +60,38 @@ struct Bf16Tiles {
   // Q, the K and V rings and their barriers, 1024-byte aligned
   static constexpr size_t kSmemBytes =
       1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static constexpr int kQKSteps = kD / 16;
+  static constexpr int kPVKeys = 16;               // keys a P.V step
 };
+
+// fp32 at D = 128 (TF32): the same bytes as bf16 at 256 (a 128-byte span
+// holds 32 fp32). Q [128, 128] as four 32-column spans (64 KB), K tiles
+// [64 keys, 128] (four spans, 32 KB) and V^T tiles [128 columns, 64 keys]
+// (two 32-key spans of 16 KB, read from the pre-pass's V^T workspace,
+// tf32_prep.cuh) in a ring of 2 stages. S over 64 keys is 16 steps of
+// wgmma m64n64k8 (32 bytes of D a step, as bf16's k16); P.V 8 steps of
+// m64n128k8 with P from registers (probs_to_a_tf32). A consumer holds O
+// (64), S (32) and P (32) registers.
+struct F32Plan {
+  static constexpr bool kF32 = true;
+  static constexpr int kD = 128;
+  static constexpr int kBN = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kSpans = 4;
+  static constexpr int kCols = 32;
+  static constexpr uint32_t kQSpanBytes = 128 * 128;
+  static constexpr uint32_t kKVSpanBytes = kBN * 128;   // K: [64, 32]
+  static constexpr uint32_t kVtSpanBytes = kD * 128;    // V^T: [128, 32]
+  static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
+  static constexpr uint32_t kKVBytes = kSpans * kKVSpanBytes;  // = V^T tile
+  static constexpr uint32_t kBarBytes = 8 * (2 + 3 * kStages);
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static constexpr int kQKSteps = kD * 4 / 32;
+  static constexpr int kPVKeys = 8;
+};
+static_assert(F32Plan::kKVBytes == (F32Plan::kBN / 32) * F32Plan::kVtSpanBytes,
+              "a V^T tile fills a K tile's stage");
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

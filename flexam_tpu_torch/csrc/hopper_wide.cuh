@@ -24,12 +24,14 @@
 // (q scale * k scale) * (softmax scale * log2 e), the plain version's
 // order).
 //
-// kDense also runs fp32 (kF32, TF32 wgmma), on the rounded Q and K and the
-// V^T workspace of flash_attention.cu's pre-pass: chunks of 32 columns
-// (128 bytes, the same 8 KB boxes), m64n64k8 steps, and V^T's slab as two
-// 32-key spans of [128 columns, 32 keys] read K-major by m64n128k8 steps
-// with P from registers (probs_to_a_tf32). The sparse and int8 modes are
-// bf16 only.
+// Every mode also runs fp32 (kF32, TF32 P.V) on the V^T workspace of the
+// pre-pass (tf32_prep.cuh): V^T's slab as two 32-key spans of [128
+// columns, 32 keys] read K-major by m64n128k8 steps with P from registers
+// (probs_to_a_tf32). kDense and kSparse take the rounded Q and K in chunks
+// of 32 columns (128 bytes, the same 8 KB boxes) by m64n64k8 steps; kInt8
+// keeps its int8 Q and K chunks and s32 products. In kSparse a tile's
+// first key, kidx * blk + a multiple of 64, is a multiple of 8 (blk is),
+// so the pre-pass's order of each 8 keys holds in every tile.
 #pragma once
 
 #include "hopper_attention.cuh"
@@ -123,7 +125,6 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
                                          const CUtensorMap* tk,
                                          const CUtensorMap* tv,
                                          const Params& a) {
-  static_assert(!kF32 || kMode == kDense, "fp32 runs the dense mode only");
   constexpr uint32_t kVBytes = v_bytes<kF32>();
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t stage0 = (smem_u32(smem) + 1023u) & ~1023u;
@@ -134,7 +135,8 @@ __device__ __forceinline__ void wide_cta(const CUtensorMap* tq,
 
   const Item w = item_of<kMode, kMaxTiles>(a, blockIdx.x);
   // chunks of 128 bytes of a row: 128 int8, 64 bf16 or 32 fp32 columns
-  const int n_chunks = kMode == kInt8 ? a.D / 128 : (kF32 ? a.D / 32 : a.D / 64);
+  const int n_chunks =
+      kMode == kInt8 ? a.D / 128 : (kF32 ? a.D / 32 : a.D / 64);
   const int total = w.n_tiles * n_chunks;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane & 3;
@@ -341,27 +343,26 @@ inline long long n_items(const Params& a) {
 }
 
 // Launch `kernel` (a __global__ wrapper of wide_cta) over every item of
-// `a`, with maps over q, k (bf16, int8 for kInt8, fp32 for kF32) and v
-// (bf16; for kF32 the V^T workspace [B, D, H, Lkp]) built here. Returns a
-// cudaError_t.
+// `a`, with maps over q, k (int8 for kInt8, else bf16, or fp32 for kF32)
+// and v (bf16; for kF32 the V^T workspace [B, D, H, Lkp]) built here.
+// Returns a cudaError_t.
 template <int kMode, bool kF32 = false, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
            const Params& a, void* stream, int Lkp = 0) {
   constexpr size_t kSmem = smem_bytes<kF32>();
   CUtensorMap tq, tk, tv;
   bool ok;
-  if (kF32)
-    ok = make_bl_hd_map_f32(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
-         make_bl_hd_map_f32(&tk, k, a.B, a.Lk, a.H, a.D, 64) &&
-         make_bl_hd_map_f32(&tv, v, a.B, a.D, a.H, Lkp, 64);
-  else if (kMode == kInt8)
+  if (kMode == kInt8)
     ok = make_bl_hd_map_i8(&tq, q, a.B, a.Lq, a.H, a.D, kRows) &&
-         make_bl_hd_map_i8(&tk, k, a.B, a.Lk, a.H, a.D, kKeys) &&
-         make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64);
+         make_bl_hd_map_i8(&tk, k, a.B, a.Lk, a.H, a.D, kKeys);
+  else if (kF32)
+    ok = make_bl_hd_map_f32(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
+         make_bl_hd_map_f32(&tk, k, a.B, a.Lk, a.H, a.D, 64);
   else
     ok = make_bl_hd_map(&tq, q, a.B, a.Lq, a.H, a.D, 64) &&
-         make_bl_hd_map(&tk, k, a.B, a.Lk, a.H, a.D, 64) &&
-         make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64);
+         make_bl_hd_map(&tk, k, a.B, a.Lk, a.H, a.D, 64);
+  ok = ok && (kF32 ? make_bl_hd_map_f32(&tv, v, a.B, a.D, a.H, Lkp, 64)
+                   : make_bl_hd_map(&tv, v, a.B, a.Lk, a.H, a.D, 64));
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);

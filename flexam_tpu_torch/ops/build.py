@@ -50,8 +50,12 @@ SIGNATURES = {
                                  _I, _F, _P],
     "flexam_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
+    "flexam_sparse_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
     "flexam_int8_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _P],
+    "flexam_int8_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _F, _P],
     "flexam_int8_attention_smem_bytes": [],
 }
 

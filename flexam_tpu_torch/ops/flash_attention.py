@@ -20,10 +20,12 @@ in bf16 128 and 256 have their own, every larger multiple of 128 the wide
 design of `csrc/hopper_wide.cuh`; in fp32 (TF32 wgmma, the card's
 counterpart of the TPU's default fp32 matmul precision, whatever
 `torch.backends.cuda.matmul.allow_tf32` says) 128 has its own and every
-larger multiple the wide design. fp32 runs a pre-pass that rounds q and k
-to tf32 and writes V^T (rounded) into workspaces allocated here. B5 and B6
-take bf16 only (`check_inputs`' dtypes). A CUDA tensor launches the kernel
-or raises; a CPU tensor takes `attention_plain`, which mirrors the JAX math
+larger multiple the wide design. fp32 runs a pre-pass
+(`csrc/tf32_prep.cuh`, shared with B5 and B6) that rounds q and k to tf32
+and writes V^T (rounded) into workspaces allocated here. B5 and B6 take the
+same dtypes and name their instances alike. A CUDA tensor launches the
+kernel or raises; a CPU tensor takes `attention_plain`, which mirrors the
+JAX math
 (`core/attention.py:xla_attention`: fp32 logits and softmax, probabilities
 cast to q.dtype before P.V) with the kernels' -1e30 key mask.
 """
@@ -40,11 +42,10 @@ LOG2E = 1.4426950408889634
 MASK_VALUE = -1e30
 SINGLE_KV_MAX_KEYS = 512
 # fp32: the V^T workspace's keys are padded to a multiple of this
-# (`csrc/flash_attention.cu` kKeyPad)
+# (`csrc/tf32_prep.cuh` kKeyPad)
 F32_KEY_PAD = 64
-# the dtypes each kernel takes on the card
-DTYPES = (torch.bfloat16, torch.float32)          # B1, B2
-BF16_ONLY = (torch.bfloat16,)                     # B5, B6
+# the dtypes the attention kernels (B1, B2, B5, B6) take on the card
+DTYPES = (torch.bfloat16, torch.float32)
 # bytes of fp32 logits one chunk of `attention_plain` may hold: the SVD
 # UNet's first-level spatial attention at 512x896 (32 frames x 5 heads x
 # 7,168 keys) would hold 33 GB unchunked
@@ -105,7 +106,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_instance(d: int, dtype: torch.dtype) -> str:
-    """The kernel instance that runs head dim `d` in `dtype` on the card:
+    """The kernel instance of B1, B2, B5 and B6 alike that runs head dim `d`
+    in `dtype` on the card:
     bf16 "d128", "d256", or "wide" (`csrc/hopper_wide.cuh`: slabs of 128
     output columns) for any larger multiple of 128; fp32 (TF32) "f32_d128",
     or "f32_wide" for any larger multiple of 128. Raises TypeError for any
@@ -131,22 +133,18 @@ def head_dim_instance(d: int) -> str:
 
 
 def check_dtype(dtypes, name, q, k, v) -> None:
-    """Raise TypeError unless q, k and v share a dtype of `dtypes`; the
-    message of a kernel that takes no fp32 names the ROADMAP item that
-    brings it."""
+    """Raise TypeError unless q, k and v share a dtype of `dtypes`."""
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
-        later = (" (fp32 comes with ROADMAP B-dtype, second half)"
-                 if torch.float32 not in dtypes else "")
-        raise TypeError(f"{name}: the kernel takes {names} q, k, v{later}; "
+        raise TypeError(f"{name}: the kernel takes {names} q, k, v; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
 def check_inputs(q, k, v, k_len, name, dtypes=DTYPES):
     """Raise unless q [B, Lq, H, D], k = v [B, Lk, H, D] share a dtype of
-    `dtypes` (B1, B2: bf16 or fp32; B5, B6: `BF16_ONLY`), are contiguous
-    and on one CUDA device, with D a multiple of 128 (`attention_instance`);
-    returns k_len as int32 (or None)."""
+    `dtypes` (bf16 or fp32), are contiguous and on one CUDA device, with D
+    a multiple of 128 (`attention_instance`); returns k_len as int32 (or
+    None)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k and v must be on one CUDA device")
     check_dtype(dtypes, name, q, k, v)
@@ -173,6 +171,14 @@ def check_inputs(q, k, v, k_len, name, dtypes=DTYPES):
     return k_len
 
 
+def vt_workspace(v: torch.Tensor) -> torch.Tensor:
+    """The fp32 pre-pass's V^T workspace for v [B, Lk, H, D]: [B, D, H,
+    Lkp] with Lkp = Lk rounded up to F32_KEY_PAD (B1, B2, B5, B6)."""
+    b, lk, h, d = v.shape
+    lkp = -(-lk // F32_KEY_PAD) * F32_KEY_PAD
+    return torch.empty((b, d, h, lkp), dtype=v.dtype, device=v.device)
+
+
 def _launch(entry, name, q, k, v, k_len, scale):
     build.refuse_autograd(name, q, k, v)
     k_len = check_inputs(q, k, v, k_len, name)
@@ -184,11 +190,8 @@ def _launch(entry, name, q, k, v, k_len, scale):
     tail = (k_len.data_ptr() if k_len is not None else None,
             b, h, lq, lk, d, float(scale) * LOG2E, build.stream_handle(q))
     if q.dtype == torch.float32:
-        # the pre-pass's outputs: q and k rounded to tf32, V^T [B, D, H,
-        # Lkp] rounded with its keys padded to F32_KEY_PAD
-        lkp = -(-lk // F32_KEY_PAD) * F32_KEY_PAD
-        qw, kw = torch.empty_like(q), torch.empty_like(k)
-        vt = torch.empty((b, d, h, lkp), dtype=q.dtype, device=q.device)
+        # the pre-pass's outputs: q and k rounded to tf32, V^T rounded
+        qw, kw, vt = torch.empty_like(q), torch.empty_like(k), vt_workspace(v)
         err = getattr(build.library(), entry + "_f32")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(),
             kw.data_ptr(), vt.data_ptr(), out.data_ptr(), *tail)

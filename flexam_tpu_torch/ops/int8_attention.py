@@ -16,7 +16,10 @@ done here in plain torch ops, step for step, by `quantize_qk`:
     other numbers.
 
 The kernel then takes int8 logits, dequantized by (q scale * k scale) *
-(softmax scale * log2 e), an exp2 online softmax in fp32, and a bf16 P.V.
+(softmax scale * log2 e), an exp2 online softmax in fp32, and a P.V in v's
+dtype: bf16, or fp32 on TF32 wgmma (the card's counterpart of the TPU's
+default fp32 matmul precision) after a pre-pass that writes V^T rounded to
+tf32 into a workspace allocated here.
 `int8_attention_plain` repeats the same steps in torch over query chunks;
 its int8 products are exact in fp32 (|s| <= 127^2 * D < 2^24) up to
 D = 1024 as long as the matmul runs in full fp32 (on the card: TF32 off).
@@ -24,11 +27,10 @@ Above that its fp32 sums round; the kernel sums in s32, exact at any D, and
 refuses no D for it. The quantization blocks stay `blk` rows by the whole
 head dim, as in JAX.
 
-Layout [B, L, H, D], bf16, on the card any D that is a multiple of 128
-(`flash_attention.head_dim_instance`). fp32 raises TypeError on the card
-until ROADMAP B-dtype's second half (B1 and B2 take it; the plain version
-takes it on the CPU). A CUDA tensor launches the kernel or raises; a CPU
-tensor takes the plain version.
+Layout [B, L, H, D], bf16 or fp32, on the card any D that is a multiple of
+128 (`flash_attention.attention_instance`; fp16 raises TypeError). A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version.
 """
 
 from __future__ import annotations
@@ -39,12 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import (BF16_ONLY, LOG2E,
-                                                  MASK_VALUE, check_inputs)
+from flexam_tpu_torch.ops.flash_attention import (DTYPES, LOG2E,
+                                                  MASK_VALUE, check_inputs,
+                                                  vt_workspace)
 
-# the dtypes the kernel takes on the card (fp32: ROADMAP B-dtype, second
-# half)
-DTYPES = BF16_ONLY
 # kernel launches on CUDA tensors
 launches = {"int8_attention": 0}
 
@@ -135,20 +135,30 @@ def int8_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    k_len: Optional[torch.Tensor] = None,
                    scale: Optional[float] = None) -> torch.Tensor:
-    """B6: attention over [B, L, H, D] with int8 Q K^T; any key count."""
+    """B6: attention over [B, L, H, D] with int8 Q K^T, bf16 or fp32; any
+    key count."""
     if not q.is_cuda:
         return int8_attention_plain(q, k, v, k_len=k_len, scale=scale)
     build.refuse_autograd("int8_attention", q, k, v)
     k_len = check_inputs(q, k, v, k_len, "int8_attention", DTYPES)
     b, lq, h, d = q.shape
+    lk = k.shape[1]
     q8, qs, k8, ks = quantize_qk(q, k)
     out = torch.empty_like(q)
-    err = build.library().flexam_int8_attention(
-        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qs.data_ptr(), ks.data_ptr(),
-        k_len.data_ptr() if k_len is not None else None,
-        b, h, lq, k.shape[1], d, _dequant_factor(scale, d),
-        build.stream_handle(q))
+    tail = (qs.data_ptr(), ks.data_ptr(),
+            k_len.data_ptr() if k_len is not None else None,
+            b, h, lq, lk, d, _dequant_factor(scale, d),
+            build.stream_handle(q))
+    if q.dtype == torch.float32:
+        # the pre-pass's output: V^T rounded to tf32
+        vt = vt_workspace(v)
+        err = build.library().flexam_int8_attention_f32(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), vt.data_ptr(),
+            out.data_ptr(), *tail)
+    else:
+        err = build.library().flexam_int8_attention(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *tail)
     build.check(err, "int8_attention")
     launches["int8_attention"] += 1
     return out

@@ -14,9 +14,10 @@ compacted per-row key-block lists `kidx [nq, max_nnz]` and `nnz [nq]` as
 int32 tensors on the device and a scratch int32 for the counter by which
 its CTAs take their work items (the entry point zeroes it), and runs B1's
 online softmax over each query block's active key blocks only, at any head
-dim that is a multiple of 128 (`flash_attention.head_dim_instance`), in
-bf16: fp32 raises TypeError on the card until ROADMAP B-dtype's second
-half.
+dim that is a multiple of 128 (`flash_attention.attention_instance`), in
+bf16 or fp32 (TF32 wgmma, after B1's pre-pass: q and k rounded to tf32 and
+V^T written rounded, into workspaces allocated here); fp16 raises
+TypeError.
 `masked_dense_attention` is its plain version: dense attention under the token mask the rows expand to, with the
 probabilities cast to q's dtype before P.V as in B1's plain version.
 
@@ -37,13 +38,10 @@ import numpy as np
 import torch
 
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import (BF16_ONLY, LOG2E,
+from flexam_tpu_torch.ops.flash_attention import (DTYPES, LOG2E,
                                                   attention_plain,
-                                                  check_inputs)
+                                                  check_inputs, vt_workspace)
 
-# the dtypes the kernel takes on the card (fp32: ROADMAP B-dtype, second
-# half)
-DTYPES = BF16_ONLY
 # kernel launches on CUDA tensors
 launches = {"sparse_attention": 0}
 
@@ -186,8 +184,9 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kidx: Optional[torch.Tensor] = None,
                            nnz: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """B5: block-sparse attention over [B, L, H, D] with L = len(rows) *
-    blk; `rows[i]` lists the key blocks query block i sees. `kidx`/`nnz`
+    """B5: block-sparse attention over [B, L, H, D], bf16 or fp32, with
+    L = len(rows) * blk; `rows[i]` lists the key blocks query block i
+    sees. `kidx`/`nnz`
     are `rows_to_arrays(rows)` as int32 on q's device (made here if not
     given)."""
     if not q.is_cuda:
@@ -210,12 +209,20 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, _, h, d = q.shape
     counter = torch.empty(1, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
-    err = build.library().flexam_sparse_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kidx.data_ptr(), nnz.data_ptr(), counter.data_ptr(), b, h, len(rows),
-        blk, kidx.shape[1], d,
-        float((d ** -0.5 if scale is None else scale) * LOG2E),
-        build.stream_handle(q))
+    tail = (kidx.data_ptr(), nnz.data_ptr(), counter.data_ptr(), b, h,
+            len(rows), blk, kidx.shape[1], d,
+            float((d ** -0.5 if scale is None else scale) * LOG2E),
+            build.stream_handle(q))
+    if q.dtype == torch.float32:
+        # the pre-pass's outputs, as B1's: q and k rounded to tf32, V^T
+        # rounded
+        qw, kw, vt = torch.empty_like(q), torch.empty_like(k), vt_workspace(v)
+        err = build.library().flexam_sparse_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(),
+            kw.data_ptr(), vt.data_ptr(), out.data_ptr(), *tail)
+    else:
+        err = build.library().flexam_sparse_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
     build.check(err, "sparse_attention")
     launches["sparse_attention"] += 1
     return out

@@ -145,6 +145,32 @@ def check_int8_attention(got, ref, name: str) -> dict:
     return check_close(got, ref, name, ulps=2, floor=5e-2)
 
 
+def check_sparse_attention_tf32(got, ref, name: str) -> dict:
+    """B5 in fp32 (TF32 wgmma) against `masked_dense_attention` in exact
+    fp32: B1's fp32 bound (`check_attention_tf32`) and reason. Over the
+    keys a query block sees, the kernel runs B1-f32's arithmetic on the
+    same pre-pass (q, k, its probability and v rounded to tf32 to nearest)
+    and the plain version rounds none; masked keys weigh exactly 0 in
+    both."""
+    return check_close(got, ref, name, ulps=2, floor=1.25e-2, unit="tf32")
+
+
+def check_int8_attention_tf32(got, ref, name: str) -> dict:
+    """B6 in fp32 (int8 Q K^T, TF32 P.V) against `int8_attention_plain` in
+    exact fp32: `check_attention_tf32`'s form, 2 tf32 ulps of |ref| plus
+    1.25e-2 of mean |ref|, and 4 fp32 ulps of |ref| more. Both sides take
+    the same int8 values and scales from the wrapper and form the same
+    exact int32 products. The kernel rounds two quantities of each term of
+    P.V to tf32 (its probability and its v; the plain version's fp32 P.V
+    rounds none), half of B1-f32's four, whose floor covers them. Its
+    dequantization in another fp32 order moves each logit by at most
+    3 x 2^-23 of itself (`tests/test_torch_hopper_b5b6.py`), a few fp32
+    ulps, which the last term adds. (The same arithmetic with P and v in
+    bf16, 8x coarser, fails this bound.)"""
+    return check_close(got, ref, name, ulps=2 + 4 * 2.0 ** -13,
+                       floor=1.25e-2, unit="tf32")
+
+
 def block_scaled(x: torch.Tensor, blk: int, phase: int = 0,
                  lo: float = 0.5, hi: float = 2.0) -> torch.Tensor:
     """x [B, L, H, D] with the rows of each run of `blk` rows scaled by hi

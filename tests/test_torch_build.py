@@ -129,6 +129,21 @@ def test_attention_ab_reads_this_tree_s_counter():
      "flexam6hopper4wide6ParamsE", "flash_wide_kernel"),
     ("_ZN12_GLOBAL__N_117ln_mod_f32_kernelILi3EEEvPKfS2_S2_S2_Pfiiiiiif",
      "ln_mod_f32_kernel<3>"),
+    ("_ZN52_GLOBAL__N__ae624383_19_sparse_attention_cu_48146cd823sparse_atte"
+     "ntion_kernelIN6flexam6hopper7F32PlanEEEv14CUtensorMap_stS4_S4_NS_6Para"
+     "msE", "sparse_attention_kernel<f32>"),
+    ("_ZN52_GLOBAL__N__ae624383_19_sparse_attention_cu_48146cd823sparse_atte"
+     "ntion_kernelIN6flexam6hopper8Bf16PlanILi128EEEEEv14CUtensorMap_stS5_S5"
+     "_NS_6ParamsE", "sparse_attention_kernel<128>"),
+    ("_ZN50_GLOBAL__N__5bdf8bfa_17_int8_attention_cu_780a02df21int8_attentio"
+     "n_kernelINS_11Int8F32PlanEEEv14CUtensorMap_stS2_S2_NS_6ParamsE",
+     "int8_attention_kernel<f32>"),
+    ("_ZN50_GLOBAL__N__5bdf8bfa_17_int8_attention_cu_780a02df21int8_attentio"
+     "n_kernelINS_12Int8Bf16PlanILi256EEEEEv14CUtensorMap_stS3_S3_NS_6Params"
+     "E", "int8_attention_kernel<256>"),
+    ("_ZN50_GLOBAL__N__5bdf8bfa_17_int8_attention_cu_780a02df26int8_attentio"
+     "n_wide_kernelILb1EEEv14CUtensorMap_stS1_S1_N6flexam6hopper4wide6Params"
+     "E", "int8_attention_wide_kernel<f32>"),
     ("_Z10other_kernelPf", None),
 ])
 def test_attention_ab_labels_kernels(symbol, label):

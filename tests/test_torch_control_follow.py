@@ -22,6 +22,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+# Imported while the test files are collected: its first import walks
+# every module in sys.modules (`inspect.getmodule`), and a test that ran
+# earlier in the same process can leave a stub there whose every
+# attribute, `__file__` included, is a function
+# (`tests/reference_oracle.py` `load_reference_dataset_image_video` turns
+# the torchvision.transforms stub of `load_reference_dit` into one), which
+# broke this file's first `torch._dynamo` import.
+import torch._dynamo  # noqa: F401
 
 from flexam_tpu.models import dit as jdit
 from flexam_tpu.models import vae as jvae

@@ -9,8 +9,8 @@ not use.) Shapes here are the edge cases the smoke's flagship shapes do not
 reach: ragged lengths, per-batch key masks, tokens past the RoPE table.
 Each element is held to a few ulps of its own size (bf16; tf32 for B1/B2
 in fp32, fp32 for B3/B4 in fp32), with the bounds `chip_smoke.py` uses
-(`flexam_tpu_torch/testing.py` states them and why). B1-B4 run in both
-dtypes they take (`DTYPES`).
+(`flexam_tpu_torch/testing.py` states them and why). B1-B6 run in both
+dtypes they take (`DTYPES`, and the `f32` cases of B5 and B6).
 """
 
 import importlib
@@ -25,11 +25,13 @@ from flexam_tpu_torch.ops import sparse_attention as sp
 from flexam_tpu_torch.testing import (block_scaled, check_attention,
                                       check_attention_tf32,
                                       check_int8_attention,
+                                      check_int8_attention_tf32,
                                       check_ln_modulation,
                                       check_ln_modulation_f32,
                                       check_rmsnorm_rope,
                                       check_rmsnorm_rope_f32,
-                                      check_sparse_attention)
+                                      check_sparse_attention,
+                                      check_sparse_attention_tf32)
 
 fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
 
@@ -485,19 +487,30 @@ def test_int8_cross_attention_explicit(dev, monkeypatch):
 
 
 def test_long_kernels_reject_unsupported(dev):
-    """B5 and B6 take bf16 only until ROADMAP B-dtype's second half: fp32
-    raises before any launch (B1 and B2 take it)."""
+    """B5 and B6 take bf16 and fp32 (one launch each), as B1 and B2 do;
+    fp16, mixed dtypes and a head dim of 64 raise before any launch."""
     q = _rand(dev, 1, 64, 2, 128)
     rows, blk = [[0, 1], [0, 1]], 32
     before = (dict(i8.launches), dict(sp.launches))
-    with pytest.raises(TypeError, match="B-dtype"):
-        i8.int8_attention(q.float(), q.float(), q.float())
+    for t in (q.half(), q.float()):
+        with pytest.raises(TypeError, match="takes bfloat16 or float32"):
+            i8.int8_attention(t, q, q)
+        with pytest.raises(TypeError, match="takes bfloat16 or float32"):
+            sp.sparse_flash_attention(t, q, q, rows, blk)
+    with pytest.raises(TypeError, match="takes bfloat16 or float32"):
+        i8.int8_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="takes bfloat16 or float32"):
+        sp.sparse_flash_attention(q.half(), q.half(), q.half(), rows, blk)
     with pytest.raises(ValueError):
         i8.int8_attention(q[..., :64].contiguous(), q[..., :64].contiguous(),
                           q[..., :64].contiguous())          # head_dim 64
-    with pytest.raises(TypeError, match="B-dtype"):
-        sp.sparse_flash_attention(q.float(), q.float(), q.float(), rows, blk)
     assert (dict(i8.launches), dict(sp.launches)) == before
+    f = q.float()
+    i8.int8_attention(f, f, f)
+    sp.sparse_flash_attention(f, f, f, rows, blk)
+    torch.cuda.synchronize()
+    assert (i8.launches["int8_attention"], sp.launches["sparse_attention"]) \
+        == (before[0]["int8_attention"] + 1, before[1]["sparse_attention"] + 1)
     with pytest.raises(ValueError):
         sp.sparse_flash_attention(q, q, q, rows, 40)          # L != 2 * 40
     with pytest.raises(ValueError):
@@ -828,11 +841,12 @@ def _refusal_cases(dev, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("case,dtype", [
     *((c, torch.bfloat16) for c in range(7)),
-    *((c, torch.float32) for c in range(5))], ids=[
+    *((c, torch.float32) for c in range(7))], ids=[
     "B1", "B2", "B3", "B4prime", "B4", "B5", "B6",
-    "B1-f32", "B2-f32", "B3-f32", "B4prime-f32", "B4-f32"])
+    "B1-f32", "B2-f32", "B3-f32", "B4prime-f32", "B4-f32", "B5-f32",
+    "B6-f32"])
 def test_kernels_refuse_autograd(dev, case, dtype):
-    """Each of B1-B6 (and B1-B4 in fp32) raises NotImplementedError for an
+    """Each of B1-B6, in bf16 and fp32, raises NotImplementedError for an
     input that requires grad under grad mode (its output would carry no
     grad_fn), before any launch; under no_grad the same call launches."""
     name, counts, key, call = _refusal_cases(dev, dtype)[case]
@@ -1058,3 +1072,157 @@ def test_decode_ladder_on_a_real_oom(dev, monkeypatch, capsys):
     assert tried == [4, 2], (tried, extra)
     assert torch.equal(got, videos[2])
     assert "OOM at group_size=4; retrying smaller" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# B5 and B6 in fp32 (TF32 P.V; B6's Q K^T int8)
+# ---------------------------------------------------------------------------
+
+F32_BLOCKS = pytest.mark.parametrize("frames,window,spatial,b,h", [
+    (3, 1, 8, 2, 2),       # blk 8, the smallest the JAX dispatch takes
+    (6, 1, 40, 2, 2),      # blk 40: a block inside one 64-key tile
+    (5, 0, 72, 1, 3),      # blk 72: a full tile and a ragged one
+    (9, 2, 100, 1, 2),     # blk 200 (group 2): each block's last tile ragged
+    (7, 2, 448, 1, 2),     # blk 896 (group 2): the long path's blocks
+])
+
+
+@F32_BLOCKS
+def test_sparse_attention_f32_blocks(dev, frames, window, spatial, b, h):
+    """B5 in fp32 at blocks of 8, 40, 72, 200 and 896 tokens, ragged nnz
+    and the ref block's full row, on structured inputs: V ramped over keys
+    (a key tile read from the wrong key of V^T, or the pre-pass's order of
+    each 8 keys lost where a block starts at a multiple of 8 that is not
+    one of 64, is off by far more than the bound)."""
+    pol = sp.video_sparse_policy(frames, spatial, ref_tokens=spatial,
+                                 window=window)
+    rows, blk, L = pol["rows"], pol["blk"], pol["video_len"]
+    nnz = [len(r) for r in rows]
+    assert len(set(nnz)) > 1 and nnz[-1] == len(rows)
+    q, k, v = _structured(dev, b, L, L, h, seed=110, dtype=torch.float32)
+    before = sp.launches["sparse_attention"]
+    got = sp.sparse_flash_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before + 1
+    assert got.dtype == torch.float32
+    check_sparse_attention_tf32(
+        got, sp.masked_dense_attention(q, k, v, rows, blk), f"B5 f32 blk{blk}")
+
+
+@pytest.mark.parametrize("b,lq,lk", [
+    (2, 2000, 2000),       # quantization blocks of 1,024, padded
+    (1, 11648, 11648),     # blocks of 1,456 = 22.75 row tiles
+    (1, 18816, 18816),     # blocks of 1,344
+    (2, 130, 70),          # cross-attention, tiny and ragged
+])
+@pytest.mark.parametrize("with_k_len", [False, True])
+def test_int8_attention_f32_edges(dev, b, lq, lk, with_k_len):
+    """B6 in fp32 with block-scaled q and k (sizes 4x apart from one
+    quantization block to the next: a 64-row or 64-key tile that took one
+    scale for rows or keys of two blocks is far off), with and without a
+    k_len mask."""
+    q, k, v = (_rand(dev, b, lq, 2, 128, seed=120, dtype=torch.float32),
+               _rand(dev, b, lk, 2, 128, seed=121, dtype=torch.float32),
+               _rand(dev, b, lk, 2, 128, seed=122, dtype=torch.float32))
+    q = block_scaled(q, i8.quant_block(lq))
+    k = block_scaled(k, i8.quant_block(lk), phase=1)
+    kl = (torch.tensor([lk, max(1, lk * 3 // 7)][:b], device=dev)
+          if with_k_len else None)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    assert got.dtype == torch.float32
+    check_int8_attention_tf32(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                              "B6 f32")
+
+
+@pytest.mark.parametrize("b,lq,lk,k_len", [
+    (2, 300, 400, [63, 64]),       # k_len one short of and on a tile edge
+    (2, 129, 257, [129, 1]),       # one key past a tile; a single key
+    (1, 700, 512, None),           # 512 keys: the text length
+    (1, 2000, 2000, None),         # quantization blocks of 1,024 rows
+])
+def test_int8_attention_f32_structured(dev, b, lq, lk, k_len):
+    """B6 in fp32 on structured inputs, V ramped over keys: a V^T tile
+    read from the wrong keys, or a probability put beside another key's v
+    (the s32 fragment against the pre-pass's order of each 8 keys), is off
+    by far more than the bound."""
+    q, k, v = _structured(dev, b, lq, lk, 2, seed=124, dtype=torch.float32)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    check_int8_attention_tf32(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                              "B6 f32 structured")
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_long_kernels_f32_head_dims(dev, d):
+    """B5 and B6 in fp32 at head dims 128 (their `f32_d128` instances), 256
+    and 384 (the wide design's fp32 sparse and int8 modes), on structured
+    inputs, B6 with a k_len mask."""
+    assert fa.attention_instance(d, torch.float32) == (
+        "f32_d128" if d == 128 else "f32_wide")
+    pol = sp.video_sparse_policy(9, 100, ref_tokens=100, window=2)
+    rows, blk, L = pol["rows"], pol["blk"], pol["video_len"]
+    q, k, v = _structured(dev, 1, L, L, 2, seed=126, d=d, dtype=torch.float32)
+    before = sp.launches["sparse_attention"]
+    got = sp.sparse_flash_attention(q, k, v, rows, blk)
+    torch.cuda.synchronize()
+    assert sp.launches["sparse_attention"] == before + 1
+    check_sparse_attention_tf32(
+        got, sp.masked_dense_attention(q, k, v, rows, blk), f"B5 f32 d{d}")
+    q, k, v = _structured(dev, 2, 300, 700, 2, seed=128, d=d,
+                          dtype=torch.float32)
+    kl = torch.tensor([700, 129], device=dev)
+    before = i8.launches["int8_attention"]
+    got = i8.int8_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_attention"] == before + 1
+    check_int8_attention_tf32(got, i8.int8_attention_plain(q, k, v, k_len=kl),
+                              f"B6 f32 d{d}")
+
+
+def test_long_f32_entries_refuse_bad_maps(dev):
+    """B5's and B6's fp32 C entry points return an error and launch nothing
+    for a pointer off a 16-byte boundary (an input, a workspace or the
+    output) or a head dim that is not a multiple of 128; the same calls
+    well formed return 0."""
+    from flexam_tpu_torch.ops import build
+    lib = build.library()
+    rows, blk = [[0, 1], [1]], 64
+    q = _rand(dev, 1, 2 * blk, 2, 128, dtype=torch.float32)
+    out = torch.empty_like(q)
+    qw, kw = torch.empty_like(q), torch.empty_like(q)
+    vt = torch.empty((1, 128, 2, 2 * blk), device=dev)
+    kidx, nnz = (torch.from_numpy(a).to(dev) for a in sp.rows_to_arrays(rows))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = build.stream_handle(q)
+
+    def sparse(qp=q.data_ptr(), vtp=vt.data_ptr(), op=out.data_ptr(), d=128):
+        return lib.flexam_sparse_attention_f32(
+            qp, q.data_ptr(), q.data_ptr(), qw.data_ptr(), kw.data_ptr(), vtp,
+            op, kidx.data_ptr(), nnz.data_ptr(), counter.data_ptr(), 1, 2, 2,
+            blk, 2, d, 0.1, stream)
+
+    q8, qs, k8, ks = i8.quantize_qk(q, q)
+
+    def int8(q8p=q8.data_ptr(), vp=q.data_ptr(), vtp=vt.data_ptr(), d=128):
+        return lib.flexam_int8_attention_f32(
+            q8p, k8.data_ptr(), vp, vtp, out.data_ptr(), qs.data_ptr(),
+            ks.data_ptr(), None, 1, 2, 2 * blk, 2 * blk, d, 0.1, stream)
+
+    before = (sp.launches["sparse_attention"], i8.launches["int8_attention"])
+    for bad in (dict(qp=q.data_ptr() + 4), dict(vtp=vt.data_ptr() + 4),
+                dict(op=out.data_ptr() + 4), dict(d=64)):
+        assert sparse(**bad) != 0
+    for bad in (dict(q8p=q8.data_ptr() + 1), dict(vp=q.data_ptr() + 4),
+                dict(vtp=vt.data_ptr() + 4), dict(d=64)):
+        assert int8(**bad) != 0
+    torch.cuda.synchronize()
+    assert sparse() == 0 and int8() == 0
+    torch.cuda.synchronize()
+    assert (sp.launches["sparse_attention"],
+            i8.launches["int8_attention"]) == before   # C calls only

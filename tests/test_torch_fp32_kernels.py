@@ -1,13 +1,13 @@
-"""fp32 through B1-B4 (the port's kernels take fp32 as JAX's Pallas kernels
+"""fp32 through B1-B6 (the port's kernels take fp32 as JAX's Pallas kernels
 do), on the CPU.
 
-On the card B1 and B2 run fp32 on TF32 wgmma and B3/B4 fp32 instances of
-their row kernels; here each wrapper takes its plain version, which a CPU
-tensor takes. What a CPU run can hold:
+On the card B1, B2 and B5 run fp32 on TF32 wgmma, B6 its P.V on TF32 wgmma
+beside its int8 Q K^T, and B3/B4 fp32 instances of their row kernels; here
+each wrapper takes its plain version, which a CPU tensor takes. What a CPU
+run can hold:
 
   * the dtype rule, as pure functions: which kernel instance each (head
-    dim, dtype) runs, what is refused, and that B5/B6 refuse fp32 until
-    ROADMAP B-dtype's second half;
+    dim, dtype) runs and what is refused (fp16, mixed dtypes);
   * the fp32 bounds `chip_smoke.py` and the card tests hold the kernels to
     (`flexam_tpu_torch/testing.py`): the TF32 arithmetic the kernels do,
     emulated here, passes them, and the same arithmetic in bf16 fails;
@@ -49,9 +49,11 @@ from flexam_tpu_torch.ops import fused as TU
 from flexam_tpu_torch.ops import int8_attention as T8
 from flexam_tpu_torch.ops import launch_counts
 from flexam_tpu_torch.ops import sparse_attention as TS
-from flexam_tpu_torch.testing import (check_attention_tf32,
+from flexam_tpu_torch.testing import (block_scaled, check_attention_tf32,
+                                      check_int8_attention_tf32,
                                       check_ln_modulation_f32,
-                                      check_rmsnorm_rope_f32)
+                                      check_rmsnorm_rope_f32,
+                                      check_sparse_attention_tf32)
 
 JF = importlib.import_module("flexam_tpu.ops.flash_attention")
 TF = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
@@ -99,21 +101,21 @@ def test_attention_instance_refuses(d, dtype, error):
     (TF, "flash_attention", torch.float32, True),
     (TF, "flash_attention", torch.bfloat16, True),
     (TF, "flash_attention", torch.float16, False),
-    (T8, "int8_attention", torch.float32, False),
-    (TS, "sparse_attention", torch.float32, False),
-    (T8, "int8_attention", torch.bfloat16, True)])
+    (T8, "int8_attention", torch.float32, True),
+    (TS, "sparse_attention", torch.float32, True),
+    (T8, "int8_attention", torch.bfloat16, True),
+    (T8, "int8_attention", torch.float16, False),
+    (TS, "sparse_attention", torch.float16, False)])
 def test_kernel_dtype_rule(module, name, dtype, ok):
-    """The dtypes each wrapper passes to `check_inputs`: B1/B2 take bf16
-    and fp32, B5/B6 bf16 only, and their refusal names B-dtype's second
-    half; mixed dtypes are refused too."""
+    """The dtypes each wrapper passes to `check_inputs`: B1, B2, B5 and B6
+    take bf16 and fp32, and refuse fp16; mixed dtypes are refused too."""
     t = torch.zeros(1, 2, 1, 128, dtype=dtype)
     if ok:
         TF.check_dtype(module.DTYPES, name, t, t, t)
         with pytest.raises(TypeError):
             TF.check_dtype(module.DTYPES, name, t, t.double(), t)
     else:
-        with pytest.raises(TypeError, match="B-dtype" if dtype ==
-                           torch.float32 else "takes"):
+        with pytest.raises(TypeError, match="takes bfloat16 or float32"):
             TF.check_dtype(module.DTYPES, name, t, t, t)
 
 
@@ -132,16 +134,19 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def _emulated_attention(q, k, v, k_len, rnd):
+def _emulated_attention(q, k, v, k_len, rnd, keep=None):
     """B1's arithmetic on the card with operands rounded by `rnd`: q, k and
     v rounded (the pre-pass), exact products summed (fp64 here), the
-    unnormalized probabilities rounded before P.V and summed unrounded."""
+    unnormalized probabilities rounded before P.V and summed unrounded.
+    `keep` [Lq, Lk], if given, masks keys as B5's block lists do."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", rnd(q).double(),
                      rnd(k).double()) * scale
     if k_len is not None:
-        keep = torch.arange(k.shape[1])[None, :] < k_len[:, None]
-        s = s.masked_fill(~keep[:, None, None, :], -1e30)
+        keep_k = torch.arange(k.shape[1])[None, :] < k_len[:, None]
+        s = s.masked_fill(~keep_k[:, None, None, :], -1e30)
+    if keep is not None:
+        s = s.masked_fill(~keep, -1e30)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.einsum("bhqk,bkhd->bqhd", rnd(p.float()).double(),
                      rnd(v).double())
@@ -166,6 +171,77 @@ def test_attention_tf32_bound(arith, lk, k_len):
     else:
         with pytest.raises(AssertionError):
             check_attention_tf32(got, ref, "bf16 operands")
+
+
+@pytest.mark.parametrize("arith", ["tf32", "bf16"])
+@pytest.mark.parametrize("frames,window,spatial", [(6, 1, 40), (3, 1, 8),
+                                                   (5, 2, 72)])
+def test_sparse_attention_tf32_bound(arith, frames, window, spatial):
+    """B5's TF32 arithmetic over each query block's key blocks (blocks of
+    40, 8 and 72 tokens, ragged nnz, the ref block's full row) passes
+    `check_sparse_attention_tf32` against the exact fp32
+    `masked_dense_attention`; with bf16 operands it fails."""
+    pol = TS.video_sparse_policy(frames, spatial, ref_tokens=spatial,
+                                 window=window)
+    rows, blk, n = pol["rows"], pol["blk"], pol["video_len"]
+    rs = np.random.RandomState(frames * 100 + spatial)
+    q, k, v = (torch.from_numpy(rs.randn(2, n, 2, 128).astype(np.float32))
+               for _ in range(3))
+    ref = TS.masked_dense_attention(q, k, v, rows, blk)
+    tok = torch.arange(n) // blk
+    keep = torch.from_numpy(TS.rows_to_block_mask(rows))[tok][:, tok]
+    got = _emulated_attention(q, k, v, None,
+                              _tf32 if arith == "tf32" else _bf16, keep)
+    if arith == "tf32":
+        check_sparse_attention_tf32(got, ref, "emulated B5 TF32")
+    else:
+        with pytest.raises(AssertionError):
+            check_sparse_attention_tf32(got, ref, "B5 bf16 operands")
+
+
+def _emulated_int8(q, k, v, k_len, rnd):
+    """B6-f32's arithmetic on the card: the wrapper's int8 q, k and scales,
+    exact int32 products, each logit dequantized in the kernel's order
+    (s * (ks * c), then times the row's scale, in fp32), the unnormalized
+    probabilities and v rounded by `rnd` before P.V (fp64 sums here)."""
+    q8, qs, k8, ks = T8.quantize_qk(q, k)
+    c = torch.tensor(T8._dequant_factor(None, q.shape[-1]),
+                     dtype=torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q8.double(), k8.double()).float()
+    s = (s * (ks * c)[:, :, None, :]) * qs[..., None]
+    if k_len is not None:
+        keep = torch.arange(k.shape[1])[None, :] < k_len[:, None]
+        s = s.masked_fill(~keep[:, None, None, :], -1e30)
+    s = s.double()
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", rnd(p.float()).double(),
+                     rnd(v).double())
+    return (o / p.sum(-1).permute(0, 2, 1)[..., None]).float()
+
+
+@pytest.mark.parametrize("arith", ["tf32", "bf16"])
+@pytest.mark.parametrize("lq,lk,k_len", [(300, 1584, None),
+                                         (700, 2000, [2000, 777])])
+def test_int8_attention_tf32_bound(arith, lq, lk, k_len):
+    """B6's fp32 arithmetic (int8 Q K^T, its dequantization order, TF32
+    P.V) on block-scaled q and k (`testing.block_scaled`: sizes 4x apart
+    from one quantization block to the next) passes
+    `check_int8_attention_tf32` against the exact fp32
+    `int8_attention_plain`, with and without k_len; with P and v in bf16
+    it fails."""
+    rs = np.random.RandomState(lq + lk)
+    q, k, v = (torch.from_numpy(rs.randn(2, n, 2, 128).astype(np.float32))
+               for n in (lq, lk, lk))
+    q = block_scaled(q, T8.quant_block(lq))
+    k = block_scaled(k, T8.quant_block(lk), phase=1)
+    kl = None if k_len is None else torch.tensor(k_len)
+    ref = T8.int8_attention_plain(q, k, v, k_len=kl)
+    got = _emulated_int8(q, k, v, kl, _tf32 if arith == "tf32" else _bf16)
+    if arith == "tf32":
+        check_int8_attention_tf32(got, ref, "emulated B6 TF32")
+    else:
+        with pytest.raises(AssertionError):
+            check_int8_attention_tf32(got, ref, "B6 bf16 P and v")
 
 
 def _rows(seed, b=2, s=40, d=3072):
