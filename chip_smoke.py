@@ -13,10 +13,12 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
   env                  torch / CUDA versions and the card (nvidia-smi);
   build                the CUDA kernels built from csrc/ (one nvcc a
                        source, all started together, then one link), with
-                       ptxas's registers / spills by kernel, the Hopper
-                       opcodes (HGMMA, IGMMA, UTMALDG, ...) in the SASS of
-                       the attention kernels B1, B2, B5 and B6, and the
-                       128-bit loads and stores of the row kernels B3, B4;
+                       ptxas's registers / spills by kernel (B1 and B2 at
+                       head dim 256 must spill nothing), the dynamic shared
+                       memory of B1/B2's plans, the Hopper opcodes (HGMMA,
+                       IGMMA, UTMALDG, ...) in the SASS of the attention
+                       kernels B1, B2, B5 and B6, and the 128-bit loads and
+                       stores of the row kernels B3, B4;
   kernels              B1, B2, B3 and B4 (both modes) at the flagship
                        shapes, B5 and B6 at the long-clip shape (23,296
                        tokens), each held to its plain PyTorch version, with
@@ -773,6 +775,21 @@ HOPPER_OPCODES = {
     "int8_attention_wide_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
 
 
+# B1 and B2 at head dim 256 (D256Plan: S over 80 keys beside a 64 x 256 fp32
+# accumulator in 240 registers) must not spill
+NO_SPILL_KERNELS = ("flash_kernel<256>", "single_kv_kernel<256>")
+
+
+def no_spills(ptxas: dict, kernels) -> None:
+    """Fails unless ptxas reported each of `kernels` with 0 bytes of spill
+    stores and loads."""
+    for k in kernels:
+        line = ptxas.get(k, "")
+        if "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"{k}: ptxas reports spills or no entry "
+                                 f"({line!r})")
+
+
 def hopper_sass(lib: Path) -> dict:
     """Counts of the opcodes that tell the attention kernels' Hopper design
     from an mma.sync one (wgmma: HGMMA for bf16, IGMMA for int8; TMA
@@ -1160,9 +1177,11 @@ WIDE_CHECK_DIMS = (384, 512)       # the wide design, checked at small shapes
 
 
 def head_dim_256_kernels(dev, gen) -> dict:
-    """B1, B2, B5 and B6 at head dim 256 (their own instances: 64-key
-    tiles): B1 at q/k/v [2, 11648, 12, 256], B2 with k/v [2, 512, 12, 256],
-    B5 (the w=2 policy of 51 frames + ref) and B6 at [2, 23296, 12, 256].
+    """B1, B2, B5 and B6 at head dim 256 (their own instances: B1 on
+    80-key tiles and B2 on 64-key tiles with split K / V rings, B2's O
+    staged for TMA stores, B5 and B6 on 64-key tiles): B1 at q/k/v
+    [2, 11648, 12, 256], B2 with k/v [2, 512, 12, 256], B5 (the w=2 policy
+    of 51 frames + ref) and B6 at [2, 23296, 12, 256].
     Each is held to its plain version over every query row, timed (back to
     back, `device_ms`) beside it, beside its bound and beside SDPA (the
     yardstick, never on the path). {kernel: record}."""
@@ -7141,11 +7160,17 @@ def main(argv=None) -> int:
         "log") else None
     text = log.read_text() if log else ""
     lib = build.library()
+    ptxas = ptxas_resources(text)
+    if text:
+        no_spills(ptxas, NO_SPILL_KERNELS)
     emit("build", t0, nvcc_seconds=build.build_info["seconds"],
          nvcc_compile_seconds=build.build_info.get("compile_seconds"),
-         cached=build.build_info["cached"], ptxas=ptxas_resources(text),
+         cached=build.build_info["cached"], ptxas=ptxas,
          wgmma_notes=wgmma_notes(text),
          attention_smem_bytes=lib.flexam_attention_smem_bytes(),
+         attention_smem_bytes_d256={
+             k: lib.flexam_attention_smem_bytes_at(256, i)
+             for i, k in enumerate(("flash_kernel", "single_kv_kernel"))},
          int8_attention_smem_bytes=lib.flexam_int8_attention_smem_bytes(),
          attention_sass=hopper_sass(Path(build.build_info["path"])))
 

@@ -41,8 +41,9 @@
 //    threads keeps TMA loads in flight: an item's Q, then its 128-key tiles
 //    of K and V into a ring of kStages stages that runs on across items
 //    (separate full barriers for K and V, so Q.K^T starts before V lands;
-//    one empty barrier a stage, released by all 256 consumer threads after
-//    their P.V). The next item's Q loads as soon as both consumers' last
+//    at D = 128 one empty barrier a stage, released by all 256 consumer
+//    threads after their P.V; at D = 256 K and V have their own, below).
+//    The next item's Q loads as soon as both consumers' last
 //    Q.K^T of the current one has landed, so its load overlaps their last
 //    P.V and epilogue.
 //  * two consumer warpgroups (setmaxnreg.inc to 240), 64 query rows each:
@@ -65,10 +66,34 @@
 // flops) or kept in shared memory (148 KB a block at 512 keys, one block
 // an SM).
 //
-// At D = 256 a 128 x 256 bf16 tile is 64 KB, so K/V tiles are 64 keys and
-// the ring 2 stages (Q 64 KB + 4 x 32 KB); a consumer holds its 64 x 256
-// fp32 accumulator in 128 registers, as two 128-column halves that each
-// P.V k-step updates by one m64n128k16 wgmma, beside S over 64 keys (32).
+// At D = 256 (D256Plan, hopper_attention.cuh) a 128 x 256 bf16 tile is
+// 64 KB, so a ring holds 2 stages of narrower tiles beside Q's 64 KB. Two
+// things held the first design (64-key tiles, one empty barrier a stage)
+// to 0.54 of its bound:
+//  * with FA3's overlap an iteration holds two stages, K_t for Q K_t^T and
+//    V_{t-1} for P_{t-1} V_{t-1}; with a shared empty barrier and 2 stages
+//    K_{t+1} could not load until P_t V_t had landed, so each tile waited
+//    out most of a load. K and V now have empty barriers of their own: a
+//    consumer frees K_t's slot as soon as Q K_t^T has landed and V_t's
+//    after P_t V_t, and the producer issues K_g, then V_{g-1}, each in the
+//    order its slot frees, across items too (an item's K_0 before the last
+//    V of the item before it, its Q after).
+//  * Q K^T reads both operands from shared memory: over 64 keys a k16 step
+//    reads 4 KB for 32 clocks of math, all of the SM's 128 bytes a clock.
+//    B1 takes 80-key tiles (m64n80k16: 4.5 KB per 40 clocks), FA3's choice
+//    at this head dim: Q 64 KB + 2 x (K 40 KB + V 40 KB) = 224 KB, S 40
+//    and P 20 registers beside the 128 of a consumer's 64 x 256 fp32
+//    accumulator, which it holds as two 128-column halves that each P.V
+//    k-step updates by one m64n128k16 wgmma.
+//  * B2's items are 8 tiles of 64 keys (at 80 keys, 6.4 tiles, it ran no
+//    faster), and its time over 64 to 512 keys showed a fixed cost of
+//    about 11 us an item: the epilogue's plain stores, 4 bytes a lane,
+//    each warp instruction 16 bytes of 8 rows. B2 writes each 128-column
+//    half of O into 16 KB of shared memory a consumer (swizzled as TMA
+//    reads it; 64-key tiles leave the room) and out by two TMA stores of
+//    whole 128-byte rows, which clip rows past Lq (kStageO): about 7 us.
+//    A second Q buffer (on 48-key tiles, for room) did not move it.
+//  * the epilogue multiplies by 1 / sum (a division a row, not an element).
 //
 // fp32 at D = 128 runs F32Plan (hopper_attention.cuh): Q 64 KB, 64-key K
 // tiles and 64-key V^T tiles of 32 KB in a ring of 2 stages; S over 64
@@ -89,6 +114,11 @@ constexpr int kThreads = 3 * 128;       // producer + 2 consumer warpgroups
 constexpr int kMaxKeysB2 = 512;         // B2: <= 512 keys
 constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 128 bytes
+
+// B1 and B2 at head dim 256: split K / V rings (D256Plan), 80-key tiles for
+// B1, 64-key tiles and O staged for TMA stores for B2 (see the note above).
+using B1Plan256 = D256Plan<80>;
+using B2Plan256 = D256Plan<64, true>;
 
 struct Params {
   const int* k_len;  // [B] or null
@@ -127,20 +157,25 @@ template <typename S, int kMaxKeys>
 __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                                               const CUtensorMap* tk,
                                               const CUtensorMap* tv,
+                                              const CUtensorMap* to,
                                               const Params& a) {
   constexpr int kD = S::kD;
   constexpr int kBN = S::kBN, kStages = S::kStages, kSpans = S::kSpans;
-  constexpr int kMaxTiles = kMaxKeys / kBN;
+  constexpr int kMaxTiles = (kMaxKeys + kBN - 1) / kBN;
   constexpr uint32_t kKVBytes = S::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
   const uint32_t k_s = q_s + S::kQBytes;                      // + s * kKVBytes
   const uint32_t v_s = k_s + kStages * kKVBytes;
-  const uint32_t bars = v_s + kStages * kKVBytes;
+  const uint32_t o_s = v_s + kStages * kKVBytes;          // kStageO: O halves
+  const uint32_t bars = o_s + S::kOStageBytes;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8u * (2 + s); };
   auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
+  // the stage's empty barrier: K's and V's alike, or V's alone in the
+  // split ring, whose K slots have their own (k_empty)
   auto empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 + 3 * kStages + s); };
   const int n_work = (a.Lq + kBM - 1) / kBM * a.H * a.B;
 
   if (threadIdx.x == 0) {
@@ -150,6 +185,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 2 * 128);
+      if constexpr (S::kSplitRing) mbar_init(k_empty(s), 2 * 128);
     }
     mbar_init_fence();
   }
@@ -161,7 +197,46 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
   if (wg == 0) {
     // producer
     regs_dealloc<24>();
-    if (threadIdx.x == 0) {
+    if constexpr (S::kSplitRing) {
+      // Split ring: each load goes out in the order its slot frees. K of
+      // global tile g waits for K of g - kStages, whose Q.K^T lands halfway
+      // through iteration g - kStages; V of g for V of g - kStages, whose
+      // P.V lands at the end of iteration g - kStages + 1. So the order is
+      // K of g, then V of g - 1, across items too: an item's K_0 goes out
+      // before the last V of the item before it, and its Q (which waits for
+      // that item's last Q.K^T) after.
+      if (threadIdx.x == 0) {
+        // K (v false) or V (v true) of global tile g into its stage, once
+        // the tile kStages before it has left the slot
+        auto load = [&](bool v, int g, int h, int row0, int b) {
+          const int s = g % kStages;
+          if (g >= kStages)
+            mbar_wait(v ? empty(s) : k_empty(s), (g / kStages - 1) & 1);
+          const uint32_t full = v ? v_full(s) : k_full(s);
+          mbar_arrive_expect_tx(full, kKVBytes);
+          tma_load_span_tile<kSpans, kBN, 64, S::kKVBox>(
+              (v ? v_s : k_s) + s * kKVBytes, v ? tv : tk, full, h, row0, b);
+        };
+        int it = 0, n = 0, vh = -1, vrow = 0, vb = 0;   // V of tile it - 1
+        for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
+          const Work w = work_item<kBN, kMaxTiles>(a, wi);
+          for (int t = 0; t < w.n_tiles; ++t, ++it) {
+            load(false, it, w.h, t * kBN, w.b);
+            if (vh >= 0) load(true, it - 1, vh, vrow, vb);
+            vh = w.h;
+            vrow = t * kBN;
+            vb = w.b;
+            if (t == 0) {
+              if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+              mbar_arrive_expect_tx(q_full, S::kQBytes);
+              tma_load_span_tile<kSpans, kBM, S::kCols>(q_s, tq, q_full, w.h,
+                                                        w.q0, w.b);
+            }
+          }
+        }
+        if (vh >= 0) load(true, it - 1, vh, vrow, vb);
+      }
+    } else if (threadIdx.x == 0) {
       int it = 0, n = 0;
       for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
         const Work w = work_item<kBN, kMaxTiles>(a, wi);
@@ -195,6 +270,16 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int quad = lane & 3;
     const uint32_t q_c = q_s + c * 64 * 128;   // its rows, in each span
+    // The descriptor of an operand `off` bytes past `base`. D256Plan adds
+    // the offset to the base's descriptor, one a product: its S, P and O
+    // leave no room for a descriptor a k-step held across the loop (ptxas
+    // spilled at 80 keys).
+    auto desc = [](uint32_t base, uint32_t off, uint32_t lbo) -> uint64_t {
+      if constexpr (S::kSplitRing)
+        return sw128_desc(base, lbo, 1024) + (off >> 4);
+      else
+        return sw128_desc(base + off, lbo, 1024);
+    };
 
     // S = Q K^T over D in steps of 32 bytes (4 per 128-byte span), issued
     auto issue_qk = [&](float (&sc)[kBN / 2], int stage) {
@@ -202,10 +287,8 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
 #pragma unroll
       for (int k = 0; k < S::kQKSteps; ++k) {
         const uint32_t col = (k & 3) * 32;
-        const uint64_t da =
-            sw128_desc(q_c + (k >> 2) * S::kQSpanBytes + col, 16, 1024);
-        const uint64_t db =
-            sw128_desc(ks + (k >> 2) * S::kKVSpanBytes + col, 16, 1024);
+        const uint64_t da = desc(q_c, (k >> 2) * S::kQSpanBytes + col, 16);
+        const uint64_t db = desc(ks, (k >> 2) * S::kKVSpanBytes + col, 16);
         if constexpr (S::kF32)
           wgmma_m64n64k8_tf32_ss(sc, da, db, k);
         else
@@ -233,8 +316,8 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
           for (int h = 0; h < kD / 128; ++h)
             wgmma_m64n128k16_rs_tb(
                 o[h], p[kk],
-                sw128_desc(vs + 2 * h * S::kKVSpanBytes + kk * 16 * 128,
-                           S::kKVSpanBytes, 1024));
+                desc(vs, 2 * h * S::kKVSpanBytes + kk * 16 * 128,
+                     S::kKVSpanBytes));
         }
       }
       wgmma_commit();
@@ -288,6 +371,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       issue_qk(sc, it % kStages);
       wgmma_wait<0>();
       fence_regs(sc);
+      if constexpr (S::kSplitRing) mbar_arrive(k_empty(it % kStages));
       if (w.n_tiles == 1) mbar_arrive(q_empty);
       tile_probs(0);
       l_a = sum_a;
@@ -302,6 +386,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         issue_pv(o, p, prev % kStages);
         wgmma_wait<1>();
         fence_regs(sc);
+        if constexpr (S::kSplitRing) mbar_arrive(k_empty(cur % kStages));
         if (t == w.n_tiles - 1) mbar_arrive(q_empty);
         tile_probs(t);
         wgmma_wait<0>();
@@ -326,39 +411,88 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       mbar_arrive(empty(last % kStages));
       it += w.n_tiles;
 
-      // acc / sum in the output's dtype, straight from registers to
-      // [B, Lq, H, D] (the Q buffer already holds the next item's Q): a
-      // quad writes 16 (bf16) or 32 (fp32) contiguous bytes of a row; rows
-      // at or past Lq are not written
+      // acc / sum in the output's dtype to [B, Lq, H, D] (the Q buffer
+      // already holds the next item's Q): staged for TMA stores (kStageO),
+      // or straight from registers, a quad writing 16 (bf16) or 32 (fp32)
+      // contiguous bytes of a row, rows at or past Lq not written
       l_a = quad_sum(l_a);
       l_b = quad_sum(l_b);
-      const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
-      const size_t off = (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
-      const size_t stride = (size_t)a.H * kD;
+      // D256Plan scales by 1 / sum (a division a row, not an element:
+      // 128 fewer divisions a thread, which B2's short items feel)
+      float inv_a = 0.f, inv_b = 0.f;
+      if constexpr (S::kSplitRing) {
+        inv_a = 1.f / l_a;
+        inv_b = 1.f / l_b;
+      }
+      auto norm = [&](float x, float l, float inv) {
+        if constexpr (S::kSplitRing)
+          return x * inv;
+        else
+          return x / l;
+      };
+      if constexpr (S::kStageO) {
+        // each 128-column half through this consumer's 16 KB of shared
+        // memory (two [64 rows, 64 columns] spans, 128-byte swizzle) and
+        // two TMA stores, which write whole 128-byte rows and clip rows
+        // past Lq; the half waits until the stores before it have read
+        // the buffer
+        const uint32_t os = o_s + c * 16384;
+        const int rl = warp * 16 + (lane >> 2);   // row a; row b is rl + 8
 #pragma unroll
-      for (int h = 0; h < kD / 128; ++h)
+        for (int h = 0; h < kD / 128; ++h) {
+          if (tid == 0) bulk_wait_all<true>();
+          named_barrier(1 + c, 128);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const size_t col = off + 128 * h + 8 * j;
-          if constexpr (S::kF32) {
-            float* base = static_cast<float*>(a.o) + col;
-            if (r_a < a.Lq)
-              *reinterpret_cast<float2*>(base + r_a * stride) =
-                  make_float2(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
-            if (r_b < a.Lq)
-              *reinterpret_cast<float2*>(base + r_b * stride) =
-                  make_float2(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
-          } else {
-            bf16* base = static_cast<bf16*>(a.o) + col;
-            if (r_a < a.Lq)
-              *reinterpret_cast<uint32_t*>(base + r_a * stride) =
-                  pack_bf16(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
-            if (r_b < a.Lq)
-              *reinterpret_cast<uint32_t*>(base + r_b * stride) =
-                  pack_bf16(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+          for (int j = 0; j < 16; ++j) {
+            const uint32_t at = os + (j >> 3) * 8192 + rl * 128 +
+                                (((j & 7) ^ (rl & 7)) << 4) + 4 * quad;
+            st_shared_u32(at, pack_bf16(o[h][4 * j] * inv_a,
+                                        o[h][4 * j + 1] * inv_a));
+            st_shared_u32(at + 8 * 128, pack_bf16(o[h][4 * j + 2] * inv_b,
+                                                  o[h][4 * j + 3] * inv_b));
+          }
+          fence_proxy_async();
+          named_barrier(1 + c, 128);
+          if (tid == 0) {
+            tma_store_4d(to, os, 128 * h, w.h, w.q0 + 64 * c, w.b);
+            tma_store_4d(to, os + 8192, 128 * h + 64, w.h, w.q0 + 64 * c,
+                         w.b);
+            bulk_commit();
           }
         }
+      } else {
+        const int r_a = w.q0 + 64 * c + warp * 16 + (lane >> 2), r_b = r_a + 8;
+        const size_t off = (size_t)w.b * a.Lq * a.H * kD + w.h * kD + 2 * quad;
+        const size_t stride = (size_t)a.H * kD;
+#pragma unroll
+        for (int h = 0; h < kD / 128; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const size_t col = off + 128 * h + 8 * j;
+            if constexpr (S::kF32) {
+              float* base = static_cast<float*>(a.o) + col;
+              if (r_a < a.Lq)
+                *reinterpret_cast<float2*>(base + r_a * stride) =
+                    make_float2(o[h][4 * j] / l_a, o[h][4 * j + 1] / l_a);
+              if (r_b < a.Lq)
+                *reinterpret_cast<float2*>(base + r_b * stride) =
+                    make_float2(o[h][4 * j + 2] / l_b, o[h][4 * j + 3] / l_b);
+            } else {
+              bf16* base = static_cast<bf16*>(a.o) + col;
+              if (r_a < a.Lq)
+                *reinterpret_cast<uint32_t*>(base + r_a * stride) =
+                    pack_bf16(norm(o[h][4 * j], l_a, inv_a),
+                              norm(o[h][4 * j + 1], l_a, inv_a));
+              if (r_b < a.Lq)
+                *reinterpret_cast<uint32_t*>(base + r_b * stride) =
+                    pack_bf16(norm(o[h][4 * j + 2], l_b, inv_b),
+                              norm(o[h][4 * j + 3], l_b, inv_b));
+            }
+          }
+      }
     }
+    if constexpr (S::kStageO)
+      if (tid == 0) bulk_wait_all<false>();
   }
 }
 
@@ -368,8 +502,9 @@ template <typename P>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<P, 0>(&tq, &tk, &tv, a);
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to, const Params a) {
+  attention_cta<P, 0>(&tq, &tk, &tv, &to, a);
 }
 
 // B2: the same, for at most 512 keys.
@@ -377,8 +512,9 @@ template <typename P>
 __global__ void __launch_bounds__(kThreads, 1)
     single_kv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, const Params a) {
-  attention_cta<P, kMaxKeysB2>(&tq, &tk, &tv, a);
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap to, const Params a) {
+  attention_cta<P, kMaxKeysB2>(&tq, &tk, &tv, &to, a);
 }
 
 // B1 and B2 at the head dims the plans above do not take
@@ -415,15 +551,16 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
            float scale_log2, void* stream, int Lkp = 0) {
   constexpr int kD = P::kD;
   constexpr size_t kSmemBytes = P::kSmemBytes;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to{};
   const bool ok =
       P::kF32 ? make_bl_hd_map_f32(&tq, q, B, Lq, H, kD, kBoxRows) &&
-                    make_bl_hd_map_f32(&tk, k, B, Lk, H, kD, kBoxRows) &&
-                    make_bl_hd_map_f32(&tv, v, B, kD, H, Lkp, kBoxRows)
+                    make_bl_hd_map_f32(&tk, k, B, Lk, H, kD, P::kKVBox) &&
+                    make_bl_hd_map_f32(&tv, v, B, kD, H, Lkp, P::kKVBox)
               : make_bl_hd_map(&tq, q, B, Lq, H, kD, kBoxRows) &&
-                    make_bl_hd_map(&tk, k, B, Lk, H, kD, kBoxRows) &&
-                    make_bl_hd_map(&tv, v, B, Lk, H, kD, kBoxRows);
-  if (!ok) return (int)cudaErrorInvalidValue;
+                    make_bl_hd_map(&tk, k, B, Lk, H, kD, P::kKVBox) &&
+                    make_bl_hd_map(&tv, v, B, Lk, H, kD, P::kKVBox);
+  if (!ok || (P::kStageO && !make_bl_hd_map(&to, o, B, Lq, H, kD, kBoxRows)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -436,7 +573,7 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
   const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
   const int grid = (int)(n_work < sms ? n_work : sms);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, a);
+      tq, tk, tv, to, a);
   return (int)cudaGetLastError();
 }
 
@@ -475,12 +612,10 @@ int dispatch(bool single_kv, const void* q, const void* k, const void* v,
                                        stream);
   if (D == 256)
     return single_kv
-               ? launch<Bf16Plan<256>>(single_kv_kernel<Bf16Plan<256>>, q, k,
-                                       v, o, k_len, B, H, Lq, Lk, scale_log2,
-                                       stream)
-               : launch<Bf16Plan<256>>(flash_kernel<Bf16Plan<256>>, q, k, v,
-                                       o, k_len, B, H, Lq, Lk, scale_log2,
-                                       stream);
+               ? launch<B2Plan256>(single_kv_kernel<B2Plan256>, q, k, v, o,
+                                   k_len, B, H, Lq, Lk, scale_log2, stream)
+               : launch<B1Plan256>(flash_kernel<B1Plan256>, q, k, v, o, k_len,
+                                   B, H, Lq, Lk, scale_log2, stream);
   const wide::Params a = wide_params(k_len, o, B, H, Lq, Lk, D, scale_log2);
   return single_kv
              ? wide::launch<wide::kDense>(single_kv_wide_kernel<false>, q, k,
@@ -535,6 +670,15 @@ int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
 
 // Dynamic shared memory a B1 / B2 CTA takes at head dim 128, in bytes.
 int flexam_attention_smem_bytes() { return (int)Bf16Plan<128>::kSmemBytes; }
+
+// The same for bf16 B1 (single_kv 0) or B2 (1) at head dim d, 128 or 256;
+// 0 for any other d.
+int flexam_attention_smem_bytes_at(int d, int single_kv) {
+  if (d == 128) return (int)Bf16Plan<128>::kSmemBytes;
+  if (d == 256)
+    return (int)(single_kv ? B2Plan256::kSmemBytes : B1Plan256::kSmemBytes);
+  return 0;
+}
 
 // B2 in bf16 (Lk <= 512). Returns a cudaError_t.
 int flexam_single_kv_attention(const void* q, const void* k, const void* v, void* o,

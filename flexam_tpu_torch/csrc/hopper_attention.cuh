@@ -4,7 +4,8 @@
 // Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
 // (int8_attention.cu), in bf16 and fp32. Outputs leave by plain stores
 // from registers: a persistent CTA frees its Q buffer for the next item's
-// load instead of staging the output there.
+// load instead of staging the output there (B2 at head dim 256 stages O in
+// room of its own for TMA stores, tma_store_4d).
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
 // is D / 64 column spans of [rows, 64] (128 bytes a row), one after
@@ -43,15 +44,21 @@ using attn::quad_sum;
 // kStages (at 256 a 128-key tile is 64 KB, which leaves no room for two
 // stages beside Q: 64 keys and 2 stages), each tile kD / 64 spans of 64
 // columns (128-byte rows); Q K^T in kD / 16 wgmma steps of 16 (32 bytes),
-// P.V in steps of 16 keys.
+// P.V in steps of 16 keys. K and V of a stage share one empty barrier.
+// B5 and B6 run it at 128 and 256, B1 and B2 at 128 (at 256 they run
+// D256Plan below).
 template <int kD_>
 struct Bf16Plan {
   static constexpr bool kF32 = false;
+  static constexpr bool kSplitRing = false;
+  static constexpr bool kStageO = false;
+  static constexpr uint32_t kOStageBytes = 0;
   static constexpr int kD = kD_;
   static constexpr int kBN = kD == 128 ? 128 : 64;
   static constexpr int kStages = kD == 128 ? 3 : 2;
   static constexpr int kSpans = kD / 64;
   static constexpr int kCols = 64;                 // columns a span
+  static constexpr int kKVBox = 64;                // TMA box rows of K, V
   static constexpr uint32_t kQSpanBytes = 128 * 128;              // 16 KB
   static constexpr uint32_t kKVSpanBytes = kBN * 128;
   static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
@@ -64,6 +71,42 @@ struct Bf16Plan {
   static constexpr int kPVKeys = 16;               // keys a P.V step
 };
 
+// B1 and B2 in bf16 at head dim 256: kBN keys a K/V tile (80 for B1, 64
+// for B2), K and V each in a ring of 2 stages with its own empty barriers
+// (kSplitRing), so a K slot frees as soon as its Q K^T has landed and a V
+// slot once its P.V has. Q 64 KB + 2 x (K + V) of kBN * 512 bytes: 224 KB
+// at 80 keys; at 64, 192 KB and 32 KB for O staged for TMA stores
+// (kStageO, B2). A K/V span is one TMA box of kBN rows (kKVBox). S over
+// kBN keys is an m64n(kBN) fragment: O 128 + S 40 + P 20 registers at 80.
+template <int kBN_, bool kStageO_ = false>
+struct D256Plan {
+  static constexpr bool kF32 = false;
+  static constexpr bool kSplitRing = true;
+  // the epilogue writes O through shared memory and TMA stores: 16 KB a
+  // consumer, a 128-column half at a time
+  static constexpr bool kStageO = kStageO_;
+  static constexpr uint32_t kOStageBytes = kStageO ? 2 * 64 * 128 * 2 : 0;
+  static constexpr int kD = 256;
+  static constexpr int kBN = kBN_;
+  static constexpr int kStages = 2;
+  static constexpr int kSpans = kD / 64;
+  static constexpr int kCols = 64;
+  static constexpr int kKVBox = kBN;               // TMA box rows of K and V
+  static constexpr uint32_t kQSpanBytes = 128 * 128;
+  static constexpr uint32_t kKVSpanBytes = kBN * 128;
+  static constexpr uint32_t kQBytes = kSpans * kQSpanBytes;
+  static constexpr uint32_t kKVBytes = kSpans * kKVSpanBytes;
+  // q_full, q_empty; k_full, v_full, v_empty, k_empty a stage
+  static constexpr uint32_t kBarBytes = 8 * (2 + 4 * kStages);
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kOStageBytes + kBarBytes;
+  static constexpr int kQKSteps = kD / 16;
+  static constexpr int kPVKeys = 16;
+  static_assert(kBN % 16 == 0 && kKVSpanBytes % 1024 == 0,
+                "whole P.V steps; 1024-byte aligned spans");
+  static_assert(kSmemBytes <= 232448, "one CTA an SM");
+};
+
 // fp32 at D = 128 (TF32): the same bytes as bf16 at 256 (a 128-byte span
 // holds 32 fp32). Q [128, 128] as four 32-column spans (64 KB), K tiles
 // [64 keys, 128] (four spans, 32 KB) and V^T tiles [128 columns, 64 keys]
@@ -74,11 +117,15 @@ struct Bf16Plan {
 // (64), S (32) and P (32) registers.
 struct F32Plan {
   static constexpr bool kF32 = true;
+  static constexpr bool kSplitRing = false;
+  static constexpr bool kStageO = false;
+  static constexpr uint32_t kOStageBytes = 0;
   static constexpr int kD = 128;
   static constexpr int kBN = 64;
   static constexpr int kStages = 2;
   static constexpr int kSpans = 4;
   static constexpr int kCols = 32;
+  static constexpr int kKVBox = 64;                // TMA box rows of K, V^T
   static constexpr uint32_t kQSpanBytes = 128 * 128;
   static constexpr uint32_t kKVSpanBytes = kBN * 128;   // K: [64, 32]
   static constexpr uint32_t kVtSpanBytes = kD * 128;    // V^T: [128, 32]
@@ -220,21 +267,64 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // Rows row0 .. row0 + kRows - 1 of head h, batch b of a [B, L, H, D] map
-// with 64-row boxes into a swizzled tile at dst: kSpans spans of kCols
+// with kBox-row boxes into a swizzled tile at dst: kSpans spans of kCols
 // columns (128 bytes: 64 bf16 or 32 fp32) from column col0 on, each
-// [kRows, kCols] (kRows * 128 bytes) and made of kRows / 64 boxes of 8 KB.
-template <int kSpans, int kRows, int kCols = 64>
+// [kRows, kCols] (kRows * 128 bytes) and made of kRows / kBox boxes.
+template <int kSpans, int kRows, int kCols = 64, int kBox = 64>
 __device__ __forceinline__ void tma_load_span_tile(uint32_t dst,
                                                    const CUtensorMap* map,
                                                    uint32_t bar, int h,
                                                    int row0, int b,
                                                    int col0 = 0) {
+  static_assert(kRows % kBox == 0, "whole boxes");
 #pragma unroll
   for (int span = 0; span < kSpans; ++span)
 #pragma unroll
-    for (int part = 0; part < kRows / 64; ++part)
-      tma_load_4d(dst + span * kRows * 128 + part * 8192, map, bar,
-                  col0 + kCols * span, h, row0 + 64 * part, b);
+    for (int part = 0; part < kRows / kBox; ++part)
+      tma_load_4d(dst + span * kRows * 128 + part * kBox * 128, map, bar,
+                  col0 + kCols * span, h, row0 + kBox * part, b);
+}
+
+// One box of shared memory at src into a 4-D map at (c0, c1, c2, c3), in
+// the bulk group this thread commits next; rows past the map's extent are
+// not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have read their shared
+// memory (kRead) or are complete.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Make this thread's plain shared-memory writes visible to TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15) over `n` threads.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 template <int kSpans, int kRows>
@@ -427,6 +517,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The 40 registers of an m64n80 accumulator fragment.
+#define FLEXAM_REGS40(c, d)                                                    \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),      \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),      \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),    \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),    \
+      c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),    \
+      c(d[36]), c(d[37]), c(d[38]), c(d[39])
+
+#define FLEXAM_D40                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+
+// d (+)= A B for a 64 x 80 x 16 step, A and B both K-major in shared
+// memory (S over an 80-key tile, D256Plan<80>). `accumulate` 0 overwrites
+// d.
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float (&d)[40], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " FLEXAM_D40
+      ", %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : FLEXAM_REGS40("+f", d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (+)= A B for a 64 x 64 x 8 step of tf32 operands, A and B both
 // K-major in shared memory (fp32 S over a 64-key tile). A step is 32 bytes
 // of K, as bf16's k16, so a descriptor advances as in wgmma_m64n64k16_ss.
@@ -485,10 +602,14 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8_ss(int (&d)[32],
 }
 
 // S (+)= Q K^T for one k-step, by the S fragment's width: 128 keys
-// (m64n128k16) or 64 keys (m64n64k16).
+// (m64n128k16), 80 keys (m64n80k16) or 64 keys (m64n64k16).
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   wgmma_m64n128k16_ss(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_qk(float (&d)[40], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_m64n80k16_ss(d, da, db, accumulate);
 }
 __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -515,6 +636,8 @@ __device__ __forceinline__ void wgmma_qk_s8(int (&d)[32], uint64_t da,
 #undef FLEXAM_D64
 #undef FLEXAM_REGS32
 #undef FLEXAM_D32
+#undef FLEXAM_REGS40
+#undef FLEXAM_D40
 
 // ---------------------------------------------------------------------------
 // Device: softmax on a 64 x 128 accumulator fragment

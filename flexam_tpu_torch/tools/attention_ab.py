@@ -21,7 +21,8 @@ prints one JSON line per result:
     instruction count, and the opcodes whose counts differ from the first
     other tree's. A kernel instantiated for several row widths (B3, B4) is
     reported at the flagship width's instantiation (`FLAGSHIP_NV`), one
-    instantiated for several head dims (B1, B2, B5, B6) at head dim 128;
+    instantiated for several head dims (B1, B2, B5, B6) at head dim 128,
+    and again at head dim 256 (`<kernel><256>`, `D256_KERNELS`);
   * "within_bound": each build's output held to the plain version by the
     kernel's check in `testing` (the designs sum in different orders, so
     their outputs are compared with the bound, not bit for bit), with the
@@ -31,18 +32,31 @@ prints one JSON line per result:
     policy: 26 blocks of 896) and B6 at the long-clip shape (q/k/v
     [2, 23296, 24, 128]), B4 (binary and broadcast) and B3 at the flagship
     shape (x [2, 11648, 3072] bf16), B4 binary and B3 with the RIFLEx
-    tables at the long path's (x [2, 23296, 3072]); the trees in order and
-    then in reverse order (repeated), each leg `timing.device_ms` (20
-    back-to-back launches between two events, the median of 5 such runs),
-    each tree's median over the first's. B6 times its kernel alone, on q/k
-    quantized once by this tree's wrapper. B3/B4 also time `out.copy_(x)`
-    in the same rounds (what the card streams) and give each tree's GB/s
-    and share of the bound (x read and the output written once at
-    3.35 TB/s). B4 gets the main path's terms: strided views of a
-    [B, 2, 6, D] modulation tensor where the tree's entry point takes
-    strides, contiguous copies (made once) where it does not;
+    tables at the long path's (x [2, 23296, 3072]); B1, B2, B5 and B6 again
+    in 12 heads of 256 ("d256/...": the tokens and widths of the rows
+    above) and in fp32 at head dim 128 ("f32/...", TF32); the trees in
+    order and then in reverse order (repeated), each leg
+    `timing.device_ms` (20 back-to-back launches between two events, the
+    median of 5 such runs; 5 and 3 for a call of SLOW_MS or more), each
+    tree's median over the first's. B6 times its kernel alone, on q/k
+    quantized once by this tree's wrapper. B1 and B2 also time SDPA
+    (`F.scaled_dot_product_attention` on [B, H, L, D] views, the yardstick
+    `chip_smoke.py` times) in the same rounds, and every attention row gives
+    each leg's share of its bound (operations at the type's peak). B3/B4
+    also time `out.copy_(x)` in the same rounds (what the card streams)
+    and give each tree's GB/s and share of the bound (x read and the
+    output written once at 3.35 TB/s). B4 gets the main path's terms:
+    strided views of a [B, 2, 6, D] modulation tensor where the tree's
+    entry point takes strides, contiguous copies (made once) where it does
+    not;
+  * "sweep": each tree's B2 and SDPA at head dim 256 (q [2, 11648, 12,
+    256]) over 64 to 512 keys in steps of 64 (`device_ms` each), so that
+    a fit of time against key tiles splits a work item's fixed cost from a
+    tile's;
 
-then the nvidia-smi name and power limit.
+then the nvidia-smi name and power limit. `--cases` keeps the timed
+cases whose names hold one of its words (all by default; the sweep always
+runs).
 """
 
 from __future__ import annotations
@@ -60,33 +74,48 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
 from flexam_tpu_torch.ops import build
-from flexam_tpu_torch.ops.flash_attention import LOG2E, attention_plain
+from flexam_tpu_torch.ops.flash_attention import (LOG2E, attention_plain,
+                                                  vt_workspace)
 from flexam_tpu_torch.ops.fused import ln_modulation_plain, rmsnorm_rope_plain
 from flexam_tpu_torch.ops.int8_attention import (int8_attention_plain,
                                                  quantize_qk)
 from flexam_tpu_torch.ops.sparse_attention import (masked_dense_attention,
                                                    rows_to_arrays,
                                                    video_sparse_policy)
-from flexam_tpu_torch.testing import (check_attention, check_int8_attention,
+from flexam_tpu_torch.testing import (check_attention, check_attention_tf32,
+                                      check_int8_attention,
+                                      check_int8_attention_tf32,
                                       check_ln_modulation, check_rmsnorm_rope,
-                                      check_sparse_attention)
+                                      check_sparse_attention,
+                                      check_sparse_attention_tf32)
 from flexam_tpu_torch.tools.timing import device_ms
 
 ENTRY_POINTS = ("flexam_flash_attention", "flexam_single_kv_attention",
                 "flexam_sparse_attention", "flexam_int8_attention",
-                "flexam_ln_modulation", "flexam_rmsnorm_rope")
+                "flexam_ln_modulation", "flexam_rmsnorm_rope",
+                "flexam_flash_attention_f32",
+                "flexam_single_kv_attention_f32",
+                "flexam_sparse_attention_f32", "flexam_int8_attention_f32")
 KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
            "int8_attention_kernel", "ln_mod_kernel", "rmsnorm_rope_kernel",
            "flash_wide_kernel", "single_kv_wide_kernel",
            "sparse_attention_wide_kernel", "int8_attention_wide_kernel",
            "ln_mod_f32_kernel", "rmsnorm_rope_f32_kernel")
+# the attention kernels reported again at their head-dim-256 instance
+D256_KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
+                "int8_attention_kernel")
 # the row kernels' instantiation at the flagship width (3072 features: 12
 # 16-byte vectors a lane)
 FLAGSHIP_NV = 12
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 tensor-core peak
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
+SLOW_MS = 10.0               # calls this long: 5 launches a run, 3 runs
 # opcodes that tell a Hopper design (wgmma: HGMMA for bf16, IGMMA for int8;
 # TMA; mbarriers) from an mma.sync one (HMMA, IMMA), and B6's int -> float
 # conversions (I2F, I2FP)
@@ -131,9 +160,9 @@ def takes_counter(root: Path) -> bool:
 def kernel_label(symbol: str):
     """The kernel of KERNELS a (mangled) symbol names, with its template
     argument where it has one: an int ("ln_mod_kernel<12>"), the head dim
-    of a bf16 plan ("flash_kernel<128>"), or "f32" for an fp32 instance
-    ("flash_kernel<f32>", "flash_wide_kernel<f32>"); None for any other
-    symbol."""
+    of a bf16 plan ("flash_kernel<128>"; B1/B2's `D256Plan<keys>` is
+    "<256>"), or "f32" for an fp32 instance ("flash_kernel<f32>",
+    "flash_wide_kernel<f32>"); None for any other symbol."""
     for k in KERNELS:
         i = symbol.find(k)
         if i >= 0:
@@ -141,10 +170,12 @@ def kernel_label(symbol: str):
             nv = re.match(r"ILi(\d+)E", rest)
             if nv:
                 return f"{k}<{nv.group(1)}>"
-            plan = re.match(r"I\w*?(Bf16Plan|F32Plan)(?:ILi(\d+)E)?", rest)
+            plan = re.match(r"I\w*?(Bf16Plan|F32Plan|D256Plan)(?:ILi(\d+)E)?",
+                            rest)
             if plan:
-                return (f"{k}<{plan.group(2)}>" if plan.group(1) == "Bf16Plan"
-                        else f"{k}<f32>")
+                return {"Bf16Plan": f"{k}<{plan.group(2)}>",
+                        "D256Plan": f"{k}<256>"}.get(plan.group(1),
+                                                     f"{k}<f32>")
             return f"{k}<f32>" if rest.startswith("ILb1E") else k
     return None
 
@@ -229,10 +260,13 @@ def sass_opcodes(lib: Path) -> dict:
 
 def load(lib: Path, root: Path) -> ctypes.CDLL:
     """root's library, its entry points bound with the ctypes signatures of
-    root's own `ops/build.py`."""
+    root's own `ops/build.py` (those it has: trees before fp32 lack the
+    `_f32` ones)."""
     dll = ctypes.CDLL(str(lib))
     signatures = tree_signatures(root)
     for name in ENTRY_POINTS:
+        if name not in signatures:
+            continue
         fn = getattr(dll, name)
         fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
@@ -248,7 +282,14 @@ SMEM_EXPORTS = {"flash_kernel": "flexam_attention_smem_bytes",
 def dynamic_smem(dll, kernel: str) -> int | None:
     """Dynamic shared memory a CTA of `kernel` takes, where the library
     says (trees before the Hopper designs use static shared memory only;
-    B5's CTA takes B1's)."""
+    B5's CTA takes B1's). "flash_kernel<256>" / "single_kv_kernel<256>":
+    from `flexam_attention_smem_bytes_at` where the library has it."""
+    if kernel in ("flash_kernel<256>", "single_kv_kernel<256>"):
+        fn = getattr(dll, "flexam_attention_smem_bytes_at", None)
+        if fn is None:
+            return None
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        return fn(256, int(kernel.startswith("single_kv")))
     fn = getattr(dll, SMEM_EXPORTS.get(kernel, ""), None)
     if fn is None:
         return None
@@ -256,51 +297,66 @@ def dynamic_smem(dll, kernel: str) -> int | None:
     return fn()
 
 
+def f32_workspaces(q, k, v) -> tuple:
+    """The fp32 pre-pass's outputs (q and k rounded, V^T), as the port's
+    wrappers allocate them."""
+    return torch.empty_like(q), torch.empty_like(k), vt_workspace(v)
+
+
 def launcher(dll, name, q, k, v, out):
-    """B1 / B2 from `dll` on q, k, v into out."""
+    """B1 / B2 from `dll` on q, k, v into out (bf16, or fp32 through the
+    tree's `_f32` entry point and its workspaces)."""
     b, lq, h, d = q.shape
-    fn = getattr(dll, name)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+    ws = f32_workspaces(q, k, v) if q.dtype == torch.float32 else ()
+    fn = getattr(dll, name + ("_f32" if ws else ""))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(w.data_ptr() for w in ws), out.data_ptr(), None,
             b, h, lq, k.shape[1], d, d ** -0.5 * LOG2E,
             build.stream_handle(q))
 
     def run():
         build.check(fn(*args), name)
-    run.tensors = (q, k, v, out)      # args holds only their addresses
+    run.tensors = (q, k, v, out, *ws)   # args holds only their addresses
     return run
 
 
 def sparse_launcher(dll, q, k, v, out, kidx, nnz, blk):
     """B5 from `dll`, with a scratch word for its work counter where the
-    tree's entry point takes one (it zeroes the word itself)."""
+    tree's entry point takes one (it zeroes the word itself); fp32
+    through its `_f32` entry point."""
     b, L, h, d = q.shape
-    fn = dll.flexam_sparse_attention
+    ws = f32_workspaces(q, k, v) if q.dtype == torch.float32 else ()
+    fn = dll.flexam_sparse_attention_f32 if ws else dll.flexam_sparse_attention
     counter = torch.empty(1, dtype=torch.int32, device=q.device)
     lists = [kidx.data_ptr(), nnz.data_ptr()]
     if dll.sparse_takes_counter:
         lists.append(counter.data_ptr())
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lists,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(w.data_ptr() for w in ws), out.data_ptr(), *lists,
             b, h, L // blk, blk, kidx.shape[1], d, d ** -0.5 * LOG2E,
             build.stream_handle(q))
 
     def run():
         build.check(fn(*args), "sparse_attention")
-    run.tensors = (q, k, v, out, kidx, nnz, counter)
+    run.tensors = (q, k, v, out, kidx, nnz, counter, *ws)
     return run
 
 
 def int8_launcher(dll, quantized, v, out):
-    """B6's kernel from `dll` on q/k quantized once (q8, qs, k8, ks)."""
+    """B6's kernel from `dll` on q/k quantized once (q8, qs, k8, ks); fp32
+    v through its `_f32` entry point and a V^T workspace."""
     q8, qs, k8, ks = quantized
     b, lq, h, d = q8.shape
-    fn = dll.flexam_int8_attention
-    args = (q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+    ws = (vt_workspace(v),) if v.dtype == torch.float32 else ()
+    fn = dll.flexam_int8_attention_f32 if ws else dll.flexam_int8_attention
+    args = (q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
+            *(w.data_ptr() for w in ws), out.data_ptr(),
             qs.data_ptr(), ks.data_ptr(), None, b, h, lq, k8.shape[1], d,
             d ** -0.5 * LOG2E, build.stream_handle(v))
 
     def run():
         build.check(fn(*args), "int8_attention")
-    run.tensors = (*quantized, v, out)
+    run.tensors = (*quantized, v, out, *ws)
     return run
 
 
@@ -318,11 +374,33 @@ def row_launcher(dll, root: Path, entry: str, source: str, values: dict):
     return run
 
 
+def resources(res_ops: dict, ptxas: dict, keys: dict, dll) -> dict:
+    """One tree's "resources": each of KERNELS at its flagship
+    instantiation, and D256_KERNELS again at head dim 256."""
+    names = [(k, flagship) for k in KERNELS] + [
+        (f"{k}<256>", lambda by, key: by.get(key)) for k in D256_KERNELS]
+    return {k: {"ptxas": pick(ptxas, k),
+                "dynamic_smem_bytes": dynamic_smem(dll, k),
+                "key_opcodes": pick(keys, k),
+                "wide_accesses": wide_accesses(pick(res_ops, k) or {}),
+                "sass_instructions": sum((pick(res_ops, k) or {}).values())}
+            for k, pick in names}
+
+
+def attention_bound_ms(flops: float, nbytes: float, peak: float) -> float:
+    """The least time of an attention call: its operations at `peak` or
+    its bytes at PEAK_BYTES, whichever is longer."""
+    return max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True, action="append",
                     help="LABEL=DIR, repeatable")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="time only the cases whose names hold one of these "
+                         "words (e.g. d256 f32 B1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_ab: needs a CUDA card")
@@ -335,23 +413,15 @@ def main() -> int:
         lib, log = compile_tree(root, label)
         libs[label] = load(lib, root)
         ops = sass_opcodes(lib)
-        keys = key_opcodes(ops)
-        ptxas = ptxas_resources(log)
-        res[label] = {k: {"ptxas": flagship(ptxas, k),
-                          "dynamic_smem_bytes": dynamic_smem(libs[label], k),
-                          "key_opcodes": flagship(keys, k),
-                          "wide_accesses": wide_accesses(
-                              flagship(ops, k) or {}),
-                          "sass_instructions": sum(
-                              (flagship(ops, k) or {}).values())}
-                      for k in KERNELS}
+        res[label] = resources(ops, ptxas_resources(log), key_opcodes(ops),
+                               libs[label])
         res[label]["wgmma_notes"] = wgmma_notes(log)
         res[label]["_ops"] = ops
     diff = {}
     for label in trees:
         if label == first:
             continue
-        for k in KERNELS:
+        for k in [*KERNELS, *(f"{k}<256>" for k in D256_KERNELS)]:
             a = flagship(res[first]["_ops"], k) or {}
             b = flagship(res[label]["_ops"], k) or {}
             diff.setdefault(label, {})[k] = {
@@ -374,8 +444,12 @@ def main() -> int:
         outs = {lb: torch.empty_like(q) for lb in trees}
         runs = {lb: launcher(libs[lb], name, q, k, v, outs[lb])
                 for lb in trees}
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        check = check_attention_tf32 if q.dtype == torch.float32 \
+            else check_attention
         return runs, outs, lambda: attention_plain(q, k, v, q_chunk=1024), \
-            check_attention
+            check
 
     def sparse_case(q, k, v):
         pol = video_sparse_policy(51, 448, ref_tokens=448, window=2)
@@ -386,17 +460,25 @@ def main() -> int:
         runs = {lb: sparse_launcher(libs[lb], q, k, v, outs[lb], kidx, nnz,
                                     blk)
                 for lb in trees}
+        check = check_sparse_attention_tf32 if q.dtype == torch.float32 \
+            else check_sparse_attention
         return runs, outs, lambda: masked_dense_attention(q, k, v, rows,
-                                                          blk), \
-            check_sparse_attention
+                                                          blk), check
 
     def int8_case(q, k, v):
         quantized = quantize_qk(q, k)
         outs = {lb: torch.empty_like(q) for lb in trees}
         runs = {lb: int8_launcher(libs[lb], quantized, v, outs[lb])
                 for lb in trees}
-        return runs, outs, lambda: int8_attention_plain(q, k, v), \
-            check_int8_attention
+        check = check_int8_attention_tf32 if q.dtype == torch.float32 \
+            else check_int8_attention
+        return runs, outs, lambda: int8_attention_plain(q, k, v), check
+
+    def sparse_flops(q):
+        b, n, h, d = q.shape
+        pol = video_sparse_policy(51, 448, ref_tokens=448, window=2)
+        pairs = sum(len(r) for r in pol["rows"])
+        return 4.0 * b * h * pairs * pol["blk"] ** 2 * d
 
     def rows_x(L):
         """x [B, L, 3072] bf16 whose rows have their own offset and scale,
@@ -458,16 +540,22 @@ def main() -> int:
 
     within, timing, failed = {}, {}, []
 
-    def run_case(case, runs, outs, ref_fn, check, nbytes=None):
+    def wanted(case: str) -> bool:
+        return args.cases is None or any(w in case for w in args.cases)
+
+    def run_case(case, runs, outs, ref_fn, check, nbytes=None, bound=None):
         """Hold each tree's output to the plain version, then time the
         trees in turns; a row kernel (`nbytes` given) has `out.copy_(x)`
-        timed beside it, with the copy's bytes (x read, out written)."""
-        for run in runs.values():
+        timed beside it, with the copy's bytes (x read, out written); an
+        attention kernel (`bound` ms given) each leg's share of it, and
+        SDPA where `runs` holds it."""
+        trees_runs = {lb: r for lb, r in runs.items() if lb in trees}
+        for run in trees_runs.values():
             run()
         torch.cuda.synchronize()
         ref = ref_fn()
         within[case] = {}
-        for lb in runs:
+        for lb in trees_runs:
             try:
                 err = check(outs[lb], ref, f"{case} {lb}")
                 within[case][lb] = {"within": True, **{
@@ -478,7 +566,7 @@ def main() -> int:
                 failed.append(f"{case} {lb}")
         within[case]["equal_to_this"] = {
             lb: bool(torch.equal(outs[lb], outs["this"]))
-            for lb in runs if lb != "this"}
+            for lb in trees_runs if lb != "this"}
         del ref
         timed = dict(runs)
         x = None
@@ -486,11 +574,14 @@ def main() -> int:
             x = next(iter(runs.values())).tensors[0]
             copy_out = torch.empty_like(x)
             timed["copy"] = lambda: copy_out.copy_(x)
+        slow = device_ms(trees_runs["this"], launches=1, reps=1,
+                         warmup=1) >= SLOW_MS
+        kw = dict(launches=5, reps=3) if slow else {}
         legs = {lb: [] for lb in timed}
         order = list(timed)
         for _ in range(args.rounds):
             for lb in order + order[::-1]:
-                legs[lb].append(device_ms(timed[lb]))
+                legs[lb].append(device_ms(timed[lb], **kw))
         timing[case] = {lb: {"legs_ms": v, "median_ms": statistics.median(v),
                              f"over_{first}": statistics.median(v)
                              / statistics.median(legs[first])}
@@ -500,27 +591,79 @@ def main() -> int:
                 moved = 4.0 * x.numel() if lb == "copy" else nbytes
                 t.update(gbps=moved / t["median_ms"] / 1e6,
                          bound_share=moved / PEAK_BYTES * 1e3 / t["median_ms"])
+        if bound is not None:
+            timing[case]["bound_ms"] = bound
+            for lb, t in timing[case].items():
+                if lb != "bound_ms":
+                    t["bound_share"] = bound / t["median_ms"]
 
-    q = randn(B, L, H, D)
-    for case, name, lk in (("B1 flash_kernel", "flexam_flash_attention", L),
-                           ("B2 single_kv_kernel",
-                            "flexam_single_kv_attention", LT)):
-        k, v = randn(B, lk, H, D), randn(B, lk, H, D)
-        run_case(case, *attention_case(name, q, k, v))
-    del q, k, v
-    q, k, v = randn(B, LL, H, D), randn(B, LL, H, D), randn(B, LL, H, D)
-    run_case("B5 sparse_attention_kernel", *sparse_case(q, k, v))
-    run_case("B6 int8_attention_kernel", *int8_case(q, k, v))
-    del q, k, v
-    x = rows_x(L)
-    run_case("B4 ln_mod_kernel binary", *ln_case(x, True))
-    run_case("B4 ln_mod_kernel broadcast", *ln_case(x, False))
-    run_case("B3 rmsnorm_rope_kernel", *rms_case(x, (26, 16, 28)))
-    x = rows_x(LL)
-    run_case("long/B4 ln_mod_kernel binary", *ln_case(x, True))
-    run_case("long/B3 rmsnorm_rope_kernel riflex",
-             *rms_case(x, (52, 16, 28), riflex={"k": 6, "L_test": 51}))
+    def attention_rows(prefix, h, d, dtype, peak):
+        """B1, B2, B5 and B6 on `h` heads of `d` in `dtype`, the tokens of
+        the flagship (B1, B2) and of the long clip (B5, B6)."""
+        size = torch.finfo(dtype).bits // 8
+        q = randn(B, L, h, d, dtype=dtype)
+        for case, name, lk in (("B1 flash_kernel", "flexam_flash_attention",
+                                L),
+                               ("B2 single_kv_kernel",
+                                "flexam_single_kv_attention", LT)):
+            if not wanted(prefix + case):
+                continue
+            k, v = randn(B, lk, h, d, dtype=dtype), randn(B, lk, h, d,
+                                                          dtype=dtype)
+            bound = attention_bound_ms(
+                4.0 * B * h * L * lk * d,
+                size * (2 * q.numel() + k.numel() + v.numel()), peak)
+            run_case(prefix + case, *attention_case(name, q, k, v),
+                     bound=bound)
+            del k, v
+        del q
+        cases = [c for c in ("B5 sparse_attention_kernel",
+                             "B6 int8_attention_kernel")
+                 if wanted(prefix + c)]
+        if not cases:
+            return
+        q, k, v = (randn(B, LL, h, d, dtype=dtype) for _ in range(3))
+        nbytes = size * 4.0 * q.numel()
+        ops = 2.0 * B * h * LL * LL * d
+        for c in cases:
+            if c.startswith("B5"):
+                run_case(prefix + c, *sparse_case(q, k, v),
+                         bound=attention_bound_ms(sparse_flops(q), nbytes,
+                                                  peak))
+            else:
+                t_ops = (ops / PEAK_INT8_OPS + ops / peak) * 1e3
+                run_case(prefix + c, *int8_case(q, k, v),
+                         bound=max(t_ops, nbytes / PEAK_BYTES * 1e3))
+        del q, k, v
+
+    attention_rows("", H, D, torch.bfloat16, PEAK_BF16_FLOPS)
+    rows = [("B4 ln_mod_kernel binary", L, lambda x: ln_case(x, True)),
+            ("B4 ln_mod_kernel broadcast", L, lambda x: ln_case(x, False)),
+            ("B3 rmsnorm_rope_kernel", L,
+             lambda x: rms_case(x, (26, 16, 28))),
+            ("long/B4 ln_mod_kernel binary", LL,
+             lambda x: ln_case(x, True)),
+            ("long/B3 rmsnorm_rope_kernel riflex", LL,
+             lambda x: rms_case(x, (52, 16, 28),
+                                riflex={"k": 6, "L_test": 51}))]
+    x = None
+    for case, n, make in rows:
+        if not wanted(case):
+            continue
+        if x is None or x.shape[1] != n:
+            x = rows_x(n)
+        run_case(case, *make(x))
     del x
+    attention_rows("d256/", H // 2, 2 * D, torch.bfloat16, PEAK_BF16_FLOPS)
+    attention_rows("f32/", H, D, torch.float32, PEAK_TF32_FLOPS)
+    sweep = {}
+    q = randn(B, L, H // 2, 2 * D)
+    for lk in range(64, LT + 1, 64):
+        k, v = randn(B, lk, H // 2, 2 * D), randn(B, lk, H // 2, 2 * D)
+        runs = attention_case("flexam_single_kv_attention", q, k, v)[0]
+        sweep[lk] = {lb: device_ms(run) for lb, run in runs.items()}
+    del q, k, v
+    print(json.dumps({"sweep": sweep}), flush=True)
     print(json.dumps({"within_bound": within}), flush=True)
     print(json.dumps({"timing": timing}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

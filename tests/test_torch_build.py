@@ -121,6 +121,10 @@ def test_attention_ab_reads_this_tree_s_counter():
      "flash_kernel"),
     ("_ZN12_GLOBAL__N_112flash_kernelINS_8Bf16PlanILi256EEEEEv14CUtensorMap"
      "_stS3_S3_NS_6ParamsE", "flash_kernel<256>"),
+    ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper8D256PlanILi80EEEEEv14C"
+     "UtensorMap_stS5_S5_NS_6ParamsE", "flash_kernel<256>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper8D256PlanILi64ELb1E"
+     "EEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE", "single_kv_kernel<256>"),
     ("_ZN12_GLOBAL__N_116single_kv_kernelINS_7F32PlanEEEv14CUtensorMap_stS2_"
      "S2_NS_6ParamsE", "single_kv_kernel<f32>"),
     ("_ZN12_GLOBAL__N_117flash_wide_kernelILb1EEEv14CUtensorMap_stS1_S1_N6"

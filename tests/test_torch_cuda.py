@@ -694,6 +694,79 @@ def test_single_kv_attention_head_dims(dev, d, lq, lk, k_len, dtype):
     _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), f"B2 d{d}")
 
 
+# D = 256 runs B1 on 80-key tiles and B2 on 64-key tiles (its O staged for
+# TMA stores), K and V in rings of their own (csrc/flash_attention.cu,
+# D256Plan): key counts and k_len
+# around those tiles' edges, k_len 0, ragged query tiles, and walks long
+# enough that the rings' stages and phases carry across work items
+@pytest.mark.parametrize("b,h,lq,lk,k_len", [
+    (1, 2, 130, 1, None),             # one key
+    (1, 2, 130, 79, None),            # one key short of a tile
+    (2, 1, 77, 80, None),             # one whole tile, a ragged q tile
+    (1, 2, 200, 81, None),            # one key past a tile
+    (2, 2, 129, 159, [159, 79]),      # k_len one short of the 2nd / 1st edge
+    (2, 2, 129, 161, [160, 81]),      # k_len on the 2nd edge / one past the 1st
+    (2, 2, 300, 400, [80, 0]),        # k_len on the 1st edge; 0
+    (1, 1, 130, 11648, None),         # the flagship's keys
+    (2, 1, 1, 11648, [11601, 11520]),  # one query row; k_len inside / on edges
+])
+def test_flash_attention_d256_tiles(dev, b, h, lq, lk, k_len):
+    """B1 at head dim 256 on its 80-key tiles and split K / V rings."""
+    q, k, v = _structured(dev, b, lq, lk, h, seed=120, d=256)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl),
+                    f"B1 d256 lk {lk}")
+
+
+@pytest.mark.parametrize("lq,lk,k_len", [
+    (130, 1, None), (77, 80, [80, 64]), (77, 97, [96, 49]),
+    (129, 144, [48, 47]), (200, 400, [65, 0]), (129, 511, [511, 63]),
+    (300, 512, [512, 448]),
+])
+def test_single_kv_attention_d256_tiles(dev, lq, lk, k_len):
+    """B2 at head dim 256 on its 64-key tiles and split K / V rings, O
+    written through shared memory by TMA stores (ragged Lq: rows past it
+    clipped), up to its 512 keys."""
+    q, k, v = _structured(dev, 2, lq, lk, 2, seed=124, d=256)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["single_kv_attention"]
+    got = fa.single_kv_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["single_kv_attention"] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl),
+                    f"B2 d256 lk {lk}")
+
+
+@pytest.mark.parametrize("kernel,lk,k_len", [
+    ("flash_attention", 161, [161, 80]),
+    ("flash_attention", 400, None),
+    ("single_kv_attention", 512, [300, 81]),
+    ("single_kv_attention", 63, None),
+])
+def test_d256_rings_cross_items(dev, kernel, lk, k_len):
+    """B1 / B2 at head dim 256 with at least three work items for every
+    persistent CTA (one an SM): the split rings' stages and phases carry
+    from item to item, items of 1 to 6 key tiles, and a ragged last q
+    tile."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, h = 2, 2
+    lq = 128 * -(-3 * sms // (b * h)) - 51
+    assert -(-lq // 128) * b * h >= 3 * sms
+    q, k, v = _structured(dev, b, lq, lk, h, seed=128, d=256)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    fn = getattr(fa, kernel)
+    before = fa.launches[kernel]
+    got = fn(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches[kernel] == before + 1
+    check_attention(got, fa.attention_plain(q, k, v, k_len=kl),
+                    f"{kernel} d256 across items")
+
+
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("b,lq,lk,k_len", [(2, 300, 300, None),
                                            (1, 2000, 2000, [777]),

@@ -81,6 +81,38 @@ def test_exact_kernels_match_pallas(d, kernel, lk, k_len):
     np.testing.assert_allclose(got.numpy(), ref, **F32)
 
 
+@pytest.mark.parametrize("kernel,lk,k_len", [
+    ("flash_attention", 1, None),
+    ("flash_attention", 79, [79, 1]),
+    ("flash_attention", 80, [80, 79]),
+    ("flash_attention", 81, [81, 80]),
+    ("flash_attention", 159, [79, 80]),
+    ("flash_attention", 161, [161, 81]),
+    ("flash_attention", 640, [0, 161]),
+    ("flash_attention", 11648, [11648, 11601]),
+    ("single_kv_attention", 1, None),
+    ("single_kv_attention", 80, [80, 64]),
+    ("single_kv_attention", 400, [400, 81]),
+    ("single_kv_attention", 511, [511, 63]),
+    ("single_kv_attention", 512, [0, 512]),
+])
+def test_d256_tile_edges_match_pallas(kernel, lk, k_len):
+    """B1 and B2 (plain versions) at head dim 256 on the key counts and
+    k_len edges of the card's tiles there (B1 80 keys a tile, B2 64),
+    against JAX's `flash_attention` in interpret mode. k_len 0 only where
+    JAX pads no key (640, 512): it masks its padding keys as it masks the
+    rest, so a row with every key masked averages over them too."""
+    q, k, v = _qkv(11, 2, 33, lk, 1, 256)
+    kl = None if k_len is None else k_len
+    ref = np.asarray(JF.flash_attention(
+        *_j(q, k, v), k_len=None if kl is None else jnp.asarray(kl,
+                                                                jnp.int32),
+        interpret=True))
+    got = getattr(TF, kernel)(*_t(q, k, v),
+                              k_len=None if kl is None else torch.tensor(kl))
+    np.testing.assert_allclose(got.numpy(), ref, **F32)
+
+
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_int8_plain_matches_pallas(d):
     """B6's plain version against `int8_flash_attention(interpret=True)`:
