@@ -14,8 +14,9 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
   build                the CUDA kernels built from csrc/ (one nvcc a
                        source, all started together, then one link), with
                        ptxas's registers / spills by kernel (B1 and B2 at
-                       head dim 256 must spill nothing), the dynamic shared
-                       memory of B1/B2's plans, the Hopper opcodes (HGMMA,
+                       head dim 256, B2 at 128 in bf16 and fp32 must spill
+                       nothing), the dynamic shared memory of B1/B2's
+                       plans, the Hopper opcodes (HGMMA,
                        IGMMA, UTMALDG, ...) in the SASS of the attention
                        kernels B1, B2, B5 and B6, and the 128-bit loads and
                        stores of the row kernels B3, B4;
@@ -776,8 +777,10 @@ HOPPER_OPCODES = {
 
 
 # B1 and B2 at head dim 256 (D256Plan: S over 80 keys beside a 64 x 256 fp32
-# accumulator in 240 registers) must not spill
-NO_SPILL_KERNELS = ("flash_kernel<256>", "single_kv_kernel<256>")
+# accumulator in 240 registers) and B2 at head dim 128 in bf16 and fp32
+# (SplitPlan, F32SplitPlan: O staged for TMA stores) must not spill
+NO_SPILL_KERNELS = ("flash_kernel<256>", "single_kv_kernel<256>",
+                    "single_kv_kernel<128>", "single_kv_kernel<f32>")
 
 
 def no_spills(ptxas: dict, kernels) -> None:
@@ -7171,6 +7174,9 @@ def main(argv=None) -> int:
          attention_smem_bytes_d256={
              k: lib.flexam_attention_smem_bytes_at(256, i)
              for i, k in enumerate(("flash_kernel", "single_kv_kernel"))},
+         attention_smem_bytes_b2={
+             "d128": lib.flexam_attention_smem_bytes_at(128, 1),
+             "f32": lib.flexam_attention_smem_bytes_f32(1)},
          int8_attention_smem_bytes=lib.flexam_int8_attention_smem_bytes(),
          attention_sass=hopper_sass(Path(build.build_info["path"])))
 

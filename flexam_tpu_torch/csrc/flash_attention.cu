@@ -19,15 +19,17 @@
 // rounded (tf32 wgmma takes no transposed operand, so P.V reads V^T
 // K-major) into workspaces the wrapper allocates, and the probabilities
 // are rounded in registers. The pre-pass reads Q, K and V once and writes
-// them once more: about 0.17 ms of HBM time at the flagship shape.
+// them once more: about 0.17 ms of HBM time at the flagship shape. B2 at
+// D = 128 rounds Q in shared memory instead (below): its q is 286 MB at the
+// flagship shape, its k and v 512 keys.
 //
 // Layout: q, k, v and o are [B, L, H, D], contiguous, D any multiple of
 // 128. The kernels read q, k and v (bf16), or their rounded copies (fp32),
 // through 4-D TMA tensor maps over (D, H, L, B): rows past L read as zeros,
 // so the ragged edge of L never touches the next batch. D = 128 and 256 run
 // the design below in bf16, each its own instance, and D = 128 in fp32
-// (F32Plan); every other D runs hopper_wide.cuh's (slabs of 128 output
-// columns, S recomputed for each).
+// (F32Plan, F32SplitPlan for B2); every other D runs hopper_wide.cuh's
+// (slabs of 128 output columns, S recomputed for each).
 //
 // What bounds it on an H100: at the flagship self-attention shape (B 2,
 // H 24, L 11,648) the work is 4*B*H*L*L*D = 3.3e12 flops against about 27 MB
@@ -41,8 +43,9 @@
 //    threads keeps TMA loads in flight: an item's Q, then its 128-key tiles
 //    of K and V into a ring of kStages stages that runs on across items
 //    (separate full barriers for K and V, so Q.K^T starts before V lands;
-//    at D = 128 one empty barrier a stage, released by all 256 consumer
-//    threads after their P.V; at D = 256 K and V have their own, below).
+//    for B1 at D = 128 one empty barrier a stage, released by all 256
+//    consumer threads after their P.V; B1 at D = 256 and B2 give K and V
+//    empty barriers of their own, below).
 //    The next item's Q loads as soon as both consumers' last
 //    Q.K^T of the current one has landed, so its load overlaps their last
 //    P.V and epilogue.
@@ -58,13 +61,13 @@
 //    tiles wholly past k_len are not loaded (their probabilities are exactly
 //    0), except when k_len is 0 and every key is masked alike.
 //  * the epilogue writes acc / sum as bf16 straight from registers (rows
-//    past Lq are not written).
+//    past Lq are not written); B2 stages it for TMA stores (below).
 //
 // B2 is B1's kernel with at most 512 keys, a bound known at compile time:
-// an online softmax over <= 4 tiles (8 at D = 256), rather than one max per
-// row from a first pass and the logits recomputed in a second (1.5x the
-// flops) or kept in shared memory (148 KB a block at 512 keys, one block
-// an SM).
+// an online softmax over <= 4 tiles (8 at D = 256 and in fp32), rather
+// than one max per row from a first pass and the logits recomputed in a
+// second (1.5x the flops) or kept in shared memory (148 KB a block at 512
+// keys, one block an SM).
 //
 // At D = 256 (D256Plan, hopper_attention.cuh) a 128 x 256 bf16 tile is
 // 64 KB, so a ring holds 2 stages of narrower tiles beside Q's 64 KB. Two
@@ -95,6 +98,23 @@
 //    A second Q buffer (on 48-key tiles, for room) did not move it.
 //  * the epilogue multiplies by 1 / sum (a division a row, not an element).
 //
+// B2 at D = 128 takes the same three measures (SplitPlan<128, ...>): its
+// items are at most 4 tiles of 128 keys, and they waited on the plain
+// stores of the epilogue as B2-256's did. Bf16Plan<128>'s 3 stages of
+// 128-key K and V fill 230,488 bytes, so the split ring takes 2 stages of
+// 128-key tiles (192 KB with Q and the staged O). 3 stages of 64-key tiles
+// (160 KB) ran 14 % slower: an m64n64k16 Q K^T step reads 4 KB of shared
+// memory per 32 clocks of math, all the SM's 128 bytes a clock.
+//
+// B2 in fp32 (F32SplitPlan) takes them too: split K / V^T rings of
+// F32Plan's tiles and O staged in 16 KB a consumer, 64 fp32 columns a
+// round (two rounds). It reads q as the caller gave it: after an item's Q
+// lands each consumer rounds its 64 rows to tf32 in shared memory, in place
+// (round_tf32_shared, the pre-pass's bits), fences them into the async
+// proxy and meets its warpgroup at a named barrier before its first wgmma.
+// The pre-pass then reads and writes only k and V^T: with q's pass B2's
+// bytes alone (4 x 286 MB at the flagship shape) bound it above its
+// operations.//
 // fp32 at D = 128 runs F32Plan (hopper_attention.cuh): Q 64 KB, 64-key K
 // tiles and 64-key V^T tiles of 32 KB in a ring of 2 stages; S over 64
 // keys by wgmma m64n64k8 (tf32), P.V by m64n128k8 with P from registers
@@ -116,9 +136,13 @@ constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 128 bytes
 
 // B1 and B2 at head dim 256: split K / V rings (D256Plan), 80-key tiles for
-// B1, 64-key tiles and O staged for TMA stores for B2 (see the note above).
+// B1, 64-key tiles and O staged for TMA stores for B2; B2 at head dim 128,
+// bf16 and fp32: split rings and O staged, fp32 rounding Q itself (see the
+// note above).
 using B1Plan256 = D256Plan<80>;
 using B2Plan256 = D256Plan<64, true>;
+using B2Plan128 = SplitPlan<128, 128, 2, true>;
+using B2PlanF32 = F32SplitPlan;
 
 struct Params {
   const int* k_len;  // [B] or null
@@ -151,8 +175,8 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   return w;
 }
 
-// One CTA of B1 / B2 on the plan S (Bf16Plan<kD> or F32Plan). In fp32, tv
-// maps the V^T workspace.
+// One CTA of B1 / B2 on the plan S (Bf16Plan<kD>, SplitPlan, F32Plan or
+// F32SplitPlan). In fp32, tv maps the V^T workspace.
 template <typename S, int kMaxKeys>
 __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                                               const CUtensorMap* tk,
@@ -214,8 +238,19 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
             mbar_wait(v ? empty(s) : k_empty(s), (g / kStages - 1) & 1);
           const uint32_t full = v ? v_full(s) : k_full(s);
           mbar_arrive_expect_tx(full, kKVBytes);
-          tma_load_span_tile<kSpans, kBN, 64, S::kKVBox>(
-              (v ? v_s : k_s) + s * kKVBytes, v ? tv : tk, full, h, row0, b);
+          if constexpr (S::kF32) {
+            // V^T [B, D, H, Lkp]: the tile's keys as columns, all kD rows
+            if (v)
+              tma_load_span_tile<kBN / 32, kD, 32>(v_s + s * kKVBytes, tv,
+                                                   full, h, 0, b, row0);
+            else
+              tma_load_span_tile<kSpans, kBN, 32, S::kKVBox>(
+                  k_s + s * kKVBytes, tk, full, h, row0, b);
+          } else {
+            tma_load_span_tile<kSpans, kBN, 64, S::kKVBox>(
+                (v ? v_s : k_s) + s * kKVBytes, v ? tv : tk, full, h, row0,
+                b);
+          }
         };
         int it = 0, n = 0, vh = -1, vrow = 0, vb = 0;   // V of tile it - 1
         for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
@@ -270,10 +305,10 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int quad = lane & 3;
     const uint32_t q_c = q_s + c * 64 * 128;   // its rows, in each span
-    // The descriptor of an operand `off` bytes past `base`. D256Plan adds
-    // the offset to the base's descriptor, one a product: its S, P and O
-    // leave no room for a descriptor a k-step held across the loop (ptxas
-    // spilled at 80 keys).
+    // The descriptor of an operand `off` bytes past `base`. The split-ring
+    // plans add the offset to the base's descriptor, one a product: at 256
+    // S, P and O leave no room for a descriptor a k-step held across the
+    // loop (ptxas spilled at 80 keys).
     auto desc = [](uint32_t base, uint32_t off, uint32_t lbo) -> uint64_t {
       if constexpr (S::kSplitRing)
         return sw128_desc(base, lbo, 1024) + (off >> 4);
@@ -309,8 +344,7 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
         if constexpr (S::kF32) {
           wgmma_m64n128k8_tf32_rs(
               o[0], p[kk],
-              sw128_desc(vs + (kk >> 2) * S::kVtSpanBytes + (kk & 3) * 32, 16,
-                         1024));
+              desc(vs, (kk >> 2) * S::kVtSpanBytes + (kk & 3) * 32, 16));
         } else {
 #pragma unroll
           for (int h = 0; h < kD / 128; ++h)
@@ -366,6 +400,15 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       // warpgroup's softmax of S_t waits for it (the accumulator takes its
       // rescale only once P_{t-1} V_{t-1} has landed).
       mbar_wait(q_full, n & 1);
+      if constexpr (S::kRoundQ) {
+        // this warpgroup's 64 rows of Q (8 KB of each 32-column span)
+        // rounded to tf32 in place, then made visible to wgmma's reads
+#pragma unroll
+        for (int span = 0; span < kSpans; ++span)
+          round_tf32_shared(q_c + span * S::kQSpanBytes + 16 * tid, 2048);
+        fence_proxy_async();
+        named_barrier(1 + c, 128);
+      }
       mbar_wait(k_full(it % kStages), (it / kStages) & 1);
       wgmma_fence();
       issue_qk(sc, it % kStages);
@@ -417,8 +460,9 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       // contiguous bytes of a row, rows at or past Lq not written
       l_a = quad_sum(l_a);
       l_b = quad_sum(l_b);
-      // D256Plan scales by 1 / sum (a division a row, not an element:
-      // 128 fewer divisions a thread, which B2's short items feel)
+      // the split-ring plans scale by 1 / sum (a division a row, not an
+      // element: up to 128 fewer divisions a thread, which B2's short items
+      // feel)
       float inv_a = 0.f, inv_b = 0.f;
       if constexpr (S::kSplitRing) {
         inv_a = 1.f / l_a;
@@ -431,32 +475,53 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
           return x / l;
       };
       if constexpr (S::kStageO) {
-        // each 128-column half through this consumer's 16 KB of shared
-        // memory (two [64 rows, 64 columns] spans, 128-byte swizzle) and
-        // two TMA stores, which write whole 128-byte rows and clip rows
-        // past Lq; the half waits until the stores before it have read
-        // the buffer
+        // O through this consumer's 16 KB of shared memory, a round at a
+        // time: two [64 rows, 128 bytes] spans (128-byte swizzle) filled
+        // from registers, then two TMA stores, which write whole 128-byte
+        // rows and clip rows past Lq. A round is a 128-column half of O in
+        // bf16 and 64 columns in fp32; it waits until the stores before it
+        // have read the buffer.
         const uint32_t os = o_s + c * 16384;
         const int rl = warp * 16 + (lane >> 2);   // row a; row b is rl + 8
+        constexpr int kRounds = S::kF32 ? kD / 64 : kD / 128;
 #pragma unroll
-        for (int h = 0; h < kD / 128; ++h) {
+        for (int h = 0; h < kRounds; ++h) {
           if (tid == 0) bulk_wait_all<true>();
           named_barrier(1 + c, 128);
+          if constexpr (S::kF32) {
+            // columns 64h + 8j + 2 quad (+1): 32 bytes a block of 8, so
+            // chunk 2 (j % 4) + quad / 2 of span j / 4, 8 bytes at 8 (quad
+            // % 2)
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const uint32_t at = os + (j >> 3) * 8192 + rl * 128 +
-                                (((j & 7) ^ (rl & 7)) << 4) + 4 * quad;
-            st_shared_u32(at, pack_bf16(o[h][4 * j] * inv_a,
-                                        o[h][4 * j + 1] * inv_a));
-            st_shared_u32(at + 8 * 128, pack_bf16(o[h][4 * j + 2] * inv_b,
-                                                  o[h][4 * j + 3] * inv_b));
+            for (int j = 0; j < 8; ++j) {
+              const int jo = 8 * h + j;               // o's block of 8
+              const uint32_t at =
+                  os + (j >> 2) * 8192 + rl * 128 +
+                  (((2 * (j & 3) + (quad >> 1)) ^ (rl & 7)) << 4) +
+                  8 * (quad & 1);
+              st_shared_v2_f32(at, o[0][4 * jo] * inv_a,
+                               o[0][4 * jo + 1] * inv_a);
+              st_shared_v2_f32(at + 8 * 128, o[0][4 * jo + 2] * inv_b,
+                               o[0][4 * jo + 3] * inv_b);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const uint32_t at = os + (j >> 3) * 8192 + rl * 128 +
+                                  (((j & 7) ^ (rl & 7)) << 4) + 4 * quad;
+              st_shared_u32(at, pack_bf16(o[h][4 * j] * inv_a,
+                                          o[h][4 * j + 1] * inv_a));
+              st_shared_u32(at + 8 * 128,
+                            pack_bf16(o[h][4 * j + 2] * inv_b,
+                                      o[h][4 * j + 3] * inv_b));
+            }
           }
           fence_proxy_async();
           named_barrier(1 + c, 128);
           if (tid == 0) {
-            tma_store_4d(to, os, 128 * h, w.h, w.q0 + 64 * c, w.b);
-            tma_store_4d(to, os + 8192, 128 * h + 64, w.h, w.q0 + 64 * c,
-                         w.b);
+            tma_store_4d(to, os, 2 * S::kCols * h, w.h, w.q0 + 64 * c, w.b);
+            tma_store_4d(to, os + 8192, 2 * S::kCols * h + S::kCols, w.h,
+                         w.q0 + 64 * c, w.b);
             bulk_commit();
           }
         }
@@ -559,7 +624,9 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
               : make_bl_hd_map(&tq, q, B, Lq, H, kD, kBoxRows) &&
                     make_bl_hd_map(&tk, k, B, Lk, H, kD, P::kKVBox) &&
                     make_bl_hd_map(&tv, v, B, Lk, H, kD, P::kKVBox);
-  if (!ok || (P::kStageO && !make_bl_hd_map(&to, o, B, Lq, H, kD, kBoxRows)))
+  if (!ok || (P::kStageO &&
+              !(P::kF32 ? make_bl_hd_map_f32(&to, o, B, Lq, H, kD, kBoxRows)
+                        : make_bl_hd_map(&to, o, B, Lq, H, kD, kBoxRows))))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -604,9 +671,8 @@ int dispatch(bool single_kv, const void* q, const void* k, const void* v,
   if (bad_shape(B, H, Lq, Lk, D, o)) return (int)cudaErrorInvalidValue;
   if (D == 128)
     return single_kv
-               ? launch<Bf16Plan<128>>(single_kv_kernel<Bf16Plan<128>>, q, k,
-                                       v, o, k_len, B, H, Lq, Lk, scale_log2,
-                                       stream)
+               ? launch<B2Plan128>(single_kv_kernel<B2Plan128>, q, k, v, o,
+                                   k_len, B, H, Lq, Lk, scale_log2, stream)
                : launch<Bf16Plan<128>>(flash_kernel<Bf16Plan<128>>, q, k, v,
                                        o, k_len, B, H, Lq, Lk, scale_log2,
                                        stream);
@@ -626,25 +692,29 @@ int dispatch(bool single_kv, const void* q, const void* k, const void* v,
 
 // fp32 B1 or B2 at head dim D: the pre-pass into qw, kw ([B, L, H, D] like
 // q and k) and vt ([B, D, H, Lkp], Lkp = Lk rounded up to kKeyPad), then
-// F32Plan at D = 128 or the wide design's fp32 dense mode above it.
+// F32Plan at D = 128 or the wide design's fp32 dense mode above it. B2 at
+// D = 128 (B2PlanF32) rounds q in shared memory: it reads q itself, skips
+// q's pass and takes no qw (it may be null).
 int dispatch_f32(bool single_kv, const void* q, const void* k, const void* v,
                  void* qw, void* kw, void* vt, void* o, const void* k_len,
                  int B, int H, int Lq, int Lk, int D, float scale_log2,
                  void* stream) {
+  const bool round_q = !(single_kv && D == 128);
   if (bad_shape(B, H, Lq, Lk, D, o) || (long long)B * H > 65535 ||
-      misaligned16(q, k, v, qw, kw, vt))
+      misaligned16(q, k, v, qw, kw, vt) || (round_q && !qw))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Lkp = padded_keys(Lk);
-  round_tf32_async(q, qw, (long long)B * Lq * H * D, st);
+  if (round_q) round_tf32_async(q, qw, (long long)B * Lq * H * D, st);
   round_tf32_async(k, kw, (long long)B * Lk * H * D, st);
   transpose_v_async(v, vt, B, H, Lk, D, Lkp, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (D == 128)
     return single_kv
-               ? launch<F32Plan>(single_kv_kernel<F32Plan>, qw, kw, vt, o,
-                                 k_len, B, H, Lq, Lk, scale_log2, stream, Lkp)
+               ? launch<B2PlanF32>(single_kv_kernel<B2PlanF32>, q, kw, vt, o,
+                                   k_len, B, H, Lq, Lk, scale_log2, stream,
+                                   Lkp)
                : launch<F32Plan>(flash_kernel<F32Plan>, qw, kw, vt, o, k_len,
                                  B, H, Lq, Lk, scale_log2, stream, Lkp);
   const wide::Params a = wide_params(k_len, o, B, H, Lq, Lk, D, scale_log2);
@@ -674,10 +744,17 @@ int flexam_attention_smem_bytes() { return (int)Bf16Plan<128>::kSmemBytes; }
 // The same for bf16 B1 (single_kv 0) or B2 (1) at head dim d, 128 or 256;
 // 0 for any other d.
 int flexam_attention_smem_bytes_at(int d, int single_kv) {
-  if (d == 128) return (int)Bf16Plan<128>::kSmemBytes;
+  if (d == 128)
+    return (int)(single_kv ? B2Plan128::kSmemBytes
+                           : Bf16Plan<128>::kSmemBytes);
   if (d == 256)
     return (int)(single_kv ? B2Plan256::kSmemBytes : B1Plan256::kSmemBytes);
   return 0;
+}
+
+// The same for fp32 B1 (single_kv 0) or B2 (1) at head dim 128.
+int flexam_attention_smem_bytes_f32(int single_kv) {
+  return (int)(single_kv ? B2PlanF32::kSmemBytes : F32Plan::kSmemBytes);
 }
 
 // B2 in bf16 (Lk <= 512). Returns a cudaError_t.
@@ -700,7 +777,8 @@ int flexam_flash_attention_f32(const void* q, const void* k, const void* v,
                       scale_log2, stream);
 }
 
-// B2 in fp32 (Lk <= 512), with B1's workspaces. Returns a cudaError_t.
+// B2 in fp32 (Lk <= 512), with B1's workspaces; at D = 128 qw is not used
+// and may be null. Returns a cudaError_t.
 int flexam_single_kv_attention_f32(const void* q, const void* k, const void* v,
                                    void* qw, void* kw, void* vt, void* o,
                                    const void* k_len, int B, int H, int Lq,

@@ -4,8 +4,8 @@
 // Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
 // (int8_attention.cu), in bf16 and fp32. Outputs leave by plain stores
 // from registers: a persistent CTA frees its Q buffer for the next item's
-// load instead of staging the output there (B2 at head dim 256 stages O in
-// room of its own for TMA stores, tma_store_4d).
+// load instead of staging the output there (B2 at head dims 128 and 256 and
+// in fp32 stages O in room of its own for TMA stores, tma_store_4d).
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
 // is D / 64 column spans of [rows, 64] (128 bytes a row), one after
@@ -45,12 +45,13 @@ using attn::quad_sum;
 // stages beside Q: 64 keys and 2 stages), each tile kD / 64 spans of 64
 // columns (128-byte rows); Q K^T in kD / 16 wgmma steps of 16 (32 bytes),
 // P.V in steps of 16 keys. K and V of a stage share one empty barrier.
-// B5 and B6 run it at 128 and 256, B1 and B2 at 128 (at 256 they run
-// D256Plan below).
+// B5 and B6 run it at 128 and 256, B1 at 128 (B1 at 256 and B2 at 128 and
+// 256 run SplitPlan below).
 template <int kD_>
 struct Bf16Plan {
   static constexpr bool kF32 = false;
   static constexpr bool kSplitRing = false;
+  static constexpr bool kRoundQ = false;
   static constexpr bool kStageO = false;
   static constexpr uint32_t kOStageBytes = 0;
   static constexpr int kD = kD_;
@@ -71,24 +72,32 @@ struct Bf16Plan {
   static constexpr int kPVKeys = 16;               // keys a P.V step
 };
 
-// B1 and B2 in bf16 at head dim 256: kBN keys a K/V tile (80 for B1, 64
-// for B2), K and V each in a ring of 2 stages with its own empty barriers
-// (kSplitRing), so a K slot frees as soon as its Q K^T has landed and a V
-// slot once its P.V has. Q 64 KB + 2 x (K + V) of kBN * 512 bytes: 224 KB
-// at 80 keys; at 64, 192 KB and 32 KB for O staged for TMA stores
-// (kStageO, B2). A K/V span is one TMA box of kBN rows (kKVBox). S over
-// kBN keys is an m64n(kBN) fragment: O 128 + S 40 + P 20 registers at 80.
-template <int kBN_, bool kStageO_ = false>
-struct D256Plan {
+// Room for O staged for TMA stores (kStageO): 16 KB a consumer, two
+// [64 rows, 128 bytes] spans, which a round of the epilogue fills and two
+// TMA stores empty (128 bf16 or 64 fp32 columns a round).
+constexpr uint32_t kOStageRoom = 2 * 2 * 64 * 128;
+
+// B1 and B2 in bf16 with K and V in rings of their own (kSplitRing): kBN
+// keys a K/V tile, each ring kStages stages with its own empty barriers, so
+// a K slot frees as soon as its Q K^T has landed and a V slot once its P.V
+// has. A K/V span is one TMA box of kBN rows (kKVBox). S over kBN keys is
+// an m64n(kBN) fragment. kStageO: O leaves through kOStageRoom of shared
+// memory by TMA stores. Instances (flash_attention.cu):
+//  * B1 at 256, SplitPlan<256, 80, 2>: Q 64 KB + 2 x (K + V of 40 KB),
+//    224 KB; O 128 + S 40 + P 20 registers;
+//  * B2 at 256, SplitPlan<256, 64, 2, true>: 192 KB and 32 KB of O;
+//  * B2 at 128, SplitPlan<128, 128, 2, true>: Q 32 KB, 2 stages of
+//    128-key tiles (K + V 64 KB a stage) and 32 KB of O, 192 KB.
+template <int kD_, int kBN_, int kStages_, bool kStageO_ = false>
+struct SplitPlan {
   static constexpr bool kF32 = false;
   static constexpr bool kSplitRing = true;
-  // the epilogue writes O through shared memory and TMA stores: 16 KB a
-  // consumer, a 128-column half at a time
+  static constexpr bool kRoundQ = false;
   static constexpr bool kStageO = kStageO_;
-  static constexpr uint32_t kOStageBytes = kStageO ? 2 * 64 * 128 * 2 : 0;
-  static constexpr int kD = 256;
+  static constexpr uint32_t kOStageBytes = kStageO ? kOStageRoom : 0;
+  static constexpr int kD = kD_;
   static constexpr int kBN = kBN_;
-  static constexpr int kStages = 2;
+  static constexpr int kStages = kStages_;
   static constexpr int kSpans = kD / 64;
   static constexpr int kCols = 64;
   static constexpr int kKVBox = kBN;               // TMA box rows of K and V
@@ -102,10 +111,14 @@ struct D256Plan {
       1024 + kQBytes + 2 * kStages * kKVBytes + kOStageBytes + kBarBytes;
   static constexpr int kQKSteps = kD / 16;
   static constexpr int kPVKeys = 16;
-  static_assert(kBN % 16 == 0 && kKVSpanBytes % 1024 == 0,
-                "whole P.V steps; 1024-byte aligned spans");
+  static_assert(kBN % 16 == 0 && kKVSpanBytes % 1024 == 0 && kBN <= 256,
+                "whole P.V steps; 1024-byte aligned spans; one TMA box");
   static_assert(kSmemBytes <= 232448, "one CTA an SM");
 };
+
+// B1 and B2 at head dim 256: 2 stages of kBN-key tiles
+template <int kBN, bool kStageO = false>
+using D256Plan = SplitPlan<256, kBN, 2, kStageO>;
 
 // fp32 at D = 128 (TF32): the same bytes as bf16 at 256 (a 128-byte span
 // holds 32 fp32). Q [128, 128] as four 32-column spans (64 KB), K tiles
@@ -114,10 +127,11 @@ struct D256Plan {
 // tf32_prep.cuh) in a ring of 2 stages. S over 64 keys is 16 steps of
 // wgmma m64n64k8 (32 bytes of D a step, as bf16's k16); P.V 8 steps of
 // m64n128k8 with P from registers (probs_to_a_tf32). A consumer holds O
-// (64), S (32) and P (32) registers.
+// (64), S (32) and P (32) registers. B1 and B5 run it.
 struct F32Plan {
   static constexpr bool kF32 = true;
   static constexpr bool kSplitRing = false;
+  static constexpr bool kRoundQ = false;
   static constexpr bool kStageO = false;
   static constexpr uint32_t kOStageBytes = 0;
   static constexpr int kD = 128;
@@ -139,6 +153,22 @@ struct F32Plan {
 };
 static_assert(F32Plan::kKVBytes == (F32Plan::kBN / 32) * F32Plan::kVtSpanBytes,
               "a V^T tile fills a K tile's stage");
+
+// B2 in fp32 at D = 128: F32Plan's tiles with K and V^T in rings of their
+// own (kSplitRing, as SplitPlan's), O staged for TMA stores in kOStageRoom
+// (a consumer's 32 KB of fp32 O in two rounds of 64 columns), and Q read
+// as the caller gave it and rounded to tf32 in shared memory by the
+// consumers (kRoundQ: no pre-pass over q, B2's largest operand). 225 KB.
+struct F32SplitPlan : F32Plan {
+  static constexpr bool kSplitRing = true;
+  static constexpr bool kRoundQ = true;
+  static constexpr bool kStageO = true;
+  static constexpr uint32_t kOStageBytes = kOStageRoom;
+  static constexpr uint32_t kBarBytes = 8 * (2 + 4 * kStages);
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kOStageBytes + kBarBytes;
+  static_assert(kSmemBytes <= 232448, "one CTA an SM");
+};
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -325,6 +355,12 @@ __device__ __forceinline__ void named_barrier(int id, int n) {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2_f32(uint32_t addr, float x,
+                                                 float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y) : "memory");
 }
 
 template <int kSpans, int kRows>
@@ -742,6 +778,40 @@ __device__ __forceinline__ uint32_t round_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r & 0xffffe000u;
+}
+
+// The 64 bytes at addr, addr + stride, addr + 2 stride, addr + 3 stride
+// (16 each) of shared memory rounded to tf32 in place, as round_tf32 rounds
+// (the pre-pass's bits): four loads, then four stores.
+__device__ __forceinline__ void round_tf32_shared(uint32_t addr,
+                                                  uint32_t stride) {
+  float x[16];
+  asm volatile(
+      "ld.shared.v4.f32 {%0, %1, %2, %3}, [%16];\n"
+      "ld.shared.v4.f32 {%4, %5, %6, %7}, [%17];\n"
+      "ld.shared.v4.f32 {%8, %9, %10, %11}, [%18];\n"
+      "ld.shared.v4.f32 {%12, %13, %14, %15}, [%19];\n"
+      : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3]), "=f"(x[4]),
+        "=f"(x[5]), "=f"(x[6]), "=f"(x[7]), "=f"(x[8]), "=f"(x[9]),
+        "=f"(x[10]), "=f"(x[11]), "=f"(x[12]), "=f"(x[13]), "=f"(x[14]),
+        "=f"(x[15])
+      : "r"(addr), "r"(addr + stride), "r"(addr + 2 * stride),
+        "r"(addr + 3 * stride)
+      : "memory");
+  uint32_t r[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) r[i] = round_tf32(x[i]);
+  asm volatile(
+      "st.shared.v4.b32 [%0], {%4, %5, %6, %7};\n"
+      "st.shared.v4.b32 [%1], {%8, %9, %10, %11};\n"
+      "st.shared.v4.b32 [%2], {%12, %13, %14, %15};\n"
+      "st.shared.v4.b32 [%3], {%16, %17, %18, %19};\n"
+      ::"r"(addr), "r"(addr + stride), "r"(addr + 2 * stride),
+        "r"(addr + 3 * stride), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]),
+        "r"(r[4]), "r"(r[5]), "r"(r[6]), "r"(r[7]), "r"(r[8]), "r"(r[9]),
+        "r"(r[10]), "r"(r[11]), "r"(r[12]), "r"(r[13]), "r"(r[14]),
+        "r"(r[15])
+      : "memory");
 }
 
 // Probabilities of a 64 x 2N fragment as the tf32 A fragments of the P.V

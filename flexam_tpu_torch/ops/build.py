@@ -42,6 +42,7 @@ SIGNATURES = {
                                        _I, _I, _I, _I, _F, _P],
     "flexam_attention_smem_bytes": [],
     "flexam_attention_smem_bytes_at": [_I, _I],
+    "flexam_attention_smem_bytes_f32": [_I],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flexam_rmsnorm_rope_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _P],

@@ -8,7 +8,8 @@ Port of `flexam_tpu/ops/flash_attention.py`. The CUDA kernels live in
   * B2 `single_kv_attention` — at most 512 keys (the TPU
     `_single_kv_kernel`, which the TPU wrapper takes when one key block
     covers every key: the DiT's cross-attention over 512 text tokens); on
-    the card, B1's kernel bounded to 4 key tiles.
+    the card, B1's kernel bounded to 512 keys (at head dims 128 and 256
+    with K and V in rings of their own and O written by TMA stores).
 
 Both are Hopper kernels (TMA loads into an mbarrier ring, wgmma, a producer
 warp beside two consumer warpgroups); `csrc/flash_attention.cu` says how.
@@ -23,7 +24,8 @@ counterpart of the TPU's default fp32 matmul precision, whatever
 larger multiple the wide design. fp32 runs a pre-pass
 (`csrc/tf32_prep.cuh`, shared with B5 and B6) that rounds q and k to tf32
 and writes V^T (rounded) into workspaces allocated here. B5 and B6 take the
-same dtypes and name their instances alike. A CUDA tensor launches the
+same dtypes and name their instances alike. B2 at head dim 128 in fp32
+rounds q itself (no q workspace). A CUDA tensor launches the
 kernel or raises; a CPU tensor takes `attention_plain`, which mirrors the
 JAX math
 (`core/attention.py:xla_attention`: fp32 logits and softmax, probabilities
@@ -190,11 +192,15 @@ def _launch(entry, name, q, k, v, k_len, scale):
     tail = (k_len.data_ptr() if k_len is not None else None,
             b, h, lq, lk, d, float(scale) * LOG2E, build.stream_handle(q))
     if q.dtype == torch.float32:
-        # the pre-pass's outputs: q and k rounded to tf32, V^T rounded
-        qw, kw, vt = torch.empty_like(q), torch.empty_like(k), vt_workspace(v)
+        # the pre-pass's outputs: q and k rounded to tf32, V^T rounded; B2
+        # at head dim 128 rounds q in shared memory and takes no q workspace
+        qw = None if (entry == "flexam_single_kv_attention" and d == 128) \
+            else torch.empty_like(q)
+        kw, vt = torch.empty_like(k), vt_workspace(v)
         err = getattr(build.library(), entry + "_f32")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(),
-            kw.data_ptr(), vt.data_ptr(), out.data_ptr(), *tail)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if qw is None else qw.data_ptr(), kw.data_ptr(),
+            vt.data_ptr(), out.data_ptr(), *tail)
     else:
         err = getattr(build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)

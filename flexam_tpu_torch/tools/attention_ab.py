@@ -22,7 +22,8 @@ prints one JSON line per result:
     other tree's. A kernel instantiated for several row widths (B3, B4) is
     reported at the flagship width's instantiation (`FLAGSHIP_NV`), one
     instantiated for several head dims (B1, B2, B5, B6) at head dim 128,
-    and again at head dim 256 (`<kernel><256>`, `D256_KERNELS`);
+    and again at head dim 256 (`<kernel><256>`, `D256_KERNELS`); B1 and B2
+    also in fp32 (`<kernel><f32>`, `F32_KERNELS`);
   * "within_bound": each build's output held to the plain version by the
     kernel's check in `testing` (the designs sum in different orders, so
     their outputs are compared with the bound, not bit for bit), with the
@@ -49,10 +50,12 @@ prints one JSON line per result:
     strided views of a [B, 2, 6, D] modulation tensor where the tree's
     entry point takes strides, contiguous copies (made once) where it does
     not;
-  * "sweep": each tree's B2 and SDPA at head dim 256 (q [2, 11648, 12,
-    256]) over 64 to 512 keys in steps of 64 (`device_ms` each), so that
-    a fit of time against key tiles splits a work item's fixed cost from a
-    tile's;
+  * "sweep": each tree's B2 and SDPA over 64 to 512 keys in steps of 64
+    (`device_ms` each) at head dim 256 ("d256": q [2, 11648, 12, 256]) and
+    at head dim 128 in bf16 ("d128") and fp32 ("f32": q [2, 11648, 24,
+    128]), and each leg's least-squares line through its 8 times
+    ("sweep_fit": `sweep_fit`), which splits a work item's fixed cost from
+    the cost of 64 more keys;
 
 then the nvidia-smi name and power limit. `--cases` keeps the timed
 cases whose names hold one of its words (all by default; the sweep always
@@ -108,6 +111,8 @@ KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
 # the attention kernels reported again at their head-dim-256 instance
 D256_KERNELS = ("flash_kernel", "single_kv_kernel", "sparse_attention_kernel",
                 "int8_attention_kernel")
+# and at their fp32 (head dim 128) instance
+F32_KERNELS = ("flash_kernel", "single_kv_kernel")
 # the row kernels' instantiation at the flagship width (3072 features: 12
 # 16-byte vectors a lane)
 FLAGSHIP_NV = 12
@@ -160,8 +165,9 @@ def takes_counter(root: Path) -> bool:
 def kernel_label(symbol: str):
     """The kernel of KERNELS a (mangled) symbol names, with its template
     argument where it has one: an int ("ln_mod_kernel<12>"), the head dim
-    of a bf16 plan ("flash_kernel<128>"; B1/B2's `D256Plan<keys>` is
-    "<256>"), or "f32" for an fp32 instance ("flash_kernel<f32>",
+    of a bf16 plan ("flash_kernel<128>"; `SplitPlan<d, ...>` is "<d>",
+    `D256Plan<keys>` of trees before it "<256>"), or "f32" for an fp32
+    instance ("flash_kernel<f32>", `F32SplitPlan` too,
     "flash_wide_kernel<f32>"); None for any other symbol."""
     for k in KERNELS:
         i = symbol.find(k)
@@ -170,12 +176,14 @@ def kernel_label(symbol: str):
             nv = re.match(r"ILi(\d+)E", rest)
             if nv:
                 return f"{k}<{nv.group(1)}>"
-            plan = re.match(r"I\w*?(Bf16Plan|F32Plan|D256Plan)(?:ILi(\d+)E)?",
-                            rest)
+            plan = re.match(r"I\w*?(Bf16Plan|F32SplitPlan|F32Plan|D256Plan"
+                            r"|SplitPlan)(?:ILi(\d+)E)?", rest)
             if plan:
-                return {"Bf16Plan": f"{k}<{plan.group(2)}>",
-                        "D256Plan": f"{k}<256>"}.get(plan.group(1),
-                                                     f"{k}<f32>")
+                name = plan.group(1)
+                if name.startswith("F32"):
+                    return f"{k}<f32>"
+                return f"{k}<256>" if name == "D256Plan" \
+                    else f"{k}<{plan.group(2)}>"
             return f"{k}<f32>" if rest.startswith("ILb1E") else k
     return None
 
@@ -282,14 +290,26 @@ SMEM_EXPORTS = {"flash_kernel": "flexam_attention_smem_bytes",
 def dynamic_smem(dll, kernel: str) -> int | None:
     """Dynamic shared memory a CTA of `kernel` takes, where the library
     says (trees before the Hopper designs use static shared memory only;
-    B5's CTA takes B1's). "flash_kernel<256>" / "single_kv_kernel<256>":
-    from `flexam_attention_smem_bytes_at` where the library has it."""
-    if kernel in ("flash_kernel<256>", "single_kv_kernel<256>"):
+    B5's CTA takes B1's). B2 ("single_kv_kernel", at head dim 128) and
+    "flash_kernel<256>" / "single_kv_kernel<256>": from
+    `flexam_attention_smem_bytes_at` where the library has it; the fp32
+    "flash_kernel<f32>" / "single_kv_kernel<f32>" from
+    `flexam_attention_smem_bytes_f32`."""
+    single_kv = int(kernel.startswith("single_kv"))
+    if kernel in ("single_kv_kernel", "flash_kernel<256>",
+                  "single_kv_kernel<256>"):
         fn = getattr(dll, "flexam_attention_smem_bytes_at", None)
+        if fn is not None:
+            fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+            return fn(256 if kernel.endswith("<256>") else 128, single_kv)
+        if kernel.endswith("<256>"):
+            return None
+    if kernel in ("flash_kernel<f32>", "single_kv_kernel<f32>"):
+        fn = getattr(dll, "flexam_attention_smem_bytes_f32", None)
         if fn is None:
             return None
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        return fn(256, int(kernel.startswith("single_kv")))
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        return fn(single_kv)
     fn = getattr(dll, SMEM_EXPORTS.get(kernel, ""), None)
     if fn is None:
         return None
@@ -376,15 +396,34 @@ def row_launcher(dll, root: Path, entry: str, source: str, values: dict):
 
 def resources(res_ops: dict, ptxas: dict, keys: dict, dll) -> dict:
     """One tree's "resources": each of KERNELS at its flagship
-    instantiation, and D256_KERNELS again at head dim 256."""
+    instantiation, D256_KERNELS again at head dim 256 and F32_KERNELS in
+    fp32."""
     names = [(k, flagship) for k in KERNELS] + [
-        (f"{k}<256>", lambda by, key: by.get(key)) for k in D256_KERNELS]
+        (f"{k}<{t}>", lambda by, key: by.get(key))
+        for t, ks in (("256", D256_KERNELS), ("f32", F32_KERNELS))
+        for k in ks]
     return {k: {"ptxas": pick(ptxas, k),
                 "dynamic_smem_bytes": dynamic_smem(dll, k),
                 "key_opcodes": pick(keys, k),
                 "wide_accesses": wide_accesses(pick(res_ops, k) or {}),
                 "sass_instructions": sum((pick(res_ops, k) or {}).values())}
             for k, pick in names}
+
+
+def sweep_fit(times: dict, items_per_sm: float) -> dict:
+    """The least-squares line through one leg's sweep, `times` {keys: ms}:
+    its value at 0 keys (the fixed cost) and its slope per 64 keys, in ms
+    and in µs of one work item (the ms over the items a persistent CTA
+    walks, `items_per_sm` on average)."""
+    xs = [k / 64 for k in times]
+    ys = list(times.values())
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    slope = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) \
+        / sum((x - mx) ** 2 for x in xs)
+    fixed = my - slope * mx
+    return {"fixed_ms": fixed, "per_64_keys_ms": slope,
+            "fixed_us_an_item": fixed * 1e3 / items_per_sm,
+            "per_64_keys_us_an_item": slope * 1e3 / items_per_sm}
 
 
 def attention_bound_ms(flops: float, nbytes: float, peak: float) -> float:
@@ -421,7 +460,8 @@ def main() -> int:
     for label in trees:
         if label == first:
             continue
-        for k in [*KERNELS, *(f"{k}<256>" for k in D256_KERNELS)]:
+        for k in [*KERNELS, *(f"{k}<256>" for k in D256_KERNELS),
+                  *(f"{k}<f32>" for k in F32_KERNELS)]:
             a = flagship(res[first]["_ops"], k) or {}
             b = flagship(res[label]["_ops"], k) or {}
             diff.setdefault(label, {})[k] = {
@@ -656,14 +696,23 @@ def main() -> int:
     del x
     attention_rows("d256/", H // 2, 2 * D, torch.bfloat16, PEAK_BF16_FLOPS)
     attention_rows("f32/", H, D, torch.float32, PEAK_TF32_FLOPS)
-    sweep = {}
-    q = randn(B, L, H // 2, 2 * D)
-    for lk in range(64, LT + 1, 64):
-        k, v = randn(B, lk, H // 2, 2 * D), randn(B, lk, H // 2, 2 * D)
-        runs = attention_case("flexam_single_kv_attention", q, k, v)[0]
-        sweep[lk] = {lb: device_ms(run) for lb, run in runs.items()}
-    del q, k, v
-    print(json.dumps({"sweep": sweep}), flush=True)
+    sweep, fits = {}, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, h, d, dtype in (("d256", H // 2, 2 * D, torch.bfloat16),
+                              ("d128", H, D, torch.bfloat16),
+                              ("f32", H, D, torch.float32)):
+        q = randn(B, L, h, d, dtype=dtype)
+        sweep[name] = {}
+        for lk in range(64, LT + 1, 64):
+            k, v = (randn(B, lk, h, d, dtype=dtype) for _ in range(2))
+            runs = attention_case("flexam_single_kv_attention", q, k, v)[0]
+            sweep[name][lk] = {lb: device_ms(run) for lb, run in runs.items()}
+        del q, k, v
+        items = -(-L // 128) * h * B
+        fits[name] = {lb: sweep_fit({lk: t[lb] for lk, t in sweep[name].items()},
+                                    items / sms)
+                      for lb in sweep[name][LT]}
+    print(json.dumps({"sweep": sweep, "sweep_fit": fits}), flush=True)
     print(json.dumps({"within_bound": within}), flush=True)
     print(json.dumps({"timing": timing}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -127,6 +127,19 @@ def test_attention_ab_reads_this_tree_s_counter():
      "EEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE", "single_kv_kernel<256>"),
     ("_ZN12_GLOBAL__N_116single_kv_kernelINS_7F32PlanEEEv14CUtensorMap_stS2_"
      "S2_NS_6ParamsE", "single_kv_kernel<f32>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper9SplitPlanILi128ELi1"
+     "28ELi2ELb1EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE",
+     "single_kv_kernel<128>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper9SplitPlanILi128ELi6"
+     "4ELi3ELb1EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE",
+     "single_kv_kernel<128>"),
+    ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper9SplitPlanILi256ELi80ELi"
+     "2ELb0EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE", "flash_kernel<256>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper9SplitPlanILi256ELi6"
+     "4ELi2ELb1EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE",
+     "single_kv_kernel<256>"),
+    ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper12F32SplitPlanEEEv1"
+     "4CUtensorMap_stS4_S4_S4_NS_6ParamsE", "single_kv_kernel<f32>"),
     ("_ZN12_GLOBAL__N_117flash_wide_kernelILb1EEEv14CUtensorMap_stS1_S1_N6"
      "flexam6hopper4wide6ParamsE", "flash_wide_kernel<f32>"),
     ("_ZN12_GLOBAL__N_117flash_wide_kernelILb0EEEv14CUtensorMap_stS1_S1_N6"
@@ -153,7 +166,8 @@ def test_attention_ab_reads_this_tree_s_counter():
 def test_attention_ab_labels_kernels(symbol, label):
     """Mangled symbols map to their kernel, a template with its row-vector
     count (the row kernels are instantiated for several widths), the head
-    dim of its bf16 plan, or "f32" for an fp32 instance."""
+    dim of its bf16 plan (`SplitPlan`'s first argument), or "f32" for an
+    fp32 instance (`F32SplitPlan` too)."""
     from flexam_tpu_torch.tools import attention_ab
     assert attention_ab.kernel_label(symbol) == label
 

@@ -767,6 +767,97 @@ def test_d256_rings_cross_items(dev, kernel, lk, k_len):
                     f"{kernel} d256 across items")
 
 
+# B2 at head dim 128 runs plans of its own (csrc/flash_attention.cu): bf16
+# on SplitPlan<128, ...> (128-key tiles), fp32 on F32SplitPlan (64-key
+# tiles), K and V (V^T) in rings of their own, O written through shared
+# memory by TMA stores, and fp32 rounding q in shared memory: key counts
+# around both tile widths' edges, k_len before, on and after them and 0,
+# ragged query tiles (rows past Lq clipped by the stores), and walks long
+# enough that the rings' stages and phases carry across work items
+@pytest.mark.parametrize("lq,lk,k_len", [
+    (130, 1, None),                  # one key
+    (63, 63, [63, 62]),              # one key short of a 64-key tile
+    (65, 64, [64, 63]),              # one 64-key tile
+    (1, 65, [65, 64]),               # one key past it; k_len on its edge
+    (130, 127, [127, 65]),           # one short of a 128-key tile
+    (63, 128, [128, 0]),             # one 128-key tile; k_len 0
+    (65, 129, [129, 128]),           # one key past it; k_len on its edge
+    (130, 300, [257, 127]),          # k_len one past / one short of edges
+    (1, 511, [511, 449]),            # one short of 512
+    (130, 512, [512, 384]),          # every key; k_len on a tile edge
+    (65, 512, [0, 385]),             # k_len 0; one past an edge
+])
+@DTYPES
+def test_single_kv_attention_d128_tiles(dev, lq, lk, k_len, dtype):
+    """B2 at head dim 128 on its split rings and staged O, bf16 and fp32,
+    from 1 key to its 512."""
+    q, k, v = _structured(dev, 2, lq, lk, 3, seed=132, dtype=dtype)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    before = fa.launches["single_kv_attention"]
+    got = fa.single_kv_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    assert fa.launches["single_kv_attention"] == before + 1
+    assert got.dtype == dtype
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl),
+                f"B2 d128 lk {lk}")
+
+
+@pytest.mark.parametrize("lk,k_len", [(512, [300, 129]), (63, None),
+                                      (200, [0, 65])])
+@DTYPES
+def test_single_kv_d128_rings_cross_items(dev, lk, k_len, dtype):
+    """B2 at head dim 128 with at least three work items for every
+    persistent CTA (one an SM): the split rings' stages and phases, the
+    staged O's buffer and, in fp32, the rounding of each item's Q carry
+    from item to item, through items of 1 to 8 key tiles and a ragged last
+    q tile."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, h = 2, 2
+    lq = 128 * -(-3 * sms // (b * h)) - 63
+    assert -(-lq // 128) * b * h >= 3 * sms
+    q, k, v = _structured(dev, b, lq, lk, h, seed=136, dtype=dtype)
+    kl = None if k_len is None else torch.tensor(k_len, device=dev)
+    got = fa.single_kv_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl),
+                "B2 d128 across items")
+
+
+def _tf32(t):
+    """t rounded to tf32 as the kernels round (cvt.rna: to nearest, ties
+    away from zero), as fp32."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_single_kv_f32_rounds_q_in_the_kernel(dev):
+    """B2 in fp32 at head dim 128 reads q as given and rounds it to tf32 in
+    shared memory: on q whose low 13 bits are set its output equals, bit
+    for bit, its output on q rounded as the pre-pass rounds; and it
+    allocates no q workspace (the call's peak holds the output, k's
+    workspace and V^T, not a second q)."""
+    _, k, v = _structured(dev, 2, 2000, 512, 4, seed=140,
+                          dtype=torch.float32)
+    # fp32 draws (_structured's are bf16 values, whose low 16 bits are 0)
+    q = _rand(dev, 2, 2000, 4, 128, seed=143, dtype=torch.float32)
+    assert bool(((q.view(torch.int32) & 0x1fff) != 0).float().mean() > 0.9)
+    rounded = _tf32(q)
+    assert not torch.equal(rounded, q)
+    got = fa.single_kv_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fa.single_kv_attention(rounded, k, v))
+    check_attention_tf32(got, fa.attention_plain(q, k, v), "B2 f32 q")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fa.single_kv_attention(q, k, v)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - base
+    q_bytes = q.numel() * 4
+    assert q_bytes <= grown < q_bytes + 4 * k.numel() * 4, grown
+    del out
+
+
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("b,lq,lk,k_len", [(2, 300, 300, None),
                                            (1, 2000, 2000, [777]),

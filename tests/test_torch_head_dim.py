@@ -3,13 +3,14 @@
 JAX's attention kernels take any head dim that is a multiple of 128, and so
 do the port's: B1, B2, B5 and B6 (their plain versions here, which a CPU
 tensor takes) against the Pallas kernels in interpret mode at head dims 256
-and 384; the dispatcher at 256 (the kernels, never the exact branch, equal
+and 384, and B2 at 128 on the edges of the card's tiles there; the dispatcher at 256 (the kernels, never the exact branch, equal
 to JAX's `attention()`); a DiT of two 256-wide heads against JAX's
 `dit_forward` with its Pallas B3/B4 in interpret mode; and the choice of
 kernel instance the card makes for each head dim.
 
 Inputs are made from numpy seeds and handed to both packages; fp32 is held
-at rtol 2e-4 / atol 2e-5.
+at rtol 2e-4 / atol 2e-5, bf16 (B2 at head dim 128) to `check_attention`'s
+bound.
 """
 
 import functools
@@ -32,6 +33,7 @@ from flexam_tpu_torch.io.convert import from_jax_params
 from flexam_tpu_torch.models import dit as tdit
 from flexam_tpu_torch.ops import int8_attention as T8
 from flexam_tpu_torch.ops import sparse_attention as TS
+from flexam_tpu_torch.testing import check_attention
 
 # the modules (each package's `ops.flash_attention` names the function)
 JF = importlib.import_module("flexam_tpu.ops.flash_attention")
@@ -111,6 +113,45 @@ def test_d256_tile_edges_match_pallas(kernel, lk, k_len):
     got = getattr(TF, kernel)(*_t(q, k, v),
                               k_len=None if kl is None else torch.tensor(kl))
     np.testing.assert_allclose(got.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lk,k_len", [
+    (1, None),
+    (63, [63, 62]),
+    (64, [64, 63]),
+    (65, [65, 64]),
+    (127, [127, 65]),
+    (128, [128, 0]),
+    (129, [129, 128]),
+    (300, [257, 127]),
+    (511, [511, 449]),
+    (512, [0, 385]),
+])
+def test_d128_single_kv_tile_edges_match_pallas(lk, k_len, dtype):
+    """B2 (plain version) at head dim 128, bf16 and fp32, on the key counts
+    and k_len edges of the card's tiles there (bf16 128 keys a tile, fp32
+    64), against JAX's `flash_attention` in interpret mode (its
+    single-block kernel). fp32 at rtol 2e-4 / atol 2e-5; bf16 within
+    `check_attention`'s bound (JAX rounds each probability to bf16 before
+    normalising, the plain version after). k_len 0 only where JAX pads no
+    key (128, 512)."""
+    q, k, v = _qkv(13, 2, 65, lk, 1, 128)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    ref = JF.flash_attention(
+        *(jnp.asarray(a, jd) for a in (q, k, v)),
+        k_len=None if k_len is None else jnp.asarray(k_len, jnp.int32),
+        interpret=True)
+    got = TF.single_kv_attention(
+        *(t.to(td) for t in _t(q, k, v)),
+        k_len=None if k_len is None else torch.tensor(k_len))
+    assert got.dtype == td
+    ref = torch.from_numpy(np.array(ref, np.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32)
+    else:
+        check_attention(got, ref, f"B2 d128 bf16 lk {lk}")
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
