@@ -14,9 +14,10 @@ Phases, each printing one JSON line with "phase" and "seconds" when it ends:
   build                the CUDA kernels built from csrc/ (one nvcc a
                        source, all started together, then one link), with
                        ptxas's registers / spills by kernel (B1 and B2 at
-                       head dim 256, B2 at 128 in bf16 and fp32 must spill
+                       head dims 128 and 256, B2 at 128 in fp32 must spill
                        nothing), the dynamic shared memory of B1/B2's
-                       plans, the Hopper opcodes (HGMMA,
+                       plans (B1-128's with its plan and measures as
+                       the library reports them), the Hopper opcodes (HGMMA,
                        IGMMA, UTMALDG, ...) in the SASS of the attention
                        kernels B1, B2, B5 and B6, and the 128-bit loads and
                        stores of the row kernels B3, B4;
@@ -777,10 +778,12 @@ HOPPER_OPCODES = {
 
 
 # B1 and B2 at head dim 256 (D256Plan: S over 80 keys beside a 64 x 256 fp32
-# accumulator in 240 registers) and B2 at head dim 128 in bf16 and fp32
-# (SplitPlan, F32SplitPlan: O staged for TMA stores) must not spill
+# accumulator in 240 registers) and B1 and B2 at head dim 128 in bf16 and B2
+# in fp32 (SplitPlan, F32SplitPlan: O staged for TMA stores; B1's tail
+# split) must not spill
 NO_SPILL_KERNELS = ("flash_kernel<256>", "single_kv_kernel<256>",
-                    "single_kv_kernel<128>", "single_kv_kernel<f32>")
+                    "flash_kernel<128>", "single_kv_kernel<128>",
+                    "single_kv_kernel<f32>")
 
 
 def no_spills(ptxas: dict, kernels) -> None:
@@ -942,6 +945,9 @@ def phase_kernels(dev, results: dict) -> None:
             plain_compare="every query row; the plain version runs over "
                           "1024-row query chunks",
             shape=f"q [{B},{L},{H},{D}] k/v [{B},{lk},{H},{D}] bf16")
+        if name == "flash_attention":
+            lines[name].update(plan=fa.b1_plan(),
+                               tail_split=fa.b1_split(q, k))
         del k, v, qt, kt, vt
     del q
 
@@ -1040,6 +1046,7 @@ def flux_b1_shapes(dev, gen) -> dict:
         ref = fa.attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = check_attention(got, ref, f"flash_attention {name}")
+        err.update(plan=fa.b1_plan(), tail_split=fa.b1_split(q, k))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         flops = 4.0 * 24 * L * L * 128
         bms, by = bound_ms(flops, 2.0 * 4 * q.numel())
@@ -7166,11 +7173,13 @@ def main(argv=None) -> int:
     ptxas = ptxas_resources(text)
     if text:
         no_spills(ptxas, NO_SPILL_KERNELS)
+    fa = importlib.import_module("flexam_tpu_torch.ops.flash_attention")
     emit("build", t0, nvcc_seconds=build.build_info["seconds"],
          nvcc_compile_seconds=build.build_info.get("compile_seconds"),
          cached=build.build_info["cached"], ptxas=ptxas,
          wgmma_notes=wgmma_notes(text),
          attention_smem_bytes=lib.flexam_attention_smem_bytes(),
+         b1_plan=fa.b1_plan(),
          attention_smem_bytes_d256={
              k: lib.flexam_attention_smem_bytes_at(256, i)
              for i, k in enumerate(("flash_kernel", "single_kv_kernel"))},

@@ -40,12 +40,12 @@
 //  * a persistent CTA on each SM walks work items of 128 query rows of one
 //    (batch, head), q tiles fastest. It has three warpgroups. The producer
 //    warpgroup gives up registers (setmaxnreg.dec to 24) and one of its
-//    threads keeps TMA loads in flight: an item's Q, then its 128-key tiles
-//    of K and V into a ring of kStages stages that runs on across items
+//    threads keeps TMA loads in flight: an item's Q, then its key tiles of
+//    K and V into rings of kStages stages that run on across items
 //    (separate full barriers for K and V, so Q.K^T starts before V lands;
-//    for B1 at D = 128 one empty barrier a stage, released by all 256
-//    consumer threads after their P.V; B1 at D = 256 and B2 give K and V
-//    empty barriers of their own, below).
+//    the bf16 plans give K and V empty barriers of their own, below; fp32
+//    B1 one a stage, released by all 256 consumer threads after their
+//    P.V).
 //    The next item's Q loads as soon as both consumers' last
 //    Q.K^T of the current one has landed, so its load overlaps their last
 //    P.V and epilogue.
@@ -60,8 +60,8 @@
 //  * the key mask is applied only on the tile that holds the key edge;
 //    tiles wholly past k_len are not loaded (their probabilities are exactly
 //    0), except when k_len is 0 and every key is masked alike.
-//  * the epilogue writes acc / sum as bf16 straight from registers (rows
-//    past Lq are not written); B2 stages it for TMA stores (below).
+//  * the epilogue writes acc / sum straight from registers (rows past Lq
+//    are not written), or stages it for TMA stores (below).
 //
 // B2 is B1's kernel with at most 512 keys, a bound known at compile time:
 // an online softmax over <= 4 tiles (8 at D = 256 and in fp32), rather
@@ -106,7 +106,42 @@
 // (160 KB) ran 14 % slower: an m64n64k16 Q K^T step reads 4 KB of shared
 // memory per 32 clocks of math, all the SM's 128 bytes a clock.
 //
-// B2 in fp32 (F32SplitPlan) takes them too: split K / V^T rings of
+// B1 at D = 128 in bf16 runs B2's plan, SplitPlan<128, 128, 2, true>, and
+// adds three measures of its own, each with its switch in B1Measures128
+// (every other instance takes none, NoMeasures). At the flagship shape the
+// split ring and staged O alone ran 1-2 % behind the 3-stage ring with one
+// empty barrier a stage that B1 had; 96-key tiles (3 stages) ran 7 %
+// slower, and 160- to 192-key tiles spilled (PERF.md §6 has each variant).
+// So:
+//  * ping-pong (kPingPong): the consumers take turns issuing their
+//    products (named barriers 3 and 4), so one's Q.K^T and P.V run on the
+//    tensor cores while the other runs its softmax (FA3's warpgroup
+//    schedule);
+//  * one release a warp (kLaneRelease): one lane of each consumer warp
+//    releases Q and the K / V slots (the empty barriers count 8 arrivals,
+//    not 256);
+//  * the tail split (kTailSplit; it also runs on Bf16Plan<128>). One CTA
+//    an SM walks the items of a launch in rounds; the last round holds
+//    n_work % sms of them, and FLUX's 432 items on 132 SMs leave 36 CTAs
+//    busy in the fourth. When that tail is at most half a round, the
+//    wrapper (ops/flash_attention.py tail_split) asks for each tail item
+//    in s = min(sms / tail, key tiles) parts of contiguous key tiles, one
+//    unit each, after the whole items. A part writes its unnormalised fp32
+//    O, row maxima (log2 domain) and sums to a slot of a workspace the
+//    wrapper keeps per stream, fences, and adds one to its item's counter;
+//    the consumer whose add brings it to s merges every part in part order
+//    (the output does not depend on which CTA finishes last),
+//    O = sum 2^(m_p - m) O_p / sum 2^(m_p - m) l_p, stores O through the
+//    usual epilogue and zeroes the counter, so the workspace needs no
+//    clearing between launches. A part with no key tile (k_len short of
+//    its range) writes nothing and is left out; with k_len 0 every part
+//    masks its keys alike, so the merge gives the mean of V over all Lk
+//    keys as the whole item would.
+// At the flagship shape the card sits at its power limit and lowers its
+// clock for this kernel as for the old one and SDPA, so these gain most
+// on short launches (FLUX's), little on the flagship's.
+//
+// B2 in fp32 (F32SplitPlan) takes B2's measures too: split K / V^T rings of
 // F32Plan's tiles and O staged in 16 KB a consumer, 64 fp32 columns a
 // round (two rounds). It reads q as the caller gave it: after an item's Q
 // lands each consumer rounds its 64 rows to tf32 in shared memory, in place
@@ -114,7 +149,8 @@
 // proxy and meets its warpgroup at a named barrier before its first wgmma.
 // The pre-pass then reads and writes only k and V^T: with q's pass B2's
 // bytes alone (4 x 286 MB at the flagship shape) bound it above its
-// operations.//
+// operations.
+//
 // fp32 at D = 128 runs F32Plan (hopper_attention.cuh): Q 64 KB, 64-key K
 // tiles and 64-key V^T tiles of 32 KB in a ring of 2 stages; S over 64
 // keys by wgmma m64n64k8 (tf32), P.V by m64n128k8 with P from registers
@@ -136,20 +172,47 @@ constexpr float kNegInf = -__builtin_huge_valf();  // keys past Lk
 constexpr int kBoxRows = 64;            // TMA box: 64 rows x 128 bytes
 
 // B1 and B2 at head dim 256: split K / V rings (D256Plan), 80-key tiles for
-// B1, 64-key tiles and O staged for TMA stores for B2; B2 at head dim 128,
-// bf16 and fp32: split rings and O staged, fp32 rounding Q itself (see the
-// note above).
+// B1, 64-key tiles and O staged for TMA stores for B2; B1 and B2 at head dim
+// 128 in bf16, B2 in fp32: split rings and O staged, fp32 rounding Q itself
+// (see the notes above).
+using B1Plan128 = SplitPlan<128, 128, 2, true>;   // B2's plan, see above
 using B1Plan256 = D256Plan<80>;
 using B2Plan256 = D256Plan<64, true>;
 using B2Plan128 = SplitPlan<128, 128, 2, true>;
 using B2PlanF32 = F32SplitPlan;
+
+// The measures an instance takes beside its plan (see the notes above):
+// B1 at head dim 128 in bf16 all three, every other instance none.
+struct NoMeasures {
+  static constexpr bool kPingPong = false, kLaneRelease = false,
+                        kTailSplit = false;
+};
+struct B1Measures128 {
+  static constexpr bool kPingPong = true;     // consumers take turns issuing
+  static constexpr bool kLaneRelease = true;  // one lane a warp releases
+  static constexpr bool kTailSplit = true;    // the last round split by keys
+};
 
 struct Params {
   const int* k_len;  // [B] or null
   void* o;           // [B, Lq, H, D], bf16 or fp32
   int B, H, Lq, Lk;
   float scale_log2;  // softmax scale * log2(e)
+  // B1 at head dim 128 (kTailSplit): the last `tail` work items run as `parts`
+  // units each (see the note on the tail split); ws holds a slot a unit,
+  // counters two words a tail item
+  float* ws;
+  int* counters;
+  int tail, parts;
 };
+
+// The tail split's workspace: a slot for each (tail item, part), each
+// consumer's half of it its 64 rows of unnormalised fp32 O in fragment
+// order (64 floats a thread) and each row's max (log2 domain) and sum;
+// then two counters a tail item, `sms` slots and 2 * sms counters in all
+// (flexam_b1_split_workspace_bytes).
+constexpr int kHalfFloats = 64 * 128 + 2 * 64;
+constexpr int kSlotFloats = 2 * kHalfFloats;
 
 static_assert(kKeyPad % F32Plan::kBN == 0 && kKeyPad % wide::kKeys == 0,
               "V^T's padded keys cover whole key tiles");
@@ -175,14 +238,46 @@ __device__ __forceinline__ Work work_item(const Params& a, int wi) {
   return w;
 }
 
-// One CTA of B1 / B2 on the plan S (Bf16Plan<kD>, SplitPlan, F32Plan or
-// F32SplitPlan). In fp32, tv maps the V^T workspace.
-template <typename S, int kMaxKeys>
+// A unit of a CTA's walk: a whole work item, or (kTailSplit) part `part` of
+// one of the last a.tail items, which takes its key tiles
+// [part * n / parts, (part + 1) * n / parts) of the item's n. Units run
+// whole items first (n_whole of them), then the tail items' parts, item by
+// item; `slot` numbers the parts (-1 for a whole item).
+struct Unit {
+  Work w;
+  int t0, t1, part, slot;
+};
+
+template <int kBN, int kMaxTiles, bool kTail>
+__device__ __forceinline__ Unit unit_at(const Params& a, int u, int n_whole) {
+  Unit x;
+  if (kTail && u >= n_whole) {
+    x.slot = u - n_whole;
+    x.part = x.slot % a.parts;
+    x.w = work_item<kBN, kMaxTiles>(a, n_whole + x.slot / a.parts);
+    x.t0 = x.part * x.w.n_tiles / a.parts;
+    x.t1 = (x.part + 1) * x.w.n_tiles / a.parts;
+  } else {
+    x.w = work_item<kBN, kMaxTiles>(a, u);
+    x.t0 = 0;
+    x.t1 = x.w.n_tiles;
+    x.part = 0;
+    x.slot = -1;
+  }
+  return x;
+}
+
+// One CTA of B1 / B2 on the plan S (SplitPlan, Bf16Plan, F32Plan or
+// F32SplitPlan) with the measures M (NoMeasures or B1Measures128). In
+// fp32, tv maps the V^T workspace.
+template <typename S, int kMaxKeys, typename M = NoMeasures>
 __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                                               const CUtensorMap* tk,
                                               const CUtensorMap* tv,
                                               const CUtensorMap* to,
                                               const Params& a) {
+  static_assert(!M::kTailSplit || (S::kD == 128 && !S::kF32),
+                "the tail split runs on bf16 plans at 128");
   constexpr int kD = S::kD;
   constexpr int kBN = S::kBN, kStages = S::kStages, kSpans = S::kSpans;
   constexpr int kMaxTiles = (kMaxKeys + kBN - 1) / kBN;
@@ -200,16 +295,23 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
   // split ring, whose K slots have their own (k_empty)
   auto empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
   auto k_empty = [&](int s) { return bars + 8u * (2 + 3 * kStages + s); };
+  // the releases of Q and of a K or V slot: every consumer thread, or
+  // (kLaneRelease) one lane of each consumer warp
+  constexpr uint32_t kConsumerArrivals = M::kLaneRelease ? 2 * 4 : 2 * 128;
+  constexpr bool kTail = M::kTailSplit;
   const int n_work = (a.Lq + kBM - 1) / kBM * a.H * a.B;
+  // whole items, then the tail's parts
+  const int n_whole = kTail ? n_work - a.tail : n_work;
+  const int n_units = kTail ? n_whole + a.tail * a.parts : n_work;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    mbar_init(q_empty, 2 * 128);
+    mbar_init(q_empty, kConsumerArrivals);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(empty(s), 2 * 128);
-      if constexpr (S::kSplitRing) mbar_init(k_empty(s), 2 * 128);
+      mbar_init(empty(s), kConsumerArrivals);
+      if constexpr (S::kSplitRing) mbar_init(k_empty(s), kConsumerArrivals);
     }
     mbar_init_fence();
   }
@@ -252,16 +354,20 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
                 b);
           }
         };
+        // n counts the units that load a Q (a part with no key tiles
+        // loads nothing and takes its count back)
         int it = 0, n = 0, vh = -1, vrow = 0, vb = 0;   // V of tile it - 1
-        for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-          const Work w = work_item<kBN, kMaxTiles>(a, wi);
-          for (int t = 0; t < w.n_tiles; ++t, ++it) {
+        for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++n) {
+          const Unit x = unit_at<kBN, kMaxTiles, kTail>(a, u, n_whole);
+          const Work w = x.w;
+          if (kTail && x.t1 == x.t0) --n;
+          for (int t = x.t0; t < x.t1; ++t, ++it) {
             load(false, it, w.h, t * kBN, w.b);
             if (vh >= 0) load(true, it - 1, vh, vrow, vb);
             vh = w.h;
             vrow = t * kBN;
             vb = w.b;
-            if (t == 0) {
+            if (t == x.t0) {
               if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
               mbar_arrive_expect_tx(q_full, S::kQBytes);
               tma_load_span_tile<kSpans, kBM, S::kCols>(q_s, tq, q_full, w.h,
@@ -273,14 +379,19 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
       }
     } else if (threadIdx.x == 0) {
       int it = 0, n = 0;
-      for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-        const Work w = work_item<kBN, kMaxTiles>(a, wi);
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++n) {
+        const Unit x = unit_at<kBN, kMaxTiles, kTail>(a, u, n_whole);
+        const Work w = x.w;
+        if (kTail && x.t1 == x.t0) {
+          --n;                                  // it loads no Q
+          continue;
+        }
         // Q of the next item once both consumers' last Q.K^T has landed
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
         mbar_arrive_expect_tx(q_full, S::kQBytes);
         tma_load_span_tile<kSpans, kBM, S::kCols>(q_s, tq, q_full, w.h, w.q0,
                                                   w.b);
-        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+        for (int t = x.t0; t < x.t1; ++t, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(empty(s), (it / kStages - 1) & 1);
           mbar_arrive_expect_tx(k_full(s), kKVBytes);
@@ -368,98 +479,196 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
     float o[kD / 128][64], sc[kBN / 2];
     uint32_t p[kBN / S::kPVKeys][4];
     float m_a, m_b, l_a, l_b, al_a, al_b, sum_a, sum_b;
+    // kPingPong: the two consumers take turns issuing their products
+    // (named barriers 3 + c), each while the other runs its softmax, and
+    // consumer 1 lets consumer 0 go first. kLaneRelease: a slot is released
+    // by one lane of each warp once the warp's wait for the product that
+    // read it is over
+    auto turn_wait = [&] {
+      if constexpr (M::kPingPong) named_barrier(3 + c, 256);
+    };
+    auto turn_pass = [&] {
+      if constexpr (M::kPingPong) named_barrier_arrive(4 - c, 256);
+    };
+    if (c == 1) turn_pass();
+    auto release = [&](uint32_t bar) {
+      if (!M::kLaneRelease || lane == 0) mbar_arrive(bar);
+    };
+
     int it = 0, n = 0;
-    for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x, ++n) {
-      const Work w = work_item<kBN, kMaxTiles>(a, wi);
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++n) {
+      const Unit x = unit_at<kBN, kMaxTiles, kTail>(a, u, n_whole);
+      const Work w = x.w;
+      const int nt = x.t1 - x.t0;                 // the unit's key tiles
+      if (kTail && nt == 0) {
+        --n;                                      // it loads no Q
+      } else {
 #pragma unroll
-      for (int h = 0; h < kD / 128; ++h)
+        for (int h = 0; h < kD / 128; ++h)
 #pragma unroll
-        for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
-      m_a = m_b = kNeg;
+          for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+        m_a = m_b = kNeg;
 
-      // Probabilities of key tile t in sc, in place. The tile holding the
-      // key edge is scaled and masked first: keys past k_len get -1e30,
-      // keys past Lk (zero-filled by TMA) do not count at all.
-      auto tile_probs = [&](int t) {
-        const int n0 = t * kBN;
-        float scale = a.scale_log2;
-        if (n0 + kBN > w.valid) {
+        // Probabilities of key tile t in sc, in place. The tile holding the
+        // key edge is scaled and masked first: keys past k_len get -1e30,
+        // keys past Lk (zero-filled by TMA) do not count at all.
+        auto tile_probs = [&](int t) {
+          const int n0 = t * kBN;
+          float scale = a.scale_log2;
+          if (n0 + kBN > w.valid) {
 #pragma unroll
-          for (int i = 0; i < kBN / 2; ++i) {
-            const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
-            sc[i] = key < w.valid ? sc[i] * scale
-                                  : (key < a.Lk ? kNeg : kNegInf);
+            for (int i = 0; i < kBN / 2; ++i) {
+              const int key = n0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+              sc[i] = key < w.valid ? sc[i] * scale
+                                    : (key < a.Lk ? kNeg : kNegInf);
+            }
+            scale = 1.f;
           }
-          scale = 1.f;
-        }
-        softmax_tile(sc, scale, m_a, m_b, al_a, al_b, sum_a, sum_b);
-      };
+          softmax_tile(sc, scale, m_a, m_b, al_a, al_b, sum_a, sum_b);
+        };
 
-      // Tile 0 alone; then, for each next tile t, Q K_t^T is issued before
-      // P_{t-1} V_{t-1}, so the tensor cores run the one while this
-      // warpgroup's softmax of S_t waits for it (the accumulator takes its
-      // rescale only once P_{t-1} V_{t-1} has landed).
-      mbar_wait(q_full, n & 1);
-      if constexpr (S::kRoundQ) {
-        // this warpgroup's 64 rows of Q (8 KB of each 32-column span)
-        // rounded to tf32 in place, then made visible to wgmma's reads
+        // The first tile alone; then, for each next tile, Q K_t^T is issued
+        // before P_{t-1} V_{t-1}, so the tensor cores run the one while this
+        // warpgroup's softmax of S_t waits for it (the accumulator takes its
+        // rescale only once P_{t-1} V_{t-1} has landed).
+        mbar_wait(q_full, n & 1);
+        if constexpr (S::kRoundQ) {
+          // this warpgroup's 64 rows of Q (8 KB of each 32-column span)
+          // rounded to tf32 in place, then made visible to wgmma's reads
 #pragma unroll
-        for (int span = 0; span < kSpans; ++span)
-          round_tf32_shared(q_c + span * S::kQSpanBytes + 16 * tid, 2048);
-        fence_proxy_async();
-        named_barrier(1 + c, 128);
-      }
-      mbar_wait(k_full(it % kStages), (it / kStages) & 1);
-      wgmma_fence();
-      issue_qk(sc, it % kStages);
-      wgmma_wait<0>();
-      fence_regs(sc);
-      if constexpr (S::kSplitRing) mbar_arrive(k_empty(it % kStages));
-      if (w.n_tiles == 1) mbar_arrive(q_empty);
-      tile_probs(0);
-      l_a = sum_a;
-      l_b = sum_b;
-      to_a(sc, p);
-      for (int t = 1; t < w.n_tiles; ++t) {
-        const int cur = it + t, prev = cur - 1;
-        mbar_wait(k_full(cur % kStages), (cur / kStages) & 1);
-        mbar_wait(v_full(prev % kStages), (prev / kStages) & 1);
+          for (int span = 0; span < kSpans; ++span)
+            round_tf32_shared(q_c + span * S::kQSpanBytes + 16 * tid, 2048);
+          fence_proxy_async();
+          named_barrier(1 + c, 128);
+        }
+        mbar_wait(k_full(it % kStages), (it / kStages) & 1);
+        turn_wait();
         wgmma_fence();
-        issue_qk(sc, cur % kStages);
-        issue_pv(o, p, prev % kStages);
-        wgmma_wait<1>();
+        issue_qk(sc, it % kStages);
+        turn_pass();
+        wgmma_wait<0>();
         fence_regs(sc);
-        if constexpr (S::kSplitRing) mbar_arrive(k_empty(cur % kStages));
-        if (t == w.n_tiles - 1) mbar_arrive(q_empty);
-        tile_probs(t);
+        if constexpr (S::kSplitRing) release(k_empty(it % kStages));
+        if (nt == 1) release(q_empty);
+        tile_probs(x.t0);
+        l_a = sum_a;
+        l_b = sum_b;
+        to_a(sc, p);
+        for (int t = 1; t < nt; ++t) {
+          const int cur = it + t, prev = cur - 1;
+          mbar_wait(k_full(cur % kStages), (cur / kStages) & 1);
+          mbar_wait(v_full(prev % kStages), (prev / kStages) & 1);
+          turn_wait();
+          wgmma_fence();
+          issue_qk(sc, cur % kStages);
+          issue_pv(o, p, prev % kStages);
+          turn_pass();
+          wgmma_wait<1>();
+          fence_regs(sc);
+          if constexpr (S::kSplitRing) release(k_empty(cur % kStages));
+          if (t == nt - 1) release(q_empty);
+          tile_probs(x.t0 + t);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
+          fence_regs(p);
+          fence_regs(sc);
+          release(empty(prev % kStages));
+#pragma unroll
+          for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
+          l_a = l_a * al_a + sum_a;
+          l_b = l_b * al_b + sum_b;
+          to_a(sc, p);
+        }
+        const int last = it + nt - 1;
+        mbar_wait(v_full(last % kStages), (last / kStages) & 1);
+        turn_wait();
+        wgmma_fence();
+        issue_pv(o, p, last % kStages);
+        turn_pass();
         wgmma_wait<0>();
 #pragma unroll
         for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
-        fence_regs(p);
-        fence_regs(sc);
-        mbar_arrive(empty(prev % kStages));
-#pragma unroll
-        for (int h = 0; h < kD / 128; ++h) rescale_rows(o[h], al_a, al_b);
-        l_a = l_a * al_a + sum_a;
-        l_b = l_b * al_b + sum_b;
-        to_a(sc, p);
+        release(empty(last % kStages));
+        it += nt;
       }
-      const int last = it + w.n_tiles - 1;
-      mbar_wait(v_full(last % kStages), (last / kStages) & 1);
-      wgmma_fence();
-      issue_pv(o, p, last % kStages);
-      wgmma_wait<0>();
+
+      l_a = quad_sum(l_a);
+      l_b = quad_sum(l_b);
+      if constexpr (kTail) {
+        // A part of a tail item: its unnormalised O (fragment order, 16
+        // bytes a thread a store), row maxima and sums to its slot; the
+        // part whose arrival brings the item's counter to `parts` merges
+        // every part, in part order whichever it is (so the result does
+        // not depend on which CTA finishes last), stores the item's O below
+        // and resets the counter for the next launch; the others go on to
+        // their next unit. A part without key tiles writes nothing and is
+        // left out of the merge.
+        if (x.slot >= 0) {
+          const int ra = warp * 16 + (lane >> 2);  // row a of the 64; b + 8
+          const int item = x.slot / a.parts;
+          float* const part0 = a.ws + (size_t)(x.slot - x.part) * kSlotFloats +
+                               c * kHalfFloats;
+          if (nt > 0) {
+            float* const mine = part0 + (size_t)x.part * kSlotFloats;
+            float4* const o4 = reinterpret_cast<float4*>(mine);
 #pragma unroll
-      for (int h = 0; h < kD / 128; ++h) fence_regs(o[h]);
-      mbar_arrive(empty(last % kStages));
-      it += w.n_tiles;
+            for (int j = 0; j < 16; ++j)
+              o4[j * 128 + tid] = make_float4(o[0][4 * j], o[0][4 * j + 1],
+                                              o[0][4 * j + 2], o[0][4 * j + 3]);
+            if (quad == 0) {
+              mine[8192 + ra] = m_a;
+              mine[8192 + ra + 8] = m_b;
+              mine[8256 + ra] = l_a;
+              mine[8256 + ra + 8] = l_b;
+            }
+          }
+          __threadfence();
+          named_barrier(1 + c, 128);
+          int done = 0;
+          if (tid == 0)
+            done = atomicAdd(a.counters + 2 * item + c, 1) == a.parts - 1;
+          if (!named_barrier_or(1 + c, 128, done)) continue;
+          __threadfence();
+          const int n_item = w.n_tiles;
+          auto empty_part = [&](int q) {
+            return (q + 1) * n_item / a.parts == q * n_item / a.parts;
+          };
+          float mx_a = kNegInf, mx_b = kNegInf;
+          for (int q = 0; q < a.parts; ++q) {
+            if (empty_part(q)) continue;
+            const float* part = part0 + (size_t)q * kSlotFloats;
+            mx_a = fmaxf(mx_a, __ldcg(part + 8192 + ra));
+            mx_b = fmaxf(mx_b, __ldcg(part + 8192 + ra + 8));
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) o[0][i] = 0.f;
+          l_a = l_b = 0.f;
+          for (int q = 0; q < a.parts; ++q) {
+            if (empty_part(q)) continue;
+            const float* part = part0 + (size_t)q * kSlotFloats;
+            const float f_a = ex2(__ldcg(part + 8192 + ra) - mx_a);
+            const float f_b = ex2(__ldcg(part + 8192 + ra + 8) - mx_b);
+            l_a += f_a * __ldcg(part + 8256 + ra);
+            l_b += f_b * __ldcg(part + 8256 + ra + 8);
+            const float4* p4 = reinterpret_cast<const float4*>(part);
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const float4 v = __ldcg(p4 + j * 128 + tid);
+              o[0][4 * j] += f_a * v.x;
+              o[0][4 * j + 1] += f_a * v.y;
+              o[0][4 * j + 2] += f_b * v.z;
+              o[0][4 * j + 3] += f_b * v.w;
+            }
+          }
+          if (tid == 0) a.counters[2 * item + c] = 0;
+        }
+      }
 
       // acc / sum in the output's dtype to [B, Lq, H, D] (the Q buffer
       // already holds the next item's Q): staged for TMA stores (kStageO),
       // or straight from registers, a quad writing 16 (bf16) or 32 (fp32)
       // contiguous bytes of a row, rows at or past Lq not written
-      l_a = quad_sum(l_a);
-      l_b = quad_sum(l_b);
       // the split-ring plans scale by 1 / sum (a division a row, not an
       // element: up to 128 fewer divisions a thread, which B2's short items
       // feel)
@@ -562,14 +771,15 @@ __device__ __forceinline__ void attention_cta(const CUtensorMap* tq,
 }
 
 // B1: a persistent CTA on each SM walks (128-row q tile, head, batch)
-// items; online softmax over key tiles.
-template <typename P>
+// items; online softmax over key tiles. M: the measures (B1Measures128 at
+// head dim 128 in bf16).
+template <typename P, typename M = NoMeasures>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap to, const Params a) {
-  attention_cta<P, 0>(&tq, &tk, &tv, &to, a);
+  attention_cta<P, 0, M>(&tq, &tk, &tv, &to, a);
 }
 
 // B2: the same, for at most 512 keys.
@@ -609,11 +819,14 @@ __global__ void __launch_bounds__(wide::kThreads, 1)
 
 // Launch `kernel` (flash_kernel<P> or single_kv_kernel<P>) over q, k, v
 // (bf16), or over the pre-pass's rounded q, k and the V^T workspace with
-// Lkp keys (F32Plan).
+// Lkp keys (F32Plan). A kernel with the tail split (flash_kernel<P,
+// B1Measures128>) takes the workspace and its last `tail` items in `parts`
+// parts each; parts 1 splits nothing.
 template <typename P, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v,
            void* o, const void* k_len, int B, int H, int Lq, int Lk,
-           float scale_log2, void* stream, int Lkp = 0) {
+           float scale_log2, void* stream, int Lkp = 0, void* ws = nullptr,
+           int tail = 0, int parts = 1) {
   constexpr int kD = P::kD;
   constexpr size_t kSmemBytes = P::kSmemBytes;
   CUtensorMap tq, tk, tv, to{};
@@ -636,9 +849,21 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v,
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
-  const Params a{static_cast<const int*>(k_len), o, B, H, Lq, Lk, scale_log2};
   const long long n_work = (long long)((Lq + kBM - 1) / kBM) * H * B;
-  const int grid = (int)(n_work < sms ? n_work : sms);
+  if (parts < 1 ||
+      (parts > 1 && (!ws || reinterpret_cast<uintptr_t>(ws) % 16 ||
+                     tail < 1 || tail > n_work ||
+                     (long long)tail * parts > sms)))
+    return (int)cudaErrorInvalidValue;
+  if (parts == 1) tail = 0;
+  float* wsf = static_cast<float*>(ws);
+  const Params a{static_cast<const int*>(k_len), o, B, H, Lq, Lk, scale_log2,
+                 wsf, ws ? reinterpret_cast<int*>(wsf + (size_t)sms *
+                                                  kSlotFloats)
+                         : nullptr,
+                 tail, parts};
+  const long long n_units = n_work - tail + (long long)tail * parts;
+  const int grid = (int)(n_units < sms ? n_units : sms);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, to, a);
   return (int)cudaGetLastError();
@@ -665,17 +890,22 @@ wide::Params wide_params(const void* k_len, void* o, int B, int H, int Lq,
 
 // bf16 B1 (single_kv false) or B2 at head dim D: the instance for D, or
 // cudaErrorInvalidValue for a D that is not a positive multiple of 128.
+// B1 at D = 128 takes the tail split (ws, tail, parts); any other call
+// must ask for none (parts 1).
 int dispatch(bool single_kv, const void* q, const void* k, const void* v,
              void* o, const void* k_len, int B, int H, int Lq, int Lk, int D,
-             float scale_log2, void* stream) {
-  if (bad_shape(B, H, Lq, Lk, D, o)) return (int)cudaErrorInvalidValue;
+             float scale_log2, void* stream, void* ws = nullptr, int tail = 0,
+             int parts = 1) {
+  if (bad_shape(B, H, Lq, Lk, D, o) ||
+      (parts != 1 && (single_kv || D != 128)))
+    return (int)cudaErrorInvalidValue;
   if (D == 128)
     return single_kv
                ? launch<B2Plan128>(single_kv_kernel<B2Plan128>, q, k, v, o,
                                    k_len, B, H, Lq, Lk, scale_log2, stream)
-               : launch<Bf16Plan<128>>(flash_kernel<Bf16Plan<128>>, q, k, v,
-                                       o, k_len, B, H, Lq, Lk, scale_log2,
-                                       stream);
+               : launch<B1Plan128>(flash_kernel<B1Plan128, B1Measures128>, q,
+                                   k, v, o, k_len, B, H, Lq, Lk, scale_log2,
+                                   stream, 0, ws, tail, parts);
   if (D == 256)
     return single_kv
                ? launch<B2Plan256>(single_kv_kernel<B2Plan256>, q, k, v, o,
@@ -730,23 +960,50 @@ int dispatch_f32(bool single_kv, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// B1 in bf16. Returns a cudaError_t (0 on a clean launch).
+// B1 in bf16. At head dim 128 the launch's last `tail_items` work items
+// run in `parts` parts each, split by keys (ops/flash_attention.py
+// tail_split), through `workspace` (flexam_b1_split_workspace_bytes: a
+// slot and two zeroed counters for each of the card's SMs, which the
+// kernel leaves zeroed); parts 1 splits nothing and takes no workspace.
+// Returns a cudaError_t (0 on a clean launch): cudaErrorInvalidValue for a
+// split without a workspace, at another head dim, or of more units than
+// SMs.
 int flexam_flash_attention(const void* q, const void* k, const void* v, void* o,
-                           const void* k_len, int B, int H, int Lq, int Lk, int D,
+                           const void* k_len, void* workspace, int tail_items,
+                           int parts, int B, int H, int Lq, int Lk, int D,
                            float scale_log2, void* stream) {
   return dispatch(false, q, k, v, o, k_len, B, H, Lq, Lk, D, scale_log2,
-                  stream);
+                  stream, workspace, tail_items, parts);
 }
 
-// Dynamic shared memory a B1 / B2 CTA takes at head dim 128, in bytes.
-int flexam_attention_smem_bytes() { return (int)Bf16Plan<128>::kSmemBytes; }
+// Dynamic shared memory a B1 CTA takes at head dim 128, in bytes.
+int flexam_attention_smem_bytes() { return (int)B1Plan128::kSmemBytes; }
+
+// B1 at head dim 128 in bf16, into out[0..6]: its plan's keys a tile and
+// stages, whether K and V have empty barriers of their own (split ring)
+// and O is staged for TMA stores, and its measures (ping-pong, one release
+// a warp, the tail split), each 0 or 1. Returns 0.
+int flexam_b1_plan(int* out) {
+  const int v[7] = {B1Plan128::kBN,          B1Plan128::kStages,
+                    B1Plan128::kSplitRing,   B1Plan128::kStageO,
+                    B1Measures128::kPingPong, B1Measures128::kLaneRelease,
+                    B1Measures128::kTailSplit};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Bytes of the tail split's workspace on a card of `sms` SMs: a slot for
+// each unit of the last round (at most one an SM), then two counter words
+// a tail item.
+int flexam_b1_split_workspace_bytes(int sms) {
+  return sms * (int)(kSlotFloats * sizeof(float) + 2 * sizeof(int));
+}
 
 // The same for bf16 B1 (single_kv 0) or B2 (1) at head dim d, 128 or 256;
 // 0 for any other d.
 int flexam_attention_smem_bytes_at(int d, int single_kv) {
   if (d == 128)
-    return (int)(single_kv ? B2Plan128::kSmemBytes
-                           : Bf16Plan<128>::kSmemBytes);
+    return (int)(single_kv ? B2Plan128::kSmemBytes : B1Plan128::kSmemBytes);
   if (d == 256)
     return (int)(single_kv ? B2Plan256::kSmemBytes : B1Plan256::kSmemBytes);
   return 0;

@@ -4,8 +4,9 @@
 // Used by B1/B2 (flash_attention.cu), B5 (sparse_attention.cu) and B6
 // (int8_attention.cu), in bf16 and fp32. Outputs leave by plain stores
 // from registers: a persistent CTA frees its Q buffer for the next item's
-// load instead of staging the output there (B2 at head dims 128 and 256 and
-// in fp32 stages O in room of its own for TMA stores, tma_store_4d).
+// load instead of staging the output there (B1 at head dim 128 and B2 at
+// 128 and 256 and in fp32 stage O in room of their own for TMA stores,
+// tma_store_4d).
 //
 // Tiles in shared memory use the 128-byte swizzle: a [rows, D] bf16 tile
 // is D / 64 column spans of [rows, 64] (128 bytes a row), one after
@@ -45,8 +46,7 @@ using attn::quad_sum;
 // stages beside Q: 64 keys and 2 stages), each tile kD / 64 spans of 64
 // columns (128-byte rows); Q K^T in kD / 16 wgmma steps of 16 (32 bytes),
 // P.V in steps of 16 keys. K and V of a stage share one empty barrier.
-// B5 and B6 run it at 128 and 256, B1 at 128 (B1 at 256 and B2 at 128 and
-// 256 run SplitPlan below).
+// B5 and B6 run it at 128 and 256 (B1 and B2 run SplitPlan below).
 template <int kD_>
 struct Bf16Plan {
   static constexpr bool kF32 = false;
@@ -86,7 +86,7 @@ constexpr uint32_t kOStageRoom = 2 * 2 * 64 * 128;
 //  * B1 at 256, SplitPlan<256, 80, 2>: Q 64 KB + 2 x (K + V of 40 KB),
 //    224 KB; O 128 + S 40 + P 20 registers;
 //  * B2 at 256, SplitPlan<256, 64, 2, true>: 192 KB and 32 KB of O;
-//  * B2 at 128, SplitPlan<128, 128, 2, true>: Q 32 KB, 2 stages of
+//  * B1 and B2 at 128, SplitPlan<128, 128, 2, true>: Q 32 KB, 2 stages of
 //    128-key tiles (K + V 64 KB a stage) and 32 KB of O, 192 KB.
 template <int kD_, int kBN_, int kStages_, bool kStageO_ = false>
 struct SplitPlan {
@@ -351,6 +351,22 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Named barrier `id` (1..15) over `n` threads.
 __device__ __forceinline__ void named_barrier(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Arrive at named barrier `id` over `n` threads without waiting.
+__device__ __forceinline__ void named_barrier_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Named barrier `id` over `n` threads that also returns, to each of them,
+// whether any of them passed a non-zero `pred`.
+__device__ __forceinline__ int named_barrier_or(int id, int n, int pred) {
+  int any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.s32 p, %1, 0;\n"
+      " bar.red.or.pred q, %2, %3, p;\n selp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(any) : "r"(pred), "r"(id), "r"(n) : "memory");
+  return any;
 }
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {

@@ -33,7 +33,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "flexam_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flexam_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
     "flexam_single_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _P],
     "flexam_flash_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -41,6 +42,8 @@ SIGNATURES = {
     "flexam_single_kv_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _F, _P],
     "flexam_attention_smem_bytes": [],
+    "flexam_b1_plan": [_P],
+    "flexam_b1_split_workspace_bytes": [_I],
     "flexam_attention_smem_bytes_at": [_I, _I],
     "flexam_attention_smem_bytes_f32": [_I],
     "flexam_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

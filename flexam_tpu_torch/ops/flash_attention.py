@@ -3,8 +3,9 @@
 Port of `flexam_tpu/ops/flash_attention.py`. The CUDA kernels live in
 `csrc/flash_attention.cu`:
 
-  * B1 `flash_attention` — online softmax over 128-key tiles (the TPU
-    `_flash_kernel`), any key count;
+  * B1 `flash_attention` — online softmax over key tiles (the TPU
+    `_flash_kernel`), any key count; at head dim 128 in bf16 the launch's
+    last round of work items runs split by keys (`tail_split`);
   * B2 `single_kv_attention` — at most 512 keys (the TPU
     `_single_kv_kernel`, which the TPU wrapper takes when one key block
     covers every key: the DiT's cross-attention over 512 text tokens); on
@@ -34,6 +35,7 @@ cast to q.dtype before P.V) with the kernels' -1e30 key mask.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional
 
 import torch
@@ -55,6 +57,95 @@ LOGITS_BUDGET = 1 << 30
 
 # kernel launches on CUDA tensors, by kernel
 launches = {"flash_attention": 0, "single_kv_attention": 0}
+
+# B1 at head dim 128 in bf16: query rows a work item, and the fields of
+# its plan and measures as the library reports them (`b1_plan`)
+B1_ROWS = 128
+B1_PLAN_FIELDS = ("tile_keys", "stages", "split_ring", "stage_o",
+                  "ping_pong", "lane_release", "tail_split")
+_workspaces: dict = {}
+_sms: dict = {}
+
+
+def b1_plan(lib=None) -> dict:
+    """B1 at head dim 128 in bf16 as `lib` (the kernel library by default)
+    builds it (`flexam_b1_plan`): its keys a tile and stages, whether K
+    and V have rings of their own and O is staged, and which of its
+    measures it takes, by B1_PLAN_FIELDS (cached on the library)."""
+    lib = build.library() if lib is None else lib
+    plan = getattr(lib, "b1_plan", None)
+    if plan is None:
+        out = (ctypes.c_int * len(B1_PLAN_FIELDS))()
+        lib.flexam_b1_plan(out)
+        plan = lib.b1_plan = dict(zip(B1_PLAN_FIELDS, out))
+    return plan
+
+
+def tail_split(n_work: int, n_tiles: int, sms: int) -> tuple:
+    """(t, s): how B1's launch of `n_work` work items of `n_tiles` key tiles
+    each on `sms` SMs (one persistent CTA an SM) splits its last round.
+    The launch has n_work // sms whole rounds and a tail of
+    t = n_work % sms items; when 0 < t <= sms / 2, each tail item runs as
+    s = min(sms // t, n_tiles) parts of contiguous key tiles, so that the
+    last round fills the card. (0, 1) splits nothing: no tail, a tail over
+    half a round, or one part an item."""
+    t = n_work % sms
+    s = min(sms // t, n_tiles) if 0 < t <= sms // 2 else 1
+    return (t, s) if s > 1 else (0, 1)
+
+
+def split_units(n_work: int, tail: int, parts: int, n_tiles: int) -> list:
+    """The units of a B1 launch split by `tail_split`, in the order the
+    persistent CTAs walk them: (item, first key tile, end key tile) for
+    each whole item, then for each of the last `tail` items its `parts`
+    parts, part p taking tiles [p n / s, (p + 1) n / s) of its n =
+    `n_tiles` (the kernel's own ranges; a part may be empty where n < s)."""
+    units = [(i, 0, n_tiles) for i in range(n_work - tail)]
+    for i in range(n_work - tail, n_work):
+        units += [(i, p * n_tiles // parts, (p + 1) * n_tiles // parts)
+                  for p in range(parts)]
+    return units
+
+
+def multiprocessors(device: torch.device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
+def b1_split(q: torch.Tensor, k: torch.Tensor, lib=None) -> tuple:
+    """The (t, s) of `tail_split` that B1 launches with on these inputs,
+    on the key tiles of `b1_plan(lib)` ((0, 1) at any instance but bf16 at
+    head dim 128, and for a plan without the tail split)."""
+    b, lq, h, d = q.shape
+    if d != 128 or q.dtype != torch.bfloat16:
+        return 0, 1
+    plan = b1_plan(lib)
+    if not plan["tail_split"]:
+        return 0, 1
+    n_work = -(-lq // B1_ROWS) * h * b
+    n_tiles = -(-k.shape[1] // plan["tile_keys"])
+    return tail_split(n_work, n_tiles, multiprocessors(q.device))
+
+
+def split_workspace(q: torch.Tensor, lib=None) -> torch.Tensor:
+    """The tail split's workspace for q's device and current stream, of
+    the size `lib` (the kernel library by default) asks for
+    (`flexam_b1_split_workspace_bytes`: a slot of fp32 O, row maxima and
+    sums for each SM, then two counter words a tail item), made (zeroed)
+    at its first use and kept: the kernel leaves its counters at zero, so
+    no later launch on the stream clears anything."""
+    lib = build.library() if lib is None else lib
+    nbytes = lib.flexam_b1_split_workspace_bytes(multiprocessors(q.device))
+    key = (q.device.index, build.stream_handle(q), nbytes)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=q.device)
+        _workspaces[key] = ws
+    return ws
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,6 +292,12 @@ def _launch(entry, name, q, k, v, k_len, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if qw is None else qw.data_ptr(), kw.data_ptr(),
             vt.data_ptr(), out.data_ptr(), *tail)
+    elif entry == "flexam_flash_attention":
+        t, s = b1_split(q, k)
+        ws = split_workspace(q) if s > 1 else None
+        err = build.library().flexam_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), tail[0],
+            None if ws is None else ws.data_ptr(), t, s, *tail[1:])
     else:
         err = getattr(build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)

@@ -23,6 +23,9 @@ and g, and the gathers): a plain `dist` call carries no gradient.
   scale_grad(x, s)        identity; backward scales the gradient by s
   all_to_all(x, axis, split_dim, concat_dim)
                           the tiled all_to_all; backward is the reverse
+  ring_shift(x, axis)     x of the previous rank (i sends to i + 1 mod n);
+                          backward sends the gradient the other way
+                          (i to i - 1 mod n), the transpose of ppermute
 """
 
 from __future__ import annotations
@@ -126,10 +129,11 @@ def all_to_all_raw(x: torch.Tensor, mesh, axis: str, split_dim: int,
     return out.contiguous()
 
 
-def ring_shift_raw(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """x of the previous rank of the axis (rank i sends to i + 1 mod n):
-    `lax.ppermute` with the permutation [(i, i + 1 mod n)]. One
-    `batch_isend_irecv` a hop."""
+def ring_shift_raw(x: torch.Tensor, mesh, axis: str,
+                   step: int = 1) -> torch.Tensor:
+    """x of the rank `step` places back on the axis (rank i sends to
+    i + step mod n): `lax.ppermute` with the permutation
+    [(i, i + step mod n)]. One `batch_isend_irecv` a hop."""
     n = mesh.shape.get(axis, 1)
     if n == 1:
         return x
@@ -138,8 +142,8 @@ def ring_shift_raw(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     send = _bits(_host(mesh, x.contiguous()))
     recv = torch.empty_like(send)
     group = mesh.group(axis)
-    ops = [dist.P2POp(dist.isend, send, ranks[(me + 1) % n], group),
-           dist.P2POp(dist.irecv, recv, ranks[(me - 1) % n], group)]
+    ops = [dist.P2POp(dist.isend, send, ranks[(me + step) % n], group),
+           dist.P2POp(dist.irecv, recv, ranks[(me - step) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return _unbits(recv, x.dtype).to(x.device)
@@ -203,6 +207,17 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return ring_shift_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift_raw(g, ctx.mesh, ctx.axis, step=-1), None, None
+
+
 def _trivial(mesh, axis) -> bool:
     return mesh is None or mesh.shape.get(axis, 1) == 1
 
@@ -257,3 +272,11 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     if _trivial(mesh, axis):
         return x
     return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+def ring_shift(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x of the previous rank of the axis, differentiable: the gradient
+    goes back to the rank that sent x."""
+    if _trivial(mesh, axis):
+        return x
+    return _RingShift.apply(x, mesh, axis)

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import torch
-
 from flexam_tpu_torch.core.attention import attention as default_attention
 from flexam_tpu_torch.parallel import comm
 
@@ -95,13 +93,3 @@ def mesh_attention(mesh, attn_fn: Callable) -> MeshAttention:
         cache[key] = (attn_fn, make_ulysses_attention(mesh, inner=attn_fn))
     return cache[key][1]
 
-
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The ring schedules carry no gradient (their hops are raw
-    collectives): refuse to run where one is being recorded."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the ring's key/value hops carry no gradient; train "
-            "with the Ulysses schedule (make_ulysses_attention, the DiT's "
-            "default under a mesh)")

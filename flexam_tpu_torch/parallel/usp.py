@@ -15,7 +15,7 @@ With a ring of 1 the inner attention runs where the ring would (B1, or
 B6 from 23,296 tokens). `sparse`: a `video_sparse_policy` dict; video
 self-attention then applies the block mask through the ring, each hop the
 sub-mask between this rank's queries and the hop's keys (masked torch
-ops, as JAX's is XLA code). The hops carry no gradient.
+ops, as JAX's is XLA code). The hops carry gradients (`comm.ring_shift`).
 """
 
 from __future__ import annotations

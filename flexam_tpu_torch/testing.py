@@ -106,6 +106,60 @@ def check_attention(got, ref, name: str) -> dict:
     return check_close(got, ref, name, ulps=2, floor=5e-2)
 
 
+def attention_split_plain(q, k, v, k_len=None, scale=None, *, tail: int,
+                          parts: int, tile_keys: int,
+                          rows: int = 128) -> torch.Tensor:
+    """A plain model of B1's tail split (`ops/flash_attention.py
+    tail_split`): the output of `attention_plain`, with each of the last
+    `tail` work items (`rows` query rows of one (batch, head), q tiles
+    fastest) recomputed as the kernel computes it in `parts` parts of its
+    key tiles of `tile_keys` keys (on the card, those of
+    `ops/flash_attention.b1_plan`; `split_units`' ranges over the tiles up
+    to k_len, or over all Lk keys when k_len is 0) and merged. Each part
+    keeps its fp32 row max m and sum l and its unnormalised O = P V, with
+    P cast to q.dtype before P V as in B1; the merge is m = max m_p,
+    O = sum 2^(m_p - m) O_p / sum 2^(m_p - m) l_p over the parts that have
+    tiles."""
+    from flexam_tpu_torch.ops.flash_attention import (MASK_VALUE,
+                                                      attention_plain)
+    out = attention_plain(q, k, v, k_len=k_len, scale=scale)
+    if parts <= 1 or tail <= 0:
+        return out
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, lq, h, _ = q.shape
+    lk = k.shape[1]
+    n_qt = -(-lq // rows)
+    n_work = n_qt * h * b
+    for item in range(n_work - tail, n_work):
+        r0, hh, bb = (item % n_qt) * rows, (item // n_qt) % h, \
+            item // (n_qt * h)
+        r1 = min(r0 + rows, lq)
+        valid = lk if k_len is None else max(0, min(int(k_len[bb]), lk))
+        n = -(-(valid if valid > 0 else lk) // tile_keys)
+        qf = q[bb, r0:r1, hh].float()
+        ms, ls, os_ = [], [], []
+        for p in range(parts):
+            t0, t1 = p * n // parts, (p + 1) * n // parts
+            if t0 == t1:
+                continue
+            k0, k1 = t0 * tile_keys, min(t1 * tile_keys, lk)
+            logits = qf @ k[bb, k0:k1, hh].float().T * scale
+            keys = torch.arange(k0, k1, device=q.device)
+            logits = logits.masked_fill(keys[None, :] >= valid, MASK_VALUE)
+            m = logits.amax(-1, keepdim=True)
+            pr = torch.exp(logits - m)
+            ms.append(m)
+            ls.append(pr.sum(-1, keepdim=True))
+            os_.append(pr.to(q.dtype).float() @ v[bb, k0:k1, hh].float())
+        m = torch.stack(ms).amax(0)
+        f = [torch.exp(mp - m) for mp in ms]
+        num = sum(fp * op for fp, op in zip(f, os_))
+        den = sum(fp * lp for fp, lp in zip(f, ls))
+        out[bb, r0:r1, hh] = (num / den).to(q.dtype)
+    return out
+
+
 def check_attention_tf32(got, ref, name: str) -> dict:
     """B1/B2 in fp32 (TF32 wgmma) against `attention_plain` in exact fp32
     (TF32 off): 2 tf32 ulps of |ref| plus 1.25e-2 of mean |ref|. The kernel

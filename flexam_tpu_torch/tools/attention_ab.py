@@ -35,7 +35,12 @@ prints one JSON line per result:
     shape (x [2, 11648, 3072] bf16), B4 binary and B3 with the RIFLEx
     tables at the long path's (x [2, 23296, 3072]); B1, B2, B5 and B6 again
     in 12 heads of 256 ("d256/...": the tokens and widths of the rows
-    above) and in fp32 at head dim 128 ("f32/...", TF32); the trees in
+    above) and in fp32 at head dim 128 ("f32/...", TF32); B1 at FLUX's
+    joint attention, q/k/v [1, 2304, 24, 128] and the ragged
+    [1, 2072, 24, 128] ("B1 flash_kernel FLUX ..."), and at two lengths
+    whose last round takes no tail split on 132 SMs, [1, 4096, 24, 128]
+    (a tail over half a round) and [1, 2816, 24, 128] (whole rounds)
+    ("B1 flash_kernel unsplit ..."); the trees in
     order and then in reverse order (repeated), each leg
     `timing.device_ms` (20 back-to-back launches between two events, the
     median of 5 such runs; 5 and 3 for a call of SLOW_MS or more), each
@@ -55,11 +60,16 @@ prints one JSON line per result:
     at head dim 128 in bf16 ("d128") and fp32 ("f32": q [2, 11648, 24,
     128]), and each leg's least-squares line through its 8 times
     ("sweep_fit": `sweep_fit`), which splits a work item's fixed cost from
-    the cost of 64 more keys;
+    the cost of 64 more keys; and each tree's B1 and SDPA at batch 1, 24
+    heads of 128 over 1,024 to 4,608 tokens in steps of 256 ("b1"), with
+    the work items and the tail split (t, s) each tree takes, which show
+    the steps of B1's rounds;
 
-then the nvidia-smi name and power limit. `--cases` keeps the timed
-cases whose names hold one of its words (all by default; the sweep always
-runs).
+then a "clocks" line where `nvidia-smi` is found: the SM clock and power
+draw it sampled every 100 ms, their medians over each timed case's legs
+of each tree (a card held at its power limit lowers its clock), and the
+nvidia-smi name and power limit. `--cases` keeps the timed cases whose
+names hold one of its words (all by default; the sweep always runs).
 """
 
 from __future__ import annotations
@@ -74,6 +84,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
+import time
+from datetime import datetime
 from pathlib import Path
 
 import torch
@@ -82,6 +95,7 @@ import torch.nn.functional as F
 from flexam_tpu_torch.core.rope import build_video_rope, make_rope_tables
 from flexam_tpu_torch.ops import build
 from flexam_tpu_torch.ops.flash_attention import (LOG2E, attention_plain,
+                                                  b1_split, split_workspace,
                                                   vt_workspace)
 from flexam_tpu_torch.ops.fused import ln_modulation_plain, rmsnorm_rope_plain
 from flexam_tpu_torch.ops.int8_attention import (int8_attention_plain,
@@ -329,14 +343,23 @@ def launcher(dll, name, q, k, v, out):
     b, lq, h, d = q.shape
     ws = f32_workspaces(q, k, v) if q.dtype == torch.float32 else ()
     fn = getattr(dll, name + ("_f32" if ws else ""))
+    split = ()
+    if (name == "flexam_flash_attention" and not ws
+            and hasattr(dll, "flexam_b1_plan")):
+        # a tree with the tail split: its split on its own plan, and a
+        # workspace of the size it asks for, as its wrapper takes them
+        t, s = b1_split(q, k, dll)
+        split = ((split_workspace(q, dll).data_ptr() if s > 1 else None), t,
+                 s)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(w.data_ptr() for w in ws), out.data_ptr(), None,
+            *(w.data_ptr() for w in ws), out.data_ptr(), None, *split,
             b, h, lq, k.shape[1], d, d ** -0.5 * LOG2E,
             build.stream_handle(q))
 
     def run():
         build.check(fn(*args), name)
     run.tensors = (q, k, v, out, *ws)   # args holds only their addresses
+    run.split = split[1:]
     return run
 
 
@@ -424,6 +447,47 @@ def sweep_fit(times: dict, items_per_sm: float) -> dict:
     return {"fixed_ms": fixed, "per_64_keys_ms": slope,
             "fixed_us_an_item": fixed * 1e3 / items_per_sm,
             "per_64_keys_us_an_item": slope * 1e3 / items_per_sm}
+
+
+class ClockSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    `nvidia-smi -lms` in the background, each sample with its time; `over`
+    gives the medians of the samples inside a list of (start, end) windows
+    of `time.time()`."""
+
+    def __init__(self, period_ms: int = 100):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+            stdout=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                stamp, mhz, watts = (f.strip() for f in line.split(","))
+                t = datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+                self.samples.append((t.timestamp(), float(mhz),
+                                     float(watts)))
+            except ValueError:
+                continue
+
+    def over(self, windows) -> dict:
+        inside = [(mhz, w) for t, mhz, w in list(self.samples)
+                  if any(a <= t <= b for a, b in windows)]
+        if not inside:
+            return {"samples": 0}
+        return {"samples": len(inside),
+                "sm_mhz_median": statistics.median(m for m, _ in inside),
+                "sm_mhz_min": min(m for m, _ in inside),
+                "power_w_median": statistics.median(w for _, w in inside)}
+
+    def stop(self):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.thread.join(timeout=30)
 
 
 def attention_bound_ms(flops: float, nbytes: float, peak: float) -> float:
@@ -579,6 +643,9 @@ def main() -> int:
             x, gamma, cos, sin, H).reshape(b, s, d), check_rmsnorm_rope, nbytes
 
     within, timing, failed = {}, {}, []
+    # each timed leg's (start, end), for the clocks line
+    windows = {}
+    sampler = ClockSampler() if shutil.which("nvidia-smi") else None
 
     def wanted(case: str) -> bool:
         return args.cases is None or any(w in case for w in args.cases)
@@ -607,6 +674,10 @@ def main() -> int:
         within[case]["equal_to_this"] = {
             lb: bool(torch.equal(outs[lb], outs["this"]))
             for lb in trees_runs if lb != "this"}
+        splits = {lb: r.split for lb, r in trees_runs.items()
+                  if getattr(r, "split", None)}
+        if splits:
+            within[case]["tail_split"] = splits
         del ref
         timed = dict(runs)
         x = None
@@ -621,7 +692,10 @@ def main() -> int:
         order = list(timed)
         for _ in range(args.rounds):
             for lb in order + order[::-1]:
+                t0 = time.time()
                 legs[lb].append(device_ms(timed[lb], **kw))
+                windows.setdefault(case, {}).setdefault(lb, []).append(
+                    (t0, time.time()))
         timing[case] = {lb: {"legs_ms": v, "median_ms": statistics.median(v),
                              f"over_{first}": statistics.median(v)
                              / statistics.median(legs[first])}
@@ -677,6 +751,20 @@ def main() -> int:
         del q, k, v
 
     attention_rows("", H, D, torch.bfloat16, PEAK_BF16_FLOPS)
+    # B1 at FLUX.1-Depth's joint attention: 512x896 (2,304 tokens) and the
+    # ragged 480x832 (2,072); and at 4,096 and 2,816 tokens, whose 768 and
+    # 528 work items leave a last round over half full and none on 132 SMs
+    for case, lf in (("B1 flash_kernel FLUX 2304", 2304),
+                     ("B1 flash_kernel FLUX' 2072", 2072),
+                     ("B1 flash_kernel unsplit 4096", 4096),
+                     ("B1 flash_kernel unsplit 2816", 2816)):
+        if wanted(case):
+            q, k, v = (randn(1, lf, H, D) for _ in range(3))
+            run_case(case, *attention_case("flexam_flash_attention", q, k, v),
+                     bound=attention_bound_ms(4.0 * H * lf * lf * D,
+                                              2.0 * 4 * q.numel(),
+                                              PEAK_BF16_FLOPS))
+            del q, k, v
     rows = [("B4 ln_mod_kernel binary", L, lambda x: ln_case(x, True)),
             ("B4 ln_mod_kernel broadcast", L, lambda x: ln_case(x, False)),
             ("B3 rmsnorm_rope_kernel", L,
@@ -712,9 +800,27 @@ def main() -> int:
         fits[name] = {lb: sweep_fit({lk: t[lb] for lk, t in sweep[name].items()},
                                     items / sms)
                       for lb in sweep[name][LT]}
+    # B1 at batch 1, 24 heads over 1,024..4,608 tokens: the steps of its
+    # rounds of work items (ceil(L / 128) x 24 on the card's SMs) and the
+    # tail split each tree takes
+    sweep["b1"] = {}
+    for lf in range(1024, 4608 + 1, 256):
+        q, k, v = (randn(1, lf, H, D) for _ in range(3))
+        runs = attention_case("flexam_flash_attention", q, k, v)[0]
+        sweep["b1"][lf] = {lb: device_ms(run) for lb, run in runs.items()}
+        sweep["b1"][lf]["items"] = -(-lf // 128) * H
+        sweep["b1"][lf]["tail_split"] = {
+            lb: r.split for lb, r in runs.items()
+            if getattr(r, "split", None)}
+    del q, k, v
     print(json.dumps({"sweep": sweep, "sweep_fit": fits}), flush=True)
     print(json.dumps({"within_bound": within}), flush=True)
     print(json.dumps({"timing": timing}), flush=True)
+    if sampler is not None:
+        sampler.stop()
+        print(json.dumps({"clocks": {
+            case: {lb: sampler.over(w) for lb, w in by.items()}
+            for case, by in windows.items()}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

@@ -79,6 +79,7 @@ def test_parser_sees_a_drift():
     more than SIGNATURES is caught."""
     src = ('extern "C" {\nint flexam_flash_attention(const void* q, '
            'const void* k, const void* v, void* o, const void* k_len, '
+           'void* workspace, int tail_items, int parts, '
            'int B, int H, int Lq, int Lk, int D, float s, int extra, '
            'void* stream) {\n  return 0;\n}\n}  // extern "C"\n')
     (name, params), = _ENTRY.findall(_extern_c_blocks(src)[0])
@@ -133,6 +134,13 @@ def test_attention_ab_reads_this_tree_s_counter():
     ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper9SplitPlanILi128ELi6"
      "4ELi3ELb1EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE",
      "single_kv_kernel<128>"),
+    ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper9SplitPlanILi128ELi128ELi"
+     "2ELb1EEENS_13B1Measures128EEEv14CUtensorMap_stS6_S6_S6_NS_6ParamsE",
+     "flash_kernel<128>"),
+    ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper8Bf16PlanILi128EEENS_13B1"
+     "Measures128EEEv14CUtensorMap_stS6_S6_S6_NS_6ParamsE", "flash_kernel<128>"),
+    ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper7F32PlanENS_10NoMeasuresE"
+     "EEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE", "flash_kernel<f32>"),
     ("_ZN12_GLOBAL__N_112flash_kernelIN6flexam6hopper9SplitPlanILi256ELi80ELi"
      "2ELb0EEEEEv14CUtensorMap_stS5_S5_S5_NS_6ParamsE", "flash_kernel<256>"),
     ("_ZN12_GLOBAL__N_116single_kv_kernelIN6flexam6hopper9SplitPlanILi256ELi6"
@@ -166,10 +174,24 @@ def test_attention_ab_reads_this_tree_s_counter():
 def test_attention_ab_labels_kernels(symbol, label):
     """Mangled symbols map to their kernel, a template with its row-vector
     count (the row kernels are instantiated for several widths), the head
-    dim of its bf16 plan (`SplitPlan`'s first argument), or "f32" for an
-    fp32 instance (`F32SplitPlan` too)."""
+    dim of its bf16 plan (`SplitPlan`'s first argument; B1 with its
+    measures after the plan), or "f32" for an fp32 instance
+    (`F32SplitPlan` too)."""
     from flexam_tpu_torch.tools import attention_ab
     assert attention_ab.kernel_label(symbol) == label
+
+
+def test_attention_ab_clock_medians_over_legs():
+    """The clocks line: the medians of the samples inside a tree's legs,
+    and none outside them."""
+    from flexam_tpu_torch.tools import attention_ab
+    sampler = object.__new__(attention_ab.ClockSampler)
+    sampler.samples = [(1.0, 1500.0, 690.0), (1.5, 1400.0, 700.0),
+                       (2.0, 1980.0, 100.0), (3.2, 1600.0, 695.0)]
+    got = sampler.over([(0.9, 1.6), (3.0, 3.5)])
+    assert got == {"samples": 3, "sm_mhz_median": 1500.0,
+                   "sm_mhz_min": 1400.0, "power_w_median": 695.0}
+    assert sampler.over([(5.0, 6.0)]) == {"samples": 0}
 
 
 def test_attention_ab_reports_the_flagship_instantiation():

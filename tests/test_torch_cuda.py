@@ -22,7 +22,8 @@ from flexam_tpu_torch.core import attention as attn
 from flexam_tpu_torch.ops import fused
 from flexam_tpu_torch.ops import int8_attention as i8
 from flexam_tpu_torch.ops import sparse_attention as sp
-from flexam_tpu_torch.testing import (block_scaled, check_attention,
+from flexam_tpu_torch.testing import (attention_split_plain, block_scaled,
+                                      check_attention,
                                       check_attention_tf32,
                                       check_int8_attention,
                                       check_int8_attention_tf32,
@@ -139,21 +140,30 @@ def test_attention_entry_refuses_bad_maps(dev, entry):
     """The C entry points themselves (below the wrappers' checks) return an
     error and launch nothing when a tensor map cannot be built: a pointer
     off a 16-byte boundary, or a head dim that is not a multiple of 128; B2
-    also refuses more than 512 keys."""
+    also refuses more than 512 keys, B1 a tail split without a workspace
+    or of more tail items than work items."""
     from flexam_tpu_torch.ops import build
     fn = getattr(build.library(), entry)
     q = _rand(dev, 1, 64, 2, 128)
     out = torch.empty_like(q)
     stream = build.stream_handle(q)
 
-    def call(qp, d=128, lk=64):
+    def call(qp, d=128, lk=64, split=None):
+        # B1 takes the tail split's workspace, tail items and parts
+        head = (None, 0, 1) if split is None else split
         return fn(qp, q.data_ptr(), q.data_ptr(), out.data_ptr(), None,
+                  *(head if entry == "flexam_flash_attention" else ()),
                   1, 2, 64, lk, d, 0.1, stream)
 
     assert call(q.data_ptr() + 2) != 0
     assert call(q.data_ptr(), d=64) != 0
     if entry == "flexam_single_kv_attention":
         assert call(q.data_ptr(), lk=513) != 0
+    else:
+        # a split without a workspace, or of more items than the launch has
+        ws = fa.split_workspace(q)
+        assert call(q.data_ptr(), split=(None, 1, 2)) != 0
+        assert call(q.data_ptr(), split=(ws.data_ptr(), 3, 2)) != 0
     torch.cuda.synchronize()
     assert call(q.data_ptr()) == 0        # the same call, well formed
     torch.cuda.synchronize()
@@ -175,6 +185,101 @@ def _structured(dev, b, lq, lk, h, seed, d=128, dtype=torch.bfloat16):
     v = 0.25 * v + (cols / 32.0 * 128 / d)[None, None, None, :] \
         - (2.0 * keys / lk)[None, :, None, None]
     return (t.to(dtype) for t in (q, k, v))
+
+
+def _b1_split_check(got, q, k, v, kl, name):
+    """B1 (bf16, head dim 128) against `attention_plain` and against the
+    plain model of the tail split it ran (`testing.attention_split_plain`),
+    each within `check_attention`'s bound; returns the split (t, s)."""
+    t, s = fa.b1_split(q, k)
+    _check_attn(got, fa.attention_plain(q, k, v, k_len=kl), name)
+    check_attention(got, attention_split_plain(
+        q, k, v, k_len=kl, tail=t, parts=s,
+        tile_keys=fa.b1_plan()["tile_keys"]),
+        f"{name} (split model, t {t}, s {s})")
+    return t, s
+
+
+@pytest.mark.parametrize("lk", [1, 95, 96, 97, 127, 128, 129, 2072, 2304])
+def test_b1_d128_key_counts(dev, lk):
+    """B1-128 on key counts at its 128-key tiles' edges (and 96's), and
+    FLUX's 2,072 and 2,304: 2 x 3 x 2 items, each split by keys where it
+    has more than one key tile."""
+    q, k, v = _structured(dev, 2, 200, lk, 3, seed=50)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    split = _b1_split_check(got, q, k, v, None, f"B1 d128 lk {lk}")
+    tile = fa.b1_plan()["tile_keys"]
+    assert split == fa.tail_split(12, -(-lk // tile),
+                                  fa.multiprocessors(q.device))
+    assert (split[1] > 1) == (lk > tile)
+
+
+@pytest.mark.parametrize("k_len", [[127, 128], [129, 1], [0, 300], [0, 0],
+                                   [255, 256], [257, 250]])
+def test_b1_d128_k_len_edges(dev, k_len):
+    """k_len before, on and after a tile edge, and 0 (every key masked
+    alike: the mean of v over all 300 keys, in every part)."""
+    q, k, v = _structured(dev, 2, 150, 300, 2, seed=51)
+    kl = torch.tensor(k_len, device=dev)
+    got = fa.flash_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    _b1_split_check(got, q, k, v, kl, f"B1 d128 k_len {k_len}")
+
+
+@pytest.mark.parametrize("lq", [1, 63, 65, 130])
+def test_b1_d128_ragged_queries(dev, lq):
+    q, k, v = _structured(dev, 2, lq, 700, 3, seed=52)
+    kl = torch.tensor([700, 333], device=dev)
+    got = fa.flash_attention(q, k, v, k_len=kl)
+    torch.cuda.synchronize()
+    _b1_split_check(got, q, k, v, kl, f"B1 d128 lq {lq}")
+
+
+@pytest.mark.parametrize("rounds,tail,split", [
+    (1, 1, True),              # a tail of 1 after a whole round
+    (1, "half-1", True),       # just under half a round
+    (1, "half", True),         # half a round
+    (1, "half+1", False),      # just over: no split
+    (2, 0, False),             # whole rounds
+    (0, "third", True),        # fewer items than SMs
+    (3, 1, True),              # three whole items a CTA, then the tail
+])
+def test_b1_d128_tail_rounds(dev, rounds, tail, split):
+    """Item counts on the card's SMs (one query tile of one head an item):
+    the split the wrapper takes, and the output, whatever the last round
+    holds."""
+    sms = fa.multiprocessors(torch.device(dev))
+    t = {"half-1": sms // 2 - 1, "half": sms // 2, "half+1": sms // 2 + 1,
+         "third": sms // 3}.get(tail, tail)
+    items = rounds * sms + t
+    q, k, v = _structured(dev, 1, items * 128 - 37, 500, 1, seed=53)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ts = _b1_split_check(got, q, k, v, None, f"B1 d128 {items} items")
+    assert (ts[1] > 1) == split, ts
+    if split:
+        assert ts[0] == t
+
+
+def test_b1_d128_workspace_reused(dev):
+    """A second launch on the stream's cached workspace gives the same bits
+    (the merge sums the parts in part order, whichever CTA merges), and
+    every counter is back at zero after each launch."""
+    q, k, v = _structured(dev, 1, 2304, 2304, 24, seed=54)
+    assert fa.b1_split(q, k)[1] > 1
+    first = fa.flash_attention(q, k, v)
+    ws = fa.split_workspace(q)
+    sms = fa.multiprocessors(q.device)
+    counters = ws[-2 * 4 * sms:].view(torch.int32)   # after the slots
+    torch.cuda.synchronize()
+    assert counters.numel() == 2 * sms and not counters.any()
+    for _ in range(3):
+        again = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+        assert not counters.any()
+    _b1_split_check(first, q, k, v, None, "B1 d128 FLUX")
 
 
 @pytest.mark.parametrize("b,h,lq,lk,k_len", [

@@ -18,8 +18,8 @@ training step is held more tightly than JAX holds its own (a finite loss
 and the moments' shapes): to JAX's unsharded step, the loss at rtol 2e-4
 and the parameters and first moments as `tests/test_torch_train.py` holds
 a step. The port's own cases: the vocabulary-split umT5, TeaCache's
-decision across ranks, the layout of all_to_all's output, and each new
-refusal.
+decision across ranks, the layout of all_to_all's output, each new
+refusal, and the gradients of ring and USP attention against jax.grad.
 """
 
 import jax
@@ -213,6 +213,9 @@ def _inputs():
                            np.float32), rng8.randn(2, 16, 2, 32).astype(
                            np.float32))},
         "usp_mismatch": pol7,
+        "cotangents": {name: np.random.RandomState(11 + i).randn(
+            2, 64, 4, 32).astype(np.float32) for i, name in enumerate(
+                ("ring_qkv", "ring_cross_qkv", "usp_qkv", "usp_ring4_qkv"))},
         "dit_tree": dit_tree,
         "dit_inputs": dit_inputs,
         "usp_dit_inputs": usp_dit,
@@ -286,6 +289,36 @@ def test_ulysses_matches_jax(run, mesh, case, qkv):
 def test_ring_matches_jax(run, mesh, case, qkv):
     inp, res = run
     _close(res[case], _jit(make_ring_attention(mesh), *inp[qkv]))
+
+
+def _jax_grads(attn, qkv, cot):
+    """jax.grad of sum(attn(q, k, v) * cot) in q, k and v."""
+    def loss(q, k, v):
+        return jnp.sum(attn(q, k, v) * cot)
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a) for a in qkv))
+
+
+@pytest.mark.parametrize("name", ["ring_qkv", "ring_cross_qkv", "usp_qkv",
+                                  "usp_ring4_qkv"])
+def test_ring_and_usp_gradients_match_jax(run, mesh, usp_mesh, name):
+    """The ring's hops carry gradients: q, k and v's gradients of ring
+    self- and cross-attention and of USP self-attention (on the USP mesh,
+    and on a ring of 4, where a hop's gradient must go back the other way),
+    for a fixed random cotangent, against jax.grad of JAX's schedules."""
+    from jax.sharding import Mesh
+    inp, res = run
+    if name == "ring_qkv" or name == "ring_cross_qkv":
+        attn = make_ring_attention(mesh)
+    else:
+        m = usp_mesh if name == "usp_qkv" else Mesh(
+            np.asarray(jax.devices()[:8]).reshape(2, 4, 1),
+            ("dp", "ring", "sp"))
+        attn = make_usp_attention(m, inner=xla_attention)
+    qkv = inp["usp_qkv" if name.startswith("usp") else name]
+    want = _jax_grads(attn, qkv, inp["cotangents"][name])
+    for arg, got, w in zip("qkv", res[f"{name}_grad"], want):
+        _close(got, w, err_msg=f"{name}: d{arg}")
 
 
 def test_dit_params_tp_sharding(run):
@@ -633,7 +666,6 @@ def test_launch_raises_any_ranks_failure():
     ("vae_width", "does not split into 2 slices"),
     ("halo", "cannot lend a halo"),
     ("tp_heads", "3 heads do not split over tp=2"),
-    ("ring_grad", "carry no gradient"),
 ])
 def test_refusals(run, name, match):
     """Each refusal of the parallel package raises, naming its reason."""

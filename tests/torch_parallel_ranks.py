@@ -67,6 +67,28 @@ def _sharded_attention(mesh, attn, q, k, v, token_axes=("sp",)):
     return _np(lay.gather(attn(ql, kl, vl), 0, 1))
 
 
+def _sharded_attention_grads(mesh, attn, q, k, v, cot,
+                             token_axes=("sp",)):
+    """The gradients of sum(attn(q, k, v) * cot) in q, k and v, whole on
+    every rank: each rank differentiates its share of the output, the
+    collectives carry the gradient across ranks, and the whole leaves'
+    gradients are summed over every data axis (tp holds copies)."""
+    q, k, v = (_t(a).requires_grad_() for a in (q, k, v))
+    lay = token_layout(mesh, q.shape[0], q.shape[1], token_axes)
+    self_attn = q.shape[1] == k.shape[1]
+    ql = lay.shard(q, 0, 1)
+    kl, vl = (lay.shard(t, 0, 1 if self_attn else None) for t in (k, v))
+    out = lay.gather(attn(ql, kl, vl), 0, 1)
+    (out * _t(cot)).sum().backward()
+    grads = []
+    for g in (q.grad, k.grad, v.grad):
+        for a in mesh.shape:
+            if a != "tp":
+                g = comm.all_reduce_raw(g, mesh, a)
+        grads.append(_np(g))
+    return grads
+
+
 def _dit_inputs(inp):
     return {k: _t(v) for k, v in inp.items()}
 
@@ -117,8 +139,6 @@ def _errors(mesh) -> dict:
     catch("tp_heads", lambda: tdit._tp_split(
         {"blocks": [{"self_attn": {"q": {"weight": torch.zeros(48, 96)}}}]},
         DiTConfig(dim=96, num_heads=3, num_layers=1), mesh))
-    catch("ring_grad", lambda: make_ring_attention(mesh)(
-        *(torch.zeros(2, 4, 2, 8, requires_grad=True) for _ in range(3))))
     return out
 
 
@@ -189,6 +209,9 @@ def run_cases(inp: dict) -> dict:
     ring = make_ring_attention(mesh)
     res["ring_self"] = _sharded_attention(mesh, ring, *inp["ring_qkv"])
     res["ring_cross"] = _sharded_attention(mesh, ring, *inp["ring_cross_qkv"])
+    for name in ("ring_qkv", "ring_cross_qkv"):
+        res[f"{name}_grad"] = _sharded_attention_grads(
+            mesh, ring, *inp[name], inp["cotangents"][name])
     sp_pol = inp["sparse_ulysses"]
     sparse_inner = make_sparse_attn_fn(*sp_pol["geometry"], window=2,
                                        group=1, ref_tokens=sp_pol["geometry"]
@@ -212,6 +235,9 @@ def run_cases(inp: dict) -> dict:
     res["usp_cross"] = _sharded_attention(usp_mesh, usp,
                                           *inp["usp_cross_qkv"],
                                           token_axes=usp_axes)
+    res["usp_qkv_grad"] = _sharded_attention_grads(
+        usp_mesh, usp, *inp["usp_qkv"], inp["cotangents"]["usp_qkv"],
+        token_axes=usp_axes)
     pol = inp["usp_sparse"]["policy"]
     usp_sp = make_usp_attention(usp_mesh, inner=exact_attention, sparse=pol)
     res["usp_sparse"] = _sharded_attention(usp_mesh, usp_sp,
@@ -231,6 +257,11 @@ def run_cases(inp: dict) -> dict:
         res[name] = _sharded_attention(
             m, make_usp_attention(m, inner=exact_attention),
             *inp["usp_qkv"], token_axes=usp_axes)
+    # a ring of 4, where a hop's gradient must go the other way round
+    m = make_mesh({"dp": 2, "ring": 4, "sp": 1}, device="cpu")
+    res["usp_ring4_qkv_grad"] = _sharded_attention_grads(
+        m, make_usp_attention(m, inner=exact_attention), *inp["usp_qkv"],
+        inp["cotangents"]["usp_ring4_qkv"], token_axes=usp_axes)
 
     lap("usp")
     # --- parameter shardings
